@@ -1,15 +1,20 @@
-"""Where split serving's time goes on one NVIDIA GPU: a ``torch.profiler``
-breakdown of the PyTorch port serving full-width smollm-360m.
+"""Where split serving's and split training's time goes on one NVIDIA GPU:
+a ``torch.profiler`` breakdown of the PyTorch port on full-width
+smollm-360m.
 
     python3 chip_profile.py      # from the repo root; needs one CUDA card
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
 profiler: once with one new token per request (prefill only) and once in
-full.  For each run it prints the wall time, the device's busy and idle
-share (kernel time summed over the wall time; the port runs on one
-stream), the number of kernel launches, the host-to-device syncs, and the
-kernels and host ops that take the most time.
+full.  Then trains as ``chip_smoke.py`` does (``train_split`` over
+``InprocTransport``, K = 4, avg, batch 8 x 256 tokens, serial) for
+``TRAIN_STEPS`` steps under the profiler, step-0 verification off, after
+an unprofiled warm-up run.  For each run it prints the wall time, the
+device's busy and idle share (kernel time summed over the wall time; the
+port runs on one stream), the number of kernel launches, the
+device-to-host reads, and the kernels and host ops that take the most
+time.
 """
 from __future__ import annotations
 
@@ -22,9 +27,12 @@ from torch.profiler import ProfilerActivity, profile
 
 import chip_smoke as smoke  # also puts src/ on sys.path for the next two
 from repro_torch.configs.base import get_arch
+from repro_torch.data.loader import LMBatchLoader
 from repro_torch.models import backbone
+from repro_torch.train.loop import train_split
 
 CACHE_LEN = max(s + n for s, n in zip(smoke.PROMPT_LENS, smoke.NEW_TOKENS))
+TRAIN_STEPS = 4
 
 TOP = 12
 
@@ -34,16 +42,14 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profiled_run(cfg, params, prompts, new_tokens, card: str, label: str):
-    srv = smoke.make_server(cfg, params, "cuda", cache_len=CACHE_LEN,
-                             max_batch=4)
-    for p, n in zip(prompts, new_tokens):
-        srv.submit(p, max_new_tokens=n)
+def profiled(fn, card: str, label: str, describe) -> None:
+    """Run ``fn()`` under the profiler and print the breakdown;
+    ``describe(result, launches, syncs)`` adds the run's own counts."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        srv.run()
+        result = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = prof.key_averages()
@@ -52,13 +58,11 @@ def profiled_run(cfg, params, prompts, new_tokens, card: str, label: str):
     launches = sum(e.count for e in kernels)
     host = [e for e in events if e.device_type == DeviceType.CPU]
     syncs = sum(e.count for e in host if e.key == "aten::_local_scalar_dense")
-    rounds = srv.stats["decode_rounds"]
     smoke.log(f"[{label}] wall {wall:.4f} s, device busy {busy_us / 1e6:.4f} "
               f"s ({100 * busy_us / 1e6 / wall:.1f}% busy, "
               f"{100 - 100 * busy_us / 1e6 / wall:.1f}% idle), "
               f"{launches} kernel launches, {syncs} device-to-host reads, "
-              f"{rounds} decode rounds, {srv.stats['prefills']} prefills "
-              f"| {card}")
+              f"{describe(result, launches, syncs)} | {card}")
     for e in sorted(kernels, key=_device_us, reverse=True)[:TOP]:
         smoke.log(f"[{label}]   device {_device_us(e) / 1e3:10.3f} ms "
                   f"{e.count:7d}x  {e.key[:90]}")
@@ -68,6 +72,50 @@ def profiled_run(cfg, params, prompts, new_tokens, card: str, label: str):
                   f" ms {e.count:7d}x  {e.key[:90]}")
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
+
+
+def profile_serving(cfg, params, prompts, new_tokens, card: str,
+                    label: str) -> None:
+    srv = smoke.make_server(cfg, params, "cuda", cache_len=CACHE_LEN,
+                            max_batch=4)
+    for p, n in zip(prompts, new_tokens):
+        srv.submit(p, max_new_tokens=n)
+    profiled(srv.run, card, label, lambda _, launches, syncs: (
+        f"{srv.stats['decode_rounds']} decode rounds, "
+        f"{srv.stats['prefills']} prefills"))
+
+
+def run_training(cfg, params, steps: int):
+    loader = LMBatchLoader(cfg, smoke.TRAIN_BATCH, smoke.TRAIN_SEQ,
+                           seed=smoke.SEED)
+    return train_split(cfg, loader, steps=steps, batch=smoke.TRAIN_BATCH,
+                       seq=smoke.TRAIN_SEQ, runtime="serial",
+                       learning_rate=3e-4, warmup=20, seed=smoke.SEED,
+                       verify_step0=False, device="cuda", params=params,
+                       print_fn=lambda *a: None)
+
+
+def profile_training(cfg, params, card: str) -> None:
+    run_training(cfg, params, 1)  # warm-up: cuBLAS's backward paths start
+    # the token streams are numpy on the host, outside the profiler's ops:
+    # role 0 and every worker draw one batch per step
+    loader = LMBatchLoader(cfg, smoke.TRAIN_BATCH, smoke.TRAIN_SEQ,
+                           seed=smoke.SEED)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        loader.next_batch()
+    smoke.log(f"[train] host: one {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ} "
+              f"token batch takes {(time.perf_counter() - t0) / 3:.4f} s; "
+              f"{1 + cfg.vertical.num_clients} streams draw one per step")
+
+    def describe(result, launches, syncs):
+        times = result[1].step_times
+        return (f"{TRAIN_STEPS} steps (step wall {times} s), "
+                f"{launches / TRAIN_STEPS:.1f} launches and "
+                f"{syncs / TRAIN_STEPS:.1f} device-to-host reads per step")
+
+    profiled(lambda: run_training(cfg, params, TRAIN_STEPS), card, "train",
+             describe)
 
 
 def main() -> None:
@@ -84,8 +132,10 @@ def main() -> None:
     prompts = [rng.integers(0, cfg.vocab_size, s) for s in smoke.PROMPT_LENS]
     smoke.serve(cfg, params, prompts[:2], [2, 2], cache_len=CACHE_LEN,
                 max_batch=4)  # warm-up: Triton compiles, cuBLAS starts
-    profiled_run(cfg, params, prompts, [1] * len(prompts), card, "prefill")
-    profiled_run(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
+    profile_serving(cfg, params, prompts, [1] * len(prompts), card,
+                    "prefill")
+    profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
+    profile_training(cfg, params, card)
 
 
 if __name__ == "__main__":

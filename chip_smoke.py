@@ -1,5 +1,6 @@
-"""Port smoke test on one NVIDIA GPU: the PyTorch port's split serving of
-full-width smollm-360m, with its merge kernels in Triton.
+"""Port smoke test on one NVIDIA GPU: the PyTorch port's split serving and
+split training of full-width smollm-360m, with its merge kernels (forward
+and backward) in Triton.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -11,8 +12,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    logit parity and greedy-token identity between runs).
 2. The kernels against their plain PyTorch version on CUDA tensors: every
    strategy, f32 and bf16, a dropped client, all dropped, a ragged shape,
-   and the serving path's shapes; per path shape, the kernel's time, the
-   plain version's, one PyTorch call's (``library_ms``) and the bound.
+   and the serving and training paths' shapes, forward and backward (plus
+   mul at an exact zero and max with exact ties); per path shape, the
+   kernel's time, the plain version's, one PyTorch call's
+   (``library_ms``) and the bound.
 3. The slice: full-width smollm-360m (random weights from a seed), K = 4
    ``TowerWorker``s over ``SimTransport``, ``SplitLMServer`` continuous
    with 4 slots, 8 greedy requests.  Every merge must go through the
@@ -20,6 +23,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    static batching and a plain-merge run must give identical tokens; a
    reduced model on the card must match the CPU path.  The concat merge
    is served the same way, through its own kernel.
+4. The training slice: full-width smollm-360m (K = 4, avg, random weights
+   from a seed) trained by ``train_split`` over ``InprocTransport``, batch
+   8 x 256 tokens, 5 serial steps, lr 3e-4 with warmup 20, step 0
+   verified against ``protocol_step`` at 1e-5.  Launch counters reset
+   just before the run and read just after: 5 forward and 5 backward
+   reduce-kernel launches (one merge per step; the verification merges
+   with the plain version).  Then 2 steps of the concat merge through its
+   own kernels, and 2 steps of the reduced model on the card against the
+   CPU path (losses and final params within 1e-4).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -41,10 +53,12 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.data.loader import LMBatchLoader  # noqa: E402
 from repro_torch.kernels import merge_pool as mp  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.models import backbone, split_program  # noqa: E402
 from repro_torch.serve import SplitLMServer  # noqa: E402
+from repro_torch.train.loop import train_split  # noqa: E402
 from repro_torch.transport import SimTransport, build_split_worker  # noqa: E402
 
 SEED = 0
@@ -52,11 +66,15 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
 STRATEGIES = ("sum", "avg", "max", "mul", "concat")
 # the serving path's stacks: prefill (4, S, 960), decode (4, 1, 960); the
 # concat merge's cut is d_model / K = 240 wide
 PATH_SHAPES = [(4, 128, 960), (4, 1024, 960), (4, 1, 960)]
 CONCAT_PATH_SHAPES = [(4, 128, 240), (4, 1024, 240), (4, 1, 240)]
+# the training path's stacks: batch 8 x seq 256 = 2048 rows per merge
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 5
+TRAIN_SHAPE, CONCAT_TRAIN_SHAPE = (4, 2048, 960), (4, 2048, 240)
 # traffic: prompt lengths spread over 64..1024, 8..48 new tokens each
 PROMPT_LENS = [64, 1024, 200, 512, 96, 768, 320, 900]
 NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
@@ -123,6 +141,68 @@ def check_kernels() -> dict:
     return worst
 
 
+def check_backward_kernels() -> dict:
+    """Every strategy x dtype x live mask x shape: the backward kernels
+    against the plain backward, plus mul at an exact zero and max with
+    exact ties.  Returns the largest f32 |error| per kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
+    shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE]
+    n = 0
+
+    def compare(name, got, want, dtype):
+        nonlocal n
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                                 f"{tuple(want.shape)} {want.dtype}")
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: non-finite gradient")
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=GRAD_TOL[dtype], atol=GRAD_TOL[dtype])
+        if dtype == torch.float32:
+            worst[name] = max(worst[name], float((got - want).abs().max()))
+        n += 1
+
+    for strategy in STRATEGIES:
+        for dtype in (torch.float32, torch.bfloat16):
+            for kind in ("all", "dropped", "none"):
+                for shape in shapes + ([CONCAT_TRAIN_SHAPE]
+                                       if strategy == "concat" else []):
+                    x = torch.randn(shape, generator=gen, device="cuda"
+                                    ).to(dtype)
+                    live = _live(shape[0], kind, "cuda")
+                    out = mp.merge_pool(x, live, strategy=strategy)
+                    g = torch.randn(out.shape, generator=gen, device="cuda"
+                                    ).to(dtype)
+                    if strategy == "concat":
+                        compare("merge_concat_bwd_kernel",
+                                mp.concat_bwd(live, g, k=shape[0]),
+                                ref.concat_bwd(live, g, shape[0]), dtype)
+                    else:
+                        compare("merge_reduce_bwd_kernel",
+                                mp.merge_pool_bwd(x, live, out, g,
+                                                  strategy=strategy),
+                                ref.merge_pool_bwd(x, live, out, g, strategy),
+                                dtype)
+    # mul at an exact zero of a live client; max with exact ties
+    x = torch.randn(TRAIN_SHAPE, generator=gen, device="cuda")
+    x[1, 7, :100] = 0.0
+    x[2] = torch.where(torch.rand(x[2].shape, generator=gen,
+                                  device="cuda") < 0.5, x[0], x[2])
+    live = _live(4, "all", "cuda")
+    g = torch.randn(TRAIN_SHAPE[1:], generator=gen, device="cuda")
+    for strategy in ("mul", "max"):
+        out = mp.merge_pool(x, live, strategy=strategy)
+        compare("merge_reduce_bwd_kernel",
+                mp.merge_pool_bwd(x, live, out, g, strategy=strategy),
+                ref.merge_pool_bwd(x, live, out, g, strategy), torch.float32)
+    log(f"backward kernels: {n} cases match the plain backward (f32 tol "
+        f"1e-5, bf16 tol 5e-2; mul at an exact zero, max with ties); worst "
+        f"f32 |err| {worst}")
+    return worst
+
+
 def time_ms(fn, inputs: list, iters: int = 200) -> float:
     """Mean device time per call over ``iters`` calls, CUDA events, after a
     warm-up; inputs rotate over buffers that together exceed the L2 cache,
@@ -177,6 +257,70 @@ def bound(shape, itemsize: int, concat: bool) -> tuple[float, str]:
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bwd_bound(shape, strategy: str, itemsize: int = 4) -> tuple[float, str]:
+    """Least time on an H100 SXM for one backward call: each input read
+    once, each output written once (sum/avg: g in, dx out; concat: g in,
+    dx out; max: stack, out and g in; mul: stack and g in), over the
+    memory rate, vs the flops (a few per element) over the f32 rate."""
+    K, B, D = shape
+    g = B * D * (K if strategy == "concat" else 1)
+    reads = {"sum": g, "avg": g, "concat": g, "max": K * B * D + 2 * B * D,
+             "mul": K * B * D + B * D}[strategy]
+    nbytes = (reads + K * B * D) * itemsize + K * 4
+    flops = {"sum": K * B * D, "avg": K * B * D, "concat": K * B * D,
+             "max": 4 * K * B * D, "mul": K * (K + 1) * B * D}[strategy]
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_backward_shapes(card: str) -> dict:
+    """Backward times at the training path's shapes (all clients live, as
+    trained): the kernel, the plain backward, one PyTorch call, the
+    bound.  max and mul are timed at the avg shape too, for the record."""
+    rows = {}
+    for strategy, shape in (("avg", TRAIN_SHAPE),
+                            ("concat", CONCAT_TRAIN_SHAPE),
+                            ("max", TRAIN_SHAPE), ("mul", TRAIN_SHAPE)):
+        K, B, D = shape
+        n_buf = min(16, max(1, math.ceil(2 * L2_BYTES / (K * B * D * 4))))
+        live = torch.ones(K, dtype=torch.float32, device="cuda")
+        inputs = []
+        for _ in range(n_buf):
+            x = torch.randn(shape, device="cuda")
+            out = mp.merge_pool(x, live, strategy=strategy)
+            inputs.append((x, out, torch.randn(out.shape, device="cuda")))
+        if strategy == "concat":
+            fns = {"": lambda x, o, g: mp.concat_bwd(live, g, k=K),
+                   "plain_": lambda x, o, g: ref.concat_bwd(live, g, K),
+                   "library_": lambda x, o, g: g.view(B, K, D).permute(
+                       1, 0, 2) * live[:, None, None]}
+        else:
+            fns = {"": lambda x, o, g: mp.merge_pool_bwd(
+                       x, live, o, g, strategy=strategy),
+                   "plain_": lambda x, o, g: ref.merge_pool_bwd(
+                       x, live, o, g, strategy)}
+            if strategy == "avg":
+                fns["library_"] = lambda x, o, g: (
+                    live / float(K))[:, None, None] * g
+        row = {}
+        for prefix, fn in fns.items():
+            row[prefix + "ms"] = time_ms(fn, inputs)
+            row[prefix + "device_ms"] = device_ms(fn, inputs)
+        row["bound_ms"], row["bound_by"] = bwd_bound(shape, strategy)
+        rows[(strategy, shape)] = row
+        lib = (f"library {row['library_ms']:.6f} "
+               f"({row['library_device_ms']:.6f}) ms, "
+               if "library_ms" in row else "")
+        log(f"time backward {strategy} f32 {shape}: per call (device, launch "
+            f"cost removed): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) "
+            f"ms, plain {row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) "
+            f"ms, {lib}bound {row['bound_ms']:.6f} ms ({row['bound_by']}) "
+            f"| {card}")
+        del inputs
+    return rows
 
 
 def library_call(strategy: str):
@@ -308,6 +452,8 @@ def check_small_against_cpu() -> None:
 def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, device) for v in tree]
     return tree.to(device)
 
 
@@ -388,9 +534,107 @@ def serve_full(card: str) -> dict:
             "merge_concat_kernel": claunch["merge_concat_kernel"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 4: the training slice
+# ---------------------------------------------------------------------------
+
+def train(cfg, steps: int, device: str, params=None, **kw):
+    """One ``train_split`` run; returns (out, metrics, seconds, launches
+    during the run, peak device memory)."""
+    loader = LMBatchLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    mp.reset_launches()
+    t0 = time.perf_counter()
+    out, metrics, _ = train_split(
+        cfg, loader, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        runtime="serial", learning_rate=3e-4, warmup=20, seed=SEED,
+        log_every=1, device=device, params=params, print_fn=log, **kw)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(mp.launches)
+    peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    if not all(math.isfinite(x) for x in metrics.losses):
+        raise AssertionError(f"non-finite loss: {metrics.losses}")
+    return out, metrics, seconds, launches, peak
+
+
+def expect_launches(launches: dict, want: dict) -> None:
+    full = {name: want.get(name, 0) for name in launches}
+    if launches != full:
+        raise AssertionError(f"launches {launches}, expected {full}")
+
+
+def train_small_against_cpu() -> None:
+    """Reduced smollm-360m, same weights: 2 steps on the card (kernels)
+    against 2 steps on the CPU (plain versions) — losses and final params
+    within 1e-4."""
+    cfg = get_arch("smollm-360m").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = backbone.init_params(cfg, gen, device="cpu")
+    runs = {}
+    for device, params in (("cpu", cpu_params),
+                           ("cuda", _to(cpu_params, "cuda"))):
+        out, metrics, _, launches, _ = train(cfg, 2, device, params=params)
+        runs[device] = (out, metrics.losses)
+    expect_launches(launches, {"merge_reduce_kernel": 2,
+                               "merge_reduce_bwd_kernel": 2})
+    torch.testing.assert_close(torch.tensor(runs["cuda"][1]),
+                               torch.tensor(runs["cpu"][1]), rtol=1e-4,
+                               atol=1e-4)
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _leaves(runs["cuda"][0]), _leaves(runs["cpu"][0])))
+    if worst > 1e-4:
+        raise AssertionError(f"reduced model: card params differ from the "
+                             f"CPU path by {worst:.3e} > 1e-4")
+    log(f"small train: reduced smollm-360m, 2 steps on the card match the CPU "
+        f"path (losses {runs['cuda'][1]} vs {runs['cpu'][1]}; final params "
+        f"max |diff| {worst:.3e} <= 1e-4)")
+
+
+def train_full(card: str) -> dict:
+    cfg = get_arch("smollm-360m")
+    # warm-up: one step compiles nothing new for the kernels (phase 2 built
+    # them at these shapes) but starts cuBLAS's backward paths
+    train(cfg, 1, "cuda", verify_step0=False)
+    _, metrics, seconds, launches, peak = train(cfg, TRAIN_STEPS, "cuda")
+    expect_launches(launches, {"merge_reduce_kernel": TRAIN_STEPS,
+                               "merge_reduce_bwd_kernel": TRAIN_STEPS})
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = metrics.step_times[1:]
+    log(f"train avg: {TRAIN_STEPS} steps of {tokens} tokens, losses "
+        f"{metrics.losses}, step-0 max |dgrad| vs protocol_step "
+        f"{metrics.step0_max_dgrad:.3e} (<= 1e-5); "
+        f"{launches['merge_reduce_kernel']} merge_reduce_kernel and "
+        f"{launches['merge_reduce_bwd_kernel']} merge_reduce_bwd_kernel "
+        f"launches | {card}")
+    log(f"train avg: {len(steady) * tokens / sum(steady):.1f} train tokens/s "
+        f"over steps 1-{TRAIN_STEPS - 1} (step times {metrics.step_times} "
+        f"s; step 0 includes the verification), wall {seconds:.4f} s with "
+        f"set-up, max_memory_allocated {peak} bytes | {card}")
+
+    ccfg = cfg.with_vertical(dataclasses.replace(cfg.vertical,
+                                                 merge="concat"))
+    _, cmetrics, cseconds, claunches, _ = train(ccfg, 2, "cuda")
+    expect_launches(claunches, {"merge_concat_kernel": 2,
+                                "merge_concat_bwd_kernel": 2})
+    log(f"train concat: 2 steps, losses {cmetrics.losses}, step-0 max "
+        f"|dgrad| {cmetrics.step0_max_dgrad:.3e}, "
+        f"{claunches['merge_concat_kernel']} merge_concat_kernel and "
+        f"{claunches['merge_concat_bwd_kernel']} merge_concat_bwd_kernel "
+        f"launches, wall {cseconds:.4f} s | {card}")
+    return {"merge_reduce_bwd_kernel": launches["merge_reduce_bwd_kernel"],
+            "merge_concat_bwd_kernel": claunches["merge_concat_bwd_kernel"]}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
-        for v in tree.values():
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    elif isinstance(tree, list):
+        for v in tree:
             yield from _leaves(v)
     else:
         yield tree
@@ -409,16 +653,24 @@ def main() -> None:
     torch.set_float32_matmul_precision("highest")
 
     worst = check_kernels()
+    worst.update(check_backward_kernels())
     rows = time_path_shapes(card)
+    rows.update(time_backward_shapes(card))
     check_small_against_cpu()
     launches = serve_full(card)
+    train_small_against_cpu()
+    launches.update(train_full(card))
 
     kernels = []
     for name, strategy, shape, replaces in (
             ("merge_reduce_kernel", "avg", (4, 1024, 960),
              "src/repro/kernels/merge_pool.py:29"),
             ("merge_concat_kernel", "concat", (4, 1024, 240),
-             "src/repro/kernels/merge_pool.py:67")):
+             "src/repro/kernels/merge_pool.py:67"),
+            ("merge_reduce_bwd_kernel", "avg", TRAIN_SHAPE,
+             "src/repro/kernels/merge_pool.py:144"),
+            ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE,
+             "src/repro/kernels/merge_pool.py:96")):
         row = rows[(strategy, shape)]
         kernels.append({
             "name": name, "route": "triton",

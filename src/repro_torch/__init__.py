@@ -6,9 +6,10 @@ This package imports ``torch`` and numpy only: never ``jax``, never
 ``repro``.  Where it needs a contract of the JAX package (configs, compat
 rules, byte models, op tables) it keeps its own copy.
 
-Entry points (``init_params``, ``build_split_worker``, ``SplitLMServer``)
-run on ``cuda`` unless the caller passes ``device="cpu"``; with no card and
-no explicit ``"cpu"`` they raise (:func:`resolve_device`).
+Entry points (``init_params``, ``build_split_worker``, ``SplitLMServer``,
+``train_split``) run on ``cuda`` unless the caller passes
+``device="cpu"``; with no card and no explicit ``"cpu"`` they raise
+(:func:`resolve_device`).
 """
 from __future__ import annotations
 

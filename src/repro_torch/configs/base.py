@@ -43,7 +43,7 @@ class ArchConfig:
     """One architecture (dense token-LM fields)."""
 
     name: str
-    family: str  # dense (the only family this slice serves)
+    family: str  # dense (the only family the port runs so far)
     num_layers: int
     d_model: int
     num_heads: int

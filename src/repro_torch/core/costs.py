@@ -1,10 +1,33 @@
-"""Analytic byte models of split serving (the port's own copy).
+"""Analytic byte models of split training and serving (the port's own
+copy).
 
-Cross-checked against the serving driver's ``Ledger`` in
-``tests/test_torch_split_serve.py``, and against the JAX package's models
-of the same names.
+Cross-checked against the Executor's and the serving driver's ``Ledger``
+in ``tests/test_torch_train.py`` and ``tests/test_torch_split_serve.py``,
+and against the JAX package's models of the same names.
 """
 from __future__ import annotations
+
+
+def cut_bytes(batch_size: int, cut_dim: int, itemsize: int = 4) -> int:
+    """Bytes of one plain cut uplink (or its jacobian downlink) per client
+    per (micro)batch — the ``cut`` / ``jac`` wire kinds.  For a token LM
+    ``batch_size`` counts tokens (batch x sequence)."""
+    return batch_size * cut_dim * itemsize
+
+
+def head_exchange_bytes(batch_size: int, num_classes: int,
+                        itemsize: int = 4) -> int:
+    """Bytes of one leg of the role-0 <-> role-3 loss exchange per
+    (micro)batch: the ``head_out`` downlink and the ``head_jac`` uplink
+    are the same (batch x num_classes) payload."""
+    return batch_size * num_classes * itemsize
+
+
+def aux_exchange_bytes(microbatches: int, itemsize: int = 4) -> int:
+    """Bytes of the role-0 -> role-3 auxiliary-loss slot per step: one f32
+    scalar per microbatch (families whose server computes a loss term of
+    its own; the dense family records none)."""
+    return microbatches * itemsize
 
 
 def serve_prefill_bytes(prompt_len: int, cut_dim: int, num_clients: int,

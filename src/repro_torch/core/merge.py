@@ -56,3 +56,14 @@ def merge_stacked(
     # concat: dropped clients contribute zeros (the server still sees K*D)
     moved = torch.movedim(outputs * lv, 0, -2)  # (..., K, D)
     return moved.reshape(*moved.shape[:-2], K * outputs.shape[-1])
+
+
+def collective_bytes_per_merge(strategy: str, cut_elements: int,
+                               num_clients: int, bytes_per_elt: int = 2) -> int:
+    """Analytic cut-layer traffic per client per merge (paper Table 5
+    model): sum/avg/max all-reduce ~ 2x payload; concat/mul all-gather ~
+    (K-1)/K * K*payload received."""
+    payload = cut_elements * bytes_per_elt
+    if strategy in ("sum", "avg", "max"):
+        return 2 * payload * (num_clients - 1) // max(num_clients, 1)
+    return payload * (num_clients - 1)

@@ -1,20 +1,30 @@
-"""The serving message schedule and the communications ledger.
+"""The protocol's message schedules, the communications ledger and the
+serial reference step.
 
 Roles (Ceballos et al. 2020, as the paper uses them): role 1 holds
 features only, role 3 holds features AND labels, role 0 is the
 compute-only server.  Every message is recorded in a :class:`Ledger`
 whose byte counts must match the analytic models in
-:mod:`repro_torch.core.costs` (asserted in tests).
+:mod:`repro_torch.core.costs` (asserted in tests).  The arithmetic of a
+training step is exactly end-to-end backprop through the merged graph
+(paper §3): the protocol is a schedule, not a different algorithm.
 
-This slice carries the serving half of the JAX package's schedule: the
-four serving wire kinds and :func:`serve_schedule`.
+The port carries the plain star of the JAX package's schedule: the
+training kinds ``cut``/``jac``/``head_out``/``head_jac``/``aux`` and the
+four serving kinds.  The masked, compressed and tree-routed variants are
+not ported yet: :func:`step_schedule` rejects them (through the compat
+matrix where the composition is unsound, else as not ported).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
+
+import torch
 
 from repro_torch.core import compat
+from repro_torch.core import merge as merge_lib
+from repro_torch.tree_util import tree_leaves, tree_unflatten
 
 
 @dataclass
@@ -69,12 +79,22 @@ class WireKind:
 
     kind: str
     direction: str  # "up" (toward role 0) | "down" (from role 0)
-    phase: str      # "serve"
+    phase: str      # "train" | "serve"
     cost_model: str  # function name in repro_torch.core.costs
 
 
-#: the wire kinds this slice schedules (the serving half of the registry)
+#: the wire kinds the port schedules (the plain star of the JAX registry)
 WIRE_KINDS: dict[str, WireKind] = {spec.kind: spec for spec in (
+    WireKind(kind="cut", direction="up", phase="train",
+             cost_model="cut_bytes"),
+    WireKind(kind="head_out", direction="down", phase="train",
+             cost_model="head_exchange_bytes"),
+    WireKind(kind="aux", direction="down", phase="train",
+             cost_model="aux_exchange_bytes"),
+    WireKind(kind="head_jac", direction="up", phase="train",
+             cost_model="head_exchange_bytes"),
+    WireKind(kind="jac", direction="down", phase="train",
+             cost_model="cut_bytes"),
     WireKind(kind="serve_prompt", direction="down", phase="serve",
              cost_model="serve_prefill_bytes"),
     WireKind(kind="serve_prefill_cut", direction="up", phase="serve",
@@ -103,6 +123,57 @@ class MessageSpec:
                 f"unregistered wire kind {self.kind!r} (tag {self.tag!r}) "
                 f"— register it in protocol.WIRE_KINDS with a direction, "
                 f"phase, and costs.* byte model")
+
+
+@dataclass(frozen=True)
+class StepSchedule:
+    """The training message schedule of the plain star, per step (or
+    microbatch): K cut uplinks (tag ``cut[k]``), the role-0 <-> role-3
+    head exchange (``head_output`` down, ``head_jacobian`` up) with its
+    auxiliary-loss slot (``aux_loss``, recorded only for families whose
+    server computes a loss term of its own), and K jacobian downlinks
+    (``jac[k]``)."""
+
+    cuts: tuple[MessageSpec, ...]
+    head_out: MessageSpec
+    aux: MessageSpec
+    head_jac: MessageSpec
+    jacs: tuple[MessageSpec, ...]
+
+
+def step_schedule(num_clients: int, label_holder: int = 0, *,
+                  secure: bool = False, compress: Optional[str] = None,
+                  tree=None) -> StepSchedule:
+    """The training schedule for ``num_clients`` feature holders.  Unsound
+    overlay compositions reject through the compat matrix; the masked,
+    compressed and tree-routed wires are not ported yet and raise."""
+    compat.check("schedule", secure=secure, compress=compress, tree=tree)
+    _reject_unported(secure=secure, compress=compress, tree=tree)
+    cuts = tuple(MessageSpec(_role_of(k, label_holder), "role0", f"cut[{k}]",
+                             "cut", k) for k in range(num_clients))
+    jacs = tuple(MessageSpec("role0", _role_of(k, label_holder), f"jac[{k}]",
+                             "jac", k) for k in range(num_clients))
+    return StepSchedule(
+        cuts=cuts,
+        head_out=MessageSpec("role0", "role3", "head_output", "head_out"),
+        aux=MessageSpec("role0", "role3", "aux_loss", "aux"),
+        head_jac=MessageSpec("role3", "role0", "head_jacobian", "head_jac"),
+        jacs=jacs,
+    )
+
+
+def _reject_unported(*, secure=False, compress=None, tree=None,
+                     nowait=False) -> None:
+    """The training overlays the port does not carry yet raise here, by
+    name, rather than run silently without them."""
+    for name, on in (("secure aggregation", secure),
+                     ("cut compression", compress is not None),
+                     ("tree aggregation", tree is not None),
+                     ("no-wait execution", nowait)):
+        if on:
+            raise NotImplementedError(
+                f"{name} is not ported to repro_torch yet (see ROADMAP.md, "
+                "Queue 1)")
 
 
 @dataclass(frozen=True)
@@ -150,3 +221,78 @@ def serve_schedule(num_clients: int, label_holder: int = 0, *,
         tokens=specs("serve_token", up=False),
         cuts=specs("serve_cut", up=True),
     )
+
+
+def protocol_step(
+    tower_fwd,  # (tower_params_k, x_k) -> cut; or a per-client list of K
+    server_fwd: Callable,  # (server_params, merged) -> logits
+    loss_fn: Callable,  # (logits, labels) -> scalar
+    tower_params: list,
+    server_params,
+    features: list,  # per-client feature tensors
+    labels,  # role-3 context, batch-major
+    merge: str,
+    *,
+    label_holder: int = 0,
+    live_mask: Optional[torch.Tensor] = None,
+    ledger: Optional[Ledger] = None,
+    compress: Optional[str] = None,
+    **executor_kwargs,
+):
+    """One paper-protocol training step; returns (loss, tower_grads,
+    server_grads, ledger).
+
+    Feature holders send cut activations to role 0; role 0 sends the head
+    output to role 3; role 3 returns the head jacobian; role 0 returns the
+    per-client cut jacobians.  A thin wrapper: the numerics live in the
+    :class:`~repro_torch.runtime.executor.Executor` (serial mode, one
+    microbatch, the ``"neutral"`` drop policy, which merges with the plain
+    version) over the inline :class:`~repro_torch.transport.SimTransport`.
+    """
+    # function-level imports: runtime/transport import this module for the
+    # schedule and Ledger definitions
+    from repro_torch.runtime.executor import Executor
+    from repro_torch.transport.base import SimTransport, TowerWorker
+
+    K = len(tower_params)
+    tower_fwds = (list(tower_fwd) if isinstance(tower_fwd, (list, tuple))
+                  else [tower_fwd] * K)
+    workers = [TowerWorker(k, tower_fwds[k], tower_params[k],
+                           compress=compress) for k in range(K)]
+    executor = Executor(
+        SimTransport(workers), server_fwd, loss_fn, merge, mode="serial",
+        microbatches=1, label_holder=label_holder, drop_policy="neutral",
+        compress=compress, **executor_kwargs)
+    res = executor.run_step(server_params, labels, features=list(features),
+                            merge_mask=live_mask, ledger=ledger,
+                            collect_grads=True)
+    return res.loss, res.tower_grads, res.server_grads, res.ledger
+
+
+def assert_equivalent_to_monolithic(
+    tower_fwd, server_fwd, loss_fn, tower_params, server_params,
+    features, labels, merge: str, atol: float = 1e-5,
+):
+    """The paper's §3 identity: the protocol == end-to-end backprop.
+    ``tower_fwd`` is one callable or a per-client list, as in
+    :func:`protocol_step`."""
+    loss_p, tg_p, sg_p, _ = protocol_step(
+        tower_fwd, server_fwd, loss_fn, tower_params, server_params,
+        features, labels, merge)
+
+    K = len(tower_params)
+    tower_fwds = (list(tower_fwd) if isinstance(tower_fwd, (list, tuple))
+                  else [tower_fwd] * K)
+    tree = (list(tower_params), server_params)
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(tree)]
+    towers, server = tree_unflatten(tree, leaves)
+    with torch.enable_grad():
+        stacked = torch.stack([tower_fwds[k](towers[k], features[k])
+                               for k in range(K)])
+        merged = merge_lib.merge_stacked(stacked, merge)
+        loss_m = loss_fn(server_fwd(server, merged), labels)
+    grads_m = torch.autograd.grad(loss_m, leaves)
+
+    torch.testing.assert_close(loss_p, loss_m.detach(), atol=atol, rtol=1e-5)
+    for a, b in zip(tree_leaves((tg_p, sg_p)), grads_m):
+        torch.testing.assert_close(a, b, atol=atol, rtol=1e-4)

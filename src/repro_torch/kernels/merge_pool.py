@@ -1,6 +1,9 @@
-"""Triton kernels for Hopper: the fused K-client cut-layer merge, forward.
+"""Triton kernels for Hopper: the fused K-client cut-layer merge and its
+backward (the paper's jacobian splitting).
 
-Two kernels, both launched by :func:`merge_pool` on CUDA tensors only:
+Four kernels.  :func:`merge_pool` launches the two forward kernels,
+:func:`merge_pool_bwd` and :func:`concat_bwd` the two backward kernels,
+on CUDA tensors only:
 
 ``merge_reduce_kernel`` replaces the JAX package's Pallas kernel
 ``_merge_kernel`` (``src/repro/kernels/merge_pool.py:29``, launched by
@@ -14,18 +17,43 @@ zeros when every client is dropped; mul takes 1 for a dropped client.
 client k's ``(B, D)`` slice lands in columns ``k*D .. (k+1)*D`` of the
 ``(B, K*D)`` output, times ``live[k]``.
 
-Bound on an H100 SXM: both are pure data movement with a handful of flops
-per element, so the bound is bytes over the 3.35 TB/s of device memory —
-``(K*B*D + B*D) * itemsize`` for the reduction and
+``merge_reduce_bwd_kernel`` replaces ``_merge_bwd_kernel``
+(``src/repro/kernels/merge_pool.py:144``, launched by
+``_merge_pool_bwd_call``): from the merged gradient ``g (B, D)`` it
+writes every client's ``dx_k (B, D)``, in ``stacked.dtype``:
+
+* sum: ``g * l_k``; avg: ``g * l_k / max(sum(live), 1)`` — ``g`` and the
+  live flags only, neither the stack nor the forward output is read;
+* max: ``g / ties`` where ``x_k == out`` and client k is live, else 0
+  (``ties`` counts the live clients holding the maximum, so tied clients
+  split the credit, as autodiff of ``amax`` does);
+* mul: ``g`` times the product of the OTHER live clients, formed as a
+  running prefix times the suffix over the unrolled K.  The Pallas kernel
+  computes ``g * out / x_k``, which is 0/0 at a live ``x_k == 0``; the
+  exclusive product is what autodiff of ``torch.prod`` / ``jnp.prod``
+  gives there, and the port is held to that.
+
+``merge_concat_bwd_kernel`` replaces ``_concat_bwd_kernel``
+(``src/repro/kernels/merge_pool.py:96``, launched by
+``_concat_bwd_call``): ``dx_k = g[:, k*D:(k+1)*D] * l_k``.
+
+Bound on an H100 SXM: all four are pure data movement with a handful of
+flops per element, so the bound is bytes over the 3.35 TB/s of device
+memory — ``(K*B*D + B*D) * itemsize`` for the reduction and
 ``(K*B*D + B*K*D) * itemsize`` for the concat (plus the ``K`` f32 live
-flags).  The design moves exactly those bytes: each program loads its
-``(BLOCK_B, BLOCK_D)`` tile of every client once, keeps the running
-reduction in registers (K is a compile-time constant, the client loop is
-unrolled), and stores the merged tile once; nothing is kept in between.
-The grid is ``(B-tiles, D-tiles)`` (plus the client axis for concat);
-blocks run in parallel in any order, so nothing carries from one program
-to the next.  Ragged edges (D = 960 is not a power of two, decode has
-B = 1) are masked, so no tile width has to divide D.
+flags); backward, ``B*D + K*B*D`` for sum/avg, ``2*K*B*D`` for concat,
+``2*B*D + 2*K*B*D`` for max (it reads the stack and the forward output)
+and ``B*D + 2*K*B*D`` for mul.  Each program loads its
+``(BLOCK_B, BLOCK_D)`` tile of what it needs, keeps running sums and
+products in registers (K is a compile-time constant, the client loop is
+unrolled), and stores each output tile once.  The max backward reads the
+stack twice (tie count, then credit) and the mul backward re-reads the
+suffix clients (K(K-1)/2 extra tile loads); the repeats are the same
+program's tiles, served from L1/L2 rather than device memory.  The grid
+is ``(B-tiles, D-tiles)`` (plus the client axis for concat); blocks run in
+parallel in any order, so nothing carries from one program to the next.
+Ragged edges (D = 960 is not a power of two, decode has B = 1) are
+masked, so no tile width has to divide D.
 
 ``triton`` is imported at the first launch, not when this module is
 imported: the CPU tests import every module, and the CPU has no Triton.
@@ -48,7 +76,8 @@ TRITON_CACHE_DIR = Path(__file__).resolve().parents[3] / "build" / "triton"
 
 #: kernel launches since the last :func:`reset_launches` — one per launch,
 #: counted where the wrapper launches the kernel and nowhere else
-launches = {"merge_reduce_kernel": 0, "merge_concat_kernel": 0}
+launches = {"merge_reduce_kernel": 0, "merge_concat_kernel": 0,
+            "merge_reduce_bwd_kernel": 0, "merge_concat_bwd_kernel": 0}
 
 # ``triton.language``: bound by _compiled() at the first launch.  The
 # kernel bodies below resolve ``tl`` from this module's globals when Triton
@@ -116,6 +145,82 @@ def merge_concat_kernel(x_ptr, live_ptr, out_ptr, B, D, stride_k,
              out.to(out_ptr.dtype.element_ty), mask=mask)
 
 
+def merge_reduce_bwd_kernel(x_ptr, live_ptr, out_ptr, g_ptr, dx_ptr, B, D,
+                            stride_k, K: tl.constexpr, STRATEGY: tl.constexpr,
+                            BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr):
+    """Every client's (BLOCK_B, BLOCK_D) gradient tile from the merged
+    gradient's tile.  STRATEGY as in merge_reduce_kernel; sum/avg never
+    touch x_ptr or out_ptr, mul never touches out_ptr."""
+    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
+    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
+    mask = (rows[:, None] < B) & (cols[None, :] < D)
+    offs = rows[:, None] * D + cols[None, :]
+    g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+
+    if STRATEGY <= 1:
+        n_live = 1.0
+        if STRATEGY == 1:
+            total = tl.load(live_ptr)
+            for i in tl.static_range(1, K):
+                total += tl.load(live_ptr + i)
+            n_live = tl.maximum(total, 1.0)
+        for i in tl.static_range(K):
+            dx = g * (tl.load(live_ptr + i) / n_live)
+            tl.store(dx_ptr + i * stride_k + offs,
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+    elif STRATEGY == 2:
+        out = tl.load(out_ptr + offs, mask=mask, other=0.0).to(tl.float32)
+        ties = tl.zeros((BLOCK_B, BLOCK_D), tl.float32)
+        for i in tl.static_range(K):
+            live = tl.load(live_ptr + i)
+            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
+                        other=0.0).to(tl.float32)
+            ties += tl.where((x == out) & (live > 0), 1.0, 0.0)
+        share = g / tl.maximum(ties, 1.0)
+        for i in tl.static_range(K):
+            live = tl.load(live_ptr + i)
+            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
+                        other=0.0).to(tl.float32)
+            dx = tl.where((x == out) & (live > 0), share, 0.0)
+            tl.store(dx_ptr + i * stride_k + offs,
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+    else:
+        # exclusive product: prefix (clients before i, carried) times
+        # suffix (clients after i); a dropped client is the neutral 1
+        prefix = tl.full((BLOCK_B, BLOCK_D), 1.0, tl.float32)
+        for i in tl.static_range(K):
+            suffix = tl.full((BLOCK_B, BLOCK_D), 1.0, tl.float32)
+            for j in tl.static_range(i + 1, K):
+                live_j = tl.load(live_ptr + j)
+                x_j = tl.load(x_ptr + j * stride_k + offs, mask=mask,
+                              other=0.0).to(tl.float32)
+                suffix *= tl.where(live_j > 0, x_j, 1.0)
+            live = tl.load(live_ptr + i)
+            dx = tl.where(live > 0, g * (prefix * suffix), 0.0)
+            tl.store(dx_ptr + i * stride_k + offs,
+                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
+            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
+                        other=0.0).to(tl.float32)
+            prefix *= tl.where(live > 0, x, 1.0)
+
+
+def merge_concat_bwd_kernel(live_ptr, g_ptr, dx_ptr, B, D, stride_k,
+                            K: tl.constexpr, BLOCK_B: tl.constexpr,
+                            BLOCK_D: tl.constexpr):
+    """Client program_id(2)'s column block of the (B, K*D) merged
+    gradient, times its live flag, into its (B, D) gradient."""
+    k = tl.program_id(2)
+    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
+    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
+    mask = (rows[:, None] < B) & (cols[None, :] < D)
+    live = tl.load(live_ptr + k)
+    g = tl.load(g_ptr + rows[:, None] * (K * D) + k * D + cols[None, :],
+                mask=mask, other=0.0)
+    dx = g.to(tl.float32) * live
+    tl.store(dx_ptr + k * stride_k + rows[:, None] * D + cols[None, :],
+             dx.to(dx_ptr.dtype.element_ty), mask=mask)
+
+
 def _compiled() -> dict:
     """JIT-wrap the kernels (Triton compiles each specialization at its
     first launch and caches it under TRITON_CACHE_DIR)."""
@@ -127,7 +232,9 @@ def _compiled() -> dict:
 
         tl = triton.language
         _KERNELS = {"reduce": triton.jit(merge_reduce_kernel),
-                    "concat": triton.jit(merge_concat_kernel)}
+                    "concat": triton.jit(merge_concat_kernel),
+                    "reduce_bwd": triton.jit(merge_reduce_bwd_kernel),
+                    "concat_bwd": triton.jit(merge_concat_bwd_kernel)}
     return _KERNELS
 
 
@@ -135,29 +242,50 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
+def _check_tensor(t: torch.Tensor, what: str, shape: tuple,
+                  dtype: Optional[torch.dtype] = None) -> None:
+    """A kernel operand: a contiguous float32/bfloat16 CUDA tensor of
+    ``shape`` (and ``dtype``, when given) that int32 offsets can address."""
+    if not t.is_cuda:
+        raise ValueError(f"merge_pool kernel: {what} is on {t.device}, "
+                         "the kernel takes CUDA tensors only")
+    if t.dtype not in (torch.float32, torch.bfloat16) or \
+            (dtype is not None and t.dtype != dtype):
+        raise TypeError(f"merge_pool kernel: {what} dtype {t.dtype} "
+                        "(takes float32 or bfloat16, one for all operands)")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"merge_pool kernel: {what} must have shape "
+                         f"{tuple(shape)}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"merge_pool kernel: {what} must be contiguous")
+    if t.numel() >= 2 ** 31 - 1:
+        raise ValueError("merge_pool kernel: int32 offsets cannot address "
+                         f"{t.numel()} elements")
+
+
+def _check_live(live: torch.Tensor, k: int, device: torch.device) -> None:
+    if (live.device != device or live.dtype != torch.float32
+            or tuple(live.shape) != (k,) or not live.is_contiguous()):
+        raise ValueError(f"merge_pool kernel: live must be a contiguous ({k},) "
+                         f"float32 tensor on {device}, got "
+                         f"{tuple(live.shape)} {live.dtype} on {live.device}")
+
+
 def _check(stacked: torch.Tensor, live: torch.Tensor, strategy: str) -> None:
     if strategy not in STRATEGY_CODES and strategy != "concat":
         raise ValueError(f"unknown merge {strategy!r}")
-    if not stacked.is_cuda:
-        raise ValueError(f"merge_pool kernel: stacked is on {stacked.device}, "
-                         "the kernel takes CUDA tensors only")
-    if stacked.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"merge_pool kernel: dtype {stacked.dtype} "
-                        "(takes float32 or bfloat16)")
     if stacked.ndim != 3:
         raise ValueError(f"merge_pool kernel: stacked must be (K, B, D), got "
                          f"shape {tuple(stacked.shape)}")
-    if not stacked.is_contiguous():
-        raise ValueError("merge_pool kernel: stacked must be contiguous")
-    if stacked.numel() >= 2 ** 31 - 1:
-        raise ValueError("merge_pool kernel: int32 offsets cannot address "
-                         f"{stacked.numel()} elements")
-    K = stacked.shape[0]
-    if (live.device != stacked.device or live.dtype != torch.float32
-            or tuple(live.shape) != (K,) or not live.is_contiguous()):
-        raise ValueError(f"merge_pool kernel: live must be a contiguous ({K},) "
-                         f"float32 tensor on {stacked.device}, got "
-                         f"{tuple(live.shape)} {live.dtype} on {live.device}")
+    _check_tensor(stacked, "stacked", stacked.shape)
+    _check_live(live, stacked.shape[0], stacked.device)
+
+
+def _tiles(B: int, D: int) -> tuple[int, int, tuple[int, int]]:
+    block_b = min(BLOCK_B_MAX, _next_pow2(B))
+    block_d = min(BLOCK_D_MAX, _next_pow2(D))
+    return block_b, block_d, ((B + block_b - 1) // block_b,
+                              (D + block_d - 1) // block_d)
 
 
 def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
@@ -173,9 +301,7 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
     _check(stacked, live, strategy)
     kernels = _compiled()
     K, B, D = stacked.shape
-    block_b = min(BLOCK_B_MAX, _next_pow2(B))
-    block_d = min(BLOCK_D_MAX, _next_pow2(D))
-    tiles = ((B + block_b - 1) // block_b, (D + block_d - 1) // block_d)
+    block_b, block_d, tiles = _tiles(B, D)
     with torch.cuda.device(stacked.device):
         if strategy == "concat":
             out = torch.empty((B, K * D), dtype=stacked.dtype,
@@ -193,3 +319,68 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                 BLOCK_D=block_d, num_warps=NUM_WARPS)
             launches["merge_reduce_kernel"] += 1
     return out
+
+
+def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
+                   out: Optional[torch.Tensor], g: torch.Tensor, *,
+                   strategy: str) -> torch.Tensor:
+    """Launch the reduction backward on CUDA: ``g`` is the merged output's
+    ``(B, D)`` gradient, already in the stack's dtype and contiguous;
+    ``live`` the ``(K,)`` float32 mask.  ``stacked`` (K, B, D) is read by
+    max and mul, ``out`` (the forward output) by max; pass None where the
+    strategy does not read it.  Returns ``dx (K, B, D)`` in ``g``'s dtype.
+    Raises on anything the kernel does not take; there is no fallback."""
+    if strategy not in STRATEGY_CODES:
+        raise ValueError(f"unknown merge {strategy!r} for the reduction "
+                         "backward")
+    K = live.shape[0]
+    if g.ndim != 2:
+        raise ValueError(f"merge_pool kernel: g must be (B, D), got shape "
+                         f"{tuple(g.shape)}")
+    B, D = g.shape
+    _check_tensor(g, "g", (B, D))
+    _check_live(live, K, g.device)
+    if strategy in ("max", "mul"):
+        if stacked is None:
+            raise ValueError(f"merge_pool kernel: the {strategy} backward "
+                             "reads the stack")
+        _check_tensor(stacked, "stacked", (K, B, D), g.dtype)
+    if strategy == "max":
+        if out is None:
+            raise ValueError("merge_pool kernel: the max backward reads the "
+                             "forward output")
+        _check_tensor(out, "out", (B, D), g.dtype)
+    kernels = _compiled()
+    block_b, block_d, tiles = _tiles(B, D)
+    dx = torch.empty((K, B, D), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        # sum/avg never dereference x_ptr/out_ptr, mul never out_ptr: any
+        # valid pointer stands in for what the strategy does not read
+        kernels["reduce_bwd"][tiles](
+            g if stacked is None else stacked, live,
+            g if out is None else out, g, dx, B, D, B * D, K=K,
+            STRATEGY=STRATEGY_CODES[strategy], BLOCK_B=block_b,
+            BLOCK_D=block_d, num_warps=NUM_WARPS)
+        launches["merge_reduce_bwd_kernel"] += 1
+    return dx
+
+
+def concat_bwd(live: torch.Tensor, g: torch.Tensor, *, k: int) -> torch.Tensor:
+    """Launch the concat backward on CUDA: ``g`` is the merged output's
+    ``(B, k*D)`` gradient, contiguous; returns ``dx (k, B, D)`` in ``g``'s
+    dtype.  Raises on anything the kernel does not take."""
+    if g.ndim != 2 or g.shape[1] % k:
+        raise ValueError(f"merge_pool kernel: g must be (B, {k}*D), got "
+                         f"shape {tuple(g.shape)}")
+    B, D = g.shape[0], g.shape[1] // k
+    _check_tensor(g, "g", (B, k * D))
+    _check_live(live, k, g.device)
+    kernels = _compiled()
+    block_b, block_d, tiles = _tiles(B, D)
+    dx = torch.empty((k, B, D), dtype=g.dtype, device=g.device)
+    with torch.cuda.device(g.device):
+        kernels["concat_bwd"][tiles + (k,)](
+            live, g, dx, B, D, B * D, K=k, BLOCK_B=block_b, BLOCK_D=block_d,
+            num_warps=NUM_WARPS)
+        launches["merge_concat_bwd_kernel"] += 1
+    return dx

@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the port's kernels.
 
 These are the source of truth on the CPU and the yardstick of correctness
-on the card: each kernel must match its plain version here.
+on the card: each kernel must match its plain version here.  The
+backward versions are eager PyTorch, one op per step; they compute what
+autodiff of :func:`merge_pool` computes.
 """
 from __future__ import annotations
 
@@ -19,3 +21,49 @@ def merge_pool(stacked: torch.Tensor, strategy: str,
     if strategy not in ("sum", "avg", "max", "mul", "concat"):
         raise ValueError(f"unknown merge {strategy!r}")
     return merge_lib.merge_stacked(stacked, strategy, live_mask=live)
+
+
+def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
+                   out: Optional[torch.Tensor], g: torch.Tensor,
+                   strategy: str) -> torch.Tensor:
+    """The reductions' jacobian splitting: ``g`` (B, D), the merged
+    output's gradient, -> ``dx`` (K, B, D) in ``g``'s dtype, computed in
+    f32.  ``stacked`` is read by max and mul, ``out`` by max only.
+
+    mul takes the product of the OTHER live clients (exclusive prefix times
+    exclusive suffix), which is autodiff's answer at a live zero, where
+    ``out / x_k`` would give 0/0."""
+    K = live.shape[0]
+    lv = live.to(torch.float32).reshape(K, 1, 1)
+    g32 = g.to(torch.float32)[None]
+    if strategy == "sum":
+        dx = g32 * lv
+    elif strategy == "avg":
+        n_live = torch.clamp(torch.sum(live.to(torch.float32)), min=1.0)
+        dx = g32 * (lv / n_live)
+    elif strategy == "max":
+        holds = (stacked.to(torch.float32) == out.to(torch.float32)[None]) \
+            & (lv > 0)
+        ties = torch.clamp(torch.sum(holds.to(torch.float32), dim=0), min=1.0)
+        dx = torch.where(holds, g32 / ties, torch.zeros_like(g32))
+    elif strategy == "mul":
+        masked = torch.where(lv > 0, stacked.to(torch.float32),
+                             torch.ones_like(g32))
+        ones = torch.ones_like(masked[:1])
+        prefix = torch.cumprod(torch.cat([ones, masked[:-1]]), dim=0)
+        suffix = torch.flip(torch.cumprod(
+            torch.flip(torch.cat([masked[1:], ones]), [0]), dim=0), [0])
+        dx = torch.where(lv > 0, g32 * (prefix * suffix),
+                         torch.zeros_like(g32))
+    else:
+        raise ValueError(f"unknown merge {strategy!r} for the reduction "
+                         "backward")
+    return dx.to(g.dtype)
+
+
+def concat_bwd(live: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
+    """The concat's jacobian splitting: client k's gradient is its own
+    column block of ``g`` (B, k*D), zeroed when it was dropped."""
+    B = g.shape[0]
+    blocks = g.to(torch.float32).reshape(B, k, -1).permute(1, 0, 2)
+    return (blocks * live.to(torch.float32).reshape(k, 1, 1)).to(g.dtype)

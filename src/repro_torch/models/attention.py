@@ -4,7 +4,7 @@ Prefill takes the JAX package's dense branch (``S * Skv <=
 FLASH_THRESHOLD**2``); longer sequences need the blocked flash path,
 which comes with the flash-attention slice and raises here.  Decode
 supports the f32 linear cache with tracked ``kv_positions`` — no ring
-buffer, window, int8 KV or decode chunks in this slice.
+buffer, window, int8 KV or decode chunks yet.
 
 Decode is written for a batch of independent streams, each at its own
 position: ``cache_index`` is a ``(B,)`` tensor and ``kv_positions`` a

@@ -1,5 +1,5 @@
 """Architecture assembly: params for the dense family with its vertical
-split.
+split, the server trunk, the LM loss and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
 K independent client towers over d_model/K feature slices; tower outputs
@@ -12,6 +12,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -85,3 +86,44 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                                        dtype=dtype),
         "towers": _init_towers(cfg, generator, dtype),
     }
+
+
+def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
+                        dims: BlockDims, *, positions) -> torch.Tensor:
+    """Post-merge server layers (the dense branch of the JAX package's
+    ``_server_trunk_apply``; the family has no auxiliary loss)."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the port's server trunk covers the dense family "
+            f"only (got {cfg.family!r})")
+    return tfm.dense_stack_apply(params["server"], x, dims, causal=True,
+                                 positions=positions)
+
+
+def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy; labels already shifted by the caller.
+    f32 ``log_softmax``, then a gather at the label (int64 indices)."""
+    logp = F.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -torch.mean(ll)
+
+
+# ---------------------------------------------------------------------------
+# split execution: per-role params + tower/server callables (thin wrappers
+# over the token-LM SplitProgram, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+def split_lm_params(cfg: ArchConfig, params: dict) -> tuple[list, dict]:
+    """Per-client tower trees (each with its own copy of its embedding
+    columns) and the role-0 server tree."""
+    from repro_torch.models.split_program import get_program
+
+    return get_program(cfg).partition(params)
+
+
+def make_split_lm_fns(cfg: ArchConfig):
+    """(tower_fwd, server_fwd, loss_fn) callables for the Executor."""
+    from repro_torch.models.split_program import get_program
+
+    program = get_program(cfg)
+    return program.tower_fwd(0), program.server_fwd, program.loss_fn

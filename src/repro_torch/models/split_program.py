@@ -1,21 +1,36 @@
 """Per-family SplitProgram: the execution-side contract of the vertical split.
 
-This slice carries the serving half of the dense token-LM program: the
-per-role parameter ``partition`` and the tower / server serving bundles.
-The training contract (``tower_fwd``, ``server_fwd``, ``loss_fn``, feature
-sources) and the other families come with later slices.
+A :class:`SplitProgram` bundles what the protocol stack needs to train and
+serve one config family split across the role-1/3 feature holders and the
+role-0 server:
+
+* ``tower_fwd(k)`` — client ``k``'s ``(tower_params, feats) -> cut``;
+* ``server_fwd`` — the role-0 forward ``(server_params, merged) ->
+  logits``;
+* ``loss_fn`` — the role-3 loss ``(logits, batch_ctx) -> scalar``;
+* ``partition(params)`` — the per-role split of a monolithic param tree;
+* ``features`` / ``feature_fn`` — the per-client feature source,
+  driver-side (one batch) and worker-side (regenerated from the shared
+  seed, so only protocol messages cross a transport);
+* the tower / server serving bundles.
+
+The port registers the dense token-LM program; the other families come
+with later slices.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
+from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
-from repro_torch.models.backbone import _server_layers, _tower_dims
+from repro_torch.models.backbone import (_server_layers, _server_trunk_apply,
+                                         _tower_dims, lm_loss)
 from repro_torch.models.transformer import BlockDims
+from repro_torch.tree_util import tree_map
 
 
 class TowerServeFns:
@@ -52,7 +67,14 @@ class ServerServeFns:
 
 
 class SplitProgram:
-    """Family-agnostic contract; subclasses register one family each."""
+    """Family-agnostic contract; subclasses register one family each.
+
+    The class-level shape flags are the JAX package's (``executor_kwargs``
+    hands them to the Executor); the dense program sets none of them."""
+
+    server_takes_batch = False
+    has_aux = False
+    merge_fn: Optional[Callable] = None
 
     def __init__(self, cfg: ArchConfig):
         if cfg.vertical is None:
@@ -65,8 +87,40 @@ class SplitProgram:
     def num_clients(self) -> int:
         return self.cfg.vertical.num_clients
 
+    @property
+    def tower_fwds(self) -> list:
+        return [self.tower_fwd(k) for k in range(self.num_clients)]
+
+    @property
+    def executor_kwargs(self) -> dict:
+        """Keyword arguments configuring an Executor for this program."""
+        return dict(server_takes_batch=self.server_takes_batch,
+                    server_aux=self.has_aux, merge_fn=self.merge_fn)
+
     def partition(self, params) -> tuple[list, dict]:
         """Monolithic param tree -> (per-client tower trees, server tree)."""
+        raise NotImplementedError
+
+    def tower_fwd(self, client: int) -> Callable:
+        """Client ``client``'s ``(tower_params, feats) -> cut``."""
+        raise NotImplementedError
+
+    def features(self, batch: dict, device: DeviceLike = None) -> list:
+        """Driver-side per-client feature tensors for one loader batch (the
+        serial ``protocol_step`` reference path)."""
+        raise NotImplementedError
+
+    def batch_ctx(self, batch: dict, device: DeviceLike = None):
+        """Role-0/3-side per-step context (the labels as int64), sliced
+        into microbatches along the leading axis."""
+        return torch.as_tensor(batch["labels"], dtype=torch.long,
+                               device=resolve_device(device))
+
+    def feature_fn(self, client: int, *, batch: int, seq: int, seed: int = 0,
+                   microbatches: int = 1,
+                   device: DeviceLike = None) -> Callable:
+        """Worker-side ``(step, mb) -> feats``, regenerated from the shared
+        seed."""
         raise NotImplementedError
 
     def tower_serve_fns(self, client: int) -> TowerServeFns:
@@ -74,6 +128,40 @@ class SplitProgram:
 
     def server_serve_fns(self) -> ServerServeFns:
         raise NotImplementedError
+
+    def protocol_step(self, tower_params, server_params, features, ctx, *,
+                      label_holder: int = 0, live_mask=None, ledger=None):
+        """Serial reference step on this program's decomposition; returns
+        (loss, tower_grads, server_grads, ledger).  Merges with the plain
+        version (the ``"neutral"`` drop policy), never the kernel."""
+        from repro_torch.core.protocol import protocol_step
+
+        return protocol_step(
+            self.tower_fwds, self.server_fwd, self.loss_fn, tower_params,
+            server_params, features, ctx, self.merge,
+            label_holder=label_holder, live_mask=live_mask, ledger=ledger,
+            compress=self.cfg.vertical.compression, **self.executor_kwargs)
+
+    def _loader_feature_fn(self, *, batch: int, seq: int, seed: int,
+                           microbatches: int, extract: Callable,
+                           device: DeviceLike) -> Callable:
+        """Iterate the shared-seed ``LMBatchLoader`` lazily; ``extract``
+        picks this client's view of each batch dict."""
+        from repro_torch.data.loader import LMBatchLoader
+
+        dev = resolve_device(device)
+        loader_it = iter(LMBatchLoader(self.cfg, batch, seq, seed=seed))
+        state = {"step": -1, "batch": None}
+        mbsz = batch // microbatches
+
+        def feature_fn(step: int, mb: int) -> torch.Tensor:
+            while state["step"] < step:  # steps arrive in order
+                state["batch"] = next(loader_it)
+                state["step"] += 1
+            feats = extract(state["batch"])[mb * mbsz:(mb + 1) * mbsz]
+            return torch.as_tensor(feats, dtype=torch.long, device=dev)
+
+        return feature_fn
 
 
 class TokenLMSplitProgram(SplitProgram):
@@ -88,7 +176,8 @@ class TokenLMSplitProgram(SplitProgram):
     the tower half (embedding-column slice -> proj_in -> tower blocks ->
     proj_out, with the tower KV cache) runs at the client; the server half
     (server stack -> final norm -> unembed, with the server KV cache) runs
-    at role 0 from the MERGED cut."""
+    at role 0 from the MERGED cut.  Training runs the same split through
+    full-sequence forwards with no cache."""
 
     def partition(self, params):
         K = self.num_clients
@@ -96,12 +185,51 @@ class TokenLMSplitProgram(SplitProgram):
         table = params["embed"]["table"]
         towers = []
         for k in range(K):
+            # copies, not views: a view of the (K, ...) stack would keep
+            # every client's towers alive in each worker, and a view of the
+            # table would tie the client's embedding columns to the
+            # server's (the two train independently, as in the JAX package)
             tp = tfm.layer_params(params["towers"], k)
-            # the client's own copy of its columns, not a view of the table
-            tp["embed_slice"] = table[:, k * ds:(k + 1) * ds].contiguous()
+            tp = tree_map(torch.clone, tp)
+            tp["embed_slice"] = table[:, k * ds:(k + 1) * ds].clone()
             towers.append(tp)
         server = {key: val for key, val in params.items() if key != "towers"}
         return towers, server
+
+    def tower_fwd(self, client: int) -> Callable:
+        dims_t = _tower_dims(self.cfg)
+
+        def tower_fwd(tp, tokens):
+            x = tp["embed_slice"][tokens.long()]  # (B, S, d/K)
+            positions = torch.arange(tokens.shape[-1], device=tokens.device)
+            h = x @ tp["proj_in"]
+            h = tfm.dense_stack_apply(tp["blocks"], h, dims_t, causal=True,
+                                      positions=positions)
+            return h @ tp["proj_out"]
+
+        return tower_fwd
+
+    def server_fwd(self, sp, merged):
+        dims = BlockDims.from_arch(self.cfg)
+        positions = torch.arange(merged.shape[1], device=merged.device)
+        x = _server_trunk_apply(sp, merged, self.cfg, dims,
+                                positions=positions)
+        x = layers.rmsnorm(sp["final_norm"], x, dims.norm_eps)
+        return layers.unembed(sp["embed"], x)
+
+    def loss_fn(self, logits, labels):
+        return lm_loss(logits, labels)
+
+    def features(self, batch, device=None):
+        tokens = torch.as_tensor(batch["tokens"], dtype=torch.long,
+                                 device=resolve_device(device))
+        return [tokens] * self.num_clients
+
+    def feature_fn(self, client, *, batch, seq, seed=0, microbatches=1,
+                   device=None):
+        return self._loader_feature_fn(
+            batch=batch, seq=seq, seed=seed, microbatches=microbatches,
+            extract=lambda b: b["tokens"], device=device)
 
     def _require_dense_serving(self):
         if self.cfg.family != "dense":

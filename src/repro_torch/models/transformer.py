@@ -110,6 +110,17 @@ def dense_block_apply(p: dict, x: torch.Tensor, dims: BlockDims, *,
     return out
 
 
+def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
+                      causal: bool = True,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence forward through L stacked layers, no cache (training
+    and the split program's tower / server forwards)."""
+    for i in range(num_layers(stacked)):
+        x = dense_block_apply(layer_params(stacked, i), x, dims,
+                              causal=causal, positions=positions)
+    return x
+
+
 def dense_stack_prefill(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
                         positions: torch.Tensor, causal: bool = True):
     """Full-sequence forward that also returns per-layer K/V for cache fill.

@@ -1,1 +1,2 @@
-"""Role-0 drivers: the merge fast path and the serving driver."""
+"""Role-0 drivers: the training Executor and its step pipeline, the merge
+fast path and the serving driver."""

@@ -1,0 +1,275 @@
+"""Training loop of the port: split execution through the Executor.
+
+:func:`train_split` trains the dense token-LM family split for real:
+per-role workers behind an :class:`~repro_torch.transport.InprocTransport`
+(one thread per feature holder), the
+:class:`~repro_torch.runtime.executor.Executor` driving ``step_schedule``
+at role 0, tower params updating locally at the clients, the server
+params at role 0 — the JAX package's ``repro.train.loop.train_split`` with
+``--transport inproc``.  Step 0 is verified against the serial
+``protocol_step``, which merges with the plain version, so every run
+checks the kernel merge (forward and backward) against it.
+
+Not ported yet, and refused before any worker is built: the multiproc
+transport, no-wait mode, secure aggregation, cut compression, aggregation
+trees; the monolithic ``train`` and checkpoints.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compat
+from repro_torch.core.protocol import _reject_unported
+from repro_torch.models import backbone
+from repro_torch.optim import AdamW
+from repro_torch.optim.schedules import linear_warmup_cosine
+from repro_torch.tree_util import tree_leaves, tree_map
+
+
+@dataclass
+class TrainMetrics:
+    steps: list[int] = field(default_factory=list)
+    losses: list[float] = field(default_factory=list)
+    step_times: list[float] = field(default_factory=list)
+    # largest |step-0 gradient - serial protocol_step gradient|, when verified
+    step0_max_dgrad: Optional[float] = None
+
+    def log(self, step: int, loss: float, dt: float) -> None:
+        self.steps.append(step)
+        self.losses.append(loss)
+        self.step_times.append(dt)
+
+    def summary(self) -> dict:
+        if not self.losses:
+            return {}
+        n = max(len(self.losses) // 10, 1)
+        return {
+            "first_loss": self.losses[0],
+            "last_loss": self.losses[-1],
+            "best_loss": min(self.losses),
+            "mean_step_s": sum(self.step_times[1:])
+            / max(len(self.step_times) - 1, 1),
+            "loss_drop": self.losses[0] - min(
+                sum(self.losses[-n:]) / n, self.losses[-1]),
+        }
+
+
+def _make_transport(cfg: ArchConfig, transport: str, *, seed, batch, seq,
+                    microbatches, learning_rate, warmup, steps, grad_clip,
+                    straggler: Optional[int], straggler_delay_s: float,
+                    params: Optional[dict], device: torch.device):
+    from repro_torch.transport import InprocTransport, build_split_worker
+
+    if transport != "inproc":
+        raise NotImplementedError(
+            f"split transport {transport!r} is not ported to repro_torch yet "
+            "(inproc only; see ROADMAP.md, Queue 1)")
+    workers = [build_split_worker(
+        k, cfg=cfg, seed=seed, batch=batch, seq=seq,
+        microbatches=microbatches, learning_rate=learning_rate,
+        warmup=warmup, steps=steps, grad_clip=grad_clip,
+        forward_delay_s=straggler_delay_s if k == straggler else 0.0,
+        params=params, device=device)
+        for k in range(cfg.vertical.num_clients)]
+    return InprocTransport(workers)
+
+
+def _verify_step0(res, program, tower_params, server_params, features, ctx,
+                  microbatches: int, atol: float, print_fn: Callable) -> float:
+    """The acceptance identity: the transport's step-0 gradients must match
+    the serial ``protocol_step`` on the same decomposition (the mean of M
+    per-microbatch serial steps — what the Executor computes).  Returns
+    the largest |difference| over every gradient leaf."""
+    M = microbatches
+    mbsz = ctx.shape[0] // M
+    losses, tgs, sgs = [], [], []
+    for m in range(M):
+        sl = slice(m * mbsz, (m + 1) * mbsz)
+        loss_m, tg_m, sg_m, _ = program.protocol_step(
+            tower_params, server_params, [f[sl] for f in features], ctx[sl])
+        losses.append(loss_m)
+        tgs.append(tg_m)
+        sgs.append(sg_m)
+    loss_ref = sum(losses) / M
+    tg_ref = tree_map(lambda *x: sum(x) / M, *tgs)
+    sg_ref = tree_map(lambda *x: sum(x) / M, *sgs)
+    got = tree_leaves((res.tower_grads, res.server_grads))
+    want = tree_leaves((tg_ref, sg_ref))
+    max_dev = max(float(torch.max(torch.abs(a.float() - b.float())))
+                  for a, b in zip(got, want))
+    loss_dev = abs(float(res.loss) - float(loss_ref))
+    if max_dev > atol or loss_dev > atol:
+        raise RuntimeError(
+            f"step-0 gradients diverge from the serial protocol_step: "
+            f"max |dgrad| {max_dev:.3e}, |dloss| {loss_dev:.3e} > {atol:g}")
+    print_fn(f"step-0 verification vs protocol_step: max |dgrad| "
+             f"{max_dev:.2e}, |dloss| {loss_dev:.2e} (<= {atol:g}) OK")
+    return max_dev
+
+
+def train_split(
+    cfg: ArchConfig,
+    loader,
+    *,
+    steps: int = 100,
+    batch: int = 8,
+    seq: int = 256,
+    transport: str = "inproc",
+    runtime: str = "serial",
+    microbatches: int = 1,
+    inflight_steps: int = 1,
+    learning_rate: float = 3e-4,
+    warmup: int = 20,
+    grad_clip: float = 1.0,
+    log_every: int = 10,
+    seed: int = 0,
+    straggler: Optional[int] = None,
+    straggler_delay_s: float = 0.25,
+    agg_tree_fanout: Optional[int] = None,
+    verify_step0: bool = True,
+    verify_atol: float = 1e-5,
+    print_fn: Callable = print,
+    device: DeviceLike = None,
+    params: Optional[dict] = None,
+):
+    """Train ``cfg``'s split program through the Executor over a real
+    transport.  Returns ({"towers": [...], "server": ...}, metrics,
+    report).
+
+    ``loader`` yields the role-0 batches (an ``LMBatchLoader`` with
+    ``seed``); each feature holder regenerates the same token stream from
+    ``seed``.  ``runtime`` is ``serial`` (M = 1 barrier) or ``pipelined``
+    (``microbatches`` per step); ``inflight_steps`` is the cross-step
+    window W of :class:`~repro_torch.runtime.pipeline.StepPipeline` (at
+    W > 1 the towers train on delayed gradients).  Runs on ``device``
+    (``cuda`` unless ``"cpu"`` is asked for).  ``params`` is the full
+    initial param tree on that device; None runs the port's seeded init
+    (torch cannot reproduce the JAX package's ``jax.random`` init, so
+    tests hand the JAX package's params in here).
+    """
+    from repro_torch.models.split_program import get_program
+    from repro_torch.runtime.executor import Executor
+    from repro_torch.runtime.pipeline import StepPipeline
+
+    if cfg.vertical is None:
+        raise ValueError("train_split needs a vertical config")
+    if inflight_steps < 1:
+        raise ValueError(f"inflight_steps must be >= 1, got {inflight_steps}")
+    if runtime not in ("serial", "pipelined", "nowait"):
+        raise ValueError(f"runtime must be serial|pipelined|nowait, got "
+                         f"{runtime!r}")
+    mode = runtime
+    M = 1 if runtime == "serial" else microbatches
+    W = inflight_steps
+    dev = resolve_device(device)
+
+    program = get_program(cfg)
+    secure = cfg.vertical.secure_aggregation
+    compress = cfg.vertical.compression
+    # fail BEFORE any worker is built: unsound compositions through the
+    # compat matrix, then what the port does not carry yet
+    compat.check(
+        "train", secure=secure, compress=compress, tree=agg_tree_fanout,
+        nowait=runtime == "nowait", merge_fn=program.merge_fn,
+        merge=program.merge, context=f"train_split({cfg.name})")
+    _reject_unported(secure=secure, compress=compress, tree=agg_tree_fanout,
+                     nowait=runtime == "nowait")
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = backbone.init_params(cfg, gen, device=dev)
+    tower_params, server_params = program.partition(params)
+
+    opt = AdamW(
+        learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
+        weight_decay=0.1, grad_clip_norm=grad_clip)
+    opt_state = opt.init(server_params)
+
+    tr = _make_transport(
+        cfg, transport, seed=seed, batch=batch, seq=seq, microbatches=M,
+        learning_rate=learning_rate, warmup=warmup, steps=steps,
+        grad_clip=grad_clip, straggler=straggler,
+        straggler_delay_s=straggler_delay_s, params=params, device=dev)
+    del params  # role 0 keeps the server tree and the step-0 towers only
+    metrics = TrainMetrics()
+    report = None
+    max_staleness = 0
+    b0 = None  # step-0 batch retained for the deferred verification
+    it = iter(loader)
+    t_last = time.time()
+
+    def handle(res):
+        """Consume one collected step: verify (step 0), update the server,
+        log."""
+        nonlocal server_params, opt_state, report, t_last, max_staleness
+        max_staleness = max(max_staleness, res.report.staleness)
+        if res.step == 0 and verify_step0:
+            metrics.step0_max_dgrad = _verify_step0(
+                res, program, tower_params, server_params,
+                program.features(b0, dev), program.batch_ctx(b0, dev), M,
+                verify_atol, print_fn)
+        server_params, opt_state = opt.update(server_params,
+                                              res.server_grads, opt_state)
+        report = res.report
+        loss = float(res.loss)
+        now = time.time()
+        dt, t_last = now - t_last, now
+        metrics.log(res.step, loss, dt)
+        if res.step % log_every == 0 or res.step == steps - 1:
+            print_fn(f"step {res.step:5d}  loss {loss:8.4f}  "
+                     f"{dt * 1e3:8.1f} ms  [{transport}/{mode}"
+                     + (f" W={W}" if W > 1 else "") + "]")
+
+    try:
+        executor = Executor(tr, program.server_fwd, program.loss_fn,
+                            program.merge, mode=mode, microbatches=M,
+                            **program.executor_kwargs)
+        pipeline = StepPipeline(executor, window=W)
+
+        def collect_one():
+            target = pipeline.next_collect
+            handle(pipeline.collect(
+                server_params,
+                collect_grads=(target == 0 and verify_step0)))
+
+        for step in range(steps):
+            b = next(it)
+            if step == 0:
+                b0 = b
+            pipeline.submit(step, program.batch_ctx(b, dev))
+            if pipeline.inflight >= W:
+                collect_one()
+        while pipeline.inflight:  # drain the fill (steps < W included)
+            collect_one()
+        final_towers = _collect_tower_params(tr)
+    finally:
+        tr.close()
+    if report is not None:
+        # the drain-collected tail always has staleness 0; surface the
+        # run's actual delayed-gradient lag on the returned report
+        report.staleness = max_staleness
+    return ({"towers": final_towers, "server": server_params}, metrics,
+            report)
+
+
+def _collect_tower_params(tr) -> list:
+    """Fetch each client's final tower params."""
+    K = tr.num_clients
+    out: list = [None] * K
+    for k in range(K):
+        tr.submit(k, {"op": "get_params"})
+    seen = 0
+    while seen < K:
+        got = tr.next_response(60.0)
+        if got is None:
+            raise RuntimeError("timed out collecting tower params")
+        k, resp = got
+        if resp["op"] == "params":
+            out[k] = resp["params"]
+            seen += 1
+    return out

@@ -1,11 +1,18 @@
-"""Transport layer: the feature-holder worker and the inline backend.
+"""Transport layer: the feature-holder worker, the inline backend and the
+threaded one.
 
 Transport contract (star topology, role 0 is the caller): ``submit(client,
 request)`` — FIFO per client, non-blocking; ``next_response(timeout)`` —
 the next ``(client, response)`` from any client, or ``None``; ``close()``.
 
-Worker ops of this slice (:data:`repro_torch.transport.ops.WORKER_OPS`):
+Worker ops (:data:`repro_torch.transport.ops.WORKER_OPS`):
 
+* ``forward {step, mb[, feats]}`` -> ``cut {step, mb, cut}`` (features come
+  inline or from the worker's own ``feature_fn``)
+* ``backward {step, mb, jac}`` -> ``grad {step, mb}``, or the deferred
+  ``step_done`` when it completes a waiting ``finish_step``
+* ``finish_step {step, microbatches, collect, expected_jacs}`` ->
+  ``step_done {step[, grad]}`` (local optimizer update when configured)
 * ``serve_prefill {request, tokens, cache_len}`` -> ``serve_prefill_cut
   {request, cut}`` (opens or resets the request's tower KV session)
 * ``serve_decode {request, token, pos}`` -> ``serve_cut {request, pos,
@@ -16,5 +23,7 @@ Worker ops of this slice (:data:`repro_torch.transport.ops.WORKER_OPS`):
 """
 from repro_torch.transport.base import SimTransport, TowerWorker, Transport
 from repro_torch.transport.builders import build_split_worker
+from repro_torch.transport.inproc import InprocTransport
 
-__all__ = ["SimTransport", "TowerWorker", "Transport", "build_split_worker"]
+__all__ = ["InprocTransport", "SimTransport", "TowerWorker", "Transport",
+           "build_split_worker"]

@@ -1,21 +1,24 @@
 """Transport interface + the feature-holder worker + the inline backend.
 
 ``TowerWorker`` is the feature-holder endpoint, transport-agnostic: it owns
-this client's tower params and serves the ops of
-:data:`repro_torch.transport.ops.WORKER_OPS`.  Backends differ only in
-WHERE ``handle`` runs and how requests/responses move; this slice has the
-inline :class:`SimTransport`, which keeps every payload a tensor on its
-device (nothing is pickled).
+this client's tower params (and optionally a local optimizer and feature
+source) and serves the ops of :data:`repro_torch.transport.ops.WORKER_OPS`.
+Backends differ only in WHERE ``handle`` runs and how requests/responses
+move: the inline :class:`SimTransport` here, the threaded
+:class:`~repro_torch.transport.inproc.InprocTransport`.  Both keep every
+payload a tensor on its device (nothing is pickled).
 """
 from __future__ import annotations
 
+import time
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import compat
 from repro_torch.transport import ops as ops_registry
+from repro_torch.tree_util import tree_leaves, tree_map, tree_unflatten
 
 
 class Transport:
@@ -42,23 +45,61 @@ class Transport:
 
 
 class TowerWorker:
-    """Role-1/3 endpoint serving split inference.
+    """Role-1/3 endpoint: tower forward/backward, an optional local update,
+    and split inference.
+
+    ``tower_fwd(params, feats) -> cut``.  ``feature_fn(step, mb) -> feats``
+    lets the worker own its data (regenerated from the shared seed);
+    requests may instead carry ``feats`` inline.  ``optimizer`` (the
+    port's ``AdamW``: ``init``/``update``) enables local parameter updates
+    at ``finish_step`` — tower params never leave the client.
+    ``forward_delay_s`` slows this client's forwards (a wall-clock
+    straggler).
+
+    Cross-step pipelining (the executor's ``submit_step``/``collect_step``
+    driven at window W > 1) means step t+1's forwards arrive BEFORE step
+    t's jacobians, so all per-step state is buffered by step:
+
+    * forwards snapshot the params they ran under (``_step_params``) and
+      backwards linearize at that snapshot: the jacobian the server returns
+      is w.r.t. the snapshot's cut.  The optimizer updates out of place,
+      so a later update never writes into a snapshot;
+    * gradient accumulators and pending features are per step;
+    * a ``finish_step`` carrying ``expected_jacs`` defers its update until
+      that many backwards of its step have landed; the completing backward
+      then returns the deferred ``step_done``.
+
+    Cuts leave the worker without autograd history (the forward runs under
+    ``no_grad``); the backward re-runs the tower forward at the snapshot
+    and pulls the jacobian through it with ``torch.autograd.grad`` — the
+    vjp the JAX worker takes as ``grad(vdot(tower_fwd(tp, feats), jac))``.
 
     ``serve_fns`` is the program's tower serving bundle
     (:class:`~repro_torch.models.split_program.TowerServeFns`); one tower KV
-    session per in-flight request, keyed by request id, so a client serves
-    many interleaved requests at heterogeneous positions.  ``compress`` is
-    the config's cut codec, carried so the worker's own compat guard can
-    refuse to serve under it (serving frames are raw cut tensors)."""
+    session per in-flight request, keyed by request id.  ``compress`` is
+    the config's cut codec, carried so the worker's own guards can refuse
+    what the port does not run under it."""
 
-    def __init__(self, client_id: int, tower_params, *, serve_fns=None,
-                 compress: Optional[str] = None,
+    def __init__(self, client_id: int, tower_fwd: Optional[Callable],
+                 tower_params, *, feature_fn: Optional[Callable] = None,
+                 optimizer=None, forward_delay_s: float = 0.0,
+                 compress: Optional[str] = None, serve_fns=None,
                  device: Optional[torch.device] = None):
         self.client_id = client_id
+        self.tower_fwd = tower_fwd
         self.params = tower_params
-        self.serve_fns = serve_fns
+        self.feature_fn = feature_fn
+        self.optimizer = optimizer
+        self.forward_delay_s = forward_delay_s
         self.compress = compress
+        self.serve_fns = serve_fns
         self.device = device
+        self.opt_state = optimizer.init(tower_params) if optimizer else None
+        self._feats: dict = {}  # (step, mb) -> feats awaiting backward
+        self._step_params: dict = {}  # step -> params its forwards ran under
+        self._grad_sums: dict = {}  # step -> accumulated tower grads
+        self._jacs_seen: dict = {}  # step -> backwards processed
+        self._pending_finish: dict = {}  # step -> deferred finish request
         self._serve_sessions: dict = {}  # request id -> tower KV session
 
     def handle(self, request: dict) -> Optional[dict]:
@@ -80,6 +121,86 @@ class TowerWorker:
 
     def _shutdown(self, request: dict) -> dict:
         return {"op": "bye", "client": self.client_id}
+
+    # -- training ops -------------------------------------------------------
+
+    def _forward(self, request: dict) -> dict:
+        if self.compress is not None:
+            # the worker's own guard: a compressing worker must not ship
+            # raw frames whatever the driver says
+            raise NotImplementedError(
+                f"client {self.client_id}: cut compression is not ported to "
+                "repro_torch yet (see ROADMAP.md, Queue 1)")
+        if self.forward_delay_s > 0.0:
+            time.sleep(self.forward_delay_s)
+        step, mb = request["step"], request["mb"]
+        feats = request.get("feats")
+        if feats is None:
+            if self.feature_fn is None:
+                raise ValueError(
+                    f"client {self.client_id}: no feats in request and no "
+                    "feature_fn configured")
+            feats = self.feature_fn(step, mb)
+        self._feats[(step, mb)] = feats
+        params = self._step_params.setdefault(step, self.params)
+        with torch.no_grad():
+            cut = self.tower_fwd(params, feats)
+        return {"op": "cut", "client": self.client_id, "step": step,
+                "mb": mb, "cut": cut}
+
+    def _backward(self, request: dict) -> dict:
+        step, mb = request["step"], request["mb"]
+        feats = self._feats.pop((step, mb))
+        jac = request["jac"].detach()
+        # linearize at the params this step's forwards ran under: the
+        # server's jacobian is w.r.t. THAT cut, and at W > 1 a later step's
+        # finish may already have moved self.params past the snapshot
+        base = self._step_params.get(step, self.params)
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(base)]
+        with torch.enable_grad():
+            cut = self.tower_fwd(tree_unflatten(base, leaves), feats)
+            grads = torch.autograd.grad(cut.to(torch.float32), leaves,
+                                        grad_outputs=jac.to(torch.float32))
+        grad = tree_unflatten(base, list(grads))
+        prev = self._grad_sums.get(step)
+        self._grad_sums[step] = grad if prev is None else \
+            tree_map(torch.add, prev, grad)
+        self._jacs_seen[step] = self._jacs_seen.get(step, 0) + 1
+        pending = self._pending_finish.get(step)
+        if pending is not None and \
+                self._jacs_seen[step] >= pending.get("expected_jacs", 0):
+            del self._pending_finish[step]
+            return self._complete_finish(pending)
+        return {"op": "grad", "client": self.client_id, "step": step,
+                "mb": mb}
+
+    def _finish_step(self, request: dict) -> Optional[dict]:
+        step = request["step"]
+        expected = request.get("expected_jacs")
+        if expected is not None and self._jacs_seen.get(step, 0) < expected:
+            # jacobians for this step still in flight (a non-FIFO backend):
+            # defer the update; the completing backward returns step_done
+            self._pending_finish[step] = request
+            return None
+        return self._complete_finish(request)
+
+    def _complete_finish(self, request: dict) -> dict:
+        step = request["step"]
+        M = request.get("microbatches", 1)
+        grad_sum = self._grad_sums.pop(step, None)
+        if grad_sum is None:
+            avg = tree_map(torch.zeros_like, self.params)
+        else:
+            avg = tree_map(lambda g: g / M, grad_sum)
+        if self.optimizer is not None:
+            self.params, self.opt_state = self.optimizer.update(
+                self.params, avg, self.opt_state)
+        self._step_params.pop(step, None)
+        self._jacs_seen.pop(step, None)
+        self._feats = {key: v for key, v in self._feats.items()
+                       if key[0] != step}
+        return {"op": "step_done", "client": self.client_id, "step": step,
+                "grad": avg if request.get("collect") else None}
 
     # -- serving ops --------------------------------------------------------
 

@@ -1,9 +1,11 @@
 """The worker op table — the wire verbs a port worker serves.
 
 :class:`~repro_torch.transport.base.TowerWorker.handle` dispatches requests
-from this table.  This slice carries the serving verbs plus the two
-housekeeping verbs; the training verbs (``forward``, ``backward``,
-``finish_step``, ...) come with the training slice.
+from this table.  The port carries the training verbs of the plain star,
+the serving verbs and the two housekeeping verbs; the secure-aggregation
+and tree verbs
+(``key_exchange``, ``configure_relay``, ``aggregate``) come with their
+slices.
 """
 from __future__ import annotations
 
@@ -23,6 +25,14 @@ class OpSpec:
 
 
 WORKER_OPS: dict[str, OpSpec] = {spec.op: spec for spec in (
+    OpSpec("forward", "_forward", ("cut",),
+           "run one microbatch's tower forward; uplink the cut frame"),
+    OpSpec("backward", "_backward", ("grad", "step_done"),
+           "apply the cut jacobian through the tower backward; ack (or "
+           "finish a deferred step)"),
+    OpSpec("finish_step", "_finish_step", ("step_done",),
+           "average the step's tower grads over M, apply the local "
+           "optimizer update when configured, return grads iff collect"),
     OpSpec("serve_prefill", "_serve_prefill", ("serve_prefill_cut",),
            "run the tower's feature slice over the whole prompt once and "
            "open (or reset) the request's tower KV session"),

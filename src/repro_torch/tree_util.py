@@ -1,0 +1,46 @@
+"""Nested dict/list/tuple trees of tensors: the port's ``jax.tree_util``.
+
+Leaves come out in the JAX package's order (dict keys sorted), so a
+reduction over leaves (the global gradient norm) sums in the same order
+in both packages.
+"""
+from __future__ import annotations
+
+from typing import Callable, Iterator
+
+
+def tree_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for item in tree for leaf in tree_leaves(item)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and of the same-shaped ``rest``."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
+                for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *items) for items in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def tree_unflatten(tree, leaves: list):
+    """A tree shaped like ``tree`` holding ``leaves`` (in
+    :func:`tree_leaves` order)."""
+    it = iter(leaves)
+    out = _rebuild(tree, it)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
+
+
+def _rebuild(tree, it: Iterator):
+    if isinstance(tree, dict):
+        built = {key: _rebuild(tree[key], it) for key in sorted(tree)}
+        return {key: built[key] for key in tree}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rebuild(item, it) for item in tree)
+    return next(it)

@@ -1,4 +1,5 @@
-"""The port's Triton kernels against their plain PyTorch version.
+"""The port's Triton kernels, forward and backward, against their plain
+PyTorch versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -7,8 +8,10 @@ the JAX package, so it runs on a machine with a card and no JAX:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
         tests/test_torch_kernels_cuda.py
 
-Tolerances: 1e-5 in f32, 2e-2 in bf16 (the kernels accumulate in f32, the
-plain version in the input dtype).
+Tolerances: 1e-5 in f32, 2e-2 in bf16 forward (the kernels accumulate in
+f32, the plain forward in the input dtype), 5e-2 in bf16 backward (both
+compute in f32; a gradient is rounded to bf16 once more than the merged
+value it came from).
 """
 import pytest
 import torch
@@ -20,6 +23,8 @@ STRATEGIES = ["sum", "avg", "max", "mul", "concat"]
 SHAPES = [(2, 8, 128), (4, 32, 256), (5, 100, 384), (3, 37, 100),
           (4, 1, 960), (4, 1024, 960), (4, 128, 240)]
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+BWD_NAME = {"concat": "merge_concat_bwd_kernel"}
 
 
 def _live(k, kind):
@@ -77,3 +82,106 @@ def test_kernel_wrapper_validates_inputs_on_card():
     with pytest.raises(ValueError, match="live"):
         kernel_module.merge_pool(x, torch.ones(3, device="cuda"),
                                  strategy="avg")
+
+
+def _plain_grad(x, live, g, strategy):
+    """The plain backward, through PyTorch's autograd of the plain merge."""
+    xp = x.detach().clone().requires_grad_(True)
+    grad, = torch.autograd.grad(ref.merge_pool(xp, strategy, live), xp, g)
+    return grad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_backward_kernels_match_plain_version_on_card(strategy, dtype):
+    """MergePool's backward launches the backward kernel once per call and
+    equals the plain backward (the ref functions and autograd of the plain
+    merge), for every live mask and shape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    name = BWD_NAME.get(strategy, "merge_reduce_bwd_kernel")
+    for kind in ("all", "dropped", "none"):
+        for shape in SHAPES:
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            live = _live(shape[0], kind)
+            xk = x.clone().requires_grad_(True)
+            out = ops.merge_pool(xk, live, strategy=strategy)
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(dtype)
+            before = kernel_module.launches[name]
+            got, = torch.autograd.grad(out, xk, g)
+            assert kernel_module.launches[name] == before + 1
+            if strategy == "concat":
+                plain = ref.concat_bwd(live, g, shape[0])
+            else:
+                plain = ref.merge_pool_bwd(x, live, out.detach(), g, strategy)
+            torch.cuda.synchronize()
+            assert got.shape == x.shape and got.dtype == dtype
+            for want in (plain, _plain_grad(x, live, g, strategy)):
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=GRAD_TOL[dtype],
+                                           atol=GRAD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_backward_kernel_edge_cases_on_card():
+    """mul with an exact zero in a live client (the product of the others,
+    finite), max with exact ties (the credit split), and a strided
+    gradient reaching the Function through fast_merge's reshape."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+    from repro_torch.runtime.executor import fast_merge
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    x = torch.randn((4, 6, 16), generator=gen, device="cuda")
+    x[1, 2, 5] = 0.0
+    live = torch.tensor([1.0, 1.0, 1.0, 0.0], device="cuda")
+    g = torch.randn((6, 16), generator=gen, device="cuda")
+    got = kernel_module.merge_pool_bwd(x, live, None, g, strategy="mul")
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, _plain_grad(x, live, g, "mul"),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(got[1, 2, 5], g[2, 5] * x[0, 2, 5] * x[2, 2, 5])
+
+    t = torch.randn((4, 5, 8), generator=gen, device="cuda")
+    t[1] = t[0]
+    t[3] = t[0] + 10.0  # would win, but is dropped
+    gt = torch.randn((5, 8), generator=gen, device="cuda")
+    out = kernel_module.merge_pool(t, live, strategy="max")
+    got = kernel_module.merge_pool_bwd(t, live, out, gt, strategy="max")
+    torch.testing.assert_close(got, _plain_grad(t, live, gt, "max"),
+                               rtol=1e-6, atol=1e-6)
+    assert not got[3].any()
+
+    for strategy in STRATEGIES:
+        s = torch.randn((4, 2, 5, 24), generator=gen, device="cuda")
+        w = torch.randn((96 if strategy == "concat" else 24,),
+                        generator=gen, device="cuda")
+        sk = s.clone().requires_grad_(True)
+        got, = torch.autograd.grad((fast_merge(sk, strategy) * w).sum(), sk)
+        sp = s.clone().requires_grad_(True)
+        want, = torch.autograd.grad(
+            (fast_merge(sp, strategy, use_kernel=False) * w).sum(), sp)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_backward_wrappers_validate_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+    live = torch.ones(4, device="cuda")
+    g = torch.randn(8, 16, device="cuda")
+    with pytest.raises(ValueError, match="reads the stack"):
+        kernel_module.merge_pool_bwd(None, live, None, g, strategy="mul")
+    with pytest.raises(ValueError, match="forward output"):
+        kernel_module.merge_pool_bwd(torch.randn(4, 8, 16, device="cuda"),
+                                     live, None, g, strategy="max")
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel_module.merge_pool_bwd(None, live, None,
+                                     torch.randn(16, 8, device="cuda").T,
+                                     strategy="avg")
+    with pytest.raises(TypeError, match="dtype"):
+        kernel_module.concat_bwd(live, g.half(), k=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_module.concat_bwd(live.cpu(), g.cpu(), k=4)

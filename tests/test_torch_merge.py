@@ -1,10 +1,19 @@
 """The port's plain ``merge_pool`` and ``fast_merge`` against the JAX
-package's Pallas kernel (interpret mode) and its jnp oracle.
+package's Pallas kernel (interpret mode) and its jnp oracle, forward and
+backward.
 
 Same inputs, made from a seed with numpy, go through both packages.
-Tolerances are those of tests/test_kernels.py: 1e-5 in f32, 2e-2 in bf16
-(the Pallas kernel accumulates in f32, the oracles in the input dtype).
+Forward tolerances are those of tests/test_kernels.py: 1e-5 in f32, 2e-2
+in bf16 (the Pallas kernel accumulates in f32, the oracles in the input
+dtype).  Backward: 1e-5 in f32, 5e-2 in bf16 (a gradient is rounded to
+bf16 once more than the merged value it came from).  The backward runs
+through the port's ``MergePool`` autograd Function (its plain versions
+on the CPU) and is held to ``jax.vjp`` of the Pallas ``custom_vjp``
+(interpret mode) and of the jnp oracle — except mul at an exact zero,
+where the Pallas formula ``out / x_k`` gives 0/0 and the port is held to
+autodiff of the oracle alone.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +31,7 @@ STRATEGIES = ["sum", "avg", "max", "mul", "concat"]
 SHAPES = [(2, 8, 128), (4, 32, 256), (5, 100, 384), (3, 37, 100),
           (4, 1, 960)]
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 5e-2}
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -97,3 +107,124 @@ def test_cpu_tensor_takes_plain_version():
     out = ops.merge_pool(x, strategy="avg")
     assert torch.equal(out, ref.merge_pool(x, "avg"))
     assert kernel_module.launches == before
+
+
+def _port_vjp(x, live, g, strategy):
+    """The port's gradient of the merge w.r.t. the stack, through
+    ``ops.merge_pool`` (MergePool on the CPU)."""
+    x = x.detach().clone().requires_grad_(True)
+    out = ops.merge_pool(x, live, strategy=strategy)
+    grad, = torch.autograd.grad(out, x, g)
+    return to_numpy(grad)
+
+
+def _jax_vjps(jx, jlive, jg, strategy, pallas=True):
+    def vjp(fn):
+        _, pull = jax.vjp(fn, jx)
+        return np.asarray(pull(jg)[0].astype(jnp.float32))
+
+    want = {"oracle": vjp(lambda s: jax_ref.merge_pool(s, strategy, jlive))}
+    if pallas:
+        want["pallas"] = vjp(lambda s: jax_merge_pool(
+            s, jlive, strategy=strategy, interpret=True))
+    return want
+
+
+@pytest.mark.parametrize("live_kind", ["all", "dropped", "none"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strategy", STRATEGIES)
+@pytest.mark.parametrize("k,b,d", [(2, 8, 128), (3, 37, 100)])
+def test_merge_pool_backward_matches_jax(k, b, d, strategy, dtype, live_kind):
+    """Jacobian splitting: the port's backward equals jax.vjp of the Pallas
+    kernel and of the oracle — every strategy, f32 and bf16, one client
+    dropped, all dropped, the ragged (3, 37, 100)."""
+    seed = 7 + k * 1000 + b * 10 + d
+    jx, tx, jlive, tlive = _inputs(k, b, d, dtype, live_kind, seed)
+    out_d = k * d if strategy == "concat" else d
+    g = np.random.default_rng(seed + 1).standard_normal(
+        (b, out_d)).astype(np.float32)
+    jg = jnp.asarray(g).astype(jx.dtype)
+    tg = torch.from_numpy(g).to(tx.dtype)
+    got = _port_vjp(tx, tlive, tg, strategy)
+    assert got.shape == (k, b, d) and np.all(np.isfinite(got))
+    for want in _jax_vjps(jx, jlive, jg, strategy).values():
+        np.testing.assert_allclose(got, want, rtol=GRAD_TOL[dtype],
+                                   atol=GRAD_TOL[dtype])
+    if live_kind == "none":
+        assert not np.any(got)  # every client dropped: no gradient
+
+
+def test_mul_backward_at_an_exact_zero():
+    """A live client holding an exact 0: the port gives each client the
+    product of the others (autodiff of the oracle), finite everywhere;
+    the Pallas ``out / x_k`` formula gives NaN there."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 6, 16)).astype(np.float32)
+    x[1, 2, 5] = 0.0
+    x[2, 4, :3] = 0.0  # a zero in a second client elsewhere
+    live = np.array([1, 1, 1, 0], np.float32)
+    g = rng.standard_normal((6, 16)).astype(np.float32)
+    got = _port_vjp(torch.from_numpy(x), torch.from_numpy(live),
+                    torch.from_numpy(g), "mul")
+    want = _jax_vjps(jnp.asarray(x), jnp.asarray(live), jnp.asarray(g),
+                     "mul", pallas=False)["oracle"]
+    assert np.all(np.isfinite(got))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    # client 1's gradient at its own zero is the product of the others
+    others = x[0, 2, 5] * x[2, 2, 5]
+    np.testing.assert_allclose(got[1, 2, 5], g[2, 5] * others, rtol=1e-6)
+    pallas = _jax_vjps(jnp.asarray(x), jnp.asarray(live), jnp.asarray(g),
+                       "mul")["pallas"]
+    assert np.isnan(pallas[1, 2, 5])
+
+
+def test_max_backward_splits_ties():
+    """Exact ties among live clients split the credit equally, as
+    autodiff does; a dropped client holding the same value gets none."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4, 5, 8)).astype(np.float32)
+    x[1] = x[0]          # clients 0 and 1 tie everywhere
+    x[3] = x[0] + 10.0   # client 3 would win, but is dropped
+    x[2, 0, :] = x[0, 0, :]  # a three-way tie in row 0
+    live = np.array([1, 1, 1, 0], np.float32)
+    g = rng.standard_normal((5, 8)).astype(np.float32)
+    got = _port_vjp(torch.from_numpy(x), torch.from_numpy(live),
+                    torch.from_numpy(g), "max")
+    for want in _jax_vjps(jnp.asarray(x), jnp.asarray(live), jnp.asarray(g),
+                          "max").values():
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got[:, 0].sum(0), g[0], rtol=1e-6)
+    assert not np.any(got[3])
+
+
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_fast_merge_backward_matches_jax(strategy):
+    """Through ``fast_merge``'s reshape of a (K, B, S, D) stack and a loss
+    that broadcasts (the gradient reaching MergePool is strided):
+    ``torch.autograd.grad`` equals ``jax.grad`` of the JAX fast_merge."""
+    x = np.random.default_rng(11).standard_normal(
+        (4, 2, 5, 24)).astype(np.float32)
+    w = np.random.default_rng(12).standard_normal(
+        (96 if strategy == "concat" else 24,)).astype(np.float32)
+
+    tx = torch.from_numpy(x).requires_grad_(True)
+    loss = (fast_merge(tx, strategy) * torch.from_numpy(w)).sum()
+    got, = torch.autograd.grad(loss, tx)
+    want = jax.grad(lambda s: jnp.sum(jax_fast_merge(s, strategy) * w))(
+        jnp.asarray(x))
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_plain_switch_keeps_pytorch_autograd():
+    """``use_kernel=False`` is the plain version with PyTorch's own
+    autograd, equal to the MergePool path on the CPU."""
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (3, 4, 8)).astype(np.float32))
+    g = torch.ones((4, 8))
+    for strategy in STRATEGIES[:-1]:
+        a = _port_vjp(x, None, g, strategy)
+        xp = x.clone().requires_grad_(True)
+        b, = torch.autograd.grad(
+            ops.merge_pool(xp, strategy=strategy, use_kernel=False), xp, g)
+        np.testing.assert_allclose(a, to_numpy(b), rtol=1e-6, atol=1e-6)

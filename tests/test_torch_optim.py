@@ -1,0 +1,101 @@
+"""The port's AdamW, clipping and schedules against the JAX package's.
+
+A small param tree and five steps of gradients, made from a seed with
+numpy, go through both optimizers: weight decay on, global-norm clipping
+active (the gradients' norm is far above the clip), a warmup-cosine
+schedule.  Params and both moments are held to each other at 1e-6 after
+every step (f32 throughout; the two packages sum the global norm over
+leaves in the same order and differ by rounding only).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.optim import AdamW as JaxAdamW
+from repro.optim.clipping import clip_by_global_norm as jax_clip
+from repro.optim.schedules import linear_warmup_cosine as jax_sched
+from repro_torch.interop import to_numpy
+from repro_torch.optim import AdamW
+from repro_torch.optim.clipping import clip_by_global_norm
+from repro_torch.optim.schedules import linear_warmup_cosine
+
+TOL = dict(rtol=1e-6, atol=1e-6)
+SHAPES = {"embed": {"table": (7, 5)}, "blocks": {"w": (2, 5, 3), "b": (3,)},
+          "scale": (5,)}
+
+
+def _tree(seed, scale=1.0):
+    rng = np.random.default_rng(seed)
+
+    def build(spec):
+        if isinstance(spec, dict):
+            return {k: build(v) for k, v in spec.items()}
+        return (rng.standard_normal(spec) * scale).astype(np.float32)
+
+    return build(SHAPES)
+
+
+def _map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _assert_close(got, want):
+    if isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _assert_close(got[k], want[k])
+        return
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("decay,clip", [(0.1, 1.0), (0.0, None)])
+def test_adamw_matches_jax_moment_for_moment(decay, clip):
+    kw = dict(learning_rate=None, weight_decay=decay, grad_clip_norm=clip)
+    jopt = JaxAdamW(**dict(kw, learning_rate=jax_sched(3e-2, 2, 5)))
+    topt = AdamW(**dict(kw, learning_rate=linear_warmup_cosine(3e-2, 2, 5)))
+    params = _tree(0)
+    jp = _map(jnp.asarray, params)
+    tp = _map(torch.from_numpy, params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    for step in range(5):
+        grads = _tree(100 + step, scale=3.0)  # global norm ~ 20 > clip
+        handed, before = tp, _map(lambda t: t.numpy().copy(), tp)
+        jp, js = jopt.update(jp, _map(jnp.asarray, grads), js)
+        tp, ts = topt.update(tp, _map(torch.from_numpy, grads), ts)
+        _assert_close(tp, jp)
+        _assert_close(ts["mu"], js["mu"])
+        _assert_close(ts["nu"], js["nu"])
+        assert int(ts["count"]) == int(js["count"]) == step + 1
+        assert ts["count"].dtype == torch.int32
+        assert ts["mu"]["scale"].dtype == torch.float32
+        # out of place: the tensors handed in are untouched
+        _assert_close(handed, before)
+    assert not torch.equal(tp["scale"], torch.from_numpy(params["scale"]))
+
+
+def test_clip_by_global_norm_matches_jax():
+    grads = _tree(9, scale=4.0)
+    jc, jn = jax_clip(_map(jnp.asarray, grads), 1.5)
+    tc, tn = clip_by_global_norm(_map(torch.from_numpy, grads), 1.5)
+    np.testing.assert_allclose(float(tn), float(jn), rtol=1e-6)
+    _assert_close(tc, jc)
+    small = _map(lambda a: a * 1e-3, grads)  # under the clip: unchanged
+    tc, _ = clip_by_global_norm(_map(torch.from_numpy, small), 1.5)
+    _assert_close(tc, small)
+
+
+@pytest.mark.parametrize("peak,warmup,total", [(3e-4, 20, 100), (1e-2, 2, 5),
+                                               (5e-3, 0, 10)])
+def test_linear_warmup_cosine_matches_jax(peak, warmup, total):
+    jf, tf = jax_sched(peak, warmup, total), linear_warmup_cosine(
+        peak, warmup, total)
+    for count in (0, 1, warmup // 2, warmup, warmup + 1, total // 2, total,
+                  total + 7):
+        got = tf(torch.tensor(count, dtype=torch.int32))
+        want = jf(jnp.asarray(count, jnp.int32))
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
+                                   atol=1e-12)

@@ -268,7 +268,7 @@ def test_admission_control_and_guards(setup):
         worker.handle({"op": "serve_decode", "request": 7, "token": 4,
                        "pos": 5})
     with pytest.raises(ValueError, match="unknown op"):
-        worker.handle({"op": "forward"})
+        worker.handle({"op": "key_exchange"})  # secure aggregation: unported
 
 
 def test_training_overlays_rejected(setup):
@@ -315,7 +315,7 @@ def _imports(path: Path) -> list:
 def test_port_imports_neither_jax_nor_repro():
     """The port and its chip scripts import torch and numpy, never jax and
     nothing of the JAX package — checked by AST and by importing the
-    serving package with both blocked."""
+    serving, training, optimizer and data packages with both blocked."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
@@ -325,7 +325,10 @@ def test_port_imports_neither_jax_nor_repro():
             assert top not in ("jax", "jaxlib", "repro"), (path, name)
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; import repro_torch.serve, "
-            "repro_torch.transport, repro_torch.kernels.ops; print('ok')")
+            "repro_torch.transport, repro_torch.kernels.ops, "
+            "repro_torch.optim, repro_torch.data.loader, "
+            "repro_torch.train.loop, repro_torch.runtime.pipeline; "
+            "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
