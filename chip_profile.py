@@ -1,6 +1,6 @@
-"""Where split serving's and split training's time goes on one NVIDIA GPU:
-a ``torch.profiler`` breakdown of the PyTorch port on full-width
-smollm-360m.
+"""Where split serving's, split training's and long-prompt serving's time
+goes on one NVIDIA GPU: a ``torch.profiler`` breakdown of the PyTorch
+port on full-width smollm-360m.
 
     python3 chip_profile.py      # from the repo root; needs one CUDA card
 
@@ -14,7 +14,10 @@ an unprofiled warm-up run.  For each run it prints the wall time, the
 device's busy and idle share (kernel time summed over the wall time; the
 port runs on one stream), the number of kernel launches, the
 device-to-host reads, and the kernels and host ops that take the most
-time.
+time.  Last, it serves ``chip_smoke.py``'s long-prompt traffic (prompts
+of 2500-32768 tokens plus one of 1024) twice under the profiler, prefill
+only and in full, after an unprofiled warm-up, and prints the
+flash-attention kernel's share of the device time and of the wall time.
 """
 from __future__ import annotations
 
@@ -70,14 +73,23 @@ def profiled(fn, card: str, label: str, describe) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
+    flash_us = sum(_device_us(e) for e in kernels
+                   if "flash_attention_kernel" in e.key)
+    if flash_us:
+        flash_n = sum(e.count for e in kernels
+                      if "flash_attention_kernel" in e.key)
+        smoke.log(f"[{label}]   flash_attention_kernel: {flash_n} launches, "
+                  f"device {flash_us / 1e3:.3f} ms = "
+                  f"{100 * flash_us / busy_us:.1f}% of device busy, "
+                  f"{100 * flash_us / 1e6 / wall:.1f}% of wall")
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
 
 
 def profile_serving(cfg, params, prompts, new_tokens, card: str,
-                    label: str) -> None:
-    srv = smoke.make_server(cfg, params, "cuda", cache_len=CACHE_LEN,
-                            max_batch=4)
+                    label: str, **kw) -> None:
+    kw = dict(dict(cache_len=CACHE_LEN, max_batch=4), **kw)
+    srv = smoke.make_server(cfg, params, "cuda", **kw)
     for p, n in zip(prompts, new_tokens):
         srv.submit(p, max_new_tokens=n)
     profiled(srv.run, card, label, lambda _, launches, syncs: (
@@ -136,6 +148,18 @@ def main() -> None:
                     "prefill")
     profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
     profile_training(cfg, params, card)
+
+    rng = np.random.default_rng(smoke.SEED)  # chip_smoke's long prompts
+    long_prompts = [rng.integers(0, cfg.vocab_size, s)
+                    for s in smoke.LONG_PROMPTS]
+    kw = dict(cache_len=max(s + n for s, n in zip(smoke.LONG_PROMPTS,
+                                                  smoke.LONG_NEW)),
+              max_batch=4, cut_cache_bytes=smoke.LONG_CUT_CACHE_BYTES)
+    smoke.serve(cfg, params, long_prompts[:1], [2], **kw)  # builds the kernel
+    profile_serving(cfg, params, long_prompts, [1] * len(long_prompts), card,
+                    "long prefill", **kw)
+    profile_serving(cfg, params, long_prompts, smoke.LONG_NEW, card,
+                    "long full", **kw)
 
 
 if __name__ == "__main__":

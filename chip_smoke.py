@@ -1,6 +1,7 @@
-"""Port smoke test on one NVIDIA GPU: the PyTorch port's split serving and
-split training of full-width smollm-360m, with its merge kernels (forward
-and backward) in Triton.
+"""Port smoke test on one NVIDIA GPU: the PyTorch port's split serving,
+split training and long-prompt split serving of full-width smollm-360m,
+with its merge kernels (forward and backward) in Triton and its
+flash-attention kernel in CUDA C++.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -32,6 +33,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the plain version).  Then 2 steps of the concat merge through its
    own kernels, and 2 steps of the reduced model on the card against the
    CPU path (losses and final params within 1e-4).
+5. The flash-attention kernel (built by ``nvcc`` for sm_90a into
+   ``build/kernels/`` at its first launch) against its plain version on
+   CUDA tensors: the serving path's server and tower shapes at S = 2500,
+   4096 and 8192 in the model's (B, S, H, D) layout, ragged small shapes,
+   causal and full, f32 (tol 5e-4) and bf16 (3e-2); at the server shape
+   and S = 8192 and 32768, the kernel's time per call and on the device,
+   the plain version's, one library call's and the bound.
+6. Long-prompt split serving: full-width smollm-360m, K = 4, 4 slots,
+   greedy, prompts of 2500-32768 tokens plus one of 1024 (dense branch)
+   in one batch.  Launch counters reset just before the run, read just
+   after: 38 flash launches per prompt past 2048 tokens (30 server + 4 x 2
+   tower layers) and one merge launch per merge.  A plain run (merge and
+   attention, role 0 and towers) gives identical tokens and prefill
+   logits within 1e-3, launching no kernel; the reduced model on the card
+   matches the CPU path on a 2304-token prompt (logits 1e-4, tokens).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -54,8 +70,11 @@ sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.data.loader import LMBatchLoader  # noqa: E402
+from repro_torch.core import costs  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import merge_pool as mp  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, split_program  # noqa: E402
 from repro_torch.serve import SplitLMServer  # noqa: E402
 from repro_torch.train.loop import train_split  # noqa: E402
@@ -78,10 +97,31 @@ TRAIN_SHAPE, CONCAT_TRAIN_SHAPE = (4, 2048, 960), (4, 2048, 240)
 # traffic: prompt lengths spread over 64..1024, 8..48 new tokens each
 PROMPT_LENS = [64, 1024, 200, 512, 96, 768, 320, 900]
 NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
+# long-prompt traffic: five prompts past the 2048-token threshold and one
+# that keeps the dense branch, in one batch; a cut cache that holds the
+# 126 MB cut of the 32768-token prompt beside the four pinned ones
+LONG_PROMPTS = [2500, 4096, 8192, 16384, 32768, 1024]
+LONG_NEW = [16, 16, 8, 8, 4, 16]
+LONG_CUT_CACHE_BYTES = 256 * 2 ** 20
+FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+# (B, H, Hkv, S, D): the serving path's server and tower attentions
+FLASH_PATH_SHAPES = [(1, h, hkv, s, 64) for s in (2500, 4096, 8192)
+                     for h, hkv in ((15, 5), (3, 1))]
+FLASH_SMALL_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32)]
+FLASH_TIME_SEQS = (8192, 32768)
 
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def reset_launches() -> None:
+    mp.reset_launches()
+    fa.reset_launches()
+
+
+def read_launches() -> dict:
+    return {**mp.launches, **fa.launches}
 
 
 def card_line() -> str:
@@ -372,13 +412,17 @@ def time_path_shapes(card: str) -> dict:
 # phase 3: the slice
 # ---------------------------------------------------------------------------
 
-def make_server(cfg, params, device, **kw):
+def make_server(cfg, params, device, use_kernel: bool = True, **kw):
+    """A server and its K tower workers; ``use_kernel=False`` sends the
+    merge and the long-prompt attention of role 0 and of every tower to
+    the plain versions."""
     program = split_program.get_program(cfg)
     _, server = program.partition(params)
-    workers = [build_split_worker(k, cfg=cfg, params=params, device=device)
+    workers = [build_split_worker(k, cfg=cfg, params=params, device=device,
+                                  use_kernel=use_kernel)
                for k in range(cfg.vertical.num_clients)]
     return SplitLMServer(SimTransport(workers), cfg, server, device=device,
-                         **kw)
+                         use_kernel=use_kernel, **kw)
 
 
 def serve(cfg, params, prompts, new_tokens, **kw):
@@ -388,12 +432,12 @@ def serve(cfg, params, prompts, new_tokens, **kw):
     for p, n in zip(prompts, new_tokens):
         srv.submit(p, max_new_tokens=n)
     torch.cuda.synchronize()
-    mp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     results = srv.run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(mp.launches)
+    launches = read_launches()
     if len(results) != len(prompts):
         raise AssertionError(f"{len(results)} of {len(prompts)} requests "
                              "completed")
@@ -545,7 +589,7 @@ def train(cfg, steps: int, device: str, params=None, **kw):
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    mp.reset_launches()
+    reset_launches()
     t0 = time.perf_counter()
     out, metrics, _ = train_split(
         cfg, loader, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
@@ -554,7 +598,7 @@ def train(cfg, steps: int, device: str, params=None, **kw):
     if device == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = dict(mp.launches)
+    launches = read_launches()
     peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
     if not all(math.isfinite(x) for x in metrics.losses):
         raise AssertionError(f"non-finite loss: {metrics.losses}")
@@ -629,6 +673,297 @@ def train_full(card: str) -> dict:
             "merge_concat_bwd_kernel": claunches["merge_concat_bwd_kernel"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the flash-attention kernel against the plain version
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(shape, dtype, gen, model_layout: bool):
+    """q (B, H, S, D), k and v (B, Hkv, S, D); in the model's layout they
+    are transposed views of (B, S, H, D) tensors, as attention_apply
+    passes them."""
+    B, H, Hkv, S, D = shape
+    if model_layout:
+        return [torch.randn((B, S, h, D), generator=gen, device="cuda"
+                            ).to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv)]
+    return [torch.randn((B, h, S, D), generator=gen, device="cuda").to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def check_flash_kernel() -> float:
+    """Path and ragged shapes x causal/full x f32/bf16: kernel vs plain.
+    Returns the largest f32 |error|."""
+    t0 = time.perf_counter()
+    fa.flash_attention(*_flash_inputs((1, 1, 1, 8, 64), torch.float32,
+                                      None, False), causal=True)
+    torch.cuda.synchronize()
+    log(f"flash: library built and loaded in {time.perf_counter() - t0:.1f} "
+        "s (nvcc, sm_90a); ptxas: " + "; ".join(
+            line.split("info    : ")[-1] for line in
+            fa.build.library_path().with_suffix(".log").read_text(
+            ).splitlines() if "registers" in line or "spill" in line))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    worst, n = 0.0, 0
+    for shape in FLASH_SMALL_SHAPES + FLASH_PATH_SHAPES:
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v = _flash_inputs(shape, dtype, gen,
+                                        shape in FLASH_PATH_SHAPES)
+                got = fa.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                if got.shape != want.shape or got.dtype != dtype:
+                    raise AssertionError(f"flash {shape}: {tuple(got.shape)} "
+                                         f"{got.dtype}")
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"flash {shape}: non-finite output")
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=FLASH_TOL[dtype],
+                                           atol=FLASH_TOL[dtype])
+                if dtype == torch.float32:
+                    worst = max(worst, float((got - want).abs().max()))
+                n += 1
+    log(f"flash kernel: {n} cases match the plain version (f32 tol 5e-4, "
+        f"bf16 tol 3e-2; (B, H, Hkv, S, D) in {FLASH_SMALL_SHAPES} and "
+        f"{FLASH_PATH_SHAPES}, causal and full); worst f32 |err| {worst:.3e}")
+    return worst
+
+
+def flash_bound(B, H, Hkv, S, D, itemsize=4, causal=True) -> tuple:
+    """Least time on an H100 SXM: two D-deep products per attended (q, kv)
+    pair at the f32 rate, vs q, k, v read once and o written once."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 4 * D * B * H * pairs
+    nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_flash(card: str) -> dict:
+    """Server shape (1, 15 q / 5 kv heads, S, 64), causal f32, in the
+    model's layout: the kernel, the plain version, one library call and
+    the bound.  The library call is scaled_dot_product_attention's
+    memory-efficient backend on kv heads repeated before the call: this
+    PyTorch's fused f32 backends refuse enable_gqa=True, and its math
+    backend would hold the 64 GB score matrix at 32768.  At 8192 the
+    enable_gqa=True call (the math backend) is timed too, for the
+    record."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    rows = {}
+    for S in FLASH_TIME_SEQS:
+        shape = (1, 15, 5, S, 64)
+        gen = torch.Generator(device="cuda").manual_seed(S)
+        q, k, v = _flash_inputs(shape, torch.float32, gen, True)
+        kr, vr = (t.repeat_interleave(3, dim=1) for t in (k, v))
+
+        def library():
+            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+                return scaled_dot_product_attention(q, kr, vr, is_causal=True)
+
+        fns = {"": lambda: fa.flash_attention(q, k, v, causal=True),
+               "plain_": lambda: ref.flash_attention(q, k, v, causal=True),
+               "library_": library}
+        big = S > 8192
+        if not big:
+            fns["library_gqa_"] = lambda: scaled_dot_product_attention(
+                q, k, v, is_causal=True, enable_gqa=True)
+        row = {}
+        for prefix, fn in fns.items():
+            slow = big and prefix == "plain_"
+            row[prefix + "ms"] = time_ms(
+                lambda _: fn(), [(None,)], iters=2 if slow else
+                (5 if big else 20))
+            row[prefix + "device_ms"] = device_ms(
+                lambda _: fn(), [(None,)], iters=1 if slow else
+                (3 if big else 10), reps=2 if slow else 3)
+        row["bound_ms"], row["bound_by"] = flash_bound(*shape)
+        got, want = fns[""](), fns["library_"]()
+        torch.cuda.synchronize()
+        row["library_max_abs_diff"] = float((got - want).abs().max())
+        rows[S] = row
+        flops = 4 * 64 * 15 * S * (S + 1) // 2
+        log(f"time flash causal f32 (1, 15/5, {S}, 64): per call (device): "
+            f"kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
+            f"{flops / row['device_ms'] / 1e9:.2f} TFLOP/s, plain "
+            f"{row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) ms, "
+            f"library {row['library_ms']:.6f} ({row['library_device_ms']:.6f})"
+            f" ms (max |kernel - library| {row['library_max_abs_diff']:.3e}),"
+            + (f" library enable_gqa=True {row['library_gqa_ms']:.6f} "
+               f"({row['library_gqa_device_ms']:.6f}) ms,"
+               if "library_gqa_ms" in row else "")
+            + f" bound {row['bound_ms']:.6f} ms ({row['bound_by']}) | {card}")
+        del q, k, v, kr, vr, got, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phase 6: long-prompt split serving
+# ---------------------------------------------------------------------------
+
+def serve_recording(cfg, params, prompts, new_tokens, *, use_kernel=True,
+                    **kw):
+    """``serve`` that also keeps each request's prefill logits (requests
+    are admitted in submission order) and the server's wire report."""
+    srv = make_server(cfg, params, "cuda", use_kernel=use_kernel, **kw)
+    logits = []
+    prefill = srv._fns.prefill
+
+    def recording_prefill(*args):
+        out, cache = prefill(*args)
+        logits.append(out[0].detach().clone())
+        return out, cache
+
+    srv._fns.prefill = recording_prefill
+    for p, n in zip(prompts, new_tokens):
+        srv.submit(p, max_new_tokens=n)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    results = srv.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if [len(r.tokens) for r in results] != list(new_tokens):
+        raise AssertionError("long serving: a request did not complete")
+    return ([r.tokens for r in results], dict(srv.stats), seconds, launches,
+            logits, srv.wire_report(), dict(srv.cut_cache.stats))
+
+
+def serve_long(card: str) -> int:
+    cfg = get_arch("smollm-360m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, s) for s in LONG_PROMPTS]
+    cache_len = max(s + n for s, n in zip(LONG_PROMPTS, LONG_NEW))
+    kw = dict(cache_len=cache_len, max_batch=4,
+              cut_cache_bytes=LONG_CUT_CACHE_BYTES)
+    K = cfg.vertical.num_clients
+    per_prompt = (cfg.num_layers - cfg.vertical.tower_layers
+                  + K * cfg.vertical.tower_layers)
+    n_long = sum(s * s > attn_lib.FLASH_THRESHOLD ** 2 for s in LONG_PROMPTS)
+    log(f"long serving: {cfg.name} full width, K={K}, prompts {LONG_PROMPTS}, "
+        f"new tokens {LONG_NEW}, cache_len {cache_len}, cut cache "
+        f"{LONG_CUT_CACHE_BYTES} bytes (largest cut "
+        f"{max(LONG_PROMPTS) * cfg.d_model * 4} bytes)")
+
+    serve(cfg, params, prompts[:1], [2], **kw)  # warm-up (not measured)
+
+    # prefill only, one request at a time: time to the first token
+    srv = make_server(cfg, params, "cuda", **kw)
+    prefill_s = []
+    for p in prompts:
+        srv.submit(p, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    del srv
+    log("long prefill (max_new_tokens=1, one request at a time): " + ", ".join(
+        f"{s} tokens {s / t:.1f} tok/s ({t:.4f} s)"
+        for s, t in zip(LONG_PROMPTS, prefill_s)) + f" | {card}")
+    # the whole batch, prefill only: what the full run spends before decode
+    _, _, t_prefill, _ = serve(cfg, params, prompts, [1] * len(prompts), **kw)
+
+    # the main path: counters reset just before the run, read just after
+    torch.cuda.reset_peak_memory_stats()
+    tokens, stats, t_main, launches, logits, wire, cut_stats = \
+        serve_recording(cfg, params, prompts, LONG_NEW, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    if stats["reprefills"]:
+        raise AssertionError(f"long serving re-prefilled: {stats}")
+    merges = stats["prefills"] + sum(n - 1 for n in LONG_NEW)
+    expect_launches(launches, {"flash_attention_kernel": per_prompt * n_long,
+                               "merge_reduce_kernel": merges})
+    pf = [costs.serve_prefill_bytes(s, cfg.d_model, K)["total"]
+          for s in LONG_PROMPTS]
+    dc = costs.serve_decode_bytes(cfg.d_model, K, rounds=sum(LONG_NEW)
+                                  - len(LONG_NEW))["total"]
+    if wire["total"] != sum(pf) + dc:
+        raise AssertionError(f"ledger {wire['total']} bytes != cost model "
+                             f"{sum(pf) + dc}")
+
+    # the plain run: merge and attention on the plain versions everywhere
+    ptokens, _, t_plain, plaunch, plogits, _, _ = serve_recording(
+        cfg, params, prompts, LONG_NEW, use_kernel=False, **kw)
+    if any(plaunch.values()):
+        raise AssertionError(f"the plain run launched kernels: {plaunch}")
+    diffs = [float((a - b).abs().max()) for a, b in zip(logits, plogits)]
+    gaps = [float(torch.topk(x, 2).values[0] - torch.topk(x, 2).values[1])
+            for x in plogits]
+    log(f"long serving: prefill logits kernel vs plain, max |diff| per "
+        f"request {diffs} (tol 1e-3); top-2 logit gap of the plain run "
+        f"{gaps}")
+    if len(logits) != len(LONG_PROMPTS) or max(diffs) > 1e-3:
+        raise AssertionError(f"prefill logits differ: {diffs}")
+    if not all(torch.isfinite(x).all() for x in logits):
+        raise AssertionError("non-finite prefill logits")
+    if ptokens != tokens:
+        raise AssertionError(f"the plain run gave other tokens: {tokens} vs "
+                             f"{ptokens}")
+
+    decode_tokens = sum(LONG_NEW) - len(LONG_NEW)
+    t_decode = t_main - t_prefill
+    log(f"long serving continuous: {len(prompts)} requests, "
+        f"{stats['tokens']} tokens, {stats['decode_rounds']} decode rounds, "
+        f"{launches['flash_attention_kernel']} flash_attention_kernel "
+        f"launches ({per_prompt} per prompt past 2048 tokens x {n_long}), "
+        f"{launches['merge_reduce_kernel']} merge_reduce_kernel launches "
+        f"({merges} merges); cut cache {cut_stats}; ledger {wire['total']} "
+        f"bytes = cost model | {card}")
+    log(f"long serving: wall {t_main:.4f} s (plain run {t_plain:.4f} s); "
+        f"prefill-only run of the batch {t_prefill:.4f} s "
+        f"({sum(LONG_PROMPTS) / t_prefill:.1f} tok/s); decode "
+        f"{decode_tokens / t_decode:.1f} tok/s ({decode_tokens} tokens in the "
+        f"{t_decode:.4f} s the full run took beyond it); "
+        f"max_memory_allocated {peak} bytes; tokens identical to the plain "
+        f"run | {card}")
+    return launches["flash_attention_kernel"]
+
+
+def check_small_long_against_cpu() -> None:
+    """Reduced smollm-360m, one 2304-token prompt: the card (flash kernel
+    and merge kernel) against the CPU path (chunked plain attention) —
+    prefill logits within 1e-4, identical greedy tokens."""
+    cfg = get_arch("smollm-360m").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = backbone.init_params(cfg, gen, device="cpu")
+    prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 2304)
+    cache_len = 2304 + 8
+    out = {}
+    for device, params in (("cpu", cpu_params), ("cuda", _to(cpu_params,
+                                                              "cuda"))):
+        reset_launches()
+        srv = make_server(cfg, params, device, cache_len=cache_len)
+        cut = srv.driver.prefill(0, torch.as_tensor(prompt, device=device),
+                                 cache_len)
+        logits, _ = srv._fns.prefill(srv.server_params,
+                                     srv._fns.init_cache(cache_len,
+                                                         device=device), cut)
+        srv.submit(prompt, max_new_tokens=8)
+        out[device] = (logits.cpu(), [r.tokens for r in srv.run()],
+                       read_launches())
+    per_prefill = (cfg.num_layers - cfg.vertical.tower_layers
+                   + cfg.vertical.num_clients * cfg.vertical.tower_layers)
+    if out["cuda"][2]["flash_attention_kernel"] != 2 * per_prefill or any(
+            out["cpu"][2].values()):
+        raise AssertionError(f"reduced long prompt launches: card "
+                             f"{out['cuda'][2]}, CPU {out['cpu'][2]}")
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=1e-4,
+                               atol=1e-4)
+    if out["cuda"][1] != out["cpu"][1]:
+        raise AssertionError("reduced long prompt: card tokens differ from "
+                             "CPU")
+    log(f"small long: reduced smollm-360m, a 2304-token prompt on the card "
+        f"matches the CPU path (prefill logits max |diff| "
+        f"{float((out['cuda'][0] - out['cpu'][0]).abs().max()):.3e} <= "
+        f"1e-4, identical greedy tokens, {2 * per_prefill} flash launches)")
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -644,6 +979,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false — "
                          "this script needs one CUDA card")
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -660,6 +996,10 @@ def main() -> None:
     launches = serve_full(card)
     train_small_against_cpu()
     launches.update(train_full(card))
+    flash_worst = check_flash_kernel()
+    flash_rows = time_flash(card)
+    check_small_long_against_cpu()
+    launches["flash_attention_kernel"] = serve_long(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -683,6 +1023,22 @@ def main() -> None:
             "plain_device_ms": row["plain_device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": list(shape), "dtype": "float32"})
+    row = flash_rows[max(FLASH_TIME_SEQS)]
+    kernels.append({
+        "name": "flash_attention_kernel", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": launches["flash_attention_kernel"],
+        "max_abs_err": flash_worst, "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+        "device_ms": row["device_ms"],
+        "plain_device_ms": row["plain_device_ms"],
+        "library_device_ms": row["library_device_ms"],
+        "shape": [1, 15, max(FLASH_TIME_SEQS), 64], "kv_heads": 5,
+        "causal": True, "dtype": "float32"})
+    log(f"chip_smoke: all phases passed in "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

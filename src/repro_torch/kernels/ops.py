@@ -6,6 +6,7 @@ is no fallback from the kernel to the plain version).
 forward and backward launch the Triton kernels on CUDA and run the plain
 versions of :mod:`repro_torch.kernels.ref` on the CPU, the port's
 counterpart of the JAX package's ``custom_vjp`` around the Pallas calls.
+:func:`flash_attention` is forward-only, as the Pallas kernel is.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import merge_pool as merge_pool_kernel
 from repro_torch.kernels import ref
 
@@ -76,3 +78,25 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
         live = torch.ones((stacked.shape[0],), dtype=torch.float32,
                           device=stacked.device)
     return MergePool.apply(stacked, live.to(torch.float32), strategy)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool) -> torch.Tensor:
+    """Attention over q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)``: the
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+
+    The kernel has no backward (nor has the Pallas kernel: the JAX model
+    differentiates its plain chunked path), so on CUDA a call whose inputs
+    require grad raises rather than return a result that autograd cannot
+    follow."""
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention: no kernel for device {q.device}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "flash_attention: the CUDA kernel is forward-only; training past "
+            "2048 tokens (a backward kernel) comes with a later training "
+            "slice of the port")
+    return flash_kernel.flash_attention(q, k, v, causal=causal)

@@ -67,3 +67,35 @@ def concat_bwd(live: torch.Tensor, g: torch.Tensor, k: int) -> torch.Tensor:
     B = g.shape[0]
     blocks = g.to(torch.float32).reshape(B, k, -1).permute(1, 0, 2)
     return (blocks * live.to(torch.float32).reshape(k, 1, 1)).to(g.dtype)
+
+
+#: q rows per block of :func:`flash_attention`: bounds its score matrix to
+#: ``B * H * FLASH_ROWS * S`` floats, so it runs at 32k tokens on one card
+FLASH_ROWS = 1024
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)`` with ``H % Hkv == 0``
+    (kv head ``h // (H // Hkv)`` serves q head ``h``) -> ``(B, H, S, D)``
+    in q's dtype: a plain f32 softmax over every full row of scores,
+    scaled by ``1/sqrt(D)``, masked at ``-1e30`` above the diagonal when
+    causal.  Rows are taken ``FLASH_ROWS`` at a time, each block an exact
+    full-row softmax; the JAX package's ``ref.flash_attention`` with the
+    kv heads repeated."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    kf = k.to(torch.float32).repeat_interleave(rep, dim=1)
+    vf = v.to(torch.float32).repeat_interleave(rep, dim=1)
+    scale = 1.0 / D ** 0.5
+    cols = torch.arange(S, device=q.device)
+    blocks = []
+    for r0 in range(0, S, FLASH_ROWS):
+        qb = q[:, :, r0:r0 + FLASH_ROWS].to(torch.float32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kf) * scale
+        if causal:
+            rows = cols[r0:r0 + FLASH_ROWS]
+            s = s.masked_fill(rows[:, None] < cols[None, :], -1e30)
+        p = torch.softmax(s, dim=-1)
+        blocks.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
+    return torch.cat(blocks, dim=2)

@@ -123,10 +123,11 @@ class SplitProgram:
         seed."""
         raise NotImplementedError
 
-    def tower_serve_fns(self, client: int) -> TowerServeFns:
+    def tower_serve_fns(self, client: int, *,
+                        use_kernel: bool = True) -> TowerServeFns:
         raise NotImplementedError
 
-    def server_serve_fns(self) -> ServerServeFns:
+    def server_serve_fns(self, *, use_kernel: bool = True) -> ServerServeFns:
         raise NotImplementedError
 
     def protocol_step(self, tower_params, server_params, features, ctx, *,
@@ -237,7 +238,10 @@ class TokenLMSplitProgram(SplitProgram):
                 f"{self.cfg.name}: split serving is implemented for the "
                 f"dense token-LM family only (got {self.cfg.family!r})")
 
-    def tower_serve_fns(self, client: int) -> TowerServeFns:
+    def tower_serve_fns(self, client: int, *,
+                        use_kernel: bool = True) -> TowerServeFns:
+        """``use_kernel=False`` runs the prefill's long attention on the
+        plain chunked path (comparison runs)."""
         self._require_dense_serving()
         dims_t = _tower_dims(self.cfg)
 
@@ -247,7 +251,8 @@ class TokenLMSplitProgram(SplitProgram):
             positions = torch.arange(S, device=dev)
             h = tp["embed_slice"][tokens] @ tp["proj_in"]  # (1, S, d_t)
             h, ks, vs = tfm.dense_stack_prefill(tp["blocks"], h, dims_t,
-                                                positions=positions)
+                                                positions=positions,
+                                                use_kernel=use_kernel)
             cut = h @ tp["proj_out"]
             Lt, B, _, Kv, hd = ks.shape
             k = ks.new_zeros((Lt, B, cache_len, Kv, hd))
@@ -275,7 +280,9 @@ class TokenLMSplitProgram(SplitProgram):
 
         return TowerServeFns(prefill=prefill, decode=decode)
 
-    def server_serve_fns(self) -> ServerServeFns:
+    def server_serve_fns(self, *, use_kernel: bool = True) -> ServerServeFns:
+        """``use_kernel=False`` runs the prefill's long attention on the
+        plain chunked path (comparison runs)."""
         self._require_dense_serving()
         dims = BlockDims.from_arch(self.cfg)
         n_server = _server_layers(self.cfg)
@@ -295,7 +302,8 @@ class TokenLMSplitProgram(SplitProgram):
             S = merged.shape[1]
             positions = torch.arange(S, device=merged.device)
             x, ks, vs = tfm.dense_stack_prefill(sp["server"], merged, dims,
-                                                positions=positions)
+                                                positions=positions,
+                                                use_kernel=use_kernel)
             cache["k"][:, :, :S] = ks.to(cache["k"].dtype)
             cache["v"][:, :, :S] = vs.to(cache["v"].dtype)
             cache["kv_positions"][:, :S] = positions

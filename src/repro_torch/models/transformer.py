@@ -95,13 +95,14 @@ def init_dense_block(gen: torch.Generator, dims: BlockDims, *,
 
 def dense_block_apply(p: dict, x: torch.Tensor, dims: BlockDims, *,
                       causal: bool = True, positions=None,
-                      return_kv: bool = False):
-    """Full-sequence forward."""
+                      return_kv: bool = False, use_kernel: bool = True):
+    """Full-sequence forward.  ``use_kernel=False`` keeps long attention
+    on the plain chunked path (see ``attention_apply``)."""
     h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
     attn_out, kv = attn_lib.attention_apply(
         p["attn"], h, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
         head_dim=dims.head_dim, causal=causal, positions=positions,
-        rope_theta=dims.rope_theta)
+        rope_theta=dims.rope_theta, use_kernel=use_kernel)
     x = x + attn_out
     h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
     out = x + layers.gated_mlp(p["mlp"], h)
@@ -122,14 +123,15 @@ def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
 
 
 def dense_stack_prefill(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
-                        positions: torch.Tensor, causal: bool = True):
+                        positions: torch.Tensor, causal: bool = True,
+                        use_kernel: bool = True):
     """Full-sequence forward that also returns per-layer K/V for cache fill.
     Returns (x, ks, vs) with ks/vs: (L, B, S, Kv, hd)."""
     ks, vs = [], []
     for i in range(num_layers(stacked)):
         x, (k, v) = dense_block_apply(layer_params(stacked, i), x, dims,
                                       causal=causal, positions=positions,
-                                      return_kv=True)
+                                      return_kv=True, use_kernel=use_kernel)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)

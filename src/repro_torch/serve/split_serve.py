@@ -150,7 +150,9 @@ class SplitLMServer:
     transport stays open — the caller owns its lifecycle.  Runs on
     ``device`` (``cuda`` unless ``"cpu"`` is asked for), where
     ``server_params`` must already live.  ``use_kernel=False`` merges with
-    the plain version (comparison runs)."""
+    the plain version and keeps the server's long-prompt attention on the
+    plain chunked path (comparison runs; the towers take the same switch
+    from ``build_split_worker``)."""
 
     def __init__(self, transport, cfg: ArchConfig, server_params, *,
                  cache_len: int, max_batch: int = 4,
@@ -187,7 +189,7 @@ class SplitLMServer:
             raise ValueError(
                 f"transport has {transport.num_clients} clients, "
                 f"{cfg.name} expects {program.num_clients}")
-        self._fns = program.server_serve_fns()
+        self._fns = program.server_serve_fns(use_kernel=use_kernel)
         self.driver = ServeDriver(transport, merge=cfg.vertical.merge,
                                   label_holder=label_holder, ledger=ledger,
                                   timeout_s=timeout_s,

@@ -23,7 +23,8 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
                        warmup: int = 20, steps: int = 100,
                        grad_clip: float = 1.0, forward_delay_s: float = 0.0,
                        params: Optional[dict] = None,
-                       device: DeviceLike = None) -> TowerWorker:
+                       device: DeviceLike = None,
+                       use_kernel: bool = True) -> TowerWorker:
     """Feature holder for ``cfg``'s split program: trains (and serves) the
     client's tower.
 
@@ -34,7 +35,10 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     already live on ``device``.  The worker regenerates its token stream
     from ``seed`` (``batch`` x ``seq`` per step, in ``microbatches``
     slices).  With ``learning_rate`` set, the tower trains locally under
-    the same AdamW schedule as the server."""
+    the same AdamW schedule as the server.  ``use_kernel=False`` keeps the
+    serving prefill's long attention on the plain chunked path, as
+    ``SplitLMServer(use_kernel=False)`` does at role 0 (comparison
+    runs)."""
     from repro_torch.models import backbone, split_program
     from repro_torch.optim import AdamW
     from repro_torch.optim.schedules import linear_warmup_cosine
@@ -62,4 +66,5 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
                                       device=dev),
         optimizer=optimizer, forward_delay_s=forward_delay_s,
         compress=cfg.vertical.compression,
-        serve_fns=program.tower_serve_fns(client_id), device=dev)
+        serve_fns=program.tower_serve_fns(client_id, use_kernel=use_kernel),
+        device=dev)

@@ -1,5 +1,6 @@
-"""The port's Triton kernels, forward and backward, against their plain
-PyTorch versions.
+"""The port's kernels — the Triton merge kernels, forward and backward, and
+the CUDA C++ flash-attention kernel — against their plain PyTorch
+versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -11,13 +12,16 @@ the JAX package, so it runs on a machine with a card and no JAX:
 Tolerances: 1e-5 in f32, 2e-2 in bf16 forward (the kernels accumulate in
 f32, the plain forward in the input dtype), 5e-2 in bf16 backward (both
 compute in f32; a gradient is rounded to bf16 once more than the merged
-value it came from).
+value it came from).  Flash attention: 5e-4 in f32 and 3e-2 in bf16, the
+JAX package's own tolerances for its Pallas kernel.
 """
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.kernels import merge_pool as kernel_module
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention as attn_lib
 
 STRATEGIES = ["sum", "avg", "max", "mul", "concat"]
 SHAPES = [(2, 8, 128), (4, 32, 256), (5, 100, 384), (3, 37, 100),
@@ -185,3 +189,122 @@ def test_backward_wrappers_validate_inputs_on_card():
         kernel_module.concat_bwd(live, g.half(), k=4)
     with pytest.raises(ValueError, match="CUDA"):
         kernel_module.concat_bwd(live.cpu(), g.cpu(), k=4)
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+# (B, H, Hkv, S, D): ragged small shapes, then the serving path's tower
+# and server shapes past the 2048-token threshold
+FLASH_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32), (2, 3, 3, 128, 32),
+                (1, 3, 1, 2500, 64), (1, 15, 5, 2500, 64)]
+
+
+def _needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the flash kernel runs only there)")
+
+
+def _qkv(shape, dtype, gen, layout="bhsd"):
+    B, H, Hkv, S, D = shape
+    if layout == "bshd":  # the model's layout, passed as transposed views
+        return [torch.randn((B, S, h, D), generator=gen, device="cuda"
+                            ).to(dtype).transpose(1, 2) for h in (H, Hkv, Hkv)]
+    return [torch.randn((B, h, S, D), generator=gen, device="cuda").to(dtype)
+            for h in (H, Hkv, Hkv)]
+
+
+def test_flash_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only: there is no fallback."""
+    q = torch.ones((1, 2, 8, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_module.flash_attention(q, q, q, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
+def test_flash_kernel_matches_plain_version_on_card(shape, causal, dtype):
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[3])
+    for layout in ("bhsd", "bshd"):
+        q, k, v = _qkv(shape, dtype, gen, layout)
+        before = flash_module.launches["flash_attention_kernel"]
+        got = ops.flash_attention(q, k, v, causal=causal)
+        assert flash_module.launches["flash_attention_kernel"] == before + 1
+        want = ref.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert got.shape == q.shape and got.dtype == dtype
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=FLASH_TOL[dtype],
+                                   atol=FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_flash_kernel_matches_chunked_model_path_on_card():
+    """Past the threshold, attention_apply's kernel branch equals its plain
+    chunked branch (use_kernel=False) on the same card."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    d_model, H, Hkv, hd, S = 96, 3, 1, 32, 2304
+    params = {name: torch.randn(shape, generator=gen, device="cuda") * 0.1
+              for name, shape in (("wq", (d_model, H * hd)),
+                                  ("wk", (d_model, Hkv * hd)),
+                                  ("wv", (d_model, Hkv * hd)),
+                                  ("wo", (H * hd, d_model)))}
+    x = torch.randn((1, S, d_model), generator=gen, device="cuda")
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=hd)
+    before = flash_module.launches["flash_attention_kernel"]
+    got, _ = attn_lib.attention_apply(params, x, **kw)
+    assert flash_module.launches["flash_attention_kernel"] == before + 1
+    want, _ = attn_lib.attention_apply(params, x, use_kernel=False, **kw)
+    assert flash_module.launches["flash_attention_kernel"] == before + 1
+    torch.testing.assert_close(got, want, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refusals_on_card():
+    """No silent fallback on the card: grad-requiring inputs, positions
+    other than arange(S), and anything the kernel does not take raise."""
+    _needs_card()
+    q = torch.randn((1, 4, 100, 64), device="cuda")
+    k = torch.randn((1, 2, 100, 64), device="cuda")
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.flash_attention(q.requires_grad_(True), k, k, causal=True)
+    q = q.detach()
+    with torch.no_grad():
+        ops.flash_attention(q.requires_grad_(True), k, k, causal=True)
+    q = q.detach()
+    with pytest.raises(ValueError, match="head dim"):
+        flash_module.flash_attention(q[..., :48], k[..., :48], k[..., :48],
+                                     causal=True)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_module.flash_attention(q, k.bfloat16(), k, causal=True)
+    with pytest.raises(ValueError, match="groups"):
+        flash_module.flash_attention(q, torch.randn((1, 3, 100, 64),
+                                                    device="cuda"),
+                                     torch.randn((1, 3, 100, 64),
+                                                 device="cuda"), causal=True)
+    with pytest.raises(ValueError, match="contiguous last"):
+        flash_module.flash_attention(
+            q, torch.randn((1, 2, 100, 128), device="cuda")[..., ::2], k,
+            causal=True)
+    with pytest.raises(ValueError, match=r"\(B, Hkv, S, D\)"):
+        flash_module.flash_attention(q, k[:, :, :50], k[:, :, :50],
+                                     causal=True)
+
+    params = {name: torch.randn(shape, device="cuda")
+              for name, shape in (("wq", (64, 64)), ("wk", (64, 64)),
+                                  ("wv", (64, 64)), ("wo", (64, 64)))}
+    x = torch.randn((1, 2049, 64), device="cuda")
+    kw = dict(n_heads=1, n_kv_heads=1, head_dim=64)
+    with pytest.raises(NotImplementedError, match="arange"):
+        attn_lib.attention_apply(params, x, positions=torch.arange(
+            2049, device="cuda") + 5, **kw)
+    out, _ = attn_lib.attention_apply(params, x, positions=torch.arange(
+        2049, device="cuda"), **kw)
+    assert torch.isfinite(out).all()

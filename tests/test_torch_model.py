@@ -200,11 +200,21 @@ def test_split_program_serving_matches_jax(setup):
 
 def test_long_prefill_names_the_flash_slice():
     """Past FLASH_THRESHOLD**2 the JAX package takes its blocked flash
-    path; the port raises and says which slice brings it."""
+    path, and so does the port (the flash-attention slice): on the CPU its
+    chunked path with the JAX package's chunk (410 at S = 2050), on the
+    card the flash kernel.  Same params, same output at 1e-5."""
+    from repro.models import attention as jax_attention
     from repro_torch.models import attention
 
-    S = attention.FLASH_THRESHOLD + 1
-    params = {name: torch.zeros(8, 8) for name in ("wq", "wk", "wv", "wo")}
-    with pytest.raises(NotImplementedError, match="flash-attention slice"):
-        attention.attention_apply(params, torch.zeros(1, S, 8), n_heads=1,
-                                  n_kv_heads=1, head_dim=8)
+    S = attention.FLASH_THRESHOLD + 2
+    rng = np.random.default_rng(7)
+    params = {name: (rng.standard_normal((8, 8)) * 0.3).astype(np.float32)
+              for name in ("wq", "wk", "wv", "wo")}
+    x = rng.standard_normal((1, S, 8)).astype(np.float32)
+    want, _ = jax_attention.attention_apply(
+        {k: jnp.asarray(v) for k, v in params.items()}, jnp.asarray(x),
+        n_heads=1, n_kv_heads=1, head_dim=8)
+    got, _ = attention.attention_apply(
+        params_from_numpy(params, "cpu"), torch.from_numpy(x), n_heads=1,
+        n_kv_heads=1, head_dim=8)
+    np.testing.assert_allclose(to_numpy(got), np.asarray(want), **TOL)
