@@ -18,6 +18,10 @@ time.  Last, it serves ``chip_smoke.py``'s long-prompt traffic (prompts
 of 2500-32768 tokens plus one of 1024) twice under the profiler, prefill
 only and in full, after an unprofiled warm-up, and prints the
 flash-attention kernel's share of the device time and of the wall time.
+Then full-width mamba2-1.3b (``chip_smoke.py``'s phase 8): one
+``forward`` of 32768 tokens and greedy ``generate`` of 4 prompts of 64
+tokens with 16 new tokens each, each under the profiler after an
+unprofiled warm-up, with the SSD chunk kernel's share.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ import chip_smoke as smoke  # also puts src/ on sys.path for the next two
 from repro_torch.configs.base import get_arch
 from repro_torch.data.loader import LMBatchLoader
 from repro_torch.models import backbone
+from repro_torch.serve import generate
 from repro_torch.train.loop import train_split
 
 CACHE_LEN = max(s + n for s, n in zip(smoke.PROMPT_LENS, smoke.NEW_TOKENS))
@@ -45,9 +50,11 @@ def _device_us(evt) -> float:
                    getattr(evt, "self_cuda_time_total", 0.0))
 
 
-def profiled(fn, card: str, label: str, describe) -> None:
+def profiled(fn, card: str, label: str, describe, host_ops=()) -> None:
     """Run ``fn()`` under the profiler and print the breakdown;
-    ``describe(result, launches, syncs)`` adds the run's own counts."""
+    ``describe(result, launches, syncs)`` adds the run's own counts, and
+    each ``(op, meaning)`` of ``host_ops`` the device time of the kernels
+    that host op launched."""
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -73,15 +80,22 @@ def profiled(fn, card: str, label: str, describe) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
-    flash_us = sum(_device_us(e) for e in kernels
-                   if "flash_attention_kernel" in e.key)
-    if flash_us:
-        flash_n = sum(e.count for e in kernels
-                      if "flash_attention_kernel" in e.key)
-        smoke.log(f"[{label}]   flash_attention_kernel: {flash_n} launches, "
-                  f"device {flash_us / 1e3:.3f} ms = "
-                  f"{100 * flash_us / busy_us:.1f}% of device busy, "
-                  f"{100 * flash_us / 1e6 / wall:.1f}% of wall")
+    for name in ("flash_attention_kernel", "ssd_chunk_kernel"):
+        mine = [e for e in kernels if name in e.key]
+        if mine:
+            us = sum(_device_us(e) for e in mine)
+            smoke.log(f"[{label}]   {name}: {sum(e.count for e in mine)} "
+                      f"launches, device {us / 1e3:.3f} ms = "
+                      f"{100 * us / busy_us:.1f}% of device busy, "
+                      f"{100 * us / 1e6 / wall:.1f}% of wall")
+    for op, meaning in host_ops:
+        mine = [e for e in host if e.key == op]
+        us = sum(getattr(e, "device_time_total",
+                         getattr(e, "cuda_time_total", 0.0)) for e in mine)
+        smoke.log(f"[{label}]   {op} ({meaning}): "
+                  f"{sum(e.count for e in mine)} calls, device "
+                  f"{us / 1e3:.3f} ms = {100 * us / busy_us:.1f}% of device "
+                  "busy")
     if not kernels:
         raise RuntimeError("the profiler recorded no device activity")
 
@@ -130,6 +144,27 @@ def profile_training(cfg, params, card: str) -> None:
              describe)
 
 
+def profile_ssm(card: str) -> None:
+    cfg = get_arch("mamba2-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(smoke.SEED)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 32768)),
+                             device="cuda")
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (4, 64)),
+                              device="cuda")
+    backbone.forward(params, {"tokens": tokens[:, :2048]}, cfg)  # warm-up
+    generate(params, cfg, prompts[:, :8], max_new_tokens=2)
+    profiled(lambda: backbone.forward(params, {"tokens": tokens}, cfg)[0],
+             card, "ssm prefill 32768", lambda *_: "one request, B = 1",
+             host_ops=[("aten::einsum", "the inter-chunk recurrence of "
+                        "ops.ssd_scan, its only caller on this path")])
+    profiled(lambda: generate(params, cfg, prompts, max_new_tokens=16),
+             card, "ssm generate", lambda _, launches, syncs: (
+                 f"{launches / (64 + 15):.1f} launches per decode step "
+                 "(64 replay + 15 decode steps)"))
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_profile: needs one CUDA card")
@@ -160,6 +195,9 @@ def main() -> None:
                     "long prefill", **kw)
     profile_serving(cfg, params, long_prompts, smoke.LONG_NEW, card,
                     "long full", **kw)
+    del params
+    torch.cuda.empty_cache()
+    profile_ssm(card)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Configuration system: the port's own copy of the JAX package's configs.
 
 The port keeps its own copy (it imports nothing of the JAX package).  Only
-the fields the dense token-LM family reads are carried; the sub-configs of
-the other families (moe, ssm, hybrid, audio, vlm) come with their slices.
+the fields the dense and ssm token-LM families read are carried; the
+sub-configs of the other families (moe, hybrid, audio, vlm) come with their
+slices.
 ``tests/test_torch_model.py`` checks the shared fields against the JAX
 package's ``ArchConfig`` so the two copies cannot drift.
 """
@@ -13,6 +14,24 @@ from dataclasses import dataclass
 from typing import Optional
 
 MERGE_STRATEGIES = ("concat", "sum", "avg", "max", "mul")
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 (SSD) block configuration."""
+
+    d_state: int
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    conv_width: int = 4
+    chunk_size: int = 128
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
 
 
 @dataclass(frozen=True)
@@ -40,10 +59,10 @@ class VerticalConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (dense token-LM fields)."""
+    """One architecture (the dense and ssm token-LM fields)."""
 
     name: str
-    family: str  # dense (the only family the port runs so far)
+    family: str  # dense | ssm (the families the port runs so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -56,6 +75,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     sliding_window: int = 8192
+    ssm: Optional[SSMConfig] = None
     vertical: Optional[VerticalConfig] = None
     source: str = ""  # provenance citation
 
@@ -64,16 +84,26 @@ class ArchConfig:
             return self.head_dim
         return self.d_model // max(self.num_heads, 1)
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
     def with_vertical(self, vertical: Optional[VerticalConfig]) -> "ArchConfig":
         return dataclasses.replace(self, vertical=vertical)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model <= 256, 2 clients."""
+        """Smoke-test variant: 2 layers, d_model <= 256, 2 clients; an ssm
+        keeps d_state <= 16 and chunks of 32."""
         d_model = min(self.d_model, 256)
         heads = min(self.num_heads, 4) or 4
         kv = min(self.num_kv_heads, heads) or heads
         while heads % kv:  # at least 1 kv head, dividing heads
             kv -= 1
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(self.ssm,
+                                      d_state=min(self.ssm.d_state, 16),
+                                      chunk_size=32)
         vertical = self.vertical
         if vertical is not None:
             vertical = dataclasses.replace(vertical, tower_layers=1,
@@ -88,6 +118,7 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             head_dim=0,
             sliding_window=64,
+            ssm=ssm,
             vertical=vertical,
         )
 
@@ -115,4 +146,4 @@ def get_arch(name: str) -> ArchConfig:
 
 def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
-    from repro_torch.configs import smollm_360m  # noqa: F401
+    from repro_torch.configs import mamba2_1_3b, smollm_360m  # noqa: F401

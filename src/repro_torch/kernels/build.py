@@ -43,6 +43,9 @@ SIGNATURES = {
     # q, k, v, o, strides (12 x int64), dtype, B, H, Hkv, S, D, causal,
     # device, stream
     "repro_flash_attention": ([_P, _P, _P, _P, _P] + [_I] * 8 + [_P], _I),
+    # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
+    # N, Q, device, stream
+    "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

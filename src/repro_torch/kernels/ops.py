@@ -6,7 +6,8 @@ is no fallback from the kernel to the plain version).
 forward and backward launch the Triton kernels on CUDA and run the plain
 versions of :mod:`repro_torch.kernels.ref` on the CPU, the port's
 counterpart of the JAX package's ``custom_vjp`` around the Pallas calls.
-:func:`flash_attention` is forward-only, as the Pallas kernel is.
+:func:`flash_attention` and :func:`ssd_scan` are forward-only, as the
+Pallas kernels are.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from repro_torch.kernels import flash_attention as flash_kernel
 from repro_torch.kernels import merge_pool as merge_pool_kernel
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ssd_kernel
 
 STRATEGIES = ("sum", "avg", "max", "mul", "concat")
 
@@ -100,3 +102,77 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "2048 tokens (a backward kernel) comes with a later training "
             "slice of the port")
     return flash_kernel.flash_attention(q, k, v, causal=causal)
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, chunk: int,
+             initial_state: Optional[torch.Tensor] = None):
+    """The full SSD scan through the chunk kernel plus the host's
+    inter-chunk recurrence: the JAX package's ``ops.ssd_scan``.
+
+    x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)``, Bm and Cm
+    ``(B, S, 1, N)`` (one group).  Returns y ``(B, S, H, P)`` and the final
+    state ``(B, H, P, N)``, both f32.  The chunk terms come from the CUDA
+    kernel for CUDA tensors and from :func:`ref.ssd_chunks` for CPU tensors.
+
+    Raises on ``n_groups != 1`` (the chunk kernel shares one B/C across the
+    heads, as the Pallas host side does), on a chunk that does not divide
+    S, on a CUDA call whose inputs require grad (the kernel is forward-only,
+    and the JAX package has no backward for it either) and on any device
+    other than the CPU and CUDA."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    if G != 1:
+        raise NotImplementedError(
+            f"ssd_scan: n_groups = {G}; the chunk kernel takes one group "
+            "(use the model's ssd_chunked for grouped B/C)")
+    Q = min(chunk, S)
+    if Q < 1 or S % Q:
+        raise ValueError(f"ssd_scan: chunk {Q} does not divide the sequence "
+                         f"length {S}")
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ssd_scan: no kernel for device {x.device}")
+    tensors = (x, dt, A, Bm, Cm) + (
+        () if initial_state is None else (initial_state,))
+    if x.is_cuda and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel is forward-only; training the ssm "
+            "family (a backward kernel) comes with a later slice of the port")
+    nc = S // Q
+    a = (dt * A[None, None, :]).to(torch.float32)
+    xdt = (x * dt[..., None]).to(torch.float32)
+    Bs = Bm[:, :, 0].to(torch.float32)
+    Cs = Cm[:, :, 0].to(torch.float32)
+    if x.is_cuda:
+        y_intra, states, _, cums = ssd_kernel.ssd_chunk(xdt, a, Bs, Cs, Q)
+    else:
+        y_intra, states, _, cums = ref.ssd_chunks(xdt, a, Bs, Cs, Q)
+
+    # inter-chunk recurrence (the JAX package's lax.scan carry) as one
+    # product over the chunks, Mamba2's chunk-level segsum: with l_0 = 0
+    # and l_c the log-decay of chunk c - 1, the state entering chunk z
+    # (z = nc: the final state) is sum_{c <= z} exp(l_{c+1} + ... + l_z)
+    # s_c over s = [initial_state, chunk 0's state, ...].  Each exponent
+    # is summed term by term under a mask, not taken as a difference of
+    # running sums, which would lose digits over many chunks.
+    ell = torch.nn.functional.pad(
+        cums.reshape(Bsz, nc, Q, H)[:, :, -1].transpose(1, 2), (1, 0))
+    T = nc + 1
+    ones = torch.ones((T, T), dtype=torch.bool, device=x.device)
+    seg = torch.cumsum(ell[..., :, None].masked_fill(~ones.tril(-1), 0.0),
+                       dim=-2)
+    decay = torch.exp(seg.masked_fill(~ones.tril(), float("-inf")))
+    entering = torch.einsum("bhzc,bchq->bzhq", decay[..., 1:],
+                            states.reshape(Bsz, nc, H, P * N))
+    if initial_state is not None:
+        entering = entering + torch.einsum(
+            "bhz,bhq->bzhq", decay[..., 0],
+            initial_state.to(torch.float32).reshape(Bsz, H, P * N))
+    # y_off = exp(cum) * (C . state_in): one batched product per (batch,
+    # chunk) whose output (Q, H * P) is already the sequence layout
+    y_off = torch.matmul(
+        Cs.reshape(Bsz, nc, Q, N),
+        entering[:, :nc].reshape(Bsz, nc, H * P, N).transpose(-1, -2))
+    y = y_intra + y_off.reshape(Bsz, S, H, P) * torch.exp(cums)[..., None]
+    return y, entering[:, nc].reshape(Bsz, H, P, N)

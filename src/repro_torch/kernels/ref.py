@@ -99,3 +99,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(s, dim=-1)
         blocks.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
     return torch.cat(blocks, dim=2)
+
+
+def ssd_chunk(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor):
+    """The quadratic intra-chunk SSD term, batched over leading dims G
+    (which broadcast: B/C shared by every head pass as ``(..., 1, Q, N)``).
+
+    x ``(G, Q, P)`` inputs already scaled by dt, a ``(G, Q)`` log-decays
+    (dt * A, negative), Bm and Cm ``(G, Q, N)``.  Returns, in f32:
+      y_intra ``(G, Q, P)`` = ``((C B^T) o L) x`` with
+        ``L[i, j] = exp(cum_i - cum_j)`` for ``i >= j``, else 0;
+      state ``(G, P, N)`` = ``sum_j exp(cum_Q - cum_j) x_j B_j^T``;
+      decay ``(G,)`` = ``exp(cum_Q)``, the inter-chunk carry factor;
+      cum ``(G, Q)`` = ``cumsum(a)``.
+    The JAX package's ``ref.ssd_chunk`` for one chunk, batched."""
+    Q = x.shape[-2]
+    xf, af = x.to(torch.float32), a.to(torch.float32)
+    Bf, Cf = Bm.to(torch.float32), Cm.to(torch.float32)
+    cum = torch.cumsum(af, dim=-1)
+    diff = cum[..., :, None] - cum[..., None, :]
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(lower, torch.exp(diff), torch.zeros_like(diff))
+    scores = (Cf @ Bf.transpose(-1, -2)) * L
+    y_intra = scores @ xf
+    decay_to_end = torch.exp(cum[..., -1:] - cum)
+    state = (xf * decay_to_end[..., None]).transpose(-1, -2) @ Bf
+    return y_intra, state, torch.exp(cum[..., -1]), cum
+
+
+def ssd_chunks(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+               Cm: torch.Tensor, chunk: int):
+    """:func:`ssd_chunk` over every chunk of a sequence, in the layouts the
+    CUDA kernel reads and writes (the plain twin of
+    ``kernels.ssd_scan.ssd_chunk``).
+
+    xdt ``(B, S, H, P)``, a ``(B, S, H)``, Bm and Cm ``(B, S, N)`` (one
+    group, shared by every head), ``chunk`` dividing S.  Returns y_intra
+    ``(B, S, H, P)``, state ``(B, nc, H, P, N)``, decay ``(B, nc, H)`` and
+    cum ``(B, S, H)``, all f32 and contiguous."""
+    Bsz, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    xg = xdt.reshape(Bsz, nc, chunk, H, P).permute(0, 1, 3, 2, 4)
+    ag = a.reshape(Bsz, nc, chunk, H).permute(0, 1, 3, 2)
+    Bg = Bm.reshape(Bsz, nc, 1, chunk, N)
+    Cg = Cm.reshape(Bsz, nc, 1, chunk, N)
+    y, state, decay, cum = ssd_chunk(xg, ag, Bg, Cg)
+    y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P)
+    cum = cum.permute(0, 1, 3, 2).reshape(Bsz, S, H)
+    return y, state.contiguous(), decay.contiguous(), cum

@@ -1,0 +1,111 @@
+"""The Mamba2 SSD chunk kernel (CUDA C++, ``csrc/ssd_chunk.cu``) and its
+wrapper.
+
+``ssd_chunk_kernel`` replaces the JAX package's Pallas kernel
+``_ssd_chunk_kernel`` (``src/repro/kernels/ssd_scan.py:23``, launched by
+``ssd_chunk_batch``): the quadratic intra-chunk term of the SSD scan, its
+per-chunk state and decay and the running log-decay, in f32.  It reads the
+model's tensors by strides — x ``(B, S, H, P)``, a ``(B, S, H)``, and B/C
+``(B, S, N)`` shared by every head (one group) — so the host side makes no
+transposed or head-broadcast copy.  The source says what bounds it on an
+H100 and how its design answers that.
+
+:func:`ssd_chunk` takes CUDA tensors only and raises on anything the kernel
+does not take; the plain version is
+:func:`repro_torch.kernels.ref.ssd_chunks`, and
+:func:`repro_torch.kernels.ops.ssd_scan` dispatches by device.  The library
+is built by :mod:`repro_torch.kernels.build` at the first launch.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+HEAD_DIMS = (16, 32, 64)
+#: one chunk row per thread of a 128-thread block
+MAX_CHUNK = 128
+#: d_state is staged in shared memory 16, 32 or 64 columns at a time
+STATE_MULTIPLE = 16
+GRID_LIMIT = 65535  # heads and batch ride the grid's y and z axes
+
+#: kernel launches since the last :func:`reset_launches` — one per launch,
+#: counted where the wrapper launches the kernel and nowhere else
+launches = {"ssd_chunk_kernel": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _check(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+           Cm: torch.Tensor, chunk: int) -> None:
+    for name, t in (("xdt", xdt), ("a", a), ("B", Bm), ("C", Cm)):
+        if not t.is_cuda:
+            raise ValueError(f"ssd_chunk kernel: {name} is on {t.device}, "
+                             "the kernel takes CUDA tensors only")
+        if t.device != xdt.device:
+            raise ValueError(f"ssd_chunk kernel: {name} is on {t.device}, "
+                             f"xdt on {xdt.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"ssd_chunk kernel: {name} dtype {t.dtype} "
+                            "(takes float32)")
+    if xdt.ndim != 4:
+        raise ValueError("ssd_chunk kernel: xdt must be (B, S, H, P), got "
+                         f"shape {tuple(xdt.shape)}")
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    if tuple(a.shape) != (B, S, H) or Bm.ndim != 3 or \
+            tuple(Bm.shape[:2]) != (B, S) or tuple(Cm.shape) != tuple(
+                Bm.shape):
+        raise ValueError(
+            f"ssd_chunk kernel: a must be (B, S, H) = ({B}, {S}, {H}) and B, "
+            f"C (B, S, N); got {tuple(a.shape)}, {tuple(Bm.shape)}, "
+            f"{tuple(Cm.shape)}")
+    if P not in HEAD_DIMS:
+        raise ValueError(f"ssd_chunk kernel: head dim {P} (takes "
+                         f"{HEAD_DIMS})")
+    if N < STATE_MULTIPLE or N % STATE_MULTIPLE:
+        raise ValueError(f"ssd_chunk kernel: d_state {N} (takes a multiple "
+                         f"of {STATE_MULTIPLE})")
+    if not 1 <= chunk <= MAX_CHUNK or S % chunk:
+        raise ValueError(f"ssd_chunk kernel: chunk {chunk} must be in "
+                         f"1..{MAX_CHUNK} and divide S = {S}")
+    if B > GRID_LIMIT or H > GRID_LIMIT:
+        raise ValueError(f"ssd_chunk kernel: shape {tuple(xdt.shape)} is "
+                         "outside the launch grid")
+
+
+def ssd_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+              Cm: torch.Tensor, chunk: int):
+    """Launch the kernel over every chunk: xdt ``(B, S, H, P)`` (x scaled
+    by dt), a ``(B, S, H)`` (dt * A), Bm and Cm ``(B, S, N)``, f32, any
+    strides.  Returns y_intra ``(B, S, H, P)``, state ``(B, nc, H, P, N)``,
+    decay ``(B, nc, H)`` and cum ``(B, S, H)``, contiguous f32.  Launches
+    on the current stream without synchronizing; raises on anything the
+    kernel does not take and when the launch is refused.  There is no
+    fallback."""
+    _check(xdt, a, Bm, Cm, chunk)
+    lib = build.library()
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    out = dict(dtype=torch.float32, device=xdt.device)
+    y = torch.empty((B, S, H, P), **out)
+    state = torch.empty((B, nc, H, P, N), **out)
+    decay = torch.empty((B, nc, H), **out)
+    cum = torch.empty((B, S, H), **out)
+    strides = (ctypes.c_longlong * 13)(*(
+        s for t in (xdt, a, Bm, Cm) for s in t.stride()))
+    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    code = lib.repro_ssd_chunk(
+        xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        y.data_ptr(), state.data_ptr(), decay.data_ptr(), cum.data_ptr(),
+        ctypes.addressof(strides), B, S, H, P, N, chunk, xdt.device.index,
+        stream)
+    build.check(code, "ssd_chunk_kernel")
+    launches["ssd_chunk_kernel"] += 1
+    return y, state, decay, cum

@@ -1,11 +1,15 @@
-"""Architecture assembly: params for the dense family with its vertical
-split, the server trunk, the LM loss and the per-role split helpers.
+"""Architecture assembly for the dense and ssm families: params with the
+vertical split, the monolithic forward (prefill), the ssm decode caches and
+decode step, the server trunk, the LM loss and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
 K independent client towers over d_model/K feature slices; tower outputs
 are merged (``cfg.vertical.merge``) at the cut layer; the remaining layers
 form the server network.  The tree has the JAX package's layout, so
 weights carry across by a straight copy (``repro_torch.interop``).
+
+The other families (moe, hybrid, audio, vlm) and cut compression raise
+``NotImplementedError`` naming the slice of the port that brings them.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import merge as merge_lib
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import BlockDims
@@ -35,69 +40,251 @@ def _cut_dim(cfg: ArchConfig) -> int:
     return cfg.d_model
 
 
+def _tower_ssm_d(cfg: ArchConfig) -> int:
+    return cfg.d_model // cfg.vertical.num_clients
+
+
 def _server_layers(cfg: ArchConfig) -> int:
     if cfg.vertical is None:
         return cfg.num_layers
     return cfg.num_layers - cfg.vertical.tower_layers
 
 
+def _check_family(cfg: ArchConfig) -> None:
+    """The families and options the port runs so far; the rest raise by
+    name."""
+    if cfg.family not in ("dense", "ssm"):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
+            "of the port (it runs the dense and ssm families so far)")
+    if cfg.vertical is None:
+        raise NotImplementedError(
+            f"{cfg.name}: the port runs the vertical split so far; the "
+            "centralized baseline (vertical=None) comes with a later slice")
+    if cfg.vertical.compression is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: cut compression ({cfg.vertical.compression!r}) "
+            "comes with the protocol-features slice of the port")
+
+
 def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
     """Feature-slice towers, stacked over clients: (K, L_t, ...) params."""
     v = cfg.vertical
     K, Lt = v.num_clients, v.tower_layers
-    dims_t = _tower_dims(cfg)
+    d_t = _tower_ssm_d(cfg) if cfg.family == "ssm" else \
+        _tower_dims(cfg).d_model
+    # draws in the order proj_in, blocks, proj_out
+    proj_in = layers.dense_init(gen, cfg.d_model // K, d_t, lead=(K,),
+                                dtype=dtype)
+    if cfg.family == "ssm":
+        blocks = tfm.init_mamba_block(gen, d_t, cfg.ssm, lead=(K, Lt),
+                                      dtype=dtype)
+    else:
+        blocks = tfm.init_dense_block(gen, _tower_dims(cfg), lead=(K, Lt),
+                                      dtype=dtype)
     return {
-        "proj_in": layers.dense_init(gen, cfg.d_model // K, dims_t.d_model,
-                                     lead=(K,), dtype=dtype),
-        "blocks": tfm.init_dense_block(gen, dims_t, lead=(K, Lt),
-                                       dtype=dtype),
-        "proj_out": layers.dense_init(gen, dims_t.d_model, _cut_dim(cfg),
-                                      lead=(K,), dtype=dtype),
+        "proj_in": proj_in,
+        "blocks": blocks,
+        "proj_out": layers.dense_init(gen, d_t, _cut_dim(cfg), lead=(K,),
+                                      dtype=dtype),
     }
 
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, dtype=torch.float32) -> dict:
-    """Seeded init of the dense family with a vertical section, on
-    ``device`` (``cuda`` unless ``"cpu"`` is asked for).  ``generator``
-    must live on that device; None means a fresh one seeded with 0.
+    """Seeded init of the dense or ssm family with its vertical section,
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for).
+    ``generator`` must live on that device; None means a fresh one seeded
+    with 0.
 
     Shapes and scales are the JAX package's; the numbers are not (torch
     and jax draw differently from a seed) — tests that compare the two
     packages carry the JAX package's params across instead."""
-    if cfg.family != "dense" or cfg.vertical is None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port initializes the dense family with a "
-            "vertical section so far")
+    _check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}")
-    dims = BlockDims.from_arch(cfg)
+    n_server = _server_layers(cfg)
+    # draws in the order embedding, server, towers
+    embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model,
+                                  dtype=dtype, tie=cfg.tie_embeddings)
+    if cfg.family == "ssm":
+        server = tfm.init_mamba_block(generator, cfg.d_model, cfg.ssm,
+                                      lead=(n_server,), dtype=dtype)
+    else:
+        server = tfm.init_dense_block(generator, BlockDims.from_arch(cfg),
+                                      lead=(n_server,), dtype=dtype)
     return {
-        "embed": layers.init_embedding(generator, cfg.vocab_size, cfg.d_model,
-                                       dtype=dtype, tie=cfg.tie_embeddings),
+        "embed": embed,
         "final_norm": layers.init_rmsnorm(cfg.d_model, device=dev,
                                           dtype=dtype),
-        "server": tfm.init_dense_block(generator, dims,
-                                       lead=(_server_layers(cfg),),
-                                       dtype=dtype),
+        "server": server,
         "towers": _init_towers(cfg, generator, dtype),
     }
 
 
+# ---------------------------------------------------------------------------
+# monolithic forward (prefill)
+# ---------------------------------------------------------------------------
+
+def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
+                    positions: torch.Tensor, live_mask=None,
+                    use_kernel: bool = True) -> torch.Tensor:
+    """x ``(B, S, d_model)`` -> the merged cut activation: K towers over
+    the feature slices, then ``merge_stacked`` with ``live_mask``, as the
+    JAX package's monolithic path merges (no merge kernel here)."""
+    v = cfg.vertical
+    towers = params["towers"]
+    cuts = []
+    for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
+        blocks = tfm.layer_params(towers["blocks"], k)
+        h = xk @ towers["proj_in"][k]
+        if cfg.family == "ssm":
+            h = tfm.mamba_stack_apply(blocks, h, cfg.ssm, h.shape[-1],
+                                      cfg.norm_eps, use_kernel=use_kernel)
+        else:
+            h = tfm.dense_stack_apply(blocks, h, _tower_dims(cfg),
+                                      causal=True, positions=positions,
+                                      use_kernel=use_kernel)
+        cuts.append(h @ towers["proj_out"][k])
+    return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
+                                   live_mask=live_mask)
+
+
+def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
+            use_kernel: bool = True):
+    """Returns (logits ``(B, S, V)``, aux loss ``()``) for
+    ``batch = {"tokens": (B, S)}``: embedding, the towers and their merge
+    (with ``live_mask`` dropping clients), the server trunk, the final norm
+    and the unembedding.  ``use_kernel=False`` keeps every layer on the
+    plain path (the model's ``ssd_chunked``; chunked attention past 2048
+    tokens), on any device."""
+    _check_family(cfg)
+    dims = BlockDims.from_arch(cfg)
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    x = layers.embed(params["embed"], tokens)
+    positions = torch.arange(S, device=x.device)
+    x = _towers_forward(params, x, cfg, positions=positions,
+                        live_mask=live_mask, use_kernel=use_kernel)
+    x = _server_trunk_apply(params, x, cfg, dims, positions=positions,
+                            use_kernel=use_kernel)
+    x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
+    return (layers.unembed(params["embed"], x),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
+    """``prefill(params, batch) -> logits``: the forward, for serving a
+    full prompt (the JAX package's ``make_prefill``)."""
+    def prefill(params: dict, batch: dict) -> torch.Tensor:
+        logits, _ = forward(params, batch, cfg, use_kernel=use_kernel)
+        return logits
+
+    return prefill
+
+
 def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
-                        dims: BlockDims, *, positions) -> torch.Tensor:
-    """Post-merge server layers (the dense branch of the JAX package's
-    ``_server_trunk_apply``; the family has no auxiliary loss)."""
+                        dims: BlockDims, *, positions,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """Post-merge server layers (the dense and ssm branches of the JAX
+    package's ``_server_trunk_apply``; neither has an auxiliary loss)."""
+    if cfg.family == "ssm":
+        return tfm.mamba_stack_apply(params["server"], x, cfg.ssm,
+                                     cfg.d_model, cfg.norm_eps,
+                                     use_kernel=use_kernel)
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the port's server trunk covers the dense family "
-            f"only (got {cfg.family!r})")
+            f"{cfg.name}: the port's server trunk covers the dense and ssm "
+            f"families only (got {cfg.family!r})")
     return tfm.dense_stack_apply(params["server"], x, dims, causal=True,
-                                 positions=positions)
+                                 positions=positions, use_kernel=use_kernel)
+
+
+# ---------------------------------------------------------------------------
+# ssm decode caches and the decode step
+# ---------------------------------------------------------------------------
+
+def _ssm_cache(cfg: ArchConfig, lead: tuple, batch: int, d_model: int,
+               dtype, device) -> dict:
+    """Per-layer ssm state ``lead + (B, H, P, N)`` (f32) and conv ring
+    ``lead + (B, W-1, ch)``."""
+    ssm = cfg.ssm
+    H = ssm.n_heads(d_model)
+    P, N, W = ssm.head_dim, ssm.d_state, ssm.conv_width
+    ch = ssm.d_inner(d_model) + 2 * ssm.n_groups * ssm.d_state
+    return {
+        "ssm": torch.zeros(lead + (batch, H, P, N), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros(lead + (batch, W - 1, ch), dtype=dtype,
+                            device=device),
+    }
+
+
+def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
+               dtype=torch.float32, *, device: DeviceLike = None) -> dict:
+    """The ssm family's decode cache, with the JAX package's keys and
+    shapes: ``index``, ``kv_positions`` (unused by an ssm, kept for the
+    layout), the server's ``ssm``/``conv`` stacks and the towers'."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the port's monolithic decode cache covers the ssm "
+            "family; the dense family's (prefill_tokens) comes with a later "
+            "slice of the port")
+    _check_family(cfg)
+    dev = resolve_device(device)
+    v = cfg.vertical
+    return {
+        "index": torch.zeros((), dtype=torch.int32, device=dev),
+        "kv_positions": torch.full((cache_len,), -1, dtype=torch.int32,
+                                   device=dev),
+        **_ssm_cache(cfg, (_server_layers(cfg),), batch, cfg.d_model, dtype,
+                     dev),
+        "tower": _ssm_cache(cfg, (v.num_clients, v.tower_layers), batch,
+                            _tower_ssm_d(cfg), dtype, dev),
+    }
+
+
+def _towers_decode(params: dict, x: torch.Tensor, tower_cache: dict,
+                   cfg: ArchConfig, *, live_mask=None):
+    """One-token tower pass, x ``(B, 1, d)``; the towers' caches are
+    written in place.  Returns the merged cut."""
+    v = cfg.vertical
+    towers = params["towers"]
+    cuts = []
+    for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
+        h = xk @ towers["proj_in"][k]
+        h, _, _ = tfm.mamba_stack_decode(
+            tfm.layer_params(towers["blocks"], k), h, tower_cache["ssm"][k],
+            tower_cache["conv"][k], cfg.ssm, h.shape[-1], cfg.norm_eps)
+        cuts.append(h @ towers["proj_out"][k])
+    return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
+                                   live_mask=live_mask)
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: ArchConfig, *, live_mask=None):
+    """One-token decode of the ssm family, tokens ``(B,)``.  Returns
+    (logits ``(B, V)``, cache): the ssm and conv states are written in
+    place, ``index`` advances by one."""
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: the port's monolithic decode step covers the ssm "
+            "family; the dense family's comes with a later slice of the port")
+    _check_family(cfg)
+    dims = BlockDims.from_arch(cfg)
+    x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
+    new_cache = dict(cache)
+    x = _towers_decode(params, x, cache["tower"], cfg, live_mask=live_mask)
+    x, _, _ = tfm.mamba_stack_decode(params["server"], x, cache["ssm"],
+                                     cache["conv"], cfg.ssm, cfg.d_model,
+                                     cfg.norm_eps)
+    new_cache["index"] = cache["index"] + 1
+    x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
+    return layers.unembed(params["embed"], x)[:, 0, :], new_cache
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

@@ -336,6 +336,11 @@ def get_program(cfg: ArchConfig) -> SplitProgram:
     if cfg.vertical is None:
         raise ValueError(f"{cfg.name}: split execution needs a vertical "
                          "config")
+    if cfg.family == "ssm":
+        raise NotImplementedError(
+            f"{cfg.name}: split execution of the ssm family (the "
+            "TokenLMSplitProgram ssm branch) comes with a later slice of the "
+            "port; the ssm family runs monolithic forward and generate")
     try:
         cls = _PROGRAMS[cfg.family]
     except KeyError:

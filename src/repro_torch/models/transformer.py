@@ -1,4 +1,4 @@
-"""Dense transformer blocks and stacks.
+"""Transformer and Mamba2 blocks and stacks.
 
 Params for L homogeneous layers are stacked on a leading axis, as in the
 JAX package; a Python loop over the layers takes the place of
@@ -12,9 +12,9 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, SSMConfig
 from repro_torch.models import attention as attn_lib
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
 
 
 @dataclass(frozen=True)
@@ -29,10 +29,13 @@ class BlockDims:
 
     @staticmethod
     def from_arch(cfg: ArchConfig) -> "BlockDims":
-        if cfg.family != "dense" or cfg.qk_norm:
+        """The attention dims; an ssm (attention-free, ``num_heads`` 0)
+        gets the JAX package's degenerate values, of which it reads only
+        the norm fields."""
+        if cfg.family not in ("dense", "ssm") or cfg.qk_norm:
             raise NotImplementedError(
-                f"{cfg.name}: the port's transformer blocks cover the dense "
-                "family without qk-norm so far")
+                f"{cfg.name}: the port's blocks cover the dense family "
+                "without qk-norm and the ssm family so far")
         return BlockDims(
             d_model=cfg.d_model,
             n_heads=cfg.num_heads,
@@ -113,12 +116,15 @@ def dense_block_apply(p: dict, x: torch.Tensor, dims: BlockDims, *,
 
 def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
                       causal: bool = True,
-                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Full-sequence forward through L stacked layers, no cache (training
-    and the split program's tower / server forwards)."""
+                      positions: Optional[torch.Tensor] = None,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Full-sequence forward through L stacked layers, no cache (training,
+    the monolithic forward and the split program's tower / server
+    forwards)."""
     for i in range(num_layers(stacked)):
         x = dense_block_apply(layer_params(stacked, i), x, dims,
-                              causal=causal, positions=positions)
+                              causal=causal, positions=positions,
+                              use_kernel=use_kernel)
     return x
 
 
@@ -168,3 +174,60 @@ def dense_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
         if i == 0:
             npos = pos_i
     return x, cache_k, cache_v, npos
+
+
+# ---------------------------------------------------------------------------
+# Mamba block (pre-norm residual wrapper around models/mamba.py)
+# ---------------------------------------------------------------------------
+
+def init_mamba_block(gen: torch.Generator, d_model: int, ssm_cfg: SSMConfig,
+                     *, lead: tuple = (), dtype=torch.float32) -> dict:
+    return {
+        "ln": layers.init_rmsnorm(d_model, lead=lead, device=gen.device,
+                                  dtype=dtype),
+        "mamba": mamba.init_mamba(gen, d_model, ssm_cfg, lead=lead,
+                                  dtype=dtype),
+    }
+
+
+def mamba_block_apply(p: dict, x: torch.Tensor, ssm_cfg: SSMConfig,
+                      d_model: int, eps: float, *, use_kernel: bool = True):
+    h = layers.rmsnorm(p["ln"], x, eps)
+    out, state, conv_tail = mamba.mamba_apply(p["mamba"], h, ssm_cfg,
+                                              d_model, use_kernel=use_kernel)
+    return x + out, state, conv_tail
+
+
+def mamba_block_decode(p: dict, x: torch.Tensor, ssm_state: torch.Tensor,
+                       conv_state: torch.Tensor, ssm_cfg: SSMConfig,
+                       d_model: int, eps: float):
+    h = layers.rmsnorm(p["ln"], x, eps)
+    out, ns, nc = mamba.mamba_decode_step(p["mamba"], h, ssm_state,
+                                          conv_state, ssm_cfg, d_model)
+    return x + out, ns, nc
+
+
+def mamba_stack_apply(stacked: dict, x: torch.Tensor, ssm_cfg: SSMConfig,
+                      d_model: int, eps: float, *,
+                      use_kernel: bool = True) -> torch.Tensor:
+    """Full-sequence forward through L stacked Mamba blocks."""
+    for i in range(num_layers(stacked)):
+        x, _, _ = mamba_block_apply(layer_params(stacked, i), x, ssm_cfg,
+                                    d_model, eps, use_kernel=use_kernel)
+    return x
+
+
+def mamba_stack_decode(stacked: dict, x: torch.Tensor,
+                       ssm_states: torch.Tensor, conv_states: torch.Tensor,
+                       ssm_cfg: SSMConfig, d_model: int, eps: float):
+    """ssm_states ``(L, B, H, P, N)`` and conv_states ``(L, B, W-1, ch)``
+    are written in place, layer by layer (the JAX package returns new
+    stacks; the values are the same).  Returns (x, ssm_states,
+    conv_states)."""
+    for i in range(num_layers(stacked)):
+        x, ns, nc = mamba_block_decode(layer_params(stacked, i), x,
+                                       ssm_states[i], conv_states[i],
+                                       ssm_cfg, d_model, eps)
+        ssm_states[i].copy_(ns)
+        conv_states[i].copy_(nc)
+    return x, ssm_states, conv_states

@@ -1,6 +1,6 @@
 """The port's kernels — the Triton merge kernels, forward and backward, and
-the CUDA C++ flash-attention kernel — against their plain PyTorch
-versions.
+the CUDA C++ flash-attention and SSD chunk kernels — against their plain
+PyTorch versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -13,7 +13,8 @@ Tolerances: 1e-5 in f32, 2e-2 in bf16 forward (the kernels accumulate in
 f32, the plain forward in the input dtype), 5e-2 in bf16 backward (both
 compute in f32; a gradient is rounded to bf16 once more than the merged
 value it came from).  Flash attention: 5e-4 in f32 and 3e-2 in bf16, the
-JAX package's own tolerances for its Pallas kernel.
+JAX package's own tolerances for its Pallas kernel; the SSD chunk kernel:
+3e-4 in f32, likewise.
 """
 import pytest
 import torch
@@ -21,7 +22,9 @@ import torch
 from repro_torch.kernels import flash_attention as flash_module
 from repro_torch.kernels import merge_pool as kernel_module
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba
 
 STRATEGIES = ["sum", "avg", "max", "mul", "concat"]
 SHAPES = [(2, 8, 128), (4, 32, 256), (5, 100, 384), (3, 37, 100),
@@ -308,3 +311,115 @@ def test_flash_kernel_refusals_on_card():
     out, _ = attn_lib.attention_apply(params, x, positions=torch.arange(
         2049, device="cuda"), **kw)
     assert torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# the SSD chunk kernel
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(rtol=3e-4, atol=3e-4)
+# (B, S, H, P, N, chunk): the server and tower shapes of mamba2-1.3b at a
+# short length, a prompt shorter than a chunk, the reduced config's chunks,
+# the JAX package's own test shapes, and d_state staged 16 columns at a time
+SSD_SHAPES = [(1, 512, 64, 64, 128, 128), (2, 256, 16, 64, 128, 128),
+              (2, 96, 4, 64, 128, 128), (1, 128, 4, 64, 16, 32),
+              (2, 64, 2, 16, 16, 16), (2, 128, 2, 32, 32, 32),
+              (1, 192, 3, 64, 48, 64)]
+
+
+def _ssd_inputs(shape, gen):
+    """The JAX package's test distributions; B and C as the model passes
+    them: strided views of the conv output ``[x, B, C]``."""
+    B, S, H, P, N, _ = shape
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device="cuda") * 0.5)
+    A = -torch.exp(torch.randn((H,), generator=gen, device="cuda") * 0.3)
+    u = torch.randn((B, S, H * P + 2 * N), generator=gen, device="cuda") * 0.3
+    Bm = u[..., H * P:H * P + N].reshape(B, S, 1, N)
+    Cm = u[..., H * P + N:].reshape(B, S, 1, N)
+    return x, dt, A, Bm, Cm
+
+
+def _ssd_needs_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the SSD kernel runs only there)")
+
+
+def test_ssd_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper takes CUDA tensors only: there is no fallback."""
+    x = torch.ones((1, 16, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_module.ssd_chunk(x, x[..., 0], x[:, :, 0], x[:, :, 0], 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_kernel_matches_plain_version_on_card(shape):
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[1] + shape[2])
+    x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
+    chunk = min(shape[-1], shape[1])
+    a, xdt = dt * A, x * dt[..., None]
+    before = ssd_module.launches["ssd_chunk_kernel"]
+    got = ssd_module.ssd_chunk(xdt, a, Bm[:, :, 0], Cm[:, :, 0], chunk)
+    assert ssd_module.launches["ssd_chunk_kernel"] == before + 1
+    want = ref.ssd_chunks(xdt, a, Bm[:, :, 0], Cm[:, :, 0], chunk)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        torch.testing.assert_close(g, w, **SSD_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_matches_ssd_chunked_on_card(shape):
+    """ops.ssd_scan (the kernel plus the host's recurrence) against the
+    model's own ssd_chunked on the same card, from a nonzero state."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[1] * 3)
+    x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
+    B, _, H, P, N, chunk = shape
+    state = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.1
+    before = ssd_module.launches["ssd_chunk_kernel"]
+    got = ops.ssd_scan(x, dt, A, Bm, Cm, chunk, initial_state=state)
+    assert ssd_module.launches["ssd_chunk_kernel"] == before + 1
+    want = mamba.ssd_chunked(x, dt, A, Bm, Cm, chunk, initial_state=state)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refusals_on_card():
+    """No silent fallback on the card: grad-requiring inputs (through
+    ops.ssd_scan and mamba_apply), grouped B/C and anything the kernel
+    does not take raise."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, dt, A, Bm, Cm = _ssd_inputs((1, 64, 2, 64, 16, 32), gen)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        ops.ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, 32)
+    with torch.no_grad():
+        ops.ssd_scan(x, dt, A, Bm, Cm, 32)
+    x = x.detach()
+    with pytest.raises(NotImplementedError, match="n_groups"):
+        ops.ssd_scan(x, dt, A, torch.cat([Bm, Bm], 2),
+                     torch.cat([Cm, Cm], 2), 32)
+    a, xdt, b, c = dt * A, x * dt[..., None], Bm[:, :, 0], Cm[:, :, 0]
+    with pytest.raises(TypeError, match="float32"):
+        ssd_module.ssd_chunk(xdt.bfloat16(), a, b, c, 32)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_module.ssd_chunk(xdt[..., :48], a, b, c, 32)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_module.ssd_chunk(xdt, a, b[..., :8], c[..., :8], 32)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_module.ssd_chunk(xdt, a, b, c, 48)
+
+    cfg = mamba.SSMConfig(d_state=16, chunk_size=32)
+    params = mamba.init_mamba(gen, 64, cfg)
+    h = torch.randn((1, 64, 64), generator=gen, device="cuda")
+    params["in_proj"].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        mamba.mamba_apply(params, h, cfg, 64)
+    out, _, _ = mamba.mamba_apply(params, h, cfg, 64, use_kernel=False)
+    assert out.requires_grad

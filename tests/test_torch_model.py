@@ -59,19 +59,29 @@ def _rand(shape, seed):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_jax(reduced):
-    jcfg, cfg = jax_get_arch(ARCH), get_arch(ARCH)
-    if reduced:
-        jcfg, cfg = jcfg.reduced(), cfg.reduced()
-    for f in dataclasses.fields(cfg):
-        if f.name == "vertical":
-            assert dataclasses.asdict(cfg.vertical) == \
-                dataclasses.asdict(jcfg.vertical)
-        else:
-            assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
-    assert cfg.resolved_head_dim() == jcfg.resolved_head_dim()
-    assert tfm.BlockDims.from_arch(cfg).scaled(4).__dict__ == {
-        k: v for k, v in jax_tfm.BlockDims.from_arch(jcfg).scaled(4)
-        .__dict__.items() if k not in ("qk_norm", "mlp", "norm")}
+    """Every field of the port's configs of smollm-360m and mamba2-1.3b
+    (sub-configs field by field) equals the JAX package's."""
+    for arch in (ARCH, "mamba2-1.3b"):
+        jcfg, cfg = jax_get_arch(arch), get_arch(arch)
+        if reduced:
+            jcfg, cfg = jcfg.reduced(), cfg.reduced()
+        for f in dataclasses.fields(cfg):
+            mine, theirs = getattr(cfg, f.name), getattr(jcfg, f.name)
+            if dataclasses.is_dataclass(mine) or dataclasses.is_dataclass(
+                    theirs):
+                assert dataclasses.asdict(mine) == dataclasses.asdict(
+                    theirs), (arch, f.name)
+            else:
+                assert mine == theirs, (arch, f.name)
+        assert cfg.resolved_head_dim() == jcfg.resolved_head_dim()
+        assert cfg.is_attention_free == jcfg.is_attention_free
+        if cfg.ssm is not None:
+            for d in (cfg.d_model, cfg.d_model // cfg.vertical.num_clients):
+                assert (cfg.ssm.d_inner(d), cfg.ssm.n_heads(d)) == (
+                    jcfg.ssm.d_inner(d), jcfg.ssm.n_heads(d))
+        assert tfm.BlockDims.from_arch(cfg).scaled(4).__dict__ == {
+            k: v for k, v in jax_tfm.BlockDims.from_arch(jcfg).scaled(4)
+            .__dict__.items() if k not in ("qk_norm", "mlp", "norm")}
 
 
 @pytest.mark.parametrize("merge", ["avg", "concat"])

@@ -315,8 +315,9 @@ def _imports(path: Path) -> list:
 def test_port_imports_neither_jax_nor_repro():
     """The port and its chip scripts import torch and numpy, never jax and
     nothing of the JAX package — checked by AST and by importing the
-    serving, training, optimizer and data packages, the kernel build and
-    the flash-attention modules with both blocked."""
+    serving, training, optimizer and data packages, the kernel build, the
+    flash-attention and SSD modules and the ssm model with both
+    blocked."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
@@ -329,6 +330,8 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.transport, repro_torch.kernels.ops, "
             "repro_torch.kernels.build, repro_torch.kernels.flash_attention, "
             "repro_torch.models.attention, "
+            "repro_torch.kernels.ssd_scan, repro_torch.models.mamba, "
+            "repro_torch.models.backbone, repro_torch.configs.mamba2_1_3b, "
             "repro_torch.optim, repro_torch.data.loader, "
             "repro_torch.train.loop, repro_torch.runtime.pipeline; "
             "print('ok')")
