@@ -178,7 +178,7 @@ def main() -> None:
     rng = np.random.default_rng(smoke.SEED)
     prompts = [rng.integers(0, cfg.vocab_size, s) for s in smoke.PROMPT_LENS]
     smoke.serve(cfg, params, prompts[:2], [2, 2], cache_len=CACHE_LEN,
-                max_batch=4)  # warm-up: Triton compiles, cuBLAS starts
+                max_batch=4)  # warm-up: nvcc and Triton build, cuBLAS starts
     profile_serving(cfg, params, prompts, [1] * len(prompts), card,
                     "prefill")
     profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
@@ -190,7 +190,7 @@ def main() -> None:
     kw = dict(cache_len=max(s + n for s, n in zip(smoke.LONG_PROMPTS,
                                                   smoke.LONG_NEW)),
               max_batch=4, cut_cache_bytes=smoke.LONG_CUT_CACHE_BYTES)
-    smoke.serve(cfg, params, long_prompts[:1], [2], **kw)  # builds the kernel
+    smoke.serve(cfg, params, long_prompts[:1], [2], **kw)  # warm-up
     profile_serving(cfg, params, long_prompts, [1] * len(long_prompts), card,
                     "long prefill", **kw)
     profile_serving(cfg, params, long_prompts, smoke.LONG_NEW, card,

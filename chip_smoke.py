@@ -1,7 +1,8 @@
 """Port smoke test on one NVIDIA GPU: the PyTorch port's split serving,
 split training and long-prompt split serving of full-width smollm-360m,
-with its merge kernels (forward and backward) in Triton and its
-flash-attention kernel in CUDA C++, and the full-sequence forward and
+with its merge reduction's forward in CUDA C++, its concat forward and
+both backward merge kernels in Triton and its flash-attention kernel in
+CUDA C++ on the tensor cores (3xTF32), and the full-sequence forward and
 greedy generation of full-width mamba2-1.3b with its SSD chunk kernel in
 CUDA C++.
 
@@ -13,7 +14,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    switch TF32 off (f32 matmuls in full f32, as the CPU path and the JAX
    package compute them; TF32 keeps ~3 decimal digits and would break
    logit parity and greedy-token identity between runs).
-2. The kernels against their plain PyTorch version on CUDA tensors: every
+2. The CUDA C++ library (every source under ``kernels/csrc``, built by
+   ``nvcc`` for sm_90a into ``build/kernels/`` before the first launch;
+   its build time and the merge kernel's ptxas report printed), then the
+   merge kernels against their plain PyTorch version on CUDA tensors: every
    strategy, f32 and bf16, a dropped client, all dropped, a ragged shape,
    and the serving and training paths' shapes, forward and backward (plus
    mul at an exact zero and max with exact ties); per path shape, the
@@ -35,13 +39,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    with the plain version).  Then 2 steps of the concat merge through its
    own kernels, and 2 steps of the reduced model on the card against the
    CPU path (losses and final params within 1e-4).
-5. The flash-attention kernel (built by ``nvcc`` for sm_90a into
-   ``build/kernels/`` at its first launch) against its plain version on
-   CUDA tensors: the serving path's server and tower shapes at S = 2500,
-   4096 and 8192 in the model's (B, S, H, D) layout, ragged small shapes,
-   causal and full, f32 (tol 5e-4) and bf16 (3e-2); at the server shape
-   and S = 8192 and 32768, the kernel's time per call and on the device,
-   the plain version's, one library call's and the bound.
+5. The flash-attention kernel: its ptxas report (registers, spills) and
+   the count of tensor-core instructions (HMMA / HGMMA) in its SASS from
+   ``cuobjdump`` (a kernel with none fails), then the kernel against its
+   plain version on CUDA tensors: the serving path's server and tower
+   shapes at S = 2500, 4096 and 8192 in the model's (B, S, H, D) layout,
+   ragged small shapes at the tile edges, causal and full, f32 (tol 5e-4)
+   and bf16 (3e-2); at the server shape and S = 8192 and 32768, the
+   kernel's time per call and on the device, the plain version's, one
+   library call's, the tensor-core bound (3xTF32) and the f32-FMA bound.
 6. Long-prompt split serving: full-width smollm-360m, K = 4, 4 slots,
    greedy, prompts of 2500-32768 tokens plus one of 1024 (dense branch)
    in one batch.  Launch counters reset just before the run, read just
@@ -110,6 +116,7 @@ from repro_torch.transport import SimTransport, build_split_worker  # noqa: E402
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 on the tensor cores, H100 SXM
 L2_BYTES = 50 * 2 ** 20
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
@@ -134,7 +141,9 @@ FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 # (B, H, Hkv, S, D): the serving path's server and tower attentions
 FLASH_PATH_SHAPES = [(1, h, hkv, s, 64) for s in (2500, 4096, 8192)
                      for h, hkv in ((15, 5), (3, 1))]
-FLASH_SMALL_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32)]
+FLASH_SMALL_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32),
+                      (1, 3, 1, 1, 64), (2, 6, 2, 65, 32),
+                      (1, 3, 3, 129, 64)]
 FLASH_TIME_SEQS = (8192, 32768)
 SSD_TOL = 3e-4  # the JAX package's tolerance for its SSD chunk kernel
 # (B, S, H, P, N, chunk): mamba2-1.3b's server (64 heads) SSD at 2048 and
@@ -188,6 +197,17 @@ def _live(k: int, kind: str, device) -> torch.Tensor:
     elif kind == "none":
         live.zero_()
     return live
+
+
+def build_library() -> None:
+    """Build (nvcc, sm_90a) and load the CUDA C++ library before any
+    launch; print the time and the merge kernel's ptxas report."""
+    t0 = time.perf_counter()
+    fa.build.library()
+    log(f"kernels: CUDA C++ library built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
+        f"{', '.join(p.name for p in fa.build.sources())}); merge ptxas: "
+        f"{ptxas_summary('merge_reduce_kernel')}")
 
 
 def check_kernels() -> dict:
@@ -737,15 +757,21 @@ def _flash_inputs(shape, dtype, gen, model_layout: bool):
 def check_flash_kernel() -> float:
     """Path and ragged shapes x causal/full x f32/bf16: kernel vs plain.
     Returns the largest f32 |error|."""
-    t0 = time.perf_counter()
-    fa.flash_attention(*_flash_inputs((1, 1, 1, 8, 64), torch.float32,
-                                      None, False), causal=True)
-    torch.cuda.synchronize()
-    log(f"flash: library built and loaded in {time.perf_counter() - t0:.1f} "
-        "s (nvcc, sm_90a); ptxas: " + "; ".join(
-            line.split("info    : ")[-1] for line in
-            fa.build.library_path().with_suffix(".log").read_text(
-            ).splitlines() if "registers" in line or "spill" in line))
+    log(f"flash: ptxas: {ptxas_report('flash_attention_kernel')}")
+    spills = {inst: spill for inst, (_, spill) in
+              _ptxas_counts("flash_attention_kernel").items() if spill}
+    if spills:
+        raise AssertionError(f"flash kernel spills registers: {spills}")
+    counts = tensor_core_instructions("flash_attention_kernel")
+    if counts is None:
+        log("flash: SASS not read: no cuobjdump in the CUDA toolkit or in "
+            "Triton's package")
+    else:
+        log(f"flash: tensor-core instructions (HMMA / HGMMA) in the SASS "
+            f"of each instantiation: {counts}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"flash kernel without tensor-core "
+                                 f"instructions: {counts}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     worst, n = 0.0, 0
     for shape in FLASH_SMALL_SHAPES + FLASH_PATH_SHAPES:
@@ -773,15 +799,57 @@ def check_flash_kernel() -> float:
     return worst
 
 
+def cuobjdump() -> str | None:
+    """The toolkit's cuobjdump, or the copy in Triton's package."""
+    import shutil
+
+    found = shutil.which("cuobjdump")
+    candidates = [Path(found)] if found else []
+    candidates.append(Path("/usr/local/cuda/bin/cuobjdump"))
+    try:
+        import triton
+
+        candidates.append(Path(triton.__file__).parent / "backends" /
+                          "nvidia" / "bin" / "cuobjdump")
+    except ImportError:
+        pass
+    return next((str(c) for c in candidates if c.is_file()), None)
+
+
+def tensor_core_instructions(kernel: str) -> dict | None:
+    """HMMA / HGMMA instructions in the SASS of each instantiation of
+    ``kernel`` in the built library (None without a cuobjdump)."""
+    tool = cuobjdump()
+    if tool is None:
+        return None
+    sass = subprocess.run([tool, "-sass", str(fa.build.library_path())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[-1].strip()
+            current = name if kernel in name else None
+            if current:
+                counts[current] = 0
+        elif current and re.search(r"\bH(G)?MMA\b", line):
+            counts[current] += 1
+    return counts
+
+
 def flash_bound(B, H, Hkv, S, D, itemsize=4, causal=True) -> tuple:
-    """Least time on an H100 SXM: two D-deep products per attended (q, kv)
-    pair at the f32 rate, vs q, k, v read once and o written once."""
+    """Least time on an H100 SXM for the kernel's f32-accurate work: two
+    D-deep products per attended (q, kv) pair, each as three TF32 products
+    (3xTF32) at the tensor cores' dense TF32 rate, vs q, k, v read once and
+    o written once.  Also returns the f32-FMA figure (the same products at
+    the f32 rate outside the tensor cores) and the f32 flops."""
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * D * B * H * pairs
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes")
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
 
 
 def time_flash(card: str) -> dict:
@@ -823,22 +891,28 @@ def time_flash(card: str) -> dict:
             row[prefix + "device_ms"] = device_ms(
                 lambda _: fn(), [(None,)], iters=1 if slow else
                 (3 if big else 10), reps=2 if slow else 3)
-        row["bound_ms"], row["bound_by"] = flash_bound(*shape)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops = \
+            flash_bound(*shape)
         got, want = fns[""](), fns["library_"]()
         torch.cuda.synchronize()
         row["library_max_abs_diff"] = float((got - want).abs().max())
         rows[S] = row
-        flops = 4 * 64 * 15 * S * (S + 1) // 2
         log(f"time flash causal f32 (1, 15/5, {S}, 64): per call (device): "
             f"kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
-            f"{flops / row['device_ms'] / 1e9:.2f} TFLOP/s, plain "
+            f"{flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s "
+            f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
+            f"3xTF32 tensor-core bound, "
+            f"{100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of the "
+            f"f32-FMA bound), plain "
             f"{row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) ms, "
             f"library {row['library_ms']:.6f} ({row['library_device_ms']:.6f})"
             f" ms (max |kernel - library| {row['library_max_abs_diff']:.3e}),"
             + (f" library enable_gqa=True {row['library_gqa_ms']:.6f} "
                f"({row['library_gqa_device_ms']:.6f}) ms,"
                if "library_gqa_ms" in row else "")
-            + f" bound {row['bound_ms']:.6f} ms ({row['bound_by']}) | {card}")
+            + f" bound {row['bound_ms']:.6f} ms ({row['bound_by']}, 3xTF32 at "
+            f"495 TFLOP/s), fma_bound {row['fma_bound_ms']:.6f} ms (f32 at "
+            f"67 TFLOP/s) | {card}")
         del q, k, v, kr, vr, got, want
         torch.cuda.empty_cache()
     return rows
@@ -1028,19 +1102,46 @@ def _ssd_inputs(shape, gen):
     return x, dt, A, Bm, Cm
 
 
-def ptxas_report(kernel: str) -> str:
-    """ptxas's registers and spills for each instantiation of ``kernel``
-    (its template arguments from the mangled name), from the build log."""
-    out, current = [], ""
+def _ptxas_counts(kernel: str) -> dict:
+    """{instantiation: (registers, spill bytes stored and loaded)} for
+    ``kernel`` from the build log; an instantiation is named by its element
+    type (where it has one) and its integer template arguments, read from
+    the mangled name."""
+    counts, current = {}, ""
     for line in fa.build.library_path().with_suffix(".log").read_text(
             ).splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
             current = line
         elif kernel in current and ("registers" in line or "spill" in line):
             args = re.findall(r"Li(\d+)E", current)
-            out.append(f"<{', '.join(args)}> "
-                       f"{line.split('info    : ')[-1].strip()}")
-    return "; ".join(out)
+            if "nv_bfloat16" in current:
+                args.insert(0, "bf16")
+            elif f"{kernel}If" in current:
+                args.insert(0, "f32")
+            inst = f"<{', '.join(args)}>"
+            regs, spill = counts.get(inst, (0, 0))
+            counts[inst] = (
+                regs + sum(map(int, re.findall(r"Used (\d+) registers", line))),
+                spill + sum(map(int, re.findall(r"(\d+) bytes spill", line))))
+    return counts
+
+
+def ptxas_report(kernel: str) -> str:
+    """ptxas's registers and spills for each instantiation of ``kernel``,
+    from the build log."""
+    return "; ".join(f"{inst} {regs} registers, {spill} bytes of spill"
+                     for inst, (regs, spill) in _ptxas_counts(kernel).items())
+
+
+def ptxas_summary(kernel: str) -> str:
+    """The range of registers and the total spill bytes over every
+    instantiation of ``kernel`` (the merge kernel has one per dtype,
+    strategy and client count)."""
+    counts = _ptxas_counts(kernel).values()
+    regs = [r for r, _ in counts]
+    return (f"{len(regs)} instantiations, {min(regs, default=0)}-"
+            f"{max(regs, default=0)} registers, "
+            f"{sum(s for _, s in counts)} bytes of spill in all")
 
 
 def check_ssd_kernel() -> float:
@@ -1377,6 +1478,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    build_library()
     worst = check_kernels()
     worst.update(check_backward_kernels())
     rows = time_path_shapes(card)
@@ -1406,9 +1508,11 @@ def main() -> None:
             ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE,
              "src/repro/kernels/merge_pool.py:96")):
         row = rows[(strategy, shape)]
+        cuda = name == "merge_reduce_kernel"
         kernels.append({
-            "name": name, "route": "triton",
-            "source": "src/repro_torch/kernels/merge_pool.py",
+            "name": name, "route": "cuda" if cuda else "triton",
+            "source": ("src/repro_torch/kernels/csrc/merge_pool.cu" if cuda
+                       else "src/repro_torch/kernels/merge_pool.py"),
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1425,8 +1529,8 @@ def main() -> None:
         "launches": launches["flash_attention_kernel"],
         "max_abs_err": flash_worst, "ms": row["ms"],
         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-        "device_ms": row["device_ms"],
+        "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
+        "library_ms": row["library_ms"], "device_ms": row["device_ms"],
         "plain_device_ms": row["plain_device_ms"],
         "library_device_ms": row["library_device_ms"],
         "shape": [1, 15, max(FLASH_TIME_SEQS), 64], "kv_heads": 5,

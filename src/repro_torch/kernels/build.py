@@ -30,6 +30,8 @@ import threading
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -46,6 +48,9 @@ SIGNATURES = {
     # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
     # N, Q, device, stream
     "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # x, live, out, n (= B * D), K, strategy, dtype, device, stream
+    "repro_merge_reduce": ([_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
+                           _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -131,6 +136,15 @@ def library() -> ctypes.CDLL:
                 fn.argtypes, fn.restype = argtypes, restype
             _library = lib
     return _library
+
+
+def current_stream(device: torch.device) -> int:
+    """PyTorch's current stream on the CUDA ``device``, as the raw
+    ``cudaStream_t`` the C entry points take.  The raw query is what
+    PyTorch's own Triton launcher reads; ``torch.cuda.current_stream``
+    builds a ``Stream`` object around it first, host time that a small
+    kernel such as the merge's would pay on every call."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(code: int, what: str) -> None:

@@ -15,47 +15,88 @@
 //    activations are read as permuted views without a transpose.  Any S
 //    is taken: rows and columns past S are masked, not padded in memory.
 //
-// Bound on an H100 SXM: compute.  Causal attention does about
-// 2 * B * H * S^2 * D flops (two D-deep products per (q, kv) pair, S^2/2
-// pairs), against 67 TFLOP/s of f32 FMA outside the tensor cores; the
-// bytes (q, k, v read once, o written once) are O(S * D) and take
-// microseconds.  So the design spends its effort on keeping the FMA units
-// fed from registers and shared memory, and nothing on device memory:
+// Bound on an H100 SXM: compute.  Causal attention does 4 * D flops per
+// attended (q, kv) pair (two D-deep products), S (S + 1) / 2 pairs per
+// head; the bytes (q, k, v read once, o written once) are O(S * D) and
+// take microseconds.  Both products run on the tensor cores:
 //
-//  * One block of 64 threads per (batch * head, 64-row q tile); thread t
-//    owns q row t of the tile: its scaled q row, its running max m, sum l
-//    and the 64-wide accumulator live in registers for the whole kv loop.
+//  * Exactness.  The path runs f32 and is held to 5e-4 against the plain
+//    version and 1e-3 on the long-prompt logits; one TF32 pass keeps about
+//    three digits and breaks both.  So every f32 operand x is split as
+//    hi = rna_tf32(x), lo = rna_tf32(x - hi) (round to nearest, ties away:
+//    the rounding of cvt.rna.tf32.f32, see split()), and each product is
+//    accumulated in f32 as a_lo b_hi + a_hi b_lo + a_hi b_hi, small terms
+//    first (3xTF32: the scheme of CUTLASS's OpMultiplyAddFastF32).  The
+//    dropped a_lo b_lo term is below f32's own rounding.  In bf16 every
+//    input is exact in TF32, so Q K^T takes one pass and P V two (P, an f32
+//    softmax, is still split).  The bound is then three TF32 products per
+//    f32 product: 3 * 4 * D * pairs over 495 TFLOP/s.  The softmax's exp2
+//    (one per pair) runs on the special-function units beside them.
+//  * Instruction: wgmma.mma_async m64nNk8 (TF32 in, f32 accumulate).  A
+//    (Q, then P) comes from registers; B (K, then V) from shared memory
+//    through a descriptor, which for TF32 must be K-major: K as stored (d
+//    contiguous in each kv row), V transposed (kv contiguous in each d
+//    row).  wgmma and not mma.sync.m16n8k8: with mma.sync every warp
+//    loads and splits each K/V element it multiplies, and that integer
+//    work, not the tensor cores, bounded the kernel; wgmma reads B from
+//    shared memory, so each element is split once per block.
+//  * Split once per block.  A block stages each raw K/V tile with cp.async
+//    (16 bytes a copy in f32, 8 in bf16: strides need only be multiples of
+//    4 elements; rows past S are zero-filled), then its 256 threads split
+//    every element once into hi and lo TF32 operand tiles, V transposed on
+//    the way, in wgmma's core-matrix layout without swizzle: 8 rows of 16
+//    bytes per 128-byte core matrix, the next core along K 128 bytes on
+//    (LBO), the next 8 rows after all of a row group's cores (SBO).  The
+//    raw stage is refilled with tile kt + 1 while tile kt is multiplied.
+//  * Tiles: 128 q rows per block, two warpgroups of 64 (wgmma's M; warp w
+//    of a warpgroup holds its rows 16w .. 16w + 15) that share each split
+//    K/V tile of 64 kv rows, so a K/V element is split once per 128 q rows.
+//    Q's A fragments (hi and lo) stay in registers for the whole kv loop.
 //    The loop over kv tiles (only up to the diagonal when causal) takes
 //    the place of the Pallas kernel's sequential kv grid axis and its
 //    @pl.when skip.
-//  * Each 64-row K tile (stored transposed) and V tile is staged in
-//    shared memory as f32 (2 x 16 KB at D = 64, under the 48 KB static
-//    limit).  Every thread reads the same shared address at the same
-//    time, a broadcast, as a 16-byte vector: one shared load feeds four
-//    FMAs, in both products.
-//  * Scores are taken 32 kv columns at a time, so q (64), acc (64) and
-//    the scores (32) fit in registers without spilling.  The softmax runs
-//    in base 2 (q pre-scaled by log2(e) / sqrt(D), exp2f), which is the
-//    same function as exp of the unscaled scores.
+//  * The two warpgroups take turns on the tensor cores: warpgroup 0 runs
+//    Q K^T, the softmax and P V of tile kt, warpgroup 1 the softmax and
+//    P V of tile kt - 1 and then Q K^T of tile kt, so one's softmax runs
+//    while the other's products do.  V^T is kept two tiles deep for it.
+//    A block needs 130 KB of shared memory in f32 at D = 64 and up to 232
+//    registers a thread: one block per SM.  Above 48 KB, shared memory
+//    must be allowed: the launcher does it once per device at the first
+//    launch, never inside a CUDA-graph capture.
+//  * Fragments: the accumulator of Q K^T holds kv columns (2t, 2t + 1) of
+//    rows g and g + 8 in lane 4g + t; P V's A operand wants columns t and
+//    t + 4.  The kernel renames the kv order inside each 8-column step
+//    instead of moving P: A's column t is kv 2t and column t + 4 is kv
+//    2t + 1, and the transposed V tile is written in that order.  A sum
+//    over kv does not depend on the order of its terms.
+//  * Softmax: in base 2 (scores times log2(e) / sqrt(D), ex2.approx), the
+//    same function as exp of the unscaled scores.  Each row's max lives in
+//    the 4 lanes of a quad and is reduced with __shfl_xor 1 and 2 before
+//    the rescale; each lane keeps a partial row sum, reduced once at the
+//    end.  The causal diagonal tile and a ragged last tile are masked per
+//    accumulator element from its (row, column).
 //  * The grid's slow axis walks the q tiles from the bottom up, so the
 //    longest causal rows are scheduled first and the short ones fill the
 //    tail.
-//
-// Tensor cores (TF32 or bf16 wgmma), TMA and double-buffered tiles are
-// later work; this kernel is the simple, exact f32 version.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstdint>
 #include <cstring>
+#include <type_traits>
 
 namespace {
 
-constexpr int BLOCK_Q = 64;   // q rows per block, one per thread
-constexpr int BLOCK_KV = 64;  // kv rows staged per tile
-constexpr int SUB = 32;       // kv columns scored at a time
+constexpr int WG_ROWS = 64;           // q rows per warpgroup: wgmma's M
+constexpr int THREADS = 2 * 128;       // two warpgroups
+constexpr int BLOCK_Q = 2 * WG_ROWS;   // q rows per block
+constexpr int BLOCK_KV = 64;           // kv rows per tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DEVICES = 64;
+constexpr uint32_t CORE = 32;  // TF32 values in a core matrix (8 x 16 B)
 
 struct Params {
   const void* q;
@@ -71,6 +112,158 @@ struct Params {
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
+// A block's shared memory: the raw K and V tiles (rows padded by 16
+// bytes), then the TF32 operand tiles, each BLOCK_KV * D values in the
+// core-matrix layout: K hi, V^T hi (two tiles deep), and in f32 K lo,
+// V^T lo (two tiles deep).
+template <typename T, int D>
+struct Smem {
+  static constexpr bool SPLIT = std::is_same<T, float>::value;
+  static constexpr int LDR = D + 16 / static_cast<int>(sizeof(T));
+  static constexpr int RAW = BLOCK_KV * LDR;  // elements of one raw tile
+  static constexpr int OP = BLOCK_KV * D;     // values of one operand tile
+  static constexpr int RAW_BYTES = 2 * RAW * static_cast<int>(sizeof(T));
+  static constexpr int BYTES = RAW_BYTES + (SPLIT ? 6 : 3) * OP * 4;
+  static_assert(RAW_BYTES % 128 == 0, "operand tiles start 128-aligned");
+};
+
+// where TF32 value (r, k) of a K-major operand tile with KD columns along
+// K lives: core matrix (r / 8, k / 4), its row r % 8, column k % 4
+__device__ __forceinline__ int core_index(int r, int k, int kd) {
+  return ((r >> 3) * (kd >> 2) + (k >> 2)) * CORE + (r & 7) * 4 + (k & 3);
+}
+
+// A wgmma shared-memory descriptor, no swizzle: start address, LBO (the
+// next core matrix along K, 128 bytes on) and SBO, each in 16-byte units
+__device__ __forceinline__ uint64_t descriptor(const uint32_t* tile,
+                                               uint32_t sbo_bytes) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(tile));
+  return static_cast<uint64_t>((addr >> 4) & 0x3fff) |
+         static_cast<uint64_t>((128 >> 4) & 0x3fff) << 16 |
+         static_cast<uint64_t>((sbo_bytes >> 4) & 0x3fff) << 32;
+}
+
+// x = hi + lo to about 22 bits, each rounded to TF32 to nearest with ties
+// away from zero: the rounding of cvt.rna.tf32.f32.  sm_90 has no such
+// instruction; ptxas emulates it as an add of half a TF32 ulp, a mask, and
+// an Inf/NaN guard that these finite operands do not need, so the add and
+// the mask are written out here.
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
+}
+
+// D = A B (+ D when scale_d): A 64 x 8 from registers (this warp's 16 rows:
+// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)), B 8 x N
+// K-major in shared memory, D 64 x N f32 in registers (per 8 columns i:
+// d[4i] (g, 8i + 2t), d[4i + 1] (g, 8i + 2t + 1), d[4i + 2] and d[4i + 3]
+// the same of row g + 8)
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4],
+                                          uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2],
+                                      const uint32_t (&a)[4], uint64_t desc,
+                                      int scale_d) {
+  if constexpr (N == 64)
+    wgmma_n64(d, a, desc, scale_d);
+  else
+    wgmma_n32(d, a, desc, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// shared-memory writes by the threads, made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// one 4-element copy from device memory into shared memory; an invalid one
+// writes zeros and reads nothing
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  const int n = valid ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 ::"r"(d), "l"(src), "r"(n) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 ::"r"(d), "l"(src), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows row0 .. row0 + BLOCK_KV of one head into a raw tile
+template <typename T, int D>
+__device__ __forceinline__ void load_tile(T* dst, const T* src,
+                                          long long stride, int row0, int S) {
+  constexpr int PER_ROW = D / 4;
+  for (int c = threadIdx.x; c < BLOCK_KV * PER_ROW; c += THREADS) {
+    const int r = c / PER_ROW;
+    const int col = (c % PER_ROW) * 4;
+    const bool valid = row0 + r < S;
+    cp_async<static_cast<int>(4 * sizeof(T))>(
+        dst + r * Smem<T, D>::LDR + col,
+        valid ? src + (row0 + r) * stride + col : src, valid);
+  }
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -85,163 +278,298 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   return make_float4(a.x, a.y, b.x, b.y);
 }
 
-__device__ __forceinline__ void store4(float* p, float a, float b, float c,
-                                       float d) {
-  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b,
-                                       float c, float d) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(a, b);
-  const __nv_bfloat162 hi = __floats2bfloat162_rn(c, d);
-  uint2 u;
-  memcpy(&u.x, &lo, sizeof(lo));
-  memcpy(&u.y, &hi, sizeof(hi));
-  *reinterpret_cast<uint2*>(p) = u;
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// four values of an operand tile's row as hi (and lo): the TF32 split of
+// f32, or bf16 as it is (exact in TF32)
+template <bool SPLIT>
+__device__ __forceinline__ void store_operand(uint32_t* hi, uint32_t* lo,
+                                              int at, float4 x) {
+  if constexpr (SPLIT) {
+    uint4 h, l;
+    split(x.x, h.x, l.x);
+    split(x.y, h.y, l.y);
+    split(x.z, h.z, l.z);
+    split(x.w, h.w, l.w);
+    *reinterpret_cast<uint4*>(hi + at) = h;
+    *reinterpret_cast<uint4*>(lo + at) = l;
+  } else {
+    *reinterpret_cast<uint4*>(hi + at) =
+        make_uint4(__float_as_uint(x.x), __float_as_uint(x.y),
+                   __float_as_uint(x.z), __float_as_uint(x.w));
+  }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(BLOCK_Q)
+__global__ void __launch_bounds__(THREADS, 1)
     flash_attention_kernel(const Params p) {
-  __shared__ __align__(16) float k_t[D][BLOCK_KV];  // K tile, transposed
-  __shared__ __align__(16) float v_s[BLOCK_KV][D];
+  using L = Smem<T, D>;
+  constexpr bool SPLIT = L::SPLIT;
+  constexpr int DK = D / 8;          // Q K^T's k-steps
+  constexpr int NKV = BLOCK_KV / 8;  // P V's k-steps
+  constexpr uint32_t SBO_K = (D / 4) * CORE * 4;         // K: d along K
+  constexpr uint32_t SBO_V = (BLOCK_KV / 4) * CORE * 4;  // V^T: kv along K
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* raw_k = reinterpret_cast<T*>(smem);
+  T* raw_v = raw_k + L::RAW;
+  // K hi, V^T hi (two buffers), then K lo, V^T lo (two buffers), f32 only
+  uint32_t* k_hi = reinterpret_cast<uint32_t*>(smem + L::RAW_BYTES);
+  uint32_t* v_hi = k_hi + L::OP;
+  uint32_t* k_lo = v_hi + 2 * L::OP;
+  uint32_t* v_lo = k_lo + L::OP;
 
   const int b = blockIdx.x / p.H;
   const int h = blockIdx.x % p.H;
   const int hk = h / p.group;
   const int qt = gridDim.y - 1 - blockIdx.y;  // bottom (longest) tiles first
-  const int t = threadIdx.x;
-  const int row = qt * BLOCK_Q + t;
-  const bool row_ok = row < p.S;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;  // the fragment's row group
+  const int t = lane % 4;  // its column within the group
+  const int wg = threadIdx.x / 128;  // this thread's warpgroup
+  const int wg_row0 = qt * BLOCK_Q + wg * WG_ROWS;
+  const int row = wg_row0 + ((threadIdx.x / 32) % 4) * 16 + g;  // and row + 8
 
   const T* q = static_cast<const T*>(p.q) + b * p.sq[0] + h * p.sq[1];
   const T* k = static_cast<const T*>(p.k) + b * p.sk[0] + hk * p.sk[1];
   const T* v = static_cast<const T*>(p.v) + b * p.sv[0] + hk * p.sv[1];
   T* o = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
 
-  float qr[D];
+  const int last_row = min(p.S, (qt + 1) * BLOCK_Q) - 1;
+  const int n_kv = p.causal ? last_row / BLOCK_KV + 1
+                           : (p.S + BLOCK_KV - 1) / BLOCK_KV;
+  load_tile<T, D>(raw_k, k, p.sk[2], 0, p.S);
+  load_tile<T, D>(raw_v, v, p.sv[2], 0, p.S);
+  cp_commit();
+
+  // Q as A fragments, held for the whole loop.  A row past S is zeros and
+  // is never stored.
+  uint32_t q_hi[DK][4], q_lo[DK][4];
   {
-    // a row past S reads row 0 and is never stored
-    const T* q_row = q + (row_ok ? row : 0) * p.sq[2];
+    const bool ok0 = row < p.S, ok1 = row + 8 < p.S;
+    const T* q0 = q + (ok0 ? row : 0) * p.sq[2];
+    const T* q1 = q + (ok1 ? row + 8 : 0) * p.sq[2];
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      const float4 x = load4(q_row + d);
-      qr[d] = x.x * p.scale_log2;
-      qr[d + 1] = x.y * p.scale_log2;
-      qr[d + 2] = x.z * p.scale_log2;
-      qr[d + 3] = x.w * p.scale_log2;
+    for (int kk = 0; kk < DK; ++kk) {
+      const int c = 8 * kk + t;
+      const float x[4] = {ok0 ? to_f32(q0[c]) : 0.f,
+                          ok1 ? to_f32(q1[c]) : 0.f,
+                          ok0 ? to_f32(q0[c + 4]) : 0.f,
+                          ok1 ? to_f32(q1[c + 4]) : 0.f};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if constexpr (SPLIT)
+          split(x[i], q_hi[kk][i], q_lo[kk][i]);
+        else
+          q_hi[kk][i] = __float_as_uint(x[i]);
+      }
     }
   }
-  float acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) acc[d] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
 
-  const int n_kv = p.causal ? qt + 1 : (p.S + BLOCK_KV - 1) / BLOCK_KV;
-  for (int kt = 0; kt < n_kv; ++kt) {
+  float acc[D / 2];  // O, in wgmma's accumulator order
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};  // running max of rows row, row + 8
+  float l[2] = {0.f, 0.f};          // this lane's share of the row sums
+
+  // The two warpgroups take turns on the tensor cores: warpgroup 0 runs
+  // Q K^T, the softmax and P V of tile kt; warpgroup 1 runs the softmax and
+  // P V of tile kt - 1 and then Q K^T of tile kt, so that one's softmax
+  // falls in the other's products.  V^T is kept two tiles deep for it.
+  float s[BLOCK_KV / 2];
+  auto qk = [&]() {
+    // S = Q K^T, k-step kk reading K's columns 8 kk .. 8 kk + 7
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      const uint64_t dh = descriptor(k_hi + kk * 2 * CORE, SBO_K);
+      if constexpr (SPLIT) {
+        const uint64_t dl = descriptor(k_lo + kk * 2 * CORE, SBO_K);
+        wgmma<BLOCK_KV>(s, q_lo[kk], dh, kk > 0);
+        wgmma<BLOCK_KV>(s, q_hi[kk], dl, 1);
+        wgmma<BLOCK_KV>(s, q_hi[kk], dh, 1);
+      } else {
+        wgmma<BLOCK_KV>(s, q_hi[kk], dh, kk > 0);
+      }
+    }
+    wgmma_commit_and_wait();
+
+  };
+  auto softmax_pv = [&](int kt) {
+    const uint32_t* vh = v_hi + (kt & 1) * L::OP;
+    const uint32_t* vl = v_lo + (kt & 1) * L::OP;
+    // mask the diagonal tile and a ragged last tile: s[4 j + i] holds kv
+    // column 8 j + 2t + (i & 1) of row row + 8 (i >> 1)
     const int kv0 = kt * BLOCK_KV;
-    __syncthreads();  // every thread is done with the previous tile
-    // K: neighbouring threads take neighbouring rows, so the transposed
-    // stores land in distinct banks
-    for (int i = t; i < BLOCK_KV * (D / 4); i += BLOCK_Q) {
-      const int j = i % BLOCK_KV;
-      const int d = (i / BLOCK_KV) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kv0 + j < p.S) x = load4(k + (kv0 + j) * p.sk[2] + d);
-      k_t[d][j] = x.x;
-      k_t[d + 1][j] = x.y;
-      k_t[d + 2][j] = x.z;
-      k_t[d + 3][j] = x.w;
+    if ((p.causal && kv0 + BLOCK_KV - 1 > wg_row0) || kv0 + BLOCK_KV > p.S) {
+#pragma unroll
+      for (int i = 0; i < BLOCK_KV / 2; ++i) {
+        const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        const int r = row + ((i >> 1) & 1) * 8;
+        if (col >= p.S || (p.causal && col > r)) s[i] = NEG_INF;
+      }
     }
-    // V: neighbouring threads take neighbouring columns of one row
-    for (int i = t; i < BLOCK_KV * (D / 4); i += BLOCK_Q) {
-      const int j = i / (D / 4);
-      const int d = (i % (D / 4)) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (kv0 + j < p.S) x = load4(v + (kv0 + j) * p.sv[2] + d);
-      *reinterpret_cast<float4*>(&v_s[j][d]) = x;
-    }
-    __syncthreads();
 
-    // the diagonal tile and a ragged last tile need the element mask
-    const bool masked = (p.causal && kt == qt) || kv0 + BLOCK_KV > p.S;
-#pragma unroll 1
-    for (int c = 0; c < BLOCK_KV; c += SUB) {
-      float s[SUB];
+    // online softmax in base 2 (the running max m is of the scaled
+    // scores).  Column 0 is valid for every row (causal) and the first
+    // tile holds a valid column (full), so a valid row has a finite
+    // running max before any masked column is seen: a masked column's
+    // exp2 is exactly 0.
+    float m_new[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int j = 0; j < SUB; ++j) s[j] = 0.f;
+    for (int i = 0; i < BLOCK_KV / 2; ++i)
+      m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s[i]);
+    float alpha[2];
 #pragma unroll
-      for (int d = 0; d < D; ++d) {
+    for (int r = 0; r < 2; ++r) {  // the row's 4 lanes hold one quad
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(FULL, m_new[r], 1));
+      m_new[r] = fmaxf(m_new[r], __shfl_xor_sync(FULL, m_new[r], 2));
+      m_new[r] = fmaxf(m[r], m_new[r] * p.scale_log2);
+      alpha[r] = ex2(m[r] - m_new[r]);
+      m[r] = m_new[r];
+      l[r] *= alpha[r];
+    }
 #pragma unroll
-        for (int j = 0; j < SUB; j += 4) {
-          const float4 kk =
-              *reinterpret_cast<const float4*>(&k_t[d][c + j]);
-          s[j] = fmaf(qr[d], kk.x, s[j]);
-          s[j + 1] = fmaf(qr[d], kk.y, s[j + 1]);
-          s[j + 2] = fmaf(qr[d], kk.z, s[j + 2]);
-          s[j + 3] = fmaf(qr[d], kk.w, s[j + 3]);
-        }
+    for (int i = 0; i < BLOCK_KV / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = ex2(fmaf(s[i], p.scale_log2, -m_new[r]));
+      l[r] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+
+    // P as A fragments, its kv columns renamed: A's column t is kv 8 j + 2t
+    // (s[4 j] / s[4 j + 2]), column t + 4 is kv 8 j + 2t + 1 (s[4 j + 1] /
+    // s[4 j + 3]); V^T was written in the same order
+    uint32_t p_hi[NKV][4], p_lo[NKV][4];
+#pragma unroll
+    for (int j = 0; j < NKV; ++j) {
+      split(s[4 * j], p_hi[j][0], p_lo[j][0]);
+      split(s[4 * j + 2], p_hi[j][1], p_lo[j][1]);
+      split(s[4 * j + 1], p_hi[j][2], p_lo[j][2]);
+      split(s[4 * j + 3], p_hi[j][3], p_lo[j][3]);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < NKV; ++j) {
+      const uint64_t dh = descriptor(vh + j * 2 * CORE, SBO_V);
+      wgmma<D>(acc, p_lo[j], dh, 1);
+      if constexpr (SPLIT)
+        wgmma<D>(acc, p_hi[j], descriptor(vl + j * 2 * CORE, SBO_V), 1);
+      wgmma<D>(acc, p_hi[j], dh, 1);
+    }
+    wgmma_commit_and_wait();
+  };
+  for (int kt = 0; kt < n_kv; ++kt) {
+    cp_wait_all();
+    __syncthreads();  // tile kt has landed; every warp is done with the
+                      // previous operand tiles
+
+    // split the raw tiles into the operand tiles.  K: thread idx takes
+    // core matrix idx / 8, row idx % 8 (kv 8 nb + r, d 4 kb .. 4 kb + 3):
+    // a quarter-warp reads 8 rows of one 16-byte column, and writes one
+    // whole core matrix.
+    for (int idx = threadIdx.x; idx < L::OP / 4; idx += THREADS) {
+      const int kb = (idx >> 3) % (D / 4);
+      const int kv = 8 * ((idx >> 3) / (D / 4)) + (idx & 7);
+      store_operand<SPLIT>(k_hi, k_lo, 4 * idx,
+                           load4(raw_k + kv * L::LDR + 4 * kb));
+    }
+    // V^T: thread idx takes d = idx % D and kv positions 4 kb .. 4 kb + 3,
+    // which in the renamed order are kv 8 j + 2e + half (e = 0..3, kb =
+    // 2 j + half); a warp reads 32 neighbouring d of one kv row at a time
+    for (int idx = threadIdx.x; idx < L::OP / 4; idx += THREADS) {
+      const int d = idx % D;
+      const int kb = idx / D;
+      const T* src = raw_v + (8 * (kb >> 1) + (kb & 1)) * L::LDR + d;
+      const float4 x = make_float4(to_f32(src[0]), to_f32(src[2 * L::LDR]),
+                                   to_f32(src[4 * L::LDR]),
+                                   to_f32(src[6 * L::LDR]));
+      store_operand<SPLIT>(v_hi + (kt & 1) * L::OP, v_lo + (kt & 1) * L::OP,
+                           core_index(d, 4 * kb, BLOCK_KV), x);
+    }
+    fence_proxy_async();
+    __syncthreads();  // operand tiles complete; the raw tiles are free
+    if (kt + 1 < n_kv) {  // the next tile loads while this one is used
+      load_tile<T, D>(raw_k, k, p.sk[2], (kt + 1) * BLOCK_KV, p.S);
+      load_tile<T, D>(raw_v, v, p.sv[2], (kt + 1) * BLOCK_KV, p.S);
+    }
+    cp_commit();
+
+    if (wg == 0) {
+      // a causal tile wholly above warpgroup 0's rows is skipped
+      if (!p.causal || kt * BLOCK_KV < wg_row0 + WG_ROWS) {
+        qk();
+        softmax_pv(kt);
       }
-      if (masked) {
-#pragma unroll
-        for (int j = 0; j < SUB; ++j) {
-          const int col = kv0 + c + j;
-          if (col >= p.S || (p.causal && col > row)) s[j] = NEG_INF;
-        }
-      }
-      // online softmax.  Column 0 is valid for every row (causal) and the
-      // first tile holds a valid column (full), so a valid row has a
-      // finite running max before any masked column is seen: a masked
-      // column's exp2f(-1e30 - m) is exactly 0.
-      float m_new = m;
-#pragma unroll
-      for (int j = 0; j < SUB; ++j) m_new = fmaxf(m_new, s[j]);
-      const float alpha = exp2f(m - m_new);
-      float row_sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < SUB; ++j) {
-        s[j] = exp2f(s[j] - m_new);
-        row_sum += s[j];
-      }
-      l = l * alpha + row_sum;
-      m = m_new;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-      for (int j = 0; j < SUB; ++j) {
-#pragma unroll
-        for (int d = 0; d < D; d += 4) {
-          const float4 vv = *reinterpret_cast<const float4*>(&v_s[c + j][d]);
-          acc[d] = fmaf(s[j], vv.x, acc[d]);
-          acc[d + 1] = fmaf(s[j], vv.y, acc[d + 1]);
-          acc[d + 2] = fmaf(s[j], vv.z, acc[d + 2]);
-          acc[d + 3] = fmaf(s[j], vv.w, acc[d + 3]);
-        }
-      }
+    } else {
+      if (kt > 0) softmax_pv(kt - 1);
+      qk();
     }
   }
+  if (wg == 1) softmax_pv(n_kv - 1);
 
-  if (row_ok) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-    T* o_row = o + row * p.so[2];
 #pragma unroll
-    for (int d = 0; d < D; d += 4)
-      store4(o_row + d, acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv,
-             acc[d + 3] * inv);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int out_row = row + 8 * r;
+    if (out_row < p.S) {
+      T* orow = o + out_row * p.so[2] + 2 * t;
+#pragma unroll
+      for (int nd = 0; nd < D / 8; ++nd)
+        store2(orow + 8 * nd, acc[4 * nd + 2 * r] * l[r],
+               acc[4 * nd + 2 * r + 1] * l[r]);
+    }
   }
 }
 
-template <typename T>
-cudaError_t launch(const Params& p, int B, int D, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_d(const Params& p, int B, int device, cudaStream_t stream) {
+  // Above 48 KB a block's shared memory must be allowed first: once per
+  // device, at the first launch, since a later launch may be inside a
+  // CUDA-graph capture, where no such call belongs.
+  static bool allowed[MAX_DEVICES] = {};
+  if (device < 0 || device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (!allowed[device]) {
+    const cudaError_t set = cudaFuncSetAttribute(
+        flash_attention_kernel<T, D>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<T, D>::BYTES);
+    if (set != cudaSuccess) return set;
+    allowed[device] = true;
+  }
   const dim3 grid(B * p.H, (p.S + BLOCK_Q - 1) / BLOCK_Q);
-  if (D == 64)
-    flash_attention_kernel<T, 64><<<grid, BLOCK_Q, 0, stream>>>(p);
-  else if (D == 32)
-    flash_attention_kernel<T, 32><<<grid, BLOCK_Q, 0, stream>>>(p);
-  else
-    return cudaErrorInvalidValue;
+  flash_attention_kernel<T, D>
+      <<<grid, THREADS, Smem<T, D>::BYTES, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch(const Params& p, int B, int D, int device,
+                   cudaStream_t stream) {
+  if (D == 64) return launch_d<T, 64>(p, B, device, stream);
+  if (D == 32) return launch_d<T, 32>(p, B, device, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -249,7 +577,8 @@ cudaError_t launch(const Params& p, int B, int D, cudaStream_t stream) {
 extern "C" {
 
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D).  strides: 12 int64 values, the
-// batch, head and row strides of q, k, v and o in that order.  dtype: 0 f32,
+// batch, head and row strides of q, k, v and o in that order, each a
+// multiple of 4 elements, with 16-byte aligned starts.  dtype: 0 f32,
 // 1 bf16 (all four tensors).  D: 32 or 64.  Launches on ``stream`` without
 // synchronizing; returns cudaGetLastError() after the launch (0 = success).
 // ``device`` is the card that ``stream`` and the tensors belong to: this
@@ -280,10 +609,10 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   p.causal = causal;
   p.scale_log2 = LOG2E / sqrtf(static_cast<float>(D));
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dtype == 0 ? launch<float>(p, B, D, s)
-                          : dtype == 1
-                              ? launch<__nv_bfloat16>(p, B, D, s)
-                              : cudaErrorInvalidValue;
+  const cudaError_t err =
+      dtype == 0   ? launch<float>(p, B, D, device, s)
+      : dtype == 1 ? launch<__nv_bfloat16>(p, B, D, device, s)
+                   : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }
 

@@ -26,7 +26,8 @@ from repro_torch.kernels import build
 
 HEAD_DIMS = (32, 64)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_Q = 64
+#: q rows per block (two warpgroups of 64): the grid's y axis counts these
+BLOCK_Q = 128
 #: the kernel loads 16 bytes (f32) or 8 bytes (bf16) at a time: every row
 #: must start on that boundary
 ALIGN_ELEMS = 4
@@ -95,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    stream = build.current_stream(q.device)
     code = lib.repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(strides), DTYPE_CODES[q.dtype], B, H, k.shape[1], S,

@@ -1,16 +1,21 @@
-"""Triton kernels for Hopper: the fused K-client cut-layer merge and its
-backward (the paper's jacobian splitting).
+"""The fused K-client cut-layer merge and its backward (the paper's
+jacobian splitting): one CUDA C++ kernel and three Triton kernels for
+Hopper.
 
-Four kernels.  :func:`merge_pool` launches the two forward kernels,
-:func:`merge_pool_bwd` and :func:`concat_bwd` the two backward kernels,
-on CUDA tensors only:
+:func:`merge_pool` launches the two forward kernels, :func:`merge_pool_bwd`
+and :func:`concat_bwd` the two backward kernels, on CUDA tensors only:
 
-``merge_reduce_kernel`` replaces the JAX package's Pallas kernel
-``_merge_kernel`` (``src/repro/kernels/merge_pool.py:29``, launched by
+``merge_reduce_kernel`` (CUDA C++, ``csrc/merge_pool.cu``, launched through
+``ctypes`` from the library that :mod:`repro_torch.kernels.build` makes)
+replaces the JAX package's Pallas kernel ``_merge_kernel``
+(``src/repro/kernels/merge_pool.py:29``, launched by
 ``_merge_pool_fwd_call``): the masked K-way sum / avg / max / mul of a
 ``(K, B, D)`` stack into ``(B, D)``, accumulated in f32.  avg divides by
 ``max(sum(live), 1)``; max takes ``-3e38`` for a dropped client and gives
-zeros when every client is dropped; mul takes 1 for a dropped client.
+zeros when every client is dropped; mul takes 1 for a dropped client.  The
+source says what bounds it and how its design answers that.
+
+The other three are Triton:
 
 ``merge_concat_kernel`` replaces ``_concat_kernel``
 (``src/repro/kernels/merge_pool.py:67``, launched by ``_concat_fwd_call``):
@@ -37,20 +42,19 @@ writes every client's ``dx_k (B, D)``, in ``stacked.dtype``:
 (``src/repro/kernels/merge_pool.py:96``, launched by
 ``_concat_bwd_call``): ``dx_k = g[:, k*D:(k+1)*D] * l_k``.
 
-Bound on an H100 SXM: all four are pure data movement with a handful of
-flops per element, so the bound is bytes over the 3.35 TB/s of device
-memory — ``(K*B*D + B*D) * itemsize`` for the reduction and
-``(K*B*D + B*K*D) * itemsize`` for the concat (plus the ``K`` f32 live
-flags); backward, ``B*D + K*B*D`` for sum/avg, ``2*K*B*D`` for concat,
-``2*B*D + 2*K*B*D`` for max (it reads the stack and the forward output)
-and ``B*D + 2*K*B*D`` for mul.  Each program loads its
-``(BLOCK_B, BLOCK_D)`` tile of what it needs, keeps running sums and
-products in registers (K is a compile-time constant, the client loop is
-unrolled), and stores each output tile once.  The max backward reads the
-stack twice (tie count, then credit) and the mul backward re-reads the
+Bound on an H100 SXM: the three Triton kernels are pure data movement
+with a handful of flops per element, so the bound is bytes over the
+3.35 TB/s of device memory — ``(K*B*D + B*K*D) * itemsize`` for the
+concat (plus the ``K`` f32 live flags); backward, ``B*D + K*B*D`` for
+sum/avg, ``2*K*B*D`` for concat, ``2*B*D + 2*K*B*D`` for max (it reads the
+stack and the forward output) and ``B*D + 2*K*B*D`` for mul.  Each program
+loads its ``(BLOCK_B, BLOCK_D)`` tile of what it needs, keeps running sums
+and products in registers (K is a compile-time constant, the client loop
+is unrolled), and stores each output tile once.  The max backward reads
+the stack twice (tie count, then credit) and the mul backward re-reads the
 suffix clients (K(K-1)/2 extra tile loads); the repeats are the same
-program's tiles, served from L1/L2 rather than device memory.  The grid
-is ``(B-tiles, D-tiles)`` (plus the client axis for concat); blocks run in
+program's tiles, served from L1/L2 rather than device memory.  The grid is
+``(B-tiles, D-tiles)`` (plus the client axis for concat); blocks run in
 parallel in any order, so nothing carries from one program to the next.
 Ragged edges (D = 960 is not a power of two, decode has B = 1) are
 masked, so no tile width has to divide D.
@@ -68,7 +72,10 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import build
+
 STRATEGY_CODES = {"sum": 0, "avg": 1, "max": 2, "mul": 3}
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 BLOCK_B_MAX = 32
 BLOCK_D_MAX = 128
 NUM_WARPS = 4
@@ -89,43 +96,6 @@ _KERNELS: Optional[dict] = None
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def merge_reduce_kernel(x_ptr, live_ptr, out_ptr, B, D, stride_k,
-                        K: tl.constexpr, STRATEGY: tl.constexpr,
-                        BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr):
-    """One (BLOCK_B, BLOCK_D) tile of the masked K-way reduction.
-    STRATEGY: 0 sum, 1 avg, 2 max, 3 mul (STRATEGY_CODES)."""
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
-    mask = (rows[:, None] < B) & (cols[None, :] < D)
-    offs = rows[:, None] * D + cols[None, :]
-
-    total = tl.load(live_ptr)
-    blk = tl.load(x_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    if STRATEGY <= 1:
-        acc = blk * total
-    elif STRATEGY == 2:
-        acc = tl.where(total > 0, blk, -3.0e38)
-    else:
-        acc = tl.where(total > 0, blk, 1.0)
-    for i in tl.static_range(1, K):  # K is small and static: unrolled
-        live = tl.load(live_ptr + i)
-        total += live
-        blk = tl.load(x_ptr + i * stride_k + offs, mask=mask,
-                      other=0.0).to(tl.float32)
-        if STRATEGY <= 1:
-            acc += blk * live
-        elif STRATEGY == 2:
-            acc = tl.maximum(acc, tl.where(live > 0, blk, -3.0e38))
-        else:
-            acc *= tl.where(live > 0, blk, 1.0)
-    if STRATEGY == 1:
-        acc = acc / tl.maximum(total, 1.0)
-    if STRATEGY == 2:
-        # every client dropped -> zeros, not -3e38
-        acc = tl.where(total > 0, acc, 0.0)
-    tl.store(out_ptr + offs, acc.to(out_ptr.dtype.element_ty), mask=mask)
 
 
 def merge_concat_kernel(x_ptr, live_ptr, out_ptr, B, D, stride_k,
@@ -149,8 +119,9 @@ def merge_reduce_bwd_kernel(x_ptr, live_ptr, out_ptr, g_ptr, dx_ptr, B, D,
                             stride_k, K: tl.constexpr, STRATEGY: tl.constexpr,
                             BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr):
     """Every client's (BLOCK_B, BLOCK_D) gradient tile from the merged
-    gradient's tile.  STRATEGY as in merge_reduce_kernel; sum/avg never
-    touch x_ptr or out_ptr, mul never touches out_ptr."""
+    gradient's tile.  STRATEGY: 0 sum, 1 avg, 2 max, 3 mul
+    (STRATEGY_CODES); sum/avg never touch x_ptr or out_ptr, mul never
+    touches out_ptr."""
     rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
     cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
     mask = (rows[:, None] < B) & (cols[None, :] < D)
@@ -231,8 +202,7 @@ def _compiled() -> dict:
         import triton.language
 
         tl = triton.language
-        _KERNELS = {"reduce": triton.jit(merge_reduce_kernel),
-                    "concat": triton.jit(merge_concat_kernel),
+        _KERNELS = {"concat": triton.jit(merge_concat_kernel),
                     "reduce_bwd": triton.jit(merge_reduce_bwd_kernel),
                     "concat_bwd": triton.jit(merge_concat_bwd_kernel)}
     return _KERNELS
@@ -292,32 +262,34 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                strategy: str = "avg") -> torch.Tensor:
     """Launch the merge kernel on a CUDA ``(K, B, D)`` stack; ``live`` is a
     ``(K,)`` float32 mask (None = all live).  Returns ``(B, D)`` for the
-    reductions, ``(B, K*D)`` for concat.  Raises on anything the kernel
-    does not take; there is no fallback."""
+    reductions (the CUDA C++ kernel, on the current stream), ``(B, K*D)``
+    for concat (the Triton kernel).  Raises on anything the kernel does not
+    take and when a launch is refused; there is no fallback."""
     if live is None:
         live = torch.ones((stacked.shape[0],), dtype=torch.float32,
                           device=stacked.device)
-    live = live.to(torch.float32)
+    if live.dtype != torch.float32:
+        live = live.to(torch.float32)
     _check(stacked, live, strategy)
-    kernels = _compiled()
     K, B, D = stacked.shape
+    if strategy != "concat":
+        lib = build.library()
+        out = torch.empty((B, D), dtype=stacked.dtype, device=stacked.device)
+        code = lib.repro_merge_reduce(
+            stacked.data_ptr(), live.data_ptr(), out.data_ptr(), B * D, K,
+            STRATEGY_CODES[strategy], DTYPE_CODES[stacked.dtype],
+            stacked.device.index, build.current_stream(stacked.device))
+        build.check(code, "merge_reduce_kernel")
+        launches["merge_reduce_kernel"] += 1
+        return out
+    kernels = _compiled()
     block_b, block_d, tiles = _tiles(B, D)
+    out = torch.empty((B, K * D), dtype=stacked.dtype, device=stacked.device)
     with torch.cuda.device(stacked.device):
-        if strategy == "concat":
-            out = torch.empty((B, K * D), dtype=stacked.dtype,
-                              device=stacked.device)
-            kernels["concat"][tiles + (K,)](
-                stacked, live, out, B, D, B * D, K=K, BLOCK_B=block_b,
-                BLOCK_D=block_d, num_warps=NUM_WARPS)
-            launches["merge_concat_kernel"] += 1
-        else:
-            out = torch.empty((B, D), dtype=stacked.dtype,
-                              device=stacked.device)
-            kernels["reduce"][tiles](
-                stacked, live, out, B, D, B * D, K=K,
-                STRATEGY=STRATEGY_CODES[strategy], BLOCK_B=block_b,
-                BLOCK_D=block_d, num_warps=NUM_WARPS)
-            launches["merge_reduce_kernel"] += 1
+        kernels["concat"][tiles + (K,)](
+            stacked, live, out, B, D, B * D, K=K, BLOCK_B=block_b,
+            BLOCK_D=block_d, num_warps=NUM_WARPS)
+        launches["merge_concat_kernel"] += 1
     return out
 
 

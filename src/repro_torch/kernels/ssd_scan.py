@@ -100,7 +100,7 @@ def ssd_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     cum = torch.empty((B, S, H), **out)
     strides = (ctypes.c_longlong * 13)(*(
         s for t in (xdt, a, Bm, Cm) for s in t.stride()))
-    stream = torch.cuda.current_stream(xdt.device).cuda_stream
+    stream = build.current_stream(xdt.device)
     code = lib.repro_ssd_chunk(
         xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         y.data_ptr(), state.data_ptr(), decay.data_ptr(), cum.data_ptr(),

@@ -28,8 +28,8 @@ Drop policies, as in the JAX package:
   client to its strategy's neutral element (``merge_mask``); jacobians
   still flow to every client.  ``protocol_step``'s policy.
 * ``"fused"`` — everyone is live and :func:`fast_merge` merges the full
-  stack: the Triton forward kernel on the card, and autograd's backward
-  through it is the Triton backward kernel
+  stack: the forward merge kernel on the card, and autograd's backward
+  through it is the backward merge kernel
   (:class:`~repro_torch.kernels.ops.MergePool`).
 
 Not ported yet, and refused loudly: the ``"impute"`` policy and the

@@ -17,6 +17,11 @@ Four groups, inputs made from numpy seeds and handed to both packages:
 
 The kernel build (``kernels/build``) is checked here as far as a machine
 without ``nvcc`` can: the library's content hash and a refused compile.
+The CUDA kernel's arithmetic is modelled in numpy and held to the JAX
+oracle: its 3xTF32 split (round to nearest, ties away; a_lo b_hi +
+a_hi b_lo + a_hi b_hi), against which one TF32 pass errs at least 10x
+more, and its shared-memory operand layout, wgmma descriptors and
+fragment indexing (exact, in float64).
 """
 import os
 import stat
@@ -378,3 +383,256 @@ def test_build_compiles_for_sm90a_and_reports_failure(monkeypatch, tmp_path):
     assert "arch=compute_90a,code=sm_90a" in args and "-c" in args
     assert Path(args[args.index("-c") + 1]).name == "flash_attention.cu"
     assert not build.library_path().exists()
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel's arithmetic and fragment layout, modelled in numpy
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+KERNEL_TILE = 64  # q rows per block and kv rows per staged tile
+
+
+def _tf32(x):
+    """``cvt.rna.tf32.f32``: keep 10 mantissa bits, ties away from zero
+    (a carry into the exponent is the right rounding too)."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _split(x):
+    """hi = tf32(x), lo = tf32(x - hi), the difference taken in f32."""
+    x = np.asarray(x, np.float32)
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _tf32_product(a, b, passes):
+    """a (M, K) @ b (K, N) as the kernel issues it: 8-deep k-steps, each
+    accumulated in f32 as a_lo b_hi + a_hi b_lo + a_hi b_hi (small terms
+    first); ``passes=1`` is a single TF32 pass, a_hi b_hi."""
+    a_hi, a_lo = _split(a)
+    b_hi, b_lo = _split(b)
+    terms = ([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)] if passes == 3
+             else [(a_hi, b_hi)])
+    c = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for x, y in terms:
+            c += x[:, k0:k0 + 8] @ y[k0:k0 + 8]
+    return c
+
+
+def _kernel_model(q, k, v, causal, passes=3):
+    """The kernel's arithmetic: 64-row q blocks, 64-row kv tiles (only up
+    to the diagonal when causal), scores times log2(e)/sqrt(D), masked at
+    -1e30, an online softmax in base 2, both products through
+    :func:`_tf32_product`, output acc / max(l, 1e-30)."""
+    B, H, S, D = q.shape
+    group = H // k.shape[1]
+    scale = np.float32(LOG2E / np.sqrt(D))
+    out = np.empty_like(q)
+    for b in range(B):
+        for h in range(H):
+            kh, vh = k[b, h // group], v[b, h // group]
+            for q0 in range(0, S, KERNEL_TILE):
+                qb = q[b, h, q0:q0 + KERNEL_TILE]
+                rows = np.arange(q0, q0 + len(qb))
+                m = np.full(len(qb), -1e30, np.float32)
+                lsum = np.zeros(len(qb), np.float32)
+                acc = np.zeros((len(qb), D), np.float32)
+                n_kv = (q0 // KERNEL_TILE + 1 if causal
+                        else -(-S // KERNEL_TILE))
+                for kv0 in range(0, n_kv * KERNEL_TILE, KERNEL_TILE):
+                    kb = kh[kv0:kv0 + KERNEL_TILE]
+                    vb = vh[kv0:kv0 + KERNEL_TILE]
+                    s = _tf32_product(qb, kb.T, passes) * scale
+                    if causal:
+                        cols = np.arange(kv0, kv0 + len(kb))
+                        s[cols[None, :] > rows[:, None]] = np.float32(-1e30)
+                    m_new = np.maximum(m, s.max(axis=1))
+                    alpha = np.exp2(m - m_new)
+                    p = np.exp2(s - m_new[:, None])
+                    lsum = lsum * alpha + p.sum(axis=1)
+                    acc = acc * alpha[:, None] + _tf32_product(p, vb, passes)
+                    m = m_new
+                out[b, h, q0:q0 + len(qb)] = acc / np.maximum(
+                    lsum, np.float32(1e-30))[:, None]
+    return out
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("h,hkv,s,d", [(6, 2, 150, 64), (3, 1, 97, 32)])
+def test_3xtf32_kernel_model_matches_jax_oracle(h, hkv, s, d, causal):
+    """The kernel's 3xTF32 arithmetic (round-to-nearest-away TF32, the
+    hi/lo split, the three products in the kernel's order) on a GQA
+    attention with a ragged last tile is held to the JAX oracle at 5e-4,
+    the f32 gate.  On the same inputs a single TF32 pass errs at least 10x
+    more: the split is what keeps f32 accuracy on the tensor cores."""
+    q, k, v = _qkv(s * d + h, (1, h, s, d), kv_heads=hkv)
+    rep = h // hkv
+    want = np.asarray(jax_ref.flash_attention(
+        jnp.asarray(q), jnp.repeat(jnp.asarray(k), rep, axis=1),
+        jnp.repeat(jnp.asarray(v), rep, axis=1), causal=causal))
+    err3 = np.abs(_kernel_model(q, k, v, causal, passes=3) - want).max()
+    err1 = np.abs(_kernel_model(q, k, v, causal, passes=1) - want).max()
+    assert err3 <= 5e-4
+    assert err1 >= 10 * err3, (err1, err3)
+
+
+def test_tf32_rounding_is_to_nearest_ties_away():
+    """10 mantissa bits kept; a tie (exactly half of the last kept bit)
+    rounds away from zero in both signs; the split recovers x to ~22
+    bits."""
+    ulp = 2.0 ** -10
+    x = np.array([1.0, 1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 4,
+                  1.0 + 3 * ulp / 4, 3.0e-3], np.float32)
+    got = _tf32(x)
+    np.testing.assert_array_equal(
+        got[:5], np.array([1.0, 1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + ulp],
+                          np.float32))
+    assert got.view(np.uint32)[5] & 0x1FFF == 0
+    rng = np.random.default_rng(0)
+    y = rng.standard_normal(4096).astype(np.float32)
+    hi, lo = _split(y)
+    assert np.abs(hi - y).max() > 1e-5  # one TF32 value is ~3 digits
+    np.testing.assert_allclose(hi.astype(np.float64) + lo, y, rtol=2.0 ** -21,
+                               atol=0)
+
+
+def _lanes():
+    lane = np.arange(32)
+    return lane // 4, lane % 4
+
+
+CORE = 32  # TF32 values in one wgmma core matrix: 8 rows of 16 bytes
+
+
+def _core_index(r, k, kd):
+    """Where TF32 value (r, k) of a K-major operand tile with ``kd``
+    columns along K lives in the kernel's shared memory: core matrix
+    (r // 8, k // 4), its row r % 8, column k % 4."""
+    return ((r // 8) * (kd // 4) + k // 4) * CORE + (r % 8) * 4 + k % 4
+
+
+def _wgmma_b(smem, start, sbo, n):
+    """The 8 x n B operand (K-major, no swizzle) that a wgmma reads from
+    flat shared memory (in 4-byte words) through a descriptor: value (k,
+    j) at start + (j // 8) * SBO + (k // 4) * LBO + (j % 8) * 16 bytes +
+    (k % 4) * 4 bytes, with LBO 128 bytes (CUTLASS's canonical K-major
+    INTERLEAVE layout ((8, n), 2) : ((1, SBO), LBO) in 16-byte units)."""
+    k, j = np.meshgrid(np.arange(8), np.arange(n), indexing="ij")
+    words = start + (j // 8) * (sbo // 4) + (k // 4) * (128 // 4) + \
+        (j % 8) * 4 + k % 4
+    return smem[words]
+
+
+def _wgmma(a, b, d):
+    """wgmma m64nNk8: per warp w, its 16 rows of A (A fragments a (4, 32,
+    4), lane 4g + t holding (g, t), (g+8, t), (g, t+4), (g+8, t+4)) times
+    b (8, N), accumulated into d (4, 32, N // 2) in the accumulator order
+    (per 8 columns i: (g, 8i+2t), (g, 8i+2t+1), (g+8, 8i+2t),
+    (g+8, 8i+2t+1))."""
+    g, t = _lanes()
+    out = d.copy()
+    for w in range(4):
+        A = np.zeros((16, 8))
+        A[g, t], A[g + 8, t], A[g, t + 4], A[g + 8, t + 4] = a[w].T
+        C = A @ b
+        for i in range(b.shape[1] // 8):
+            out[w, :, 4 * i] += C[g, 8 * i + 2 * t]
+            out[w, :, 4 * i + 1] += C[g, 8 * i + 2 * t + 1]
+            out[w, :, 4 * i + 2] += C[g + 8, 8 * i + 2 * t]
+            out[w, :, 4 * i + 3] += C[g + 8, 8 * i + 2 * t + 1]
+    return out
+
+
+def _from_wgmma(d):
+    """(64, N) from wgmma accumulator fragments (4, 32, N // 2)."""
+    g, t = _lanes()
+    out = np.zeros((64, d.shape[2] * 2))
+    for w in range(4):
+        for i in range(d.shape[2] // 4):
+            rows, cols = 16 * w + g, 8 * i + 2 * t
+            out[rows, cols], out[rows, cols + 1] = d[w, :, 4 * i], \
+                d[w, :, 4 * i + 1]
+            out[rows + 8, cols], out[rows + 8, cols + 1] = \
+                d[w, :, 4 * i + 2], d[w, :, 4 * i + 3]
+    return out
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_kernel_operand_layout_and_fragments_compute_both_products(d):
+    """One block's 64 q rows through the kernel's own indexing (exact, in
+    float64): the split pass writes K (thread idx: core matrix idx // 8,
+    row idx % 8, at word 4 idx) and V^T (thread idx: d = idx % D, kv
+    positions 4 kb .. 4 kb + 3 = kv 8j + 2e + half for kb = 2j + half);
+    wgmma reads them through descriptors (K at word kk * 2 * CORE with SBO
+    (D / 4) * 128 bytes, V^T at j * 2 * CORE with SBO 2048 bytes); Q's A
+    fragments give Q K^T, and the QK^T accumulator reused as P V's A
+    operand with its kv columns renamed (c0, c2, c1, c3) gives P V."""
+    rng = np.random.default_rng(d)
+    Q, K, V = (rng.standard_normal(shape) for shape in
+               ((64, d), (KERNEL_TILE, d), (KERNEL_TILE, d)))
+    g, t = _lanes()
+    k_tile = np.zeros(KERNEL_TILE * d)
+    for idx in range(KERNEL_TILE * d // 4):
+        kb = (idx // 8) % (d // 4)
+        kv = 8 * ((idx // 8) // (d // 4)) + idx % 8
+        k_tile[4 * idx:4 * idx + 4] = K[kv, 4 * kb:4 * kb + 4]
+    v_tile = np.zeros(KERNEL_TILE * d)
+    for idx in range(KERNEL_TILE * d // 4):
+        dd, kb = idx % d, idx // d
+        at = _core_index(dd, 4 * kb, KERNEL_TILE)
+        kv = 8 * (kb // 2) + kb % 2 + 2 * np.arange(4)
+        v_tile[at:at + 4] = V[kv, dd]
+    for kv in range(KERNEL_TILE):
+        for dd in range(d):
+            assert k_tile[_core_index(kv, dd, d)] == K[kv, dd]
+
+    q_frag = [np.stack([np.stack([Q[16 * w + g, c], Q[16 * w + g + 8, c],
+                                  Q[16 * w + g, c + 4],
+                                  Q[16 * w + g + 8, c + 4]], axis=1)
+                        for w in range(4)])
+              for c in (8 * kk + t for kk in range(d // 8))]
+    s = np.zeros((4, 32, KERNEL_TILE // 2))
+    for kk in range(d // 8):
+        s = _wgmma(q_frag[kk], _wgmma_b(k_tile, kk * 2 * CORE,
+                                        (d // 4) * 128, KERNEL_TILE), s)
+    np.testing.assert_allclose(_from_wgmma(s), Q @ K.T, rtol=1e-12,
+                               atol=1e-12)
+    acc = np.zeros((4, 32, d // 2))
+    for j in range(KERNEL_TILE // 8):
+        pa = s[:, :, [4 * j, 4 * j + 2, 4 * j + 1, 4 * j + 3]]
+        acc = _wgmma(pa, _wgmma_b(v_tile, j * 2 * CORE, 2048, d), acc)
+    np.testing.assert_allclose(_from_wgmma(acc), (Q @ K.T) @ V, rtol=1e-12,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_kernel_split_pass_reads_avoid_bank_conflicts(d):
+    """f32 raw tiles, each row padded by 16 bytes (D + 4 floats).  The
+    split pass reads K 16 bytes a lane, a quarter-warp (8 lanes) at a
+    time: lane idx reads kv row 8 nb + idx % 8 at column 4 kb, and the 8
+    lanes of each quarter touch 8 distinct groups of 4 banks.  It reads V
+    4 bytes a lane: 32 neighbouring d of one kv row, 32 distinct banks.
+    Unpadded rows (D floats) would put the 8 K rows on the same banks."""
+    def quarters_conflict_free(first):
+        for quarter in range(4):
+            banks = (first[8 * quarter:8 * quarter + 8, None]
+                     + np.arange(4)) % 32
+            if len(set(banks.ravel())) != 32:
+                return False
+        return True
+
+    for ld, padded in ((d + 4, True), (d, False)):
+        ok = True
+        for base in range(0, KERNEL_TILE * d // 4, 32):
+            idx = base + np.arange(32)
+            kb = (idx // 8) % (d // 4)
+            kv = 8 * ((idx // 8) // (d // 4)) + idx % 8
+            ok &= quarters_conflict_free(kv * ld + 4 * kb)
+            dd, kb = idx % d, idx // d
+            words = (8 * (kb // 2) + kb % 2) * ld + dd
+            ok &= len(set(words % 32)) == 32
+        assert ok == padded

@@ -1,6 +1,7 @@
-"""The port's kernels — the Triton merge kernels, forward and backward, and
-the CUDA C++ flash-attention and SSD chunk kernels — against their plain
-PyTorch versions.
+"""The port's kernels — the merge kernels (the reductions' forward in CUDA
+C++, the concat forward and both backward kernels in Triton) and the CUDA
+C++ flash-attention and SSD chunk kernels — against their plain PyTorch
+versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -89,6 +90,48 @@ def test_kernel_wrapper_validates_inputs_on_card():
     with pytest.raises(ValueError, match="live"):
         kernel_module.merge_pool(x, torch.ones(3, device="cuda"),
                                  strategy="avg")
+
+
+# (K, B, D): runs of B * D that are not a multiple of 4 (the scalar path),
+# B = 1, and K past the templated client counts (the runtime-K path)
+EDGE_SHAPES = [(3, 5, 7), (2, 1, 3), (4, 1, 6), (5, 3, 9), (4, 1, 960),
+               (10, 4, 12)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("strategy", ["sum", "avg", "max", "mul"])
+def test_reduce_kernel_edges_on_card(strategy, dtype):
+    """The CUDA C++ reduction at its edges: ragged runs, B = 1, a dropped
+    client, every client dropped, a stack that starts off a 16-byte
+    boundary, K = 10, and max with exact ties (a tied dropped client
+    included).  One launch per call, counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the merge kernel runs only there)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for shape in EDGE_SHAPES:
+        n = shape[0] * shape[1] * shape[2]
+        flat = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        for x in (flat[:n].view(shape), flat[1:].view(shape)):
+            for kind in ("all", "dropped", "none"):
+                live = _live(shape[0], kind)
+                before = kernel_module.launches["merge_reduce_kernel"]
+                got = kernel_module.merge_pool(x, live, strategy=strategy)
+                assert kernel_module.launches["merge_reduce_kernel"] == \
+                    before + 1
+                want = ref.merge_pool(x, strategy, live)
+                torch.cuda.synchronize()
+                assert got.shape == want.shape and got.dtype == dtype
+                torch.testing.assert_close(got.float(), want.float(),
+                                           rtol=TOL[dtype], atol=TOL[dtype])
+    t = torch.randn((4, 3, 10), generator=gen, device="cuda").to(dtype)
+    t[1] = t[0]
+    t[3] = t[0]
+    live = torch.tensor([1.0, 1.0, 1.0, 0.0], device="cuda")
+    got = kernel_module.merge_pool(t, live, strategy=strategy)
+    torch.testing.assert_close(got.float(),
+                               ref.merge_pool(t, strategy, live).float(),
+                               rtol=TOL[dtype], atol=TOL[dtype])
 
 
 def _plain_grad(x, live, g, strategy):
@@ -245,6 +288,37 @@ def test_flash_kernel_matches_plain_version_on_card(shape, causal, dtype):
         torch.testing.assert_close(got.float(), want.float(),
                                    rtol=FLASH_TOL[dtype],
                                    atol=FLASH_TOL[dtype])
+
+
+# every edge of the 64-row q and kv tiles and of the 16-row warp slabs
+FLASH_EDGE_SEQS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 2500]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("s", FLASH_EDGE_SEQS)
+def test_flash_kernel_tile_edges_on_card(s, d):
+    """The tensor-core kernel against ref.flash_attention at every tile
+    edge: groups of 1 and 3 q heads per kv head, causal and full, both
+    layouts, f32 within 5e-4 and bf16 within 3e-2."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(s * d)
+    for shape in ((2, 2, 2, s, d), (1, 6, 2, s, d)):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                for layout in ("bhsd", "bshd"):
+                    q, k, v = _qkv(shape, dtype, gen, layout)
+                    got = flash_module.flash_attention(q, k, v,
+                                                       causal=causal)
+                    want = ref.flash_attention(q, k, v, causal=causal)
+                    torch.cuda.synchronize()
+                    assert got.shape == q.shape and got.dtype == dtype
+                    assert torch.isfinite(got).all()
+                    torch.testing.assert_close(
+                        got.float(), want.float(), rtol=FLASH_TOL[dtype],
+                        atol=FLASH_TOL[dtype],
+                        msg=lambda m: f"{shape} causal={causal} {dtype} "
+                        f"{layout}: {m}")
 
 
 @pytest.mark.cuda

@@ -109,6 +109,32 @@ def test_cpu_tensor_takes_plain_version():
     assert kernel_module.launches == before
 
 
+@pytest.mark.parametrize("strategy", ["sum", "avg", "max", "mul"])
+def test_reduce_wrapper_refuses_cpu_tensors_without_building(monkeypatch,
+                                                            strategy):
+    """The reductions' forward is the CUDA C++ kernel ``repro_merge_reduce``
+    (an entry of the library's ctypes signatures, taking the stack, the
+    live flags, the output, n = B * D, K, strategy, dtype, device and
+    stream).  A CPU stack is refused before the library is built or
+    loaded, and no launch is counted."""
+    from repro_torch.kernels import build
+
+    argtypes, restype = build.SIGNATURES["repro_merge_reduce"]
+    assert len(argtypes) == 9 and restype is not None
+    assert "merge_pool.cu" in [p.name for p in build.sources()]
+
+    def no_build():
+        raise AssertionError("the library was built for a CPU tensor")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    before = dict(kernel_module.launches)
+    x = torch.ones((3, 2, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_module.merge_pool(x, torch.ones(3), strategy=strategy)
+    assert kernel_module.launches == before
+
+
 def _port_vjp(x, live, g, strategy):
     """The port's gradient of the merge w.r.t. the stack, through
     ``ops.merge_pool`` (MergePool on the CPU)."""
