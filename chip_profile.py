@@ -1,8 +1,10 @@
 """Where split serving's, split training's and long-prompt serving's time
 goes on one NVIDIA GPU: a ``torch.profiler`` breakdown of the PyTorch
-port on full-width smollm-360m.
+port on full-width smollm-360m, mamba2-1.3b and starcoder2-3b.
 
     python3 chip_profile.py      # from the repo root; needs one CUDA card
+    python3 chip_profile.py starcoder   # only some sections, by name:
+                                        # serve, train, long, ssm, starcoder
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
@@ -21,10 +23,15 @@ flash-attention kernel's share of the device time and of the wall time.
 Then full-width mamba2-1.3b (``chip_smoke.py``'s phase 8): one
 ``forward`` of 32768 tokens and greedy ``generate`` of 4 prompts of 64
 tokens with 16 new tokens each, each under the profiler after an
-unprofiled warm-up, with the SSD chunk kernel's share.
+unprofiled warm-up, with the SSD chunk kernel's share.  Last,
+full-width starcoder2-3b (``chip_smoke.py``'s phase 9): the prefill of
+its 32768-token prompt alone, then of all four of its prompts, one new
+token each, after an unprofiled warm-up.  Every run also prints the f32
+GEMMs' share (kernels named ``*gemm*``: cuBLAS and CUTLASS).
 """
 from __future__ import annotations
 
+import sys
 import time
 
 import numpy as np
@@ -80,8 +87,8 @@ def profiled(fn, card: str, label: str, describe, host_ops=()) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
-    for name in ("flash_attention_kernel", "ssd_chunk_kernel"):
-        mine = [e for e in kernels if name in e.key]
+    for name in ("flash_attention_kernel", "ssd_chunk_kernel", "gemm"):
+        mine = [e for e in kernels if name in e.key.lower()]
         if mine:
             us = sum(_device_us(e) for e in mine)
             smoke.log(f"[{label}]   {name}: {sum(e.count for e in mine)} "
@@ -165,13 +172,25 @@ def profile_ssm(card: str) -> None:
                  "(64 replay + 15 decode steps)"))
 
 
-def main() -> None:
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_profile: needs one CUDA card")
-    card = smoke.card_line()
-    smoke.log(f"card: {card}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+def profile_starcoder(card: str) -> None:
+    cfg = get_arch(smoke.SC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(smoke.SEED)  # chip_smoke's prompts
+    prompts = [rng.integers(0, cfg.vocab_size, s) for s in smoke.SC_PROMPTS]
+    kw = smoke.sc_serving_kw(cfg)
+    smoke.serve(cfg, params, prompts[:1], [2], **kw)  # warm-up
+    longest = smoke.SC_PROMPTS.index(max(smoke.SC_PROMPTS))
+    profile_serving(cfg, params, [prompts[longest]], [1], card,
+                    f"starcoder prefill {max(smoke.SC_PROMPTS)}", **kw)
+    profile_serving(cfg, params, prompts, [1] * len(prompts), card,
+                    "starcoder long prefill", **kw)
+    del params
+    torch.cuda.empty_cache()
+
+
+def profile_smollm(card: str, sections) -> None:
+    """The serve, train and long sections, on full-width smollm-360m."""
     cfg = get_arch("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     params = backbone.init_params(cfg, gen, device="cuda")
@@ -179,25 +198,46 @@ def main() -> None:
     prompts = [rng.integers(0, cfg.vocab_size, s) for s in smoke.PROMPT_LENS]
     smoke.serve(cfg, params, prompts[:2], [2, 2], cache_len=CACHE_LEN,
                 max_batch=4)  # warm-up: nvcc and Triton build, cuBLAS starts
-    profile_serving(cfg, params, prompts, [1] * len(prompts), card,
-                    "prefill")
-    profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
-    profile_training(cfg, params, card)
+    if "serve" in sections:
+        profile_serving(cfg, params, prompts, [1] * len(prompts), card,
+                        "prefill")
+        profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
+    if "train" in sections:
+        profile_training(cfg, params, card)
+    if "long" in sections:
+        rng = np.random.default_rng(smoke.SEED)  # chip_smoke's long prompts
+        long_prompts = [rng.integers(0, cfg.vocab_size, s)
+                        for s in smoke.LONG_PROMPTS]
+        kw = dict(cache_len=max(s + n for s, n in zip(smoke.LONG_PROMPTS,
+                                                      smoke.LONG_NEW)),
+                  max_batch=4, cut_cache_bytes=smoke.LONG_CUT_CACHE_BYTES)
+        smoke.serve(cfg, params, long_prompts[:1], [2], **kw)  # warm-up
+        profile_serving(cfg, params, long_prompts, [1] * len(long_prompts),
+                        card, "long prefill", **kw)
+        profile_serving(cfg, params, long_prompts, smoke.LONG_NEW, card,
+                        "long full", **kw)
 
-    rng = np.random.default_rng(smoke.SEED)  # chip_smoke's long prompts
-    long_prompts = [rng.integers(0, cfg.vocab_size, s)
-                    for s in smoke.LONG_PROMPTS]
-    kw = dict(cache_len=max(s + n for s, n in zip(smoke.LONG_PROMPTS,
-                                                  smoke.LONG_NEW)),
-              max_batch=4, cut_cache_bytes=smoke.LONG_CUT_CACHE_BYTES)
-    smoke.serve(cfg, params, long_prompts[:1], [2], **kw)  # warm-up
-    profile_serving(cfg, params, long_prompts, [1] * len(long_prompts), card,
-                    "long prefill", **kw)
-    profile_serving(cfg, params, long_prompts, smoke.LONG_NEW, card,
-                    "long full", **kw)
-    del params
-    torch.cuda.empty_cache()
-    profile_ssm(card)
+
+SECTIONS = ("serve", "train", "long", "ssm", "starcoder")
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_profile: needs one CUDA card")
+    sections = sys.argv[1:] or SECTIONS
+    if set(sections) - set(SECTIONS):
+        raise SystemExit(f"chip_profile: sections are {SECTIONS}")
+    card = smoke.card_line()
+    smoke.log(f"card: {card}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if {"serve", "train", "long"} & set(sections):
+        profile_smollm(card, sections)
+        torch.cuda.empty_cache()
+    if "ssm" in sections:
+        profile_ssm(card)
+    if "starcoder" in sections:
+        profile_starcoder(card)
 
 
 if __name__ == "__main__":

@@ -2,9 +2,10 @@
 split training and long-prompt split serving of full-width smollm-360m,
 with its merge reduction's forward in CUDA C++, its concat forward and
 both backward merge kernels in Triton and its flash-attention kernel in
-CUDA C++ on the tensor cores (3xTF32), and the full-sequence forward and
+CUDA C++ on the tensor cores (3xTF32), the full-sequence forward and
 greedy generation of full-width mamba2-1.3b with its SSD chunk kernel in
-CUDA C++.
+CUDA C++, and long-prompt split serving of full-width starcoder2-3b, whose
+attention (head dim 128) runs the flash kernel's wider instantiation.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -41,13 +42,17 @@ Phases, in order; any failure raises and the script exits non-zero:
    CPU path (losses and final params within 1e-4).
 5. The flash-attention kernel: its ptxas report (registers, spills) and
    the count of tensor-core instructions (HMMA / HGMMA) in its SASS from
-   ``cuobjdump`` (a kernel with none fails), then the kernel against its
-   plain version on CUDA tensors: the serving path's server and tower
-   shapes at S = 2500, 4096 and 8192 in the model's (B, S, H, D) layout,
-   ragged small shapes at the tile edges, causal and full, f32 (tol 5e-4)
-   and bf16 (3e-2); at the server shape and S = 8192 and 32768, the
-   kernel's time per call and on the device, the plain version's, one
-   library call's, the tensor-core bound (3xTF32) and the f32-FMA bound.
+   ``cuobjdump`` for each instantiation (head dims 32, 64, 80, 112 and
+   128, f32 and bf16; a spill or an instantiation without them fails),
+   then the kernel against its plain version on CUDA tensors: smollm-360m's
+   server and tower shapes at S = 2500, 4096 and 8192 in the model's
+   (B, S, H, D) layout, starcoder2-3b's (D 128: server at 8192 and 32768,
+   towers at 8192), stablelm-3b's server (D 80) and zamba2-7b's shared
+   attention (D 112) at 8192, ragged small shapes at the tile edges,
+   causal and full (causal only at 32768), f32 (tol 5e-4) and bf16
+   (3e-2); at each of those timed shapes (causal f32), the kernel's time
+   per call and on the device, the plain version's, one library call's,
+   the tensor-core bound (3xTF32) and the f32-FMA bound.
 6. Long-prompt split serving: full-width smollm-360m, K = 4, 4 slots,
    greedy, prompts of 2500-32768 tokens plus one of 1024 (dense branch)
    in one batch.  Launch counters reset just before the run, read just
@@ -79,6 +84,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward's.  The reduced model on the card matches the CPU path
    (forward logits 1e-4, 3 launches, generated tokens identical; decode
    replay within 2e-3 of the forward).
+9. The starcoder2-3b slice: first reduced starcoder2-3b at head dim 128
+   on the card against the CPU path on a 2304-token prompt (as in phase
+   6).  Then full-width starcoder2-3b (30 layers, d_model 3072, 24 q / 2
+   kv heads of 128, untied, K = 4 towers of 6 / 1 heads; f32, random
+   weights from a seed; its parameter count and peak memory logged),
+   served with 2 slots: prompts of 2500, 8192, 32768 and 1024 tokens with
+   8, 8, 4 and 8 new tokens.  Each prompt's prefill is timed alone (time
+   to first token); then the whole traffic with the counters reset just
+   before the run and read just after: 36 flash launches at D = 128 per
+   prompt past 2048 tokens (28 server + 4 x 2 tower layers), 108 in all,
+   and one merge launch per merge.  A plain run of the prompts up to 8192
+   tokens gives identical tokens and prefill logits within 1e-3; the
+   32768-token prompt's logits are finite (phase 5 holds the kernel at
+   that shape).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -143,8 +162,22 @@ FLASH_PATH_SHAPES = [(1, h, hkv, s, 64) for s in (2500, 4096, 8192)
                      for h, hkv in ((15, 5), (3, 1))]
 FLASH_SMALL_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32),
                       (1, 3, 1, 1, 64), (2, 6, 2, 65, 32),
-                      (1, 3, 3, 129, 64)]
-FLASH_TIME_SEQS = (8192, 32768)
+                      (1, 3, 3, 129, 64), (2, 4, 2, 37, 128),
+                      (1, 2, 2, 600, 80), (1, 3, 1, 97, 112),
+                      (2, 6, 2, 65, 128), (1, 3, 3, 33, 80)]
+# the larger head dims at the widths of the configs that need them:
+# starcoder2-3b's server (24 q / 2 kv heads) at 8192 and 32768 tokens and
+# its towers (6 / 1), all D 128; stablelm-3b's server (32 / 32, D 80) and
+# zamba2-7b's shared attention (32 / 32, D 112).  Causal and full, except
+# at 32768 (causal, as the path runs it: the plain version there takes a
+# second a call).
+FLASH_WIDE_SHAPES = [(1, 24, 2, 8192, 128), (1, 6, 1, 8192, 128),
+                     (1, 32, 32, 8192, 80), (1, 32, 32, 8192, 112),
+                     (1, 24, 2, 32768, 128)]
+# timed, causal f32: the smollm-360m server (D 64) as PR 15 timed it, then
+# every wide shape
+FLASH_TIME_SHAPES = [(1, 15, 5, 8192, 64), (1, 15, 5, 32768, 64)] + \
+    FLASH_WIDE_SHAPES
 SSD_TOL = 3e-4  # the JAX package's tolerance for its SSD chunk kernel
 # (B, S, H, P, N, chunk): mamba2-1.3b's server (64 heads) SSD at 2048 and
 # 8192 tokens, its tower (16 heads) at 8192 and 32768, batch 4, the reduced
@@ -162,6 +195,15 @@ SSM_FORWARDS = [(1, 2048), (1, 8192), (1, 32768), (4, 2048)]
 SSM_LOGIT_TOL = 1e-3
 SSM_TAIL = 1024  # positions compared at 32768 (the logits are 6.6 GB)
 GEN_PROMPTS, GEN_NEW = (4, 256), 16
+# the starcoder2-3b slice: long-prompt split serving at full width, two
+# decode slots; the plain run covers the prompts up to 8192 tokens (at
+# 32768 the plain attention alone would take tens of seconds: phase 5
+# holds the kernel at that shape instead)
+SC_ARCH = "starcoder2-3b"
+SC_PROMPTS = [2500, 8192, 32768, 1024]
+SC_NEW = [8, 8, 4, 8]
+SC_MAX_BATCH = 2
+SC_PLAIN_MAX = 8192
 
 
 def log(*parts) -> None:
@@ -175,7 +217,15 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    return {**mp.launches, **fa.launches, **ssd.launches}
+    """Every kernel's count, and the flash kernel's again by head dim (one
+    instantiation each), as ``flash_attention_kernel[D=d]``."""
+    return {**mp.launches, **fa.launches,
+            **{flash_name(d): n for d, n in fa.launches_by_head_dim.items()},
+            **ssd.launches}
+
+
+def flash_name(head_dim: int) -> str:
+    return f"flash_attention_kernel[D={head_dim}]"
 
 
 def card_line() -> str:
@@ -754,9 +804,9 @@ def _flash_inputs(shape, dtype, gen, model_layout: bool):
             for h in (H, Hkv, Hkv)]
 
 
-def check_flash_kernel() -> float:
+def check_flash_kernel() -> dict:
     """Path and ragged shapes x causal/full x f32/bf16: kernel vs plain.
-    Returns the largest f32 |error|."""
+    Returns the largest f32 |error| per head dim."""
     log(f"flash: ptxas: {ptxas_report('flash_attention_kernel')}")
     spills = {inst: spill for inst, (_, spill) in
               _ptxas_counts("flash_attention_kernel").items() if spill}
@@ -773,12 +823,13 @@ def check_flash_kernel() -> float:
             raise AssertionError(f"flash kernel without tensor-core "
                                  f"instructions: {counts}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    worst, n = 0.0, 0
-    for shape in FLASH_SMALL_SHAPES + FLASH_PATH_SHAPES:
-        for causal in (True, False):
+    worst, n = dict.fromkeys(fa.HEAD_DIMS, 0.0), 0
+    model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES
+    for shape in FLASH_SMALL_SHAPES + model_layout:
+        for causal in (True, False) if shape[3] <= 8192 else (True,):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = _flash_inputs(shape, dtype, gen,
-                                        shape in FLASH_PATH_SHAPES)
+                                        shape in model_layout)
                 got = fa.flash_attention(q, k, v, causal=causal)
                 want = ref.flash_attention(q, k, v, causal=causal)
                 torch.cuda.synchronize()
@@ -791,11 +842,16 @@ def check_flash_kernel() -> float:
                                            rtol=FLASH_TOL[dtype],
                                            atol=FLASH_TOL[dtype])
                 if dtype == torch.float32:
-                    worst = max(worst, float((got - want).abs().max()))
+                    worst[shape[4]] = max(worst[shape[4]],
+                                          float((got - want).abs().max()))
                 n += 1
+                del q, k, v, got, want
+    torch.cuda.empty_cache()
     log(f"flash kernel: {n} cases match the plain version (f32 tol 5e-4, "
-        f"bf16 tol 3e-2; (B, H, Hkv, S, D) in {FLASH_SMALL_SHAPES} and "
-        f"{FLASH_PATH_SHAPES}, causal and full); worst f32 |err| {worst:.3e}")
+        f"bf16 tol 3e-2; (B, H, Hkv, S, D) in {FLASH_SMALL_SHAPES}, "
+        f"{FLASH_PATH_SHAPES} and {FLASH_WIDE_SHAPES}, causal and full up "
+        f"to 8192 tokens); worst f32 |err| by head dim "
+        + ", ".join(f"D {d}: {e:.3e}" for d, e in worst.items()))
     return worst
 
 
@@ -853,23 +909,23 @@ def flash_bound(B, H, Hkv, S, D, itemsize=4, causal=True) -> tuple:
 
 
 def time_flash(card: str) -> dict:
-    """Server shape (1, 15 q / 5 kv heads, S, 64), causal f32, in the
-    model's layout: the kernel, the plain version, one library call and
-    the bound.  The library call is scaled_dot_product_attention's
+    """Every shape of FLASH_TIME_SHAPES, causal f32, in the model's layout:
+    the kernel, the plain version, one library call and the bound, by
+    shape.  The library call is scaled_dot_product_attention's
     memory-efficient backend on kv heads repeated before the call: this
     PyTorch's fused f32 backends refuse enable_gqa=True, and its math
-    backend would hold the 64 GB score matrix at 32768.  At 8192 the
-    enable_gqa=True call (the math backend) is timed too, for the
-    record."""
+    backend would hold the 64 GB score matrix at 32768.  At the 8192-token
+    smollm-360m shape the enable_gqa=True call (the math backend) is timed
+    too, for the record."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention
 
     rows = {}
-    for S in FLASH_TIME_SEQS:
-        shape = (1, 15, 5, S, 64)
-        gen = torch.Generator(device="cuda").manual_seed(S)
+    for shape in FLASH_TIME_SHAPES:
+        B, H, Hkv, S, D = shape
+        gen = torch.Generator(device="cuda").manual_seed(S + D)
         q, k, v = _flash_inputs(shape, torch.float32, gen, True)
-        kr, vr = (t.repeat_interleave(3, dim=1) for t in (k, v))
+        kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
 
         def library():
             with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
@@ -879,7 +935,7 @@ def time_flash(card: str) -> dict:
                "plain_": lambda: ref.flash_attention(q, k, v, causal=True),
                "library_": library}
         big = S > 8192
-        if not big:
+        if shape == FLASH_TIME_SHAPES[0]:
             fns["library_gqa_"] = lambda: scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True)
         row = {}
@@ -896,9 +952,9 @@ def time_flash(card: str) -> dict:
         got, want = fns[""](), fns["library_"]()
         torch.cuda.synchronize()
         row["library_max_abs_diff"] = float((got - want).abs().max())
-        rows[S] = row
-        log(f"time flash causal f32 (1, 15/5, {S}, 64): per call (device): "
-            f"kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
+        rows[shape] = row
+        log(f"time flash causal f32 ({B}, {H}/{Hkv}, {S}, {D}): per call "
+            f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
             f"{flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s "
             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
             f"3xTF32 tensor-core bound, "
@@ -997,6 +1053,7 @@ def serve_long(card: str) -> int:
         raise AssertionError(f"long serving re-prefilled: {stats}")
     merges = stats["prefills"] + sum(n - 1 for n in LONG_NEW)
     expect_launches(launches, {"flash_attention_kernel": per_prompt * n_long,
+                               flash_name(64): per_prompt * n_long,
                                "merge_reduce_kernel": merges})
     pf = [costs.serve_prefill_bytes(s, cfg.d_model, K)["total"]
           for s in LONG_PROMPTS]
@@ -1044,11 +1101,15 @@ def serve_long(card: str) -> int:
     return launches["flash_attention_kernel"]
 
 
-def check_small_long_against_cpu() -> None:
-    """Reduced smollm-360m, one 2304-token prompt: the card (flash kernel
-    and merge kernel) against the CPU path (chunked plain attention) —
-    prefill logits within 1e-4, identical greedy tokens."""
-    cfg = get_arch("smollm-360m").reduced()
+def check_small_long_against_cpu(arch: str = "smollm-360m",
+                                 head_dim: int = 0) -> None:
+    """Reduced ``arch`` (at ``head_dim`` where it is given: ``reduced()``
+    resets it), one 2304-token prompt: the card (flash kernel and merge
+    kernel) against the CPU path (chunked plain attention) — prefill
+    logits within 1e-4, identical greedy tokens."""
+    cfg = get_arch(arch).reduced()
+    if head_dim:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     cpu_params = backbone.init_params(cfg, gen, device="cpu")
     prompt = np.random.default_rng(SEED).integers(0, cfg.vocab_size, 2304)
@@ -1068,7 +1129,9 @@ def check_small_long_against_cpu() -> None:
                        read_launches())
     per_prefill = (cfg.num_layers - cfg.vertical.tower_layers
                    + cfg.vertical.num_clients * cfg.vertical.tower_layers)
-    if out["cuda"][2]["flash_attention_kernel"] != 2 * per_prefill or any(
+    d = cfg.resolved_head_dim()
+    if out["cuda"][2]["flash_attention_kernel"] != 2 * per_prefill or \
+            out["cuda"][2][flash_name(d)] != 2 * per_prefill or any(
             out["cpu"][2].values()):
         raise AssertionError(f"reduced long prompt launches: card "
                              f"{out['cuda'][2]}, CPU {out['cpu'][2]}")
@@ -1077,7 +1140,8 @@ def check_small_long_against_cpu() -> None:
     if out["cuda"][1] != out["cpu"][1]:
         raise AssertionError("reduced long prompt: card tokens differ from "
                              "CPU")
-    log(f"small long: reduced smollm-360m, a 2304-token prompt on the card "
+    log(f"small long: reduced {arch} (head dim {d}), a 2304-token prompt "
+        f"on the card "
         f"matches the CPU path (prefill logits max |diff| "
         f"{float((out['cuda'][0] - out['cpu'][0]).abs().max()):.3e} <= "
         f"1e-4, identical greedy tokens, {2 * per_prefill} flash launches)")
@@ -1454,6 +1518,124 @@ def check_small_ssm_against_cpu() -> None:
         f"replay vs forward {rdiff:.3e} <= 2e-3")
 
 
+# ---------------------------------------------------------------------------
+# phase 9: long-prompt split serving of starcoder2-3b (head dim 128)
+# ---------------------------------------------------------------------------
+
+def sc_serving_kw(cfg) -> dict:
+    """The phase's server settings: a cache for the longest request, two
+    slots, and room in the cut cache for the largest merged cut in each
+    slot (3072 floats a token: 403 MB at 32768 tokens)."""
+    return dict(cache_len=max(s + n for s, n in zip(SC_PROMPTS, SC_NEW)),
+                max_batch=SC_MAX_BATCH,
+                cut_cache_bytes=SC_MAX_BATCH * max(SC_PROMPTS) * cfg.d_model
+                * 4)
+
+
+def serve_starcoder(card: str) -> int:
+    """Full-width starcoder2-3b, K = 4, two slots, greedy, prompts of
+    SC_PROMPTS tokens: the prefill of each, one request at a time, then
+    the whole traffic with the counters reset just before the run and read
+    just after (36 flash launches at D = 128 per prompt past 2048 tokens,
+    one merge launch per merge, none at another head dim), then the plain
+    run of the prompts up to SC_PLAIN_MAX tokens (identical tokens,
+    prefill logits within 1e-3).  Returns the flash launches."""
+    cfg = get_arch(SC_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
+    params = backbone.init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, s) for s in SC_PROMPTS]
+    kw = sc_serving_kw(cfg)
+    K = cfg.vertical.num_clients
+    per_prompt = (cfg.num_layers - cfg.vertical.tower_layers
+                  + K * cfg.vertical.tower_layers)
+    long = [s * s > attn_lib.FLASH_THRESHOLD ** 2 for s in SC_PROMPTS]
+    head_dim = cfg.resolved_head_dim()
+    log(f"{SC_ARCH}: full width, {n_params} params ({param_bytes} bytes "
+        f"f32), K={K}, head dim {head_dim} (server "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads, towers "
+        f"{cfg.num_heads // K}/{max(1, cfg.num_kv_heads // K)}), prompts "
+        f"{SC_PROMPTS}, new tokens {SC_NEW}, {SC_MAX_BATCH} slots, cache_len "
+        f"{kw['cache_len']}, cut cache {kw['cut_cache_bytes']} bytes")
+
+    serve(cfg, params, prompts[:1], [2], **kw)  # warm-up (not measured)
+
+    # prefill only, one request at a time: time to the first token
+    srv = make_server(cfg, params, "cuda", **kw)
+    prefill_s = []
+    for p in prompts:
+        srv.submit(p, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    del srv
+    log(f"{SC_ARCH} prefill (max_new_tokens=1, one request at a time): "
+        + ", ".join(f"{s} tokens {s / t:.1f} tok/s ({t:.4f} s)"
+                    for s, t in zip(SC_PROMPTS, prefill_s)) + f" | {card}")
+
+    # the main path: counters reset just before the run, read just after
+    tokens, stats, t_main, launches, logits, wire, cut_stats = \
+        serve_recording(cfg, params, prompts, SC_NEW, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    if stats["reprefills"]:
+        raise AssertionError(f"{SC_ARCH} serving re-prefilled: {stats}")
+    merges = stats["prefills"] + sum(n - 1 for n in SC_NEW)
+    flash = per_prompt * sum(long)
+    expect_launches(launches, {"flash_attention_kernel": flash,
+                               flash_name(head_dim): flash,
+                               "merge_reduce_kernel": merges})
+    pf = [costs.serve_prefill_bytes(s, cfg.d_model, K)["total"]
+          for s in SC_PROMPTS]
+    dc = costs.serve_decode_bytes(cfg.d_model, K, rounds=sum(SC_NEW)
+                                  - len(SC_NEW))["total"]
+    if wire["total"] != sum(pf) + dc:
+        raise AssertionError(f"ledger {wire['total']} bytes != cost model "
+                             f"{sum(pf) + dc}")
+    if len(logits) != len(SC_PROMPTS) or not all(
+            torch.isfinite(x).all() for x in logits):
+        raise AssertionError(f"{SC_ARCH}: missing or non-finite prefill "
+                             "logits")
+
+    # the plain run of the prompts up to SC_PLAIN_MAX tokens
+    small = [i for i, s in enumerate(SC_PROMPTS) if s <= SC_PLAIN_MAX]
+    ptokens, _, t_plain, plaunch, plogits, _, _ = serve_recording(
+        cfg, params, [prompts[i] for i in small], [SC_NEW[i] for i in small],
+        use_kernel=False, **kw)
+    if any(plaunch.values()):
+        raise AssertionError(f"the plain run launched kernels: {plaunch}")
+    diffs = [float((logits[i] - x).abs().max()) for i, x in zip(small,
+                                                                plogits)]
+    gaps = [float(torch.topk(x, 2).values[0] - torch.topk(x, 2).values[1])
+            for x in plogits]
+    log(f"{SC_ARCH}: prefill logits kernel vs plain, max |diff| for the "
+        f"prompts of {[SC_PROMPTS[i] for i in small]} tokens {diffs} (tol "
+        f"1e-3); top-2 logit gap of the plain run {gaps}; logits at "
+        f"{[s for s in SC_PROMPTS if s > SC_PLAIN_MAX]} tokens finite")
+    if max(diffs) > 1e-3:
+        raise AssertionError(f"prefill logits differ: {diffs}")
+    if ptokens != [tokens[i] for i in small]:
+        raise AssertionError(f"the plain run gave other tokens: "
+                             f"{[tokens[i] for i in small]} vs {ptokens}")
+    log(f"{SC_ARCH} serving continuous: {len(prompts)} requests, "
+        f"{stats['tokens']} tokens, {stats['decode_rounds']} decode rounds, "
+        f"{launches['flash_attention_kernel']} flash_attention_kernel "
+        f"launches, all at D = {head_dim} ({per_prompt} per prompt past 2048 "
+        f"tokens x {sum(long)}), {launches['merge_reduce_kernel']} "
+        f"merge_reduce_kernel launches ({merges} merges); cut cache "
+        f"{cut_stats}; ledger {wire['total']} bytes = cost model; wall "
+        f"{t_main:.4f} s (plain run of {len(small)} requests "
+        f"{t_plain:.4f} s); max_memory_allocated {peak} bytes; tokens "
+        f"identical to the plain run | {card}")
+    del params
+    torch.cuda.empty_cache()
+    return launches["flash_attention_kernel"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -1490,12 +1672,14 @@ def main() -> None:
     flash_worst = check_flash_kernel()
     flash_rows = time_flash(card)
     check_small_long_against_cpu()
-    launches["flash_attention_kernel"] = serve_long(card)
+    flash_launches = {64: serve_long(card)}
     ssd_worst = check_ssd_kernel()
     ssd_rows, timed_worst = time_ssd(card)
     ssd_worst = max(ssd_worst, timed_worst)
     check_small_ssm_against_cpu()
     launches["ssd_chunk_kernel"] = ssm_full(card)
+    check_small_long_against_cpu(SC_ARCH, head_dim=128)
+    flash_launches[128] = serve_starcoder(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -1521,20 +1705,36 @@ def main() -> None:
             "plain_device_ms": row["plain_device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": list(shape), "dtype": "float32"})
-    row = flash_rows[max(FLASH_TIME_SEQS)]
-    kernels.append({
-        "name": "flash_attention_kernel", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": launches["flash_attention_kernel"],
-        "max_abs_err": flash_worst, "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
-        "library_ms": row["library_ms"], "device_ms": row["device_ms"],
-        "plain_device_ms": row["plain_device_ms"],
-        "library_device_ms": row["library_device_ms"],
-        "shape": [1, 15, max(FLASH_TIME_SEQS), 64], "kv_heads": 5,
-        "causal": True, "dtype": "float32"})
+    def flash_entry(shape, launched=None):
+        """The kernel's row at a timed shape; ``launched`` is its count on
+        a main path (a head dim on no path has none)."""
+        row = flash_rows[shape]
+        B, H, Hkv, S, D = shape
+        entry = {
+            "name": flash_name(D), "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:27",
+            "launches": launched, "max_abs_err": flash_worst[D],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "fma_bound_ms": row["fma_bound_ms"],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "shape": [B, H, S, D], "kv_heads": Hkv, "causal": True,
+            "dtype": "float32"}
+        if launched is None:
+            del entry["launches"]
+        return entry
+
+    # the flash kernel by head dim: 64 on phase 6's path, 128 on phase 9's;
+    # 80 and 112 are on no path yet, so they ride in the D = 128 entry
+    kernels.append(flash_entry((1, 15, 5, 32768, 64), flash_launches[64]))
+    wide = flash_entry((1, 24, 2, 32768, 128), flash_launches[128])
+    wide["off_path_head_dims"] = [flash_entry(shape)
+                                  for shape in FLASH_WIDE_SHAPES
+                                  if shape[4] in (80, 112)]
+    kernels.append(wide)
     row = ssd_rows[max(SSD_TIME_SEQS)]
     kernels.append({
         "name": "ssd_chunk_kernel", "route": "cuda",

@@ -1,7 +1,8 @@
 """Configuration system: the port's own copy of the JAX package's configs.
 
-The port keeps its own copy (it imports nothing of the JAX package).  Only
-the fields the dense and ssm token-LM families read are carried; the
+The port keeps its own copy (it imports nothing of the JAX package) of the
+configs it runs: smollm-360m, starcoder2-3b and mamba2-1.3b.  Only the
+fields the dense and ssm token-LM families read are carried; the
 sub-configs of the other families (moe, hybrid, audio, vlm) come with their
 slices.
 ``tests/test_torch_model.py`` checks the shared fields against the JAX
@@ -146,4 +147,5 @@ def get_arch(name: str) -> ArchConfig:
 
 def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
-    from repro_torch.configs import mamba2_1_3b, smollm_360m  # noqa: F401
+    from repro_torch.configs import (mamba2_1_3b, smollm_360m,  # noqa: F401
+                                     starcoder2_3b)

@@ -33,7 +33,8 @@
 //    f32 product: 3 * 4 * D * pairs over 495 TFLOP/s.  The softmax's exp2
 //    (one per pair) runs on the special-function units beside them.
 //  * Instruction: wgmma.mma_async m64nNk8 (TF32 in, f32 accumulate).  A
-//    (Q, then P) comes from registers; B (K, then V) from shared memory
+//    (Q, then P) comes from registers (Q lo from shared memory above
+//    D = 64, see Head dims); B (K, then V) from shared memory
 //    through a descriptor, which for TF32 must be K-major: K as stored (d
 //    contiguous in each kv row), V transposed (kv contiguous in each d
 //    row).  wgmma and not mma.sync.m16n8k8: with mma.sync every warp
@@ -50,19 +51,31 @@
 //    raw stage is refilled with tile kt + 1 while tile kt is multiplied.
 //  * Tiles: 128 q rows per block, two warpgroups of 64 (wgmma's M; warp w
 //    of a warpgroup holds its rows 16w .. 16w + 15) that share each split
-//    K/V tile of 64 kv rows, so a K/V element is split once per 128 q rows.
-//    Q's A fragments (hi and lo) stay in registers for the whole kv loop.
-//    The loop over kv tiles (only up to the diagonal when causal) takes
-//    the place of the Pallas kernel's sequential kv grid axis and its
-//    @pl.when skip.
+//    K/V tile, so a K/V element is split once per 128 q rows.  Q's A
+//    fragments stay in registers for the whole kv loop.  The loop over kv
+//    tiles (only up to the diagonal when causal) takes the place of the
+//    Pallas kernel's sequential kv grid axis and its @pl.when skip.
+//  * Head dims.  D = 32 and 64 take kv tiles of 64 rows and hold Q's hi
+//    and lo fragments in registers (D registers).  Above 64 (80, 112 and
+//    128) that budget breaks twice: registers (Q hi and lo, the D/2 of the
+//    P V accumulator, the scores of a 64-row tile and P's hi and lo
+//    fragments would take ~290 at D = 128) and shared memory (264 KB at
+//    D = 128 in f32, past the 227 KB a block may have).  So there the kv
+//    tile is 32 rows (halving the scores and P's fragments) and Q's lo
+//    operand moves to shared memory, written once per block in the
+//    core-matrix layout and read by wgmma through a descriptor (A from
+//    shared memory) while Q hi stays in registers: at D = 128 in f32
+//    that is 193 KB of shared memory, and ptxas fits the kernel in 233
+//    registers without spilling.  bf16 has no Q lo (its Q is exact in
+//    TF32) and takes the same 32-row tiles.
 //  * The two warpgroups take turns on the tensor cores: warpgroup 0 runs
 //    Q K^T, the softmax and P V of tile kt, warpgroup 1 the softmax and
 //    P V of tile kt - 1 and then Q K^T of tile kt, so one's softmax runs
 //    while the other's products do.  V^T is kept two tiles deep for it.
-//    A block needs 130 KB of shared memory in f32 at D = 64 and up to 232
-//    registers a thread: one block per SM.  Above 48 KB, shared memory
-//    must be allowed: the launcher does it once per device at the first
-//    launch, never inside a CUDA-graph capture.
+//    A block needs 130 KB of shared memory in f32 at D = 64 (193 KB at
+//    D = 128) and up to 234 registers a thread: one block per SM.  Above
+//    48 KB, shared memory must be allowed: the launcher does it once per
+//    device at the first launch, never inside a CUDA-graph capture.
 //  * Fragments: the accumulator of Q K^T holds kv columns (2t, 2t + 1) of
 //    rows g and g + 8 in lane 4g + t; P V's A operand wants columns t and
 //    t + 4.  The kernel renames the kv order inside each 8-column step
@@ -91,7 +104,6 @@ namespace {
 constexpr int WG_ROWS = 64;           // q rows per warpgroup: wgmma's M
 constexpr int THREADS = 2 * 128;       // two warpgroups
 constexpr int BLOCK_Q = 2 * WG_ROWS;   // q rows per block
-constexpr int BLOCK_KV = 64;           // kv rows per tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -112,19 +124,25 @@ struct Params {
   float scale_log2;  // log2(e) / sqrt(D)
 };
 
-// A block's shared memory: the raw K and V tiles (rows padded by 16
-// bytes), then the TF32 operand tiles, each BLOCK_KV * D values in the
+// A block's tiling and shared memory: the raw K and V tiles (rows padded
+// by 16 bytes), then the TF32 operand tiles, each KV * D values in the
 // core-matrix layout: K hi, V^T hi (two tiles deep), and in f32 K lo,
-// V^T lo (two tiles deep).
+// V^T lo (two tiles deep); above D = 64 in f32, then Q lo of both
+// warpgroups (BLOCK_Q * D values).
 template <typename T, int D>
 struct Smem {
   static constexpr bool SPLIT = std::is_same<T, float>::value;
+  static constexpr int KV = D > 64 ? 32 : 64;  // kv rows per tile
+  static constexpr bool Q_LO_SHARED = SPLIT && D > 64;
   static constexpr int LDR = D + 16 / static_cast<int>(sizeof(T));
-  static constexpr int RAW = BLOCK_KV * LDR;  // elements of one raw tile
-  static constexpr int OP = BLOCK_KV * D;     // values of one operand tile
+  static constexpr int RAW = KV * LDR;  // elements of one raw tile
+  static constexpr int OP = KV * D;     // values of one operand tile
   static constexpr int RAW_BYTES = 2 * RAW * static_cast<int>(sizeof(T));
-  static constexpr int BYTES = RAW_BYTES + (SPLIT ? 6 : 3) * OP * 4;
+  static constexpr int BYTES = RAW_BYTES + (SPLIT ? 6 : 3) * OP * 4 +
+                               (Q_LO_SHARED ? BLOCK_Q * D * 4 : 0);
+  static_assert(D % 8 == 0 && D <= 128, "wgmma k-steps of 8, N <= 128");
   static_assert(RAW_BYTES % 128 == 0, "operand tiles start 128-aligned");
+  static_assert(BYTES <= 232448, "an H100 block has 227 KB");
 };
 
 // where TF32 value (r, k) of a K-major operand tile with KD columns along
@@ -153,14 +171,33 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = (__float_as_uint(x - __uint_as_float(hi)) + 0x1000u) & 0xffffe000u;
 }
 
-// D = A B (+ D when scale_d): A 64 x 8 from registers (this warp's 16 rows:
-// a0 (g, t), a1 (g + 8, t), a2 (g, t + 4), a3 (g + 8, t + 4)), B 8 x N
-// K-major in shared memory, D 64 x N f32 in registers (per 8 columns i:
-// d[4i] (g, 8i + 2t), d[4i + 1] (g, 8i + 2t + 1), d[4i + 2] and d[4i + 3]
-// the same of row g + 8)
-__device__ __forceinline__ void wgmma_n64(float (&d)[32],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc, int scale_d) {
+// D = A B (+ D when scale_d), wgmma m64nNk8 in TF32.  A is 64 x 8, from
+// registers (wgmma_rs: this warp's 16 rows, a0 (g, t), a1 (g + 8, t),
+// a2 (g, t + 4), a3 (g + 8, t + 4)) or from shared memory through a
+// descriptor (wgmma_ss); B is 8 x N, K-major in shared memory; D is 64 x N
+// f32 in registers (per 8 columns i: d[4i] (g, 8i + 2t), d[4i + 1]
+// (g, 8i + 2t + 1), d[4i + 2] and d[4i + 3] the same of row g + 8).
+#define ACC8(i)                                                       \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),         \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+__device__ __forceinline__ void wgmma_rs_n32(
+    float (&d)[16], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(
+    float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
       "setp.ne.b32 p, %37, 0;\n"
@@ -170,46 +207,109 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
       "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : ACC8(0), ACC8(8), ACC8(16),
+        ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d)
       : "memory");
 }
 
-__device__ __forceinline__ void wgmma_n32(float (&d)[16],
-                                          const uint32_t (&a)[4],
-                                          uint64_t desc, int scale_d) {
+__device__ __forceinline__ void wgmma_rs_n80(
+    float (&d)[40], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16),
+        ACC8(24), ACC8(32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
         "r"(scale_d)
       : "memory");
 }
+
+__device__ __forceinline__ void wgmma_rs_n112(
+    float (&d)[56], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16),
+        ACC8(24), ACC8(32), ACC8(40),
+        ACC8(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(
+    float (&d)[64], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16),
+        ACC8(24), ACC8(32), ACC8(40),
+        ACC8(48), ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_ss_n32(
+    float (&d)[16], uint64_t desc_a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8)
+      : "l"(desc_a), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+
+#undef ACC8
 
 template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2],
                                       const uint32_t (&a)[4], uint64_t desc,
                                       int scale_d) {
-  if constexpr (N == 64)
-    wgmma_n64(d, a, desc, scale_d);
+  static_assert(N == 32 || N == 64 || N == 80 || N == 112 || N == 128,
+                "no wgmma wrapper for this N");
+  if constexpr (N == 32)
+    wgmma_rs_n32(d, a, desc, scale_d);
+  else if constexpr (N == 64)
+    wgmma_rs_n64(d, a, desc, scale_d);
+  else if constexpr (N == 80)
+    wgmma_rs_n80(d, a, desc, scale_d);
+  else if constexpr (N == 112)
+    wgmma_rs_n112(d, a, desc, scale_d);
   else
-    wgmma_n32(d, a, desc, scale_d);
+    wgmma_rs_n128(d, a, desc, scale_d);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -249,12 +349,12 @@ __device__ __forceinline__ void cp_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// rows row0 .. row0 + BLOCK_KV of one head into a raw tile
+// rows row0 .. row0 + KV of one head into a raw tile
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src,
                                           long long stride, int row0, int S) {
   constexpr int PER_ROW = D / 4;
-  for (int c = threadIdx.x; c < BLOCK_KV * PER_ROW; c += THREADS) {
+  for (int c = threadIdx.x; c < Smem<T, D>::KV * PER_ROW; c += THREADS) {
     const int r = c / PER_ROW;
     const int col = (c % PER_ROW) * 4;
     const bool valid = row0 + r < S;
@@ -322,10 +422,11 @@ __global__ void __launch_bounds__(THREADS, 1)
     flash_attention_kernel(const Params p) {
   using L = Smem<T, D>;
   constexpr bool SPLIT = L::SPLIT;
-  constexpr int DK = D / 8;          // Q K^T's k-steps
-  constexpr int NKV = BLOCK_KV / 8;  // P V's k-steps
-  constexpr uint32_t SBO_K = (D / 4) * CORE * 4;         // K: d along K
-  constexpr uint32_t SBO_V = (BLOCK_KV / 4) * CORE * 4;  // V^T: kv along K
+  constexpr int KV = L::KV;
+  constexpr int DK = D / 8;    // Q K^T's k-steps
+  constexpr int NKV = KV / 8;  // P V's k-steps
+  constexpr uint32_t SBO_K = (D / 4) * CORE * 4;   // K and Q: d along K
+  constexpr uint32_t SBO_V = (KV / 4) * CORE * 4;  // V^T: kv along K
   extern __shared__ __align__(128) unsigned char smem[];
   T* raw_k = reinterpret_cast<T*>(smem);
   T* raw_v = raw_k + L::RAW;
@@ -334,6 +435,8 @@ __global__ void __launch_bounds__(THREADS, 1)
   uint32_t* v_hi = k_hi + L::OP;
   uint32_t* k_lo = v_hi + 2 * L::OP;
   uint32_t* v_lo = k_lo + L::OP;
+  // Q lo of this warpgroup's 64 rows (above D = 64 in f32), K-major as K
+  uint32_t* q_lo_s = v_lo + 2 * L::OP + (threadIdx.x / 128) * WG_ROWS * D;
 
   const int b = blockIdx.x / p.H;
   const int h = blockIdx.x % p.H;
@@ -352,16 +455,17 @@ __global__ void __launch_bounds__(THREADS, 1)
   T* o = static_cast<T*>(p.o) + b * p.so[0] + h * p.so[1];
 
   const int last_row = min(p.S, (qt + 1) * BLOCK_Q) - 1;
-  const int n_kv = p.causal ? last_row / BLOCK_KV + 1
-                           : (p.S + BLOCK_KV - 1) / BLOCK_KV;
+  const int n_kv = p.causal ? last_row / KV + 1 : (p.S + KV - 1) / KV;
   load_tile<T, D>(raw_k, k, p.sk[2], 0, p.S);
   load_tile<T, D>(raw_v, v, p.sv[2], 0, p.S);
   cp_commit();
 
-  // Q as A fragments, held for the whole loop.  A row past S is zeros and
-  // is never stored.
-  uint32_t q_hi[DK][4], q_lo[DK][4];
+  // Q as A fragments, held for the whole loop (above D = 64 in f32, Q lo
+  // goes to shared memory instead).  A row past S is zeros and is never
+  // stored.
+  uint32_t q_hi[DK][4], q_lo[L::Q_LO_SHARED ? 1 : DK][4];
   {
+    const int wg_row = row - wg_row0;  // this thread's row in its warpgroup
     const bool ok0 = row < p.S, ok1 = row + 8 < p.S;
     const T* q0 = q + (ok0 ? row : 0) * p.sq[2];
     const T* q1 = q + (ok1 ? row + 8 : 0) * p.sq[2];
@@ -374,10 +478,15 @@ __global__ void __launch_bounds__(THREADS, 1)
                           ok1 ? to_f32(q1[c + 4]) : 0.f};
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        if constexpr (SPLIT)
+        if constexpr (L::Q_LO_SHARED) {
+          uint32_t lo;
+          split(x[i], q_hi[kk][i], lo);
+          q_lo_s[core_index(wg_row + 8 * (i & 1), c + 4 * (i >> 1), D)] = lo;
+        } else if constexpr (SPLIT) {
           split(x[i], q_hi[kk][i], q_lo[kk][i]);
-        else
+        } else {
           q_hi[kk][i] = __float_as_uint(x[i]);
+        }
       }
     }
   }
@@ -392,34 +501,37 @@ __global__ void __launch_bounds__(THREADS, 1)
   // Q K^T, the softmax and P V of tile kt; warpgroup 1 runs the softmax and
   // P V of tile kt - 1 and then Q K^T of tile kt, so that one's softmax
   // falls in the other's products.  V^T is kept two tiles deep for it.
-  float s[BLOCK_KV / 2];
+  float s[KV / 2];
   auto qk = [&]() {
-    // S = Q K^T, k-step kk reading K's columns 8 kk .. 8 kk + 7
+    // S = Q K^T, k-step kk reading K's (and Q's) columns 8 kk .. 8 kk + 7
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
       const uint64_t dh = descriptor(k_hi + kk * 2 * CORE, SBO_K);
       if constexpr (SPLIT) {
         const uint64_t dl = descriptor(k_lo + kk * 2 * CORE, SBO_K);
-        wgmma<BLOCK_KV>(s, q_lo[kk], dh, kk > 0);
-        wgmma<BLOCK_KV>(s, q_hi[kk], dl, 1);
-        wgmma<BLOCK_KV>(s, q_hi[kk], dh, 1);
+        if constexpr (L::Q_LO_SHARED)
+          wgmma_ss_n32(s, descriptor(q_lo_s + kk * 2 * CORE, SBO_K), dh,
+                       kk > 0);
+        else
+          wgmma<KV>(s, q_lo[kk], dh, kk > 0);
+        wgmma<KV>(s, q_hi[kk], dl, 1);
+        wgmma<KV>(s, q_hi[kk], dh, 1);
       } else {
-        wgmma<BLOCK_KV>(s, q_hi[kk], dh, kk > 0);
+        wgmma<KV>(s, q_hi[kk], dh, kk > 0);
       }
     }
     wgmma_commit_and_wait();
-
   };
   auto softmax_pv = [&](int kt) {
     const uint32_t* vh = v_hi + (kt & 1) * L::OP;
     const uint32_t* vl = v_lo + (kt & 1) * L::OP;
     // mask the diagonal tile and a ragged last tile: s[4 j + i] holds kv
     // column 8 j + 2t + (i & 1) of row row + 8 (i >> 1)
-    const int kv0 = kt * BLOCK_KV;
-    if ((p.causal && kv0 + BLOCK_KV - 1 > wg_row0) || kv0 + BLOCK_KV > p.S) {
+    const int kv0 = kt * KV;
+    if ((p.causal && kv0 + KV - 1 > wg_row0) || kv0 + KV > p.S) {
 #pragma unroll
-      for (int i = 0; i < BLOCK_KV / 2; ++i) {
+      for (int i = 0; i < KV / 2; ++i) {
         const int col = kv0 + 8 * (i >> 2) + 2 * t + (i & 1);
         const int r = row + ((i >> 1) & 1) * 8;
         if (col >= p.S || (p.causal && col > r)) s[i] = NEG_INF;
@@ -433,7 +545,7 @@ __global__ void __launch_bounds__(THREADS, 1)
     // exp2 is exactly 0.
     float m_new[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-    for (int i = 0; i < BLOCK_KV / 2; ++i)
+    for (int i = 0; i < KV / 2; ++i)
       m_new[(i >> 1) & 1] = fmaxf(m_new[(i >> 1) & 1], s[i]);
     float alpha[2];
 #pragma unroll
@@ -446,7 +558,7 @@ __global__ void __launch_bounds__(THREADS, 1)
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int i = 0; i < BLOCK_KV / 2; ++i) {
+    for (int i = 0; i < KV / 2; ++i) {
       const int r = (i >> 1) & 1;
       s[i] = ex2(fmaf(s[i], p.scale_log2, -m_new[r]));
       l[r] += s[i];
@@ -502,19 +614,19 @@ __global__ void __launch_bounds__(THREADS, 1)
                                    to_f32(src[4 * L::LDR]),
                                    to_f32(src[6 * L::LDR]));
       store_operand<SPLIT>(v_hi + (kt & 1) * L::OP, v_lo + (kt & 1) * L::OP,
-                           core_index(d, 4 * kb, BLOCK_KV), x);
+                           core_index(d, 4 * kb, KV), x);
     }
     fence_proxy_async();
     __syncthreads();  // operand tiles complete; the raw tiles are free
     if (kt + 1 < n_kv) {  // the next tile loads while this one is used
-      load_tile<T, D>(raw_k, k, p.sk[2], (kt + 1) * BLOCK_KV, p.S);
-      load_tile<T, D>(raw_v, v, p.sv[2], (kt + 1) * BLOCK_KV, p.S);
+      load_tile<T, D>(raw_k, k, p.sk[2], (kt + 1) * KV, p.S);
+      load_tile<T, D>(raw_v, v, p.sv[2], (kt + 1) * KV, p.S);
     }
     cp_commit();
 
     if (wg == 0) {
       // a causal tile wholly above warpgroup 0's rows is skipped
-      if (!p.causal || kt * BLOCK_KV < wg_row0 + WG_ROWS) {
+      if (!p.causal || kt * KV < wg_row0 + WG_ROWS) {
         qk();
         softmax_pv(kt);
       }
@@ -567,9 +679,14 @@ cudaError_t launch_d(const Params& p, int B, int device, cudaStream_t stream) {
 template <typename T>
 cudaError_t launch(const Params& p, int B, int D, int device,
                    cudaStream_t stream) {
-  if (D == 64) return launch_d<T, 64>(p, B, device, stream);
-  if (D == 32) return launch_d<T, 32>(p, B, device, stream);
-  return cudaErrorInvalidValue;
+  switch (D) {
+    case 32: return launch_d<T, 32>(p, B, device, stream);
+    case 64: return launch_d<T, 64>(p, B, device, stream);
+    case 80: return launch_d<T, 80>(p, B, device, stream);
+    case 112: return launch_d<T, 112>(p, B, device, stream);
+    case 128: return launch_d<T, 128>(p, B, device, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -579,7 +696,8 @@ extern "C" {
 // q, o: (B, H, S, D); k, v: (B, Hkv, S, D).  strides: 12 int64 values, the
 // batch, head and row strides of q, k, v and o in that order, each a
 // multiple of 4 elements, with 16-byte aligned starts.  dtype: 0 f32,
-// 1 bf16 (all four tensors).  D: 32 or 64.  Launches on ``stream`` without
+// 1 bf16 (all four tensors).  D: 32, 64, 80, 112 or 128.  Launches on
+// ``stream`` without
 // synchronizing; returns cudaGetLastError() after the launch (0 = success).
 // ``device`` is the card that ``stream`` and the tensors belong to: this
 // library carries its own CUDA runtime, whose current device is set here.

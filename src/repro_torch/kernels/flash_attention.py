@@ -24,7 +24,9 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64)
+#: one instantiation each: kv tiles of 64 rows up to D = 64, of 32 above
+#: (the source's "Head dims" says why)
+HEAD_DIMS = (32, 64, 80, 112, 128)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: q rows per block (two warpgroups of 64): the grid's y axis counts these
 BLOCK_Q = 128
@@ -33,13 +35,16 @@ BLOCK_Q = 128
 ALIGN_ELEMS = 4
 
 #: kernel launches since the last :func:`reset_launches` — one per launch,
-#: counted where the wrapper launches the kernel and nowhere else
+#: counted where the wrapper launches the kernel and nowhere else; the same
+#: launches by head dim (each an instantiation of its own)
 launches = {"flash_attention_kernel": 0}
+launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
 
 
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, launches_by_head_dim):
+        for key in counts:
+            counts[key] = 0
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -103,4 +108,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         D, int(bool(causal)), q.device.index, stream)
     build.check(code, "flash_attention_kernel")
     launches["flash_attention_kernel"] += 1
+    launches_by_head_dim[D] += 1
     return out

@@ -188,9 +188,9 @@ def attention_apply(
         positions = torch.arange(S, device=x.device)
     elif on_kernel:
         _require_arange(positions, S)
-    q = (x @ params["wq"]).reshape(B, S, n_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, n_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    q = layers.matmul(x, params["wq"]).reshape(B, S, n_heads, head_dim)
+    k = layers.matmul(x, params["wk"]).reshape(B, S, n_kv_heads, head_dim)
+    v = layers.matmul(x, params["wv"]).reshape(B, S, n_kv_heads, head_dim)
     if rope_theta is not None:
         q = layers.apply_rope(q, positions, rope_theta)
         k = layers.apply_rope(k, positions, rope_theta)
@@ -206,7 +206,8 @@ def attention_apply(
             q, k, v, causal=causal, q_positions=positions,
             kv_positions=positions, q_chunk=_pick_chunk(S, 512),
             kv_chunk=_pick_chunk(S, 512))
-    return out.reshape(B, S, n_heads * head_dim) @ params["wo"], (k, v)
+    return layers.matmul(out.reshape(B, S, n_heads * head_dim),
+                         params["wo"]), (k, v)
 
 
 def decode_attention_apply(
@@ -239,9 +240,11 @@ def decode_attention_apply(
         position = cache_index
     pos = position.reshape(B, 1)
 
-    q = (x @ params["wq"]).reshape(B, 1, n_heads, head_dim)
-    k_new = (x @ params["wk"]).reshape(B, 1, n_kv_heads, head_dim)
-    v_new = (x @ params["wv"]).reshape(B, 1, n_kv_heads, head_dim)
+    q = layers.matmul(x, params["wq"]).reshape(B, 1, n_heads, head_dim)
+    k_new = layers.matmul(x, params["wk"]).reshape(B, 1, n_kv_heads,
+                                                   head_dim)
+    v_new = layers.matmul(x, params["wv"]).reshape(B, 1, n_kv_heads,
+                                                   head_dim)
     if rope_theta is not None:
         q = layers.apply_rope(q, pos, rope_theta)
         k_new = layers.apply_rope(k_new, pos, rope_theta)
@@ -256,5 +259,6 @@ def decode_attention_apply(
 
     out = dense_attention(q, cache_k, cache_v, causal=True, q_positions=pos,
                           kv_positions=kpos, kv_valid=kv_valid)
-    attn = out.reshape(B, 1, n_heads * head_dim) @ params["wo"]
+    attn = layers.matmul(out.reshape(B, 1, n_heads * head_dim),
+                         params["wo"])
     return attn, cache_k, cache_v, kpos

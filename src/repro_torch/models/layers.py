@@ -93,10 +93,19 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
     }
 
 
+def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with the operands promoted as ``jnp`` promotes them: f32 @
+    bf16 is an f32 product (torch refuses mixed operands).  A server decode
+    step whose batch holds an idle slot's f32 zero cut beside bf16 cuts
+    runs in f32 against a bf16 tree, as in the JAX package."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dtype) @ w.to(dtype)
+
+
 def gated_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = F.silu(x @ params["w_gate"])
-    up = x @ params["w_up"]
-    return (gate * up) @ params["w_down"]
+    gate = F.silu(matmul(x, params["w_gate"]))
+    up = matmul(x, params["w_up"])
+    return matmul(gate * up, params["w_down"])
 
 
 # ---------------------------------------------------------------------------
@@ -117,5 +126,5 @@ def embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def unembed(params: dict, x: torch.Tensor) -> torch.Tensor:
     if "unembed" in params:
-        return x @ params["unembed"]
-    return x @ params["table"].T
+        return matmul(x, params["unembed"])
+    return matmul(x, params["table"].T)

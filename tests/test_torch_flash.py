@@ -21,7 +21,9 @@ The CUDA kernel's arithmetic is modelled in numpy and held to the JAX
 oracle: its 3xTF32 split (round to nearest, ties away; a_lo b_hi +
 a_hi b_lo + a_hi b_hi), against which one TF32 pass errs at least 10x
 more, and its shared-memory operand layout, wgmma descriptors and
-fragment indexing (exact, in float64).
+fragment indexing (exact, in float64), at every head dim it takes: kv
+tiles of 64 rows up to D = 64, of 32 above, where Q's lo operand is read
+from shared memory through a descriptor.
 """
 import os
 import stat
@@ -90,7 +92,9 @@ def _jax(a, dtype):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("b,h,s,d", [(1, 2, 128, 32), (2, 3, 256, 64)])
+@pytest.mark.parametrize("b,h,s,d", [(1, 2, 128, 32), (2, 3, 256, 64),
+                                     (1, 2, 128, 80), (1, 2, 128, 112),
+                                     (1, 2, 128, 128)])
 def test_plain_flash_matches_jax_oracle_and_pallas(b, h, s, d, causal,
                                                    dtype):
     q, k, v = _qkv(s + d, (b, h, s, d))
@@ -390,7 +394,12 @@ def test_build_compiles_for_sm90a_and_reports_failure(monkeypatch, tmp_path):
 # ---------------------------------------------------------------------------
 
 LOG2E = 1.4426950408889634
-KERNEL_TILE = 64  # q rows per block and kv rows per staged tile
+KERNEL_TILE = 64  # q rows per warpgroup (wgmma's M)
+
+
+def _kv_tile(d):
+    """kv rows per staged tile: ``Smem<T, D>::KV`` of the kernel."""
+    return 32 if d > 64 else 64
 
 
 def _tf32(x):
@@ -424,12 +433,14 @@ def _tf32_product(a, b, passes):
 
 
 def _kernel_model(q, k, v, causal, passes=3):
-    """The kernel's arithmetic: 64-row q blocks, 64-row kv tiles (only up
-    to the diagonal when causal), scores times log2(e)/sqrt(D), masked at
-    -1e30, an online softmax in base 2, both products through
-    :func:`_tf32_product`, output acc / max(l, 1e-30)."""
+    """The kernel's arithmetic: 64-row q blocks (a warpgroup's), kv tiles
+    of :func:`_kv_tile` rows (only up to the block's last row when
+    causal), scores times log2(e)/sqrt(D), masked at -1e30, an online
+    softmax in base 2, both products through :func:`_tf32_product`,
+    output acc / max(l, 1e-30)."""
     B, H, S, D = q.shape
     group = H // k.shape[1]
+    kv_tile = _kv_tile(D)
     scale = np.float32(LOG2E / np.sqrt(D))
     out = np.empty_like(q)
     for b in range(B):
@@ -441,11 +452,10 @@ def _kernel_model(q, k, v, causal, passes=3):
                 m = np.full(len(qb), -1e30, np.float32)
                 lsum = np.zeros(len(qb), np.float32)
                 acc = np.zeros((len(qb), D), np.float32)
-                n_kv = (q0 // KERNEL_TILE + 1 if causal
-                        else -(-S // KERNEL_TILE))
-                for kv0 in range(0, n_kv * KERNEL_TILE, KERNEL_TILE):
-                    kb = kh[kv0:kv0 + KERNEL_TILE]
-                    vb = vh[kv0:kv0 + KERNEL_TILE]
+                n_kv = -(-(q0 + len(qb) if causal else S) // kv_tile)
+                for kv0 in range(0, n_kv * kv_tile, kv_tile):
+                    kb = kh[kv0:kv0 + kv_tile]
+                    vb = vh[kv0:kv0 + kv_tile]
                     s = _tf32_product(qb, kb.T, passes) * scale
                     if causal:
                         cols = np.arange(kv0, kv0 + len(kb))
@@ -462,7 +472,9 @@ def _kernel_model(q, k, v, causal, passes=3):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("h,hkv,s,d", [(6, 2, 150, 64), (3, 1, 97, 32)])
+@pytest.mark.parametrize("h,hkv,s,d", [(6, 2, 150, 64), (3, 1, 97, 32),
+                                       (2, 1, 83, 128), (2, 2, 45, 80),
+                                       (1, 1, 70, 112)])
 def test_3xtf32_kernel_model_matches_jax_oracle(h, hkv, s, d, causal):
     """The kernel's 3xTF32 arithmetic (round-to-nearest-away TF32, the
     hi/lo split, the three products in the kernel's order) on a GQA
@@ -561,50 +573,80 @@ def _from_wgmma(d):
     return out
 
 
-@pytest.mark.parametrize("d", [32, 64])
+def _fragments(A):
+    """A 64 x 8 matrix as wgmma's A fragments (4, 32, 4): warp w's lane
+    4g + t holds (16w + g, t), (16w + g + 8, t), (16w + g, t + 4),
+    (16w + g + 8, t + 4)."""
+    g, t = _lanes()
+    return np.stack([np.stack([A[16 * w + g, t], A[16 * w + g + 8, t],
+                               A[16 * w + g, t + 4],
+                               A[16 * w + g + 8, t + 4]], axis=1)
+                     for w in range(4)])
+
+
+@pytest.mark.parametrize("d", [32, 64, 80, 112, 128])
 def test_kernel_operand_layout_and_fragments_compute_both_products(d):
-    """One block's 64 q rows through the kernel's own indexing (exact, in
-    float64): the split pass writes K (thread idx: core matrix idx // 8,
+    """One warpgroup's 64 q rows through the kernel's own indexing (exact,
+    in float64), with the kv tile of its head dim (64 rows up to D = 64,
+    32 above): the split pass writes K (thread idx: core matrix idx // 8,
     row idx % 8, at word 4 idx) and V^T (thread idx: d = idx % D, kv
     positions 4 kb .. 4 kb + 3 = kv 8j + 2e + half for kb = 2j + half);
     wgmma reads them through descriptors (K at word kk * 2 * CORE with SBO
-    (D / 4) * 128 bytes, V^T at j * 2 * CORE with SBO 2048 bytes); Q's A
-    fragments give Q K^T, and the QK^T accumulator reused as P V's A
-    operand with its kv columns renamed (c0, c2, c1, c3) gives P V."""
+    (D / 4) * 128 bytes, V^T at j * 2 * CORE with SBO (KV / 4) * 128
+    bytes); Q's A fragments give Q K^T, and the QK^T accumulator reused as
+    P V's A operand with its kv columns renamed (c0, c2, c1, c3) gives
+    P V.  Above D = 64 Q's lo operand is not a fragment: each lane stores
+    its four values of k-step kk at core_index(row, column, D) of the
+    warpgroup's Q tile, and wgmma reads that tile as A through a
+    descriptor laid out as K's (word kk * 2 * CORE, SBO (D / 4) * 128
+    bytes); the model checks that this A gives the same Q K^T."""
+    kv_tile = _kv_tile(d)
     rng = np.random.default_rng(d)
     Q, K, V = (rng.standard_normal(shape) for shape in
-               ((64, d), (KERNEL_TILE, d), (KERNEL_TILE, d)))
+               ((64, d), (kv_tile, d), (kv_tile, d)))
     g, t = _lanes()
-    k_tile = np.zeros(KERNEL_TILE * d)
-    for idx in range(KERNEL_TILE * d // 4):
+    k_tile = np.zeros(kv_tile * d)
+    for idx in range(kv_tile * d // 4):
         kb = (idx // 8) % (d // 4)
         kv = 8 * ((idx // 8) // (d // 4)) + idx % 8
         k_tile[4 * idx:4 * idx + 4] = K[kv, 4 * kb:4 * kb + 4]
-    v_tile = np.zeros(KERNEL_TILE * d)
-    for idx in range(KERNEL_TILE * d // 4):
+    v_tile = np.zeros(kv_tile * d)
+    for idx in range(kv_tile * d // 4):
         dd, kb = idx % d, idx // d
-        at = _core_index(dd, 4 * kb, KERNEL_TILE)
+        at = _core_index(dd, 4 * kb, kv_tile)
         kv = 8 * (kb // 2) + kb % 2 + 2 * np.arange(4)
         v_tile[at:at + 4] = V[kv, dd]
-    for kv in range(KERNEL_TILE):
+    for kv in range(kv_tile):
         for dd in range(d):
             assert k_tile[_core_index(kv, dd, d)] == K[kv, dd]
 
-    q_frag = [np.stack([np.stack([Q[16 * w + g, c], Q[16 * w + g + 8, c],
-                                  Q[16 * w + g, c + 4],
-                                  Q[16 * w + g + 8, c + 4]], axis=1)
-                        for w in range(4)])
-              for c in (8 * kk + t for kk in range(d // 8))]
-    s = np.zeros((4, 32, KERNEL_TILE // 2))
+    q_frag = [_fragments(Q[:, 8 * kk:8 * kk + 8]) for kk in range(d // 8)]
+    # Q's tile in shared memory, stored from each lane's fragment values
+    # (value i of lane 4g + t in warp w: row 16w + g + 8 (i & 1), column
+    # 8 kk + t + 4 (i >> 1)), then read back as A through a descriptor
+    q_tile = np.full(64 * d, np.nan)
     for kk in range(d // 8):
-        s = _wgmma(q_frag[kk], _wgmma_b(k_tile, kk * 2 * CORE,
-                                        (d // 4) * 128, KERNEL_TILE), s)
-    np.testing.assert_allclose(_from_wgmma(s), Q @ K.T, rtol=1e-12,
-                               atol=1e-12)
+        for w in range(4):
+            for i in range(4):
+                rows = 16 * w + g + 8 * (i & 1)
+                cols = 8 * kk + t + 4 * (i >> 1)
+                q_tile[_core_index(rows, cols, d)] = q_frag[kk][w, :, i]
+    assert not np.isnan(q_tile).any()
+    q_frag_smem = [_fragments(_wgmma_b(q_tile, kk * 2 * CORE,
+                                       (d // 4) * 128, 64).T)
+                   for kk in range(d // 8)]
+    for frags in (q_frag, q_frag_smem):
+        s = np.zeros((4, 32, kv_tile // 2))
+        for kk in range(d // 8):
+            s = _wgmma(frags[kk], _wgmma_b(k_tile, kk * 2 * CORE,
+                                           (d // 4) * 128, kv_tile), s)
+        np.testing.assert_allclose(_from_wgmma(s), Q @ K.T, rtol=1e-12,
+                                   atol=1e-12)
     acc = np.zeros((4, 32, d // 2))
-    for j in range(KERNEL_TILE // 8):
+    for j in range(kv_tile // 8):
         pa = s[:, :, [4 * j, 4 * j + 2, 4 * j + 1, 4 * j + 3]]
-        acc = _wgmma(pa, _wgmma_b(v_tile, j * 2 * CORE, 2048, d), acc)
+        acc = _wgmma(pa, _wgmma_b(v_tile, j * 2 * CORE,
+                                  (kv_tile // 4) * 128, d), acc)
     np.testing.assert_allclose(_from_wgmma(acc), (Q @ K.T) @ V, rtol=1e-12,
                                atol=1e-12)
 

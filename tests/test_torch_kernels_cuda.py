@@ -243,9 +243,14 @@ def test_backward_wrappers_validate_inputs_on_card():
 
 FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
 # (B, H, Hkv, S, D): ragged small shapes, then the serving path's tower
-# and server shapes past the 2048-token threshold
+# and server shapes past the 2048-token threshold: smollm-360m's (D 64),
+# starcoder2-3b's (D 128), stablelm-3b's server (D 80) and zamba2-7b's
+# shared attention (D 112)
 FLASH_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32), (2, 3, 3, 128, 32),
-                (1, 3, 1, 2500, 64), (1, 15, 5, 2500, 64)]
+                (1, 3, 1, 2500, 64), (1, 15, 5, 2500, 64),
+                (2, 4, 2, 37, 128), (1, 4, 4, 600, 80), (2, 3, 3, 129, 112),
+                (1, 6, 1, 2500, 128), (1, 24, 2, 2500, 128),
+                (1, 32, 32, 2100, 80), (1, 32, 32, 2100, 112)]
 
 
 def _needs_card():
@@ -279,8 +284,10 @@ def test_flash_kernel_matches_plain_version_on_card(shape, causal, dtype):
     for layout in ("bhsd", "bshd"):
         q, k, v = _qkv(shape, dtype, gen, layout)
         before = flash_module.launches["flash_attention_kernel"]
+        before_d = flash_module.launches_by_head_dim[shape[4]]
         got = ops.flash_attention(q, k, v, causal=causal)
         assert flash_module.launches["flash_attention_kernel"] == before + 1
+        assert flash_module.launches_by_head_dim[shape[4]] == before_d + 1
         want = ref.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert got.shape == q.shape and got.dtype == dtype
@@ -290,12 +297,14 @@ def test_flash_kernel_matches_plain_version_on_card(shape, causal, dtype):
                                    atol=FLASH_TOL[dtype])
 
 
-# every edge of the 64-row q and kv tiles and of the 16-row warp slabs
-FLASH_EDGE_SEQS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 2500]
+# every edge of the 32- and 64-row kv tiles, the 64-row warpgroups, the
+# 128-row q tiles and the 16-row warp slabs
+FLASH_EDGE_SEQS = [1, 15, 16, 17, 63, 64, 65, 127, 128, 129, 2500, 31, 32,
+                   33, 95, 96, 97]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80, 112, 128])
 @pytest.mark.parametrize("s", FLASH_EDGE_SEQS)
 def test_flash_kernel_tile_edges_on_card(s, d):
     """The tensor-core kernel against ref.flash_attention at every tile

@@ -59,9 +59,9 @@ def _rand(shape, seed):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_jax(reduced):
-    """Every field of the port's configs of smollm-360m and mamba2-1.3b
-    (sub-configs field by field) equals the JAX package's."""
-    for arch in (ARCH, "mamba2-1.3b"):
+    """Every field of the port's configs of smollm-360m, starcoder2-3b and
+    mamba2-1.3b (sub-configs field by field) equals the JAX package's."""
+    for arch in (ARCH, "starcoder2-3b", "mamba2-1.3b"):
         jcfg, cfg = jax_get_arch(arch), get_arch(arch)
         if reduced:
             jcfg, cfg = jcfg.reduced(), cfg.reduced()

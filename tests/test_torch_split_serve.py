@@ -4,7 +4,9 @@ Reduced smollm-360m (dense, K=2 feature holders, d_model=256), the JAX
 package's params carried across by ``interop``, prompts made from a seed
 with numpy; both servers over their ``SimTransport``.  Greedy tokens must
 be identical, prefill logits within 1e-4, and every audited byte equal to
-the JAX ledger and to the port's ``costs.serve_*``.
+the JAX ledger and to the port's ``costs.serve_*``.  A bf16 tree is
+served too: a decode step with an idle slot runs in f32 against the bf16
+weights, as JAX promotes it, and its logits match the JAX server's.
 """
 import ast
 import os
@@ -13,6 +15,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -151,6 +154,96 @@ def test_split_serve_matches_jax(setup, jax_runs, continuous):
         assert led.bytes_with_tag(f"serve_cut[{k}]") == \
             dc["cut_bytes_per_client"]
     assert srv.wire_report()["total"] == pf["total"] + dc["total"]
+
+
+# bf16 logits of the reduced model (|logit| < 2): the repo's bf16 tolerance
+# for attention, a few bf16 ulps after the stacked bf16 layers
+BF16_TOL = dict(rtol=3e-2, atol=3e-2)
+
+
+@pytest.fixture(scope="module")
+def bf16_setup():
+    """The JAX package's bf16 tree (``init_params(..., dtype=bfloat16)``)
+    carried across by ``interop``, and the same prompts."""
+    jcfg = jax_get_arch(ARCH).reduced()
+    cfg = get_arch(ARCH).reduced()
+    jparams = jax.jit(jax_backbone.init_params, static_argnums=(0, 2))(
+        jcfg, jax.random.PRNGKey(0), jnp.bfloat16)
+    params = params_from_numpy(jax.tree_util.tree_map(np.asarray, jparams),
+                               "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, s).astype(np.int32)
+               for s in PROMPT_LENS]
+    return jcfg, cfg, jparams, params, prompts
+
+
+def _recording(fn, rounds, to_np):
+    """``fn`` (a server decode over every slot) that also keeps each
+    round's input cuts and logits, as float32 numpy arrays, and the cuts'
+    dtype."""
+    def decode(params, slots, x):
+        out = fn(params, slots, x)
+        rounds.append((to_np(x).reshape(x.shape[0], -1),
+                       to_np(out[0]).reshape(x.shape[0], -1),
+                       str(x.dtype).split(".")[-1]))
+        return out
+    return decode
+
+
+@pytest.mark.parametrize("continuous", [True, False])
+def test_split_serve_bf16_matches_jax(bf16_setup, continuous):
+    """The bf16 twin of ``test_split_serve_matches_jax``: two slots, so
+    rounds with an idle slot stack its f32 zero cut beside a bf16 cut.
+    The decode batch then promotes to f32 in both packages and every
+    product takes the bf16 weights as f32, as ``jnp`` does.  Per round,
+    the slots in use and the batch dtype equal the JAX server's, and the
+    active slots' logits are within the bf16 tolerance; the greedy token
+    is held wherever the reference's top-2 logit gap exceeds twice that
+    tolerance; stats and every audited byte are exact."""
+    jcfg, cfg, jparams, params, prompts = bf16_setup
+    program = jax_split_program.get_program(jcfg)
+    towers, jserver = program.partition(jparams)
+    jworkers = [JaxTowerWorker(k, program.tower_fwd(k), towers[k],
+                               serve_fns=program.tower_serve_fns(k))
+                for k in range(jcfg.vertical.num_clients)]
+    jsrv = JaxSplitLMServer(JaxSimTransport(jworkers), jcfg, jserver,
+                            cache_len=CACHE_LEN, max_batch=2,
+                            continuous=continuous)
+    _, server = split_program.get_program(cfg).partition(params)
+    workers = [build_split_worker(k, cfg=cfg, params=params, device="cpu")
+               for k in range(cfg.vertical.num_clients)]
+    srv = SplitLMServer(SimTransport(workers), cfg, server, device="cpu",
+                        cache_len=CACHE_LEN, max_batch=2,
+                        continuous=continuous)
+    jrounds, rounds = [], []
+    jsrv._decode_slots = _recording(
+        jsrv._decode_slots, jrounds,
+        lambda a: np.asarray(a.astype(jnp.float32)))
+    srv._fns.decode = _recording(srv._fns.decode, rounds,
+                                 lambda t: to_numpy(t.float()))
+    jtokens = _serve(jsrv, prompts, NEW_TOKENS)
+    tokens = _serve(srv, prompts, NEW_TOKENS)
+
+    assert len(rounds) == len(jrounds) == jsrv.stats["decode_rounds"]
+    idle_rounds = 0
+    for (x, logits, dtype), (jx, jlogits, jdtype) in zip(rounds, jrounds):
+        active = np.abs(jx).sum(axis=1) > 0
+        assert np.array_equal(np.abs(x).sum(axis=1) > 0, active)
+        assert dtype == jdtype == ("bfloat16" if active.all()
+                                   else "float32")
+        idle_rounds += not active.all()
+        np.testing.assert_allclose(logits[active], jlogits[active],
+                                   **BF16_TOL)
+        top2 = np.sort(jlogits[active], axis=1)[:, -2:]
+        sure = top2[:, 1] - top2[:, 0] > 2 * BF16_TOL["atol"]
+        assert np.array_equal(logits[active][sure].argmax(axis=1),
+                              jlogits[active][sure].argmax(axis=1))
+    assert idle_rounds > 0  # the promotion was exercised
+    assert [len(t) for t in tokens] == [len(t) for t in jtokens] == \
+        NEW_TOKENS
+    assert {k: srv.stats[k] for k in STAT_KEYS} == \
+        {k: jsrv.stats[k] for k in STAT_KEYS}
+    assert _tag_bytes(srv.ledger) == _tag_bytes(jsrv.ledger)
 
 
 def test_prefill_logits_match_jax(setup, jax_workers):
