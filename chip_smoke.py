@@ -4,8 +4,9 @@ with its merge reduction's forward in CUDA C++, its concat forward and
 both backward merge kernels in Triton and its flash-attention kernel in
 CUDA C++ on the tensor cores (3xTF32), the full-sequence forward and
 greedy generation of full-width mamba2-1.3b with its SSD chunk kernel in
-CUDA C++, and long-prompt split serving of full-width starcoder2-3b, whose
-attention (head dim 128) runs the flash kernel's wider instantiation.
+CUDA C++ on the tensor cores (3xTF32), and long-prompt split serving of
+full-width starcoder2-3b, whose attention (head dim 128) runs the flash
+kernel's wider instantiation.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -61,15 +62,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    attention, role 0 and towers) gives identical tokens and prefill
    logits within 1e-3, launching no kernel; the reduced model on the card
    matches the CPU path on a 2304-token prompt (logits 1e-4, tokens).
-7. The SSD chunk kernel (built with the flash kernel in phase 5) against
-   its plain version on CUDA tensors at mamba2-1.3b's server and tower
+7. The SSD chunk kernel (built with the flash kernel in phase 2): its
+   ptxas report and the count of HGMMA instructions in the SASS of each
+   instantiation (a spill, an instantiation without them or a ptxas note
+   that its wgmmas are serialized fails), the head group (HG) and block
+   count it takes at every phase-8 shape, then the kernel against its
+   plain version on CUDA tensors at mamba2-1.3b's server and tower
    shapes, batch 4, the reduced config's chunks and a prompt shorter than
    a chunk (tol 3e-4, the JAX package's), and the full scan
-   (``ops.ssd_scan``) against the model's ``ssd_chunked`` on the card;
-   a grad-requiring call must raise.  At the server shape and S = 8192 and
-   32768: the kernel against its plain version (3e-4), its time per call
-   and on the device, the plain version's and the bound (no single PyTorch
-   call computes the function).
+   (``ops.ssd_scan``) against the model's ``ssd_chunked`` on the
+   card; a grad-requiring call must raise.  At the server shape at S =
+   8192 and 32768 and the tower shape at 32768: the kernel against its
+   plain version (3e-4), its time per call and on the device, the plain
+   version's, and the bound: the larger of its bytes and its operations as
+   3xTF32 on the tensor cores, with the f32-FMA figure beside it (no
+   single PyTorch call computes the function).
 8. The ssm slice: full-width mamba2-1.3b (K = 4, avg, f32, random weights
    from a seed).  ``forward`` over one request of 2048, 8192 and 32768
    tokens and over 4 x 2048, 54 SSD launches each (46 server + 4 x 2
@@ -188,7 +195,9 @@ SSD_SHAPES = [(1, 2048, 64, 64, 128, 128), (1, 8192, 64, 64, 128, 128),
               (1, 8192, 16, 64, 128, 128), (1, 32768, 16, 64, 128, 128),
               (4, 2048, 64, 64, 128, 128), (2, 256, 8, 64, 16, 32),
               (2, 256, 4, 64, 16, 32), (1, 96, 64, 64, 128, 128)]
-SSD_TIME_SEQS = (8192, 32768)
+# timed: the server shape at 8192 and 32768 tokens, the tower's at 32768
+SSD_TIME_SHAPES = [(1, 8192, 64, 64, 128, 128), (1, 32768, 64, 64, 128, 128),
+                   (1, 32768, 16, 64, 128, 128)]
 # the ssm slice: (batch, tokens) per forward; the repo's prefill_32k shape
 # at batch 1 (its batch of 32 would need 211 GB of f32 logits)
 SSM_FORWARDS = [(1, 2048), (1, 8192), (1, 32768), (4, 2048)]
@@ -1213,6 +1222,41 @@ def check_ssd_kernel() -> float:
     ops.ssd_scan against the model's ssd_chunked, on the card.  Returns
     the largest |error| of the kernel's outputs."""
     log(f"ssd: ptxas: {ptxas_report('ssd_chunk_kernel')}")
+    notes = {}
+    for line in fa.build.library_path().with_suffix(".log").read_text(
+            ).splitlines():
+        code = re.search(r"\((C75\d\d)\)", line)
+        if code and "ssd_chunk" in line:
+            notes[code[1]] = notes.get(code[1], 0) + 1
+    log(f"ssd: ptxas notes on wgmma by code (C7515 and C7520: the wgmmas "
+        f"are serialized; C7519: an injected warpgroup.arrive): {notes}")
+    if notes.get("C7515") or notes.get("C7520"):
+        raise AssertionError(f"ssd kernel: ptxas serialized its wgmmas: "
+                             f"{notes}")
+    spills = {inst: spill for inst, (_, spill) in
+              _ptxas_counts("ssd_chunk_kernel").items() if spill}
+    if spills:
+        raise AssertionError(f"ssd kernel spills registers: {spills}")
+    counts = tensor_core_instructions("ssd_chunk_kernel")
+    if counts is None:
+        log("ssd: SASS not read: no cuobjdump in the CUDA toolkit or in "
+            "Triton's package")
+    else:
+        log(f"ssd: tensor-core instructions (HMMA / HGMMA) in the SASS of "
+            f"each instantiation: {counts}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"ssd kernel without tensor-core "
+                                 f"instructions: {counts}")
+    cfg = get_arch("mamba2-1.3b")
+    heads = cfg.ssm.n_heads(cfg.d_model)
+    plans = {(B, S, h): ssd.plan(B, S, h, cfg.ssm.head_dim,
+                                 cfg.ssm.d_state, cfg.ssm.chunk_size,
+                                 torch.device("cuda", 0))
+             for B, S in SSM_FORWARDS
+             for h in (heads, heads // cfg.vertical.num_clients)}
+    log("ssd: heads per block (HG) and blocks at phase 8's shapes (B, S, "
+        "heads): " + "; ".join(f"{k}: HG {v['heads']}, {v['blocks']} blocks"
+                               for k, v in plans.items()))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     worst, worst_scan = 0.0, 0.0
     for shape in SSD_SHAPES:
@@ -1261,30 +1305,34 @@ def ssd_bound(B, S, H, P, N, Q) -> tuple:
     """Least time on an H100 SXM for one kernel call: per (batch, chunk)
     the causal half of C B^T (Q(Q+1)/2 pairs, 2N flops each; one group,
     so the heads share it); per (chunk, head) its decay scaling and the y
-    product (2P + 2 per pair), the x scaling and the state (QP + 2QPN), at
-    the f32 rate; vs xdt, a, B, C read once and y_intra, state, decay, cum
-    written once."""
+    product (2P + 2 per pair), the x scaling and the state (QP + 2QPN),
+    as three TF32 products each (3xTF32) at the tensor cores' dense TF32
+    rate; vs xdt, a, B, C read once and y_intra, state, decay, cum written
+    once.  Returns the bound, what bounds it, the f32-FMA figure (the same
+    flops at the f32 rate outside the tensor cores, vs the bytes) and the
+    f32 flops."""
     nc = S // Q
     pairs = Q * (Q + 1) // 2
     flops = B * nc * (pairs * 2 * N + H * (
         pairs * (2 * P + 2) + Q * P + 2 * Q * P * N))
     nbytes = 4 * (2 * B * S * H * P + 2 * B * S * H + 2 * B * S * N
                   + B * nc * H * (P * N + 1))
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
 
 
 def time_ssd(card: str) -> tuple:
-    """Server shape (1, S, 64 heads, P 64, N 128, Q 128): the kernel's
-    outputs against the plain version's (ref.ssd_chunks), the kernel per
-    call and on the device, the plain version likewise, and the bound.  No
-    single PyTorch call computes this function (a masked, decay-weighted
-    quadratic form per chunk plus the chunk's state), so there is no
-    library time.  Returns the rows and the largest |error|."""
+    """Every shape of SSD_TIME_SHAPES: the kernel's outputs against the
+    plain version's (ref.ssd_chunks), the kernel per call and on the
+    device, the plain version likewise, and the bound.  No single PyTorch
+    call computes this function (a masked, decay-weighted quadratic form
+    per chunk plus the chunk's state), so there is no library time.
+    Returns the rows by shape and the largest |error|."""
     rows, worst = {}, 0.0
-    for S in SSD_TIME_SEQS:
-        shape = (1, S, 64, 64, 128, 128)
+    for shape in SSD_TIME_SHAPES:
+        S, H = shape[1], shape[2]
         gen = torch.Generator(device="cuda").manual_seed(S + 1)
         x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
         a, xdt = dt * A, x * dt[..., None]
@@ -1302,19 +1350,28 @@ def time_ssd(card: str) -> tuple:
         worst = max(worst, err)
         row = {"max_abs_err": err}
         for prefix, fn in fns.items():
+            slow = big and prefix == "plain_"  # ~9 ms a call at 32768
             row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)],
-                                         iters=5 if big else 20)
+                                         iters=5 if slow else 20)
             row[prefix + "device_ms"] = device_ms(
-                lambda _: fn(), [(None,)], iters=3 if big else 10, reps=3)
-        row["bound_ms"], row["bound_by"], flops = ssd_bound(*shape)
-        rows[S] = row
-        log(f"time ssd f32 (1, {S}, 64, 64, N 128, Q 128): kernel vs plain "
-            f"max |err| {err:.3e} (tol 3e-4); per call "
+                lambda _: fn(), [(None,)], iters=3 if slow else 10, reps=3)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops = \
+            ssd_bound(*shape)
+        row["plan"] = ssd.plan(*shape, torch.device("cuda", 0))
+        rows[shape] = row
+        log(f"time ssd f32 (1, {S}, {H} heads, P 64, N 128, Q 128; HG "
+            f"{row['plan']['heads']}, {row['plan']['blocks']} blocks): "
+            f"kernel vs plain max |err| {err:.3e} (tol 3e-4); per call "
             f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
-            f"{flops / row['device_ms'] / 1e9:.2f} TFLOP/s, plain "
-            f"{row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) ms, "
-            f"library none (no single PyTorch call computes it), bound "
-            f"{row['bound_ms']:.6f} ms ({row['bound_by']}) | {card}")
+            f"{flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s "
+            f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
+            f"bound, {100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of "
+            f"the f32-FMA figure), plain {row['plain_ms']:.6f} "
+            f"({row['plain_device_ms']:.6f}) ms, library none (no single "
+            f"PyTorch call computes it), bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}; 3xTF32 at 495 TFLOP/s vs 3.35 TB/s), "
+            f"fma_bound {row['fma_bound_ms']:.6f} ms (f32 at 67 TFLOP/s) | "
+            f"{card}")
         del x, dt, A, Bm, Cm, a, xdt, b, c
         torch.cuda.empty_cache()
     return rows, worst
@@ -1735,19 +1792,30 @@ def main() -> None:
                                   for shape in FLASH_WIDE_SHAPES
                                   if shape[4] in (80, 112)]
     kernels.append(wide)
-    row = ssd_rows[max(SSD_TIME_SEQS)]
-    kernels.append({
-        "name": "ssd_chunk_kernel", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
-        "replaces": "src/repro/kernels/ssd_scan.py:23",
-        "launches": launches["ssd_chunk_kernel"],
-        "max_abs_err": ssd_worst, "ms": row["ms"],
-        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-        "bound_by": row["bound_by"], "library_ms": None,
-        "device_ms": row["device_ms"],
-        "plain_device_ms": row["plain_device_ms"],
-        "shape": [1, max(SSD_TIME_SEQS), 64, 64], "d_state": 128,
-        "chunk": 128, "dtype": "float32"})
+    def ssd_entry(shape):
+        row = ssd_rows[shape]
+        return {
+            "name": "ssd_chunk_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:23",
+            "launches": launches["ssd_chunk_kernel"],
+            "max_abs_err": ssd_worst, "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
+            "library_ms": None, "device_ms": row["device_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "heads_per_block": row["plan"]["heads"],
+            "blocks": row["plan"]["blocks"], "shape": list(shape[:4]),
+            "d_state": shape[4], "chunk": shape[5], "dtype": "float32"}
+
+    # the server shape at 32768 tokens; the other timed shapes ride in it
+    # (their launches are in its count)
+    ssd_row = ssd_entry(SSD_TIME_SHAPES[1])
+    ssd_row["other_shapes"] = [ssd_entry(shape) for shape in SSD_TIME_SHAPES
+                               if shape != SSD_TIME_SHAPES[1]]
+    for entry in ssd_row["other_shapes"]:
+        del entry["launches"]
+    kernels.append(ssd_row)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

@@ -48,6 +48,8 @@ SIGNATURES = {
     # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
     # N, Q, device, stream
     "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # B, S, H, P, N, Q, device, out (4 x int)
+    "repro_ssd_chunk_plan": ([_I] * 7 + [_P], _I),
     # x, live, out, n (= B * D), K, strategy, dtype, device, stream
     "repro_merge_reduce": ([_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
                            _I),

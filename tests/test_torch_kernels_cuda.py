@@ -403,11 +403,16 @@ def test_flash_kernel_refusals_on_card():
 SSD_TOL = dict(rtol=3e-4, atol=3e-4)
 # (B, S, H, P, N, chunk): the server and tower shapes of mamba2-1.3b at a
 # short length, a prompt shorter than a chunk, the reduced config's chunks,
-# the JAX package's own test shapes, and d_state staged 16 columns at a time
+# the JAX package's own test shapes, d_state staged 16 columns at a time,
+# d_state past one block's 128 state columns, a chunk that is not a
+# multiple of 8, a one-token prompt, and 201 heads (a last head group that
+# is not full)
 SSD_SHAPES = [(1, 512, 64, 64, 128, 128), (2, 256, 16, 64, 128, 128),
               (2, 96, 4, 64, 128, 128), (1, 128, 4, 64, 16, 32),
               (2, 64, 2, 16, 16, 16), (2, 128, 2, 32, 32, 32),
-              (1, 192, 3, 64, 48, 64)]
+              (1, 192, 3, 64, 48, 64), (1, 256, 4, 64, 256, 128),
+              (2, 200, 3, 32, 64, 100), (1, 1, 2, 16, 16, 128),
+              (1, 64, 201, 16, 16, 64)]
 
 
 def _ssd_inputs(shape, gen):
@@ -452,6 +457,27 @@ def test_ssd_kernel_matches_plain_version_on_card(shape):
     for g, w in zip(got, want):
         assert g.shape == w.shape and torch.isfinite(g).all()
         torch.testing.assert_close(g, w, **SSD_TOL)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_takes_any_strides_on_card():
+    """x with a last stride other than 1 and x starting off a 16-byte
+    boundary (the wrapper copies it for the kernel's 16-byte loads), a, B
+    and C as strided views: the same numbers as the plain version."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x, dt, A, Bm, Cm = _ssd_inputs((1, 256, 4, 32, 64, 128), gen)
+    a, b, c = (dt * A).transpose(0, 1).contiguous().transpose(0, 1), \
+        Bm[:, :, 0], Cm[:, :, 0]
+    xdt = x * dt[..., None]
+    for view in (xdt.transpose(2, 3).contiguous().transpose(2, 3),
+                 torch.cat([xdt.new_zeros(1), xdt.flatten()])[1:].view(
+                     xdt.shape)):
+        assert view.stride(-1) != 1 or view.data_ptr() % 16
+        got = ssd_module.ssd_chunk(view, a, b, c, 128)
+        want = ref.ssd_chunks(xdt, a, b, c, 128)
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, **SSD_TOL)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,10 @@
 """The port's ssm family against the JAX package: the SSD chunk kernel's
 plain version and host side, the Mamba2 block, and the full-sequence
 forward, decode and greedy generation of reduced mamba2-1.3b, with the JAX
-package's params carried across by ``interop``.
+package's params carried across by ``interop``.  The CUDA chunk kernel's
+arithmetic (3xTF32 products, the decay mask) and operand layout (tiles,
+descriptors, fragments, rows past Q zero-filled) are modelled in numpy
+and held to the Pallas kernel and to exact float64 products.
 
 Inputs are made from a seed with numpy and fed to both packages; f32
 throughout.  Tolerances are the JAX package's own: 3e-4 for the SSD chunk
@@ -31,6 +34,8 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd_kernel
 from repro_torch.models import backbone, mamba, split_program
 from repro_torch.serve import generate
+from wgmma_model import (CORE, _core_index, _fragments, _from_wgmma, _lanes,
+                         _split, _tf32_product, _wgmma, _wgmma_b)
 
 ARCH = "mamba2-1.3b"
 KERNEL_TOL = dict(rtol=3e-4, atol=3e-4)
@@ -466,3 +471,219 @@ def test_unported_paths_raise_by_name(setup):
         backbone.init_params(hybrid, device="cpu")
     with pytest.raises(NotImplementedError, match="centralized baseline"):
         backbone.init_params(cfg.with_vertical(None), device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# the CUDA chunk kernel's arithmetic and operand layout, modelled in numpy
+# ---------------------------------------------------------------------------
+
+KERNEL_ROWS = 128  # chunk rows a block's tiles hold (two warpgroups of 64)
+B_SLICE = 64       # d_state columns of C B^T per staged B slice
+SBO_ROWS = (KERNEL_ROWS // 4) * 128  # tiles with the chunk's rows along K
+SBO_SLICE = (B_SLICE // 4) * 128     # a B slice (d_state along K)
+# (Q, P, N): every chunk length, head dim and d_state class the kernel
+# takes on the model's paths (Q 96: a prompt shorter than a chunk)
+MODEL_CASES = [(q, p, n) for q in (32, 96, 128) for p in (16, 32, 64)
+               for n in (16, 128)]
+
+
+def _renamed(k):
+    """The chunk row j stored at K position k of a tile with the chunk's
+    rows along K (x^T, B^T): within each 8-step, positions t and t + 4
+    hold rows 2t and 2t + 1, the columns that C B^T's accumulator gives
+    lane t (S is used as wgmma's A operand without moving)."""
+    k = np.asarray(k)
+    return 8 * (k // 8) + 2 * (k % 4) + (k % 8) // 4
+
+
+def _state_columns(n):
+    """State columns per block (``Plan::nt``): a power of two 16..128."""
+    return 128 if n > 64 else 64 if n > 32 else 32 if n > 16 else 16
+
+
+def _kernel_scan(a):
+    """cum as warp 0 takes it: lane l sums a[4l .. 4l + 3] in order, the
+    lanes' totals are scanned with shuffles up by 1, 2, 4, 8 and 16, and
+    each lane adds the total before it.  a past Q is zero.  Returns cum
+    (Q,) and cum_Q, in f32."""
+    Q = len(a)
+    v = np.zeros(KERNEL_ROWS, np.float32)
+    v[:Q] = a
+    v = np.cumsum(v.reshape(32, 4), axis=1, dtype=np.float32)
+    run = v[:, 3].copy()
+    lane = np.arange(32)
+    for d in (1, 2, 4, 8, 16):
+        run = np.where(lane >= d, run + np.roll(run, d), run).astype(
+            np.float32)
+    cum = (v + (run - v[:, 3])[:, None]).reshape(-1)
+    return cum[:Q], run[31]
+
+
+def _kernel_chunk(x, a, Bm, Cm, passes=3):
+    """One chunk of one head as the kernel computes it: C B^T, S = C B^T
+    masked above the diagonal before exp(cum_i - cum_j), y = S x, and
+    state = (x o w)^T B with w_j = exp(cum_Q - cum_j) and x rebuilt from
+    its TF32 split (hi + lo), every product through _tf32_product
+    (``passes=1``: a single TF32 pass)."""
+    Q = len(a)
+    cum, last = _kernel_scan(a)
+    G = _tf32_product(Cm, Bm.T, passes)
+    lower = np.tril(np.ones((Q, Q), bool))
+    L = np.exp(np.where(lower, cum[:, None] - cum[None, :], -np.inf)).astype(
+        np.float32)
+    y = _tf32_product(G * L, x, passes)
+    w = np.exp(last - cum).astype(np.float32)
+    hi, lo = _split(x)
+    state = _tf32_product(((hi + lo) * w[:, None]).T, Bm, passes)
+    return y, state, np.exp(last), cum
+
+
+@pytest.mark.parametrize("Q,P,N", MODEL_CASES)
+def test_3xtf32_ssd_kernel_model_matches_pallas(Q, P, N):
+    """The kernel's arithmetic on two heads of one chunk (shared B and C)
+    against the JAX package's Pallas kernel in interpret mode at its
+    3e-4; a single TF32 pass errs at least 10x more on y and the state."""
+    rng = np.random.default_rng(Q * P + N)
+    H = 2
+    x = (rng.standard_normal((H, Q, P)) * 0.7).astype(np.float32)
+    a = (-np.exp(rng.standard_normal((H, 1)) * 0.3)
+         * np.log1p(np.exp(rng.standard_normal((H, Q)) * 0.5))).astype(
+             np.float32)
+    Bm = (rng.standard_normal((Q, N)) * 0.3).astype(np.float32)
+    Cm = (rng.standard_normal((Q, N)) * 0.3).astype(np.float32)
+    want = [np.asarray(w) for w in jax_ssd.ssd_chunk_batch(
+        jnp.asarray(x), jnp.asarray(a), jnp.asarray(np.stack([Bm] * H)),
+        jnp.asarray(np.stack([Cm] * H)), interpret=True)]
+    err = {1: 0.0, 3: 0.0}
+    for h in range(H):
+        for passes in (3, 1):
+            got = _kernel_chunk(x[h], a[h], Bm, Cm, passes)
+            if passes == 3:
+                for g, w in zip(got, (wt[h] for wt in want)):
+                    np.testing.assert_allclose(g, w.reshape(np.shape(g)),
+                                               **KERNEL_TOL)
+            err[passes] = max(err[passes], *(
+                float(np.abs(g - w[h]).max())
+                for g, w in zip(got[:2], want[:2])))
+    assert err[1] >= 10 * err[3], err
+
+
+def _c_bt_by_warpgroup(Bp, Cp, Q, N):
+    """C B^T as the kernel builds it: per B slice of 64 d_state columns,
+    the split pass's thread idx writes core matrix idx // 8, row idx % 8
+    (row j, columns 4 kb .. 4 kb + 3) at word 4 idx; warpgroup w's C
+    fragments are rows 64w .. 64w + 63 of the slice's 8-column k-steps
+    (rows past Q and columns past N zero), and its wgmma reads 64 (w = 0)
+    or 128 (w = 1) rows of the tile through a descriptor (start
+    kk * 2 * CORE, SBO 16 core matrices).  Returns {w: accumulator}."""
+    acc = {w: np.zeros((4, 32, 32 * (w + 1))) for w in (0, 1)}
+    for n0 in range(0, N, B_SLICE):
+        ns = min(B_SLICE, N - n0)
+        tile = np.zeros(KERNEL_ROWS * B_SLICE)
+        for idx in range(KERNEL_ROWS * B_SLICE // 4):
+            kb = (idx >> 3) % (B_SLICE // 4)
+            j = 8 * ((idx >> 3) // (B_SLICE // 4)) + (idx & 7)
+            if 4 * kb < ns:
+                tile[4 * idx:4 * idx + 4] = Bp[j, n0 + 4 * kb:n0 + 4 * kb + 4]
+            assert 4 * idx == _core_index(j, 4 * kb, B_SLICE)
+        for w, d in acc.items():
+            for kk in range(B_SLICE // 8):
+                cols = np.zeros((64, 8))
+                if 8 * kk < ns:
+                    cols = Cp[64 * w:64 * w + 64, n0 + 8 * kk:n0 + 8 * kk + 8]
+                acc[w] = _wgmma(_fragments(cols), _wgmma_b(
+                    tile, kk * 2 * CORE, SBO_SLICE, 64 * (w + 1)), d)
+                d = acc[w]
+    return acc
+
+
+def _rows_tile(M, rows):
+    """A tile with the chunk's rows along K, from M (KERNEL_ROWS, rows):
+    thread idx takes row r = idx % rows and positions 4 kb .. 4 kb + 3
+    (chunk rows 8 (kb // 2) + kb % 2 + 2e) and stores them at
+    core_index(r, 4 kb, KERNEL_ROWS): the x^T and B^T split passes."""
+    tile = np.zeros(rows * KERNEL_ROWS)
+    for idx in range(rows * KERNEL_ROWS // 4):
+        r, kb = idx % rows, idx // rows
+        at = _core_index(r, 4 * kb, KERNEL_ROWS)
+        tile[at:at + 4] = M[8 * (kb >> 1) + (kb & 1) + 2 * np.arange(4), r]
+    return tile
+
+
+@pytest.mark.parametrize("Q,P,N", MODEL_CASES)
+def test_ssd_kernel_operand_layout_and_fragments(Q, P, N):
+    """The kernel's indexing, exact in float64, on one chunk of one head
+    with its rows past Q zero-filled: the B slices and C fragments give
+    C B^T by warpgroup; S built per accumulator element (lane 4g + t of
+    warp w, element 4 kk + i: row 64 wg + 16 w + g + 8 (i // 2), chunk
+    row 8 kk + 2t + i % 2), masked and decay-weighted, and used as A with
+    its columns renamed (elements 0, 2, 1, 3) against x^T (positions
+    renamed, descriptor at kk * 2 * CORE, SBO 32 core matrices) gives
+    y = ((C B^T) o L) x; A fragments of (x o w)^T read from x^T at
+    core_index(p0, 8 kk + t) (+ 32 core matrices for row p0 + 8, + CORE
+    for position t + 4) against each warpgroup's half of B^T give the
+    state."""
+    rng = np.random.default_rng(Q + P + N)
+    x, Bm, Cm = (rng.standard_normal(s) for s in ((Q, P), (Q, N), (Q, N)))
+    cum = np.cumsum(-np.abs(rng.standard_normal(Q)) * 0.1)
+    pad = KERNEL_ROWS - Q
+    xp, Bp, Cp = (np.pad(m, ((0, pad), (0, 0))) for m in (x, Bm, Cm))
+    cump = np.pad(cum, (0, pad), constant_values=cum[-1])
+    w_j = np.pad(np.exp(cum[-1] - cum), (0, pad))
+    g, t = _lanes()
+    full = Cm @ Bm.T * np.where(np.tril(np.ones((Q, Q), bool)),
+                                np.exp(cum[:, None] - cum[None, :]), 0)
+
+    acc = _c_bt_by_warpgroup(Bp, Cp, Q, N)
+    xt = _rows_tile(xp, P)
+    for k in range(KERNEL_ROWS):
+        np.testing.assert_array_equal(
+            xt[[_core_index(p, k, KERNEL_ROWS) for p in range(P)]],
+            xp[_renamed(k)])
+    for w, d in acc.items():
+        rows = slice(64 * w, 64 * w + 64)
+        cols = 64 * (w + 1)
+        np.testing.assert_allclose(_from_wgmma(d), Cp[rows] @ Bp[:cols].T,
+                                   rtol=1e-12, atol=1e-12)
+        # the decay mask by accumulator element, then y in the kernel's
+        # fixed batches of four k-steps: two for warpgroup 0, four for 1
+        i = np.arange(d.shape[2])
+        row = 64 * w + 16 * np.arange(4)[:, None, None] + g[None, :, None] \
+            + 8 * ((i >> 1) & 1)
+        j = 8 * (i >> 2) + 2 * t[None, :, None] + (i & 1)
+        s = d * np.where(j <= row, np.exp(cump[row] - cump[j]), 0.0)
+        yacc = np.zeros((4, 32, P // 2))
+        for kk in range(8 * (w + 1)):
+            a = s[:, :, [4 * kk, 4 * kk + 2, 4 * kk + 1, 4 * kk + 3]]
+            yacc = _wgmma(a, _wgmma_b(xt, kk * 2 * CORE, SBO_ROWS, P), yacc)
+        valid = max(0, min(Q, 64 * (w + 1)) - 64 * w)
+        np.testing.assert_allclose(_from_wgmma(yacc)[:valid],
+                                   (full @ x)[64 * w:64 * w + valid],
+                                   rtol=1e-12, atol=1e-12)
+
+    nt = _state_columns(N)  # >= N here: one block covers the state
+    half = nt // 2
+    bt = _rows_tile(np.pad(Bp, ((0, 0), (0, nt - N))), nt)
+    want = (x * w_j[:Q, None]).T @ np.pad(Bm, ((0, 0), (0, nt - N)))
+    p0 = 16 * np.arange(4)[:, None] + g[None, :]
+    for w in (0, 1):
+        sacc = np.zeros((4, 32, half // 2))
+        for kk in range(KERNEL_ROWS // 8):  # four batches, whatever Q
+            at = np.vectorize(_core_index)(p0, 8 * kk + t[None, :],
+                                           KERNEL_ROWS)
+            at8 = at + (KERNEL_ROWS // 4) * CORE
+
+            def value(i, ok):
+                return np.where(ok, xt[np.where(ok, i, 0)], 0.0)
+
+            wj = w_j[8 * kk + 2 * t[None, :]], w_j[8 * kk + 2 * t[None, :] + 1]
+            frag = np.stack([value(at, p0 < P) * wj[0],
+                             value(at8, p0 + 8 < P) * wj[0],
+                             value(at + CORE, p0 < P) * wj[1],
+                             value(at8 + CORE, p0 + 8 < P) * wj[1]], axis=-1)
+            sacc = _wgmma(frag, _wgmma_b(
+                bt, w * half * KERNEL_ROWS + kk * 2 * CORE, SBO_ROWS, half),
+                sacc)
+        np.testing.assert_allclose(_from_wgmma(sacc)[:P],
+                                   want[:, w * half:(w + 1) * half],
+                                   rtol=1e-12, atol=1e-12)
