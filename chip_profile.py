@@ -197,7 +197,7 @@ def profile_smollm(card: str, sections) -> None:
     rng = np.random.default_rng(smoke.SEED)
     prompts = [rng.integers(0, cfg.vocab_size, s) for s in smoke.PROMPT_LENS]
     smoke.serve(cfg, params, prompts[:2], [2, 2], cache_len=CACHE_LEN,
-                max_batch=4)  # warm-up: nvcc and Triton build, cuBLAS starts
+                max_batch=4)  # warm-up: nvcc build, cuBLAS starts
     if "serve" in sections:
         profile_serving(cfg, params, prompts, [1] * len(prompts), card,
                         "prefill")

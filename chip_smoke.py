@@ -1,12 +1,12 @@
 """Port smoke test on one NVIDIA GPU: the PyTorch port's split serving,
 split training and long-prompt split serving of full-width smollm-360m,
-with its merge reduction's forward in CUDA C++, its concat forward and
-both backward merge kernels in Triton and its flash-attention kernel in
-CUDA C++ on the tensor cores (3xTF32), the full-sequence forward and
-greedy generation of full-width mamba2-1.3b with its SSD chunk kernel in
-CUDA C++ on the tensor cores (3xTF32), and long-prompt split serving of
-full-width starcoder2-3b, whose attention (head dim 128) runs the flash
-kernel's wider instantiation.
+with its merge kernels in CUDA C++ (both forward kernels and the concat
+backward; only the reductions' backward is still Triton) and its
+flash-attention kernel in CUDA C++ on the tensor cores (3xTF32), the
+full-sequence forward and greedy generation of full-width mamba2-1.3b
+with its SSD chunk kernel in CUDA C++ on the tensor cores (3xTF32), and
+long-prompt split serving of full-width starcoder2-3b, whose attention
+(head dim 128) runs the flash kernel's wider instantiation.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -18,13 +18,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    logit parity and greedy-token identity between runs).
 2. The CUDA C++ library (every source under ``kernels/csrc``, built by
    ``nvcc`` for sm_90a into ``build/kernels/`` before the first launch;
-   its build time and the merge kernel's ptxas report printed), then the
-   merge kernels against their plain PyTorch version on CUDA tensors: every
-   strategy, f32 and bf16, a dropped client, all dropped, a ragged shape,
-   and the serving and training paths' shapes, forward and backward (plus
-   mul at an exact zero and max with exact ties); per path shape, the
-   kernel's time, the plain version's, one PyTorch call's
-   (``library_ms``) and the bound.
+   its build time and the merge kernels' ptxas reports printed, a spill
+   fails), then the merge kernels against their plain PyTorch version on
+   CUDA tensors: every strategy, f32 and bf16, a dropped client, all
+   dropped, a ragged shape, and the serving and training paths' shapes,
+   forward and backward (plus mul at an exact zero and max with exact
+   ties).  Both concat kernels must be bit-identical to their plain
+   versions there and on their scalar path (D = 7, B = 1, K = 10, views at
+   an odd storage offset), and give NaN where the plain versions do when a
+   dropped client holds a NaN or an Inf.  Per path shape, the kernel's
+   time, the plain version's, one PyTorch call's (``library_ms``) and the
+   bound; for the concat forward also the one-copy library call
+   ``x.transpose(0, 1).reshape(B, K*D)``, and for both concat kernels the
+   wrapper's host time split into validation, output allocation, the
+   stream query and the ctypes call with its launch.
 3. The slice: full-width smollm-360m (random weights from a seed), K = 4
    ``TowerWorker``s over ``SimTransport``, ``SplitLMServer`` continuous
    with 4 slots, 8 greedy requests.  Every merge must go through the
@@ -154,6 +161,11 @@ CONCAT_PATH_SHAPES = [(4, 128, 240), (4, 1024, 240), (4, 1, 240)]
 # the training path's stacks: batch 8 x seq 256 = 2048 rows per merge
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 256, 5
 TRAIN_SHAPE, CONCAT_TRAIN_SHAPE = (4, 2048, 960), (4, 2048, 240)
+# the concat kernels' scalar path: D % 4 != 0, B = 1, K = 10
+CONCAT_EDGE_SHAPES = [(10, 3, 7), (4, 1, 7), (10, 1, 240), (3, 5, 6),
+                      (1, 2, 1)]
+# the host-cost breakdown: rounds per part, calls per round
+HOST_ROUNDS, HOST_CALLS = 5, 400
 # traffic: prompt lengths spread over 64..1024, 8..48 new tokens each
 PROMPT_LENS = [64, 1024, 200, 512, 96, 768, 320, 900]
 NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
@@ -258,15 +270,27 @@ def _live(k: int, kind: str, device) -> torch.Tensor:
     return live
 
 
+MERGE_CUDA_KERNELS = ("merge_reduce_kernel", "merge_concat_kernel",
+                      "merge_concat_bwd_kernel")
+
+
 def build_library() -> None:
     """Build (nvcc, sm_90a) and load the CUDA C++ library before any
-    launch; print the time and the merge kernel's ptxas report."""
+    launch; print the time and the merge kernels' ptxas reports, and fail
+    if one of them spills."""
     t0 = time.perf_counter()
     fa.build.library()
     log(f"kernels: CUDA C++ library built and loaded in "
         f"{time.perf_counter() - t0:.1f} s (nvcc, sm_90a, "
-        f"{', '.join(p.name for p in fa.build.sources())}); merge ptxas: "
-        f"{ptxas_summary('merge_reduce_kernel')}")
+        f"{', '.join(p.name for p in fa.build.sources())})")
+    for kernel in MERGE_CUDA_KERNELS:
+        log(f"kernels: {kernel} ptxas: {ptxas_summary(kernel)}")
+        if kernel != "merge_reduce_kernel":
+            log(f"kernels: {kernel} ptxas: {ptxas_report(kernel)}")
+        counts = _ptxas_counts(kernel)
+        if not counts or any(spill for _, spill in counts.values()):
+            raise AssertionError(f"{kernel}: no ptxas report, or a spill: "
+                                 f"{counts}")
 
 
 def check_kernels() -> dict:
@@ -293,16 +317,81 @@ def check_kernels() -> dict:
                         raise AssertionError(
                             f"{name} {strategy} {shape}: shape "
                             f"{tuple(got.shape)} != {tuple(want.shape)}")
-                    torch.testing.assert_close(
-                        got.float(), want.float(), rtol=TOL[dtype],
-                        atol=TOL[dtype])
+                    if strategy == "concat":
+                        expect_identical(name, got, want)
+                    else:
+                        torch.testing.assert_close(
+                            got.float(), want.float(), rtol=TOL[dtype],
+                            atol=TOL[dtype])
                     if dtype == torch.float32:
                         err = float((got - want).abs().max())
                         worst[name] = max(worst[name], err)
                     n += 1
     log(f"kernels: {n} cases match the plain version "
-        f"(f32 tol 1e-5, bf16 tol 2e-2); worst f32 |err| {worst}")
+        f"(f32 tol 1e-5, bf16 tol 2e-2; concat bit-identical); worst f32 "
+        f"|err| {worst}")
     return worst
+
+
+def expect_identical(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
+    """The same shape, dtype and values; NaN where ``want`` has NaN."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan) or \
+            not torch.equal(got[~nan], want[~nan]):
+        raise AssertionError(f"{name}: not identical to the plain version")
+
+
+def check_concat_edges() -> int:
+    """Both concat kernels on their scalar path and with non-finite values
+    in a dropped client, against the plain versions, bit for bit.  Returns
+    the number of cases."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    n_cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in CONCAT_EDGE_SHAPES:
+            K, B, D = shape
+            n = K * B * D
+            fx = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+            fg = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+            # start 1: a contiguous view off the vector boundary
+            for start in (0, 1):
+                x = fx[start:start + n].view(shape)
+                g = fg[start:start + n].view(B, K * D)
+                for kind in ("all", "dropped", "none"):
+                    live = _live(K, kind, "cuda")
+                    expect_identical("merge_concat_kernel",
+                                     mp.merge_pool(x, live, strategy="concat"),
+                                     ref.merge_pool(x, "concat", live))
+                    expect_identical("merge_concat_bwd_kernel",
+                                     mp.concat_bwd(live, g, k=K),
+                                     ref.concat_bwd(live, g, K))
+                    n_cases += 2
+            # a NaN and an Inf in the dropped client's slice: NaN out
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, K * D), generator=gen, device="cuda").to(dtype)
+            live = _live(K, "dropped", "cuda")
+            k = int(torch.nonzero(live == 0)[0])
+            x[k, 0, 0], x[k, B - 1, D - 1] = float("nan"), float("inf")
+            g[0, k * D], g[B - 1, (k + 1) * D - 1] = float("nan"), float("-inf")
+            for name, got, want in (
+                    ("merge_concat_kernel",
+                     mp.merge_pool(x, live, strategy="concat"),
+                     ref.merge_pool(x, "concat", live)),
+                    ("merge_concat_bwd_kernel", mp.concat_bwd(live, g, k=K),
+                     ref.concat_bwd(live, g, K))):
+                if int(torch.isnan(want).sum()) != 2:
+                    raise AssertionError(f"{name}: the plain version gave "
+                                         "no NaN for a dropped NaN and Inf")
+                expect_identical(name, got, want)
+                n_cases += 1
+    torch.cuda.synchronize()
+    log(f"kernels: concat edges: {n_cases} cases bit-identical to the plain "
+        f"versions (shapes {CONCAT_EDGE_SHAPES}, f32 and bf16, at storage "
+        "offsets 0 and 1, NaN and Inf in a dropped client giving NaN)")
+    return n_cases
 
 
 def check_backward_kernels() -> dict:
@@ -340,9 +429,11 @@ def check_backward_kernels() -> dict:
                     g = torch.randn(out.shape, generator=gen, device="cuda"
                                     ).to(dtype)
                     if strategy == "concat":
-                        compare("merge_concat_bwd_kernel",
-                                mp.concat_bwd(live, g, k=shape[0]),
-                                ref.concat_bwd(live, g, shape[0]), dtype)
+                        got = mp.concat_bwd(live, g, k=shape[0])
+                        want = ref.concat_bwd(live, g, shape[0])
+                        expect_identical("merge_concat_bwd_kernel", got,
+                                         want)
+                        compare("merge_concat_bwd_kernel", got, want, dtype)
                     else:
                         compare("merge_reduce_bwd_kernel",
                                 mp.merge_pool_bwd(x, live, out, g,
@@ -362,8 +453,8 @@ def check_backward_kernels() -> dict:
                 mp.merge_pool_bwd(x, live, out, g, strategy=strategy),
                 ref.merge_pool_bwd(x, live, out, g, strategy), torch.float32)
     log(f"backward kernels: {n} cases match the plain backward (f32 tol "
-        f"1e-5, bf16 tol 5e-2; mul at an exact zero, max with ties); worst "
-        f"f32 |err| {worst}")
+        f"1e-5, bf16 tol 5e-2, concat bit-identical; mul at an exact zero, "
+        f"max with ties); worst f32 |err| {worst}")
     return worst
 
 
@@ -459,8 +550,7 @@ def time_backward_shapes(card: str) -> dict:
         if strategy == "concat":
             fns = {"": lambda x, o, g: mp.concat_bwd(live, g, k=K),
                    "plain_": lambda x, o, g: ref.concat_bwd(live, g, K),
-                   "library_": lambda x, o, g: g.view(B, K, D).permute(
-                       1, 0, 2) * live[:, None, None]}
+                   "library_": lambda x, o, g: concat_bwd_library(live, g, K)}
         else:
             fns = {"": lambda x, o, g: mp.merge_pool_bwd(
                        x, live, o, g, strategy=strategy),
@@ -485,6 +575,99 @@ def time_backward_shapes(card: str) -> dict:
             f"| {card}")
         del inputs
     return rows
+
+
+def host_breakdown(shape, backward: bool) -> dict:
+    """The concat wrapper's host time per call in microseconds (host
+    clock).  Measured: the public wrapper (``wrapper``); the same wrapper
+    with its C entry point replaced by a Python stub that launches nothing
+    (``stubbed``); the output's allocation; the current-stream query; the
+    bare ctypes call with B = 0, which the C entry point refuses before
+    any CUDA call (``ctypes_only``: the Python and ctypes share of a
+    call); and the library call of ``time_path_shapes`` /
+    ``time_backward_shapes``.  Derived: ``call_and_launch`` = wrapper -
+    stubbed, ``validation`` = stubbed - allocation - stream (the checks
+    and the wrapper's own Python).  Each part runs ``HOST_ROUNDS`` rounds
+    of ``HOST_CALLS`` calls, the parts taking turns; the median round is
+    reported.  The launch counts are restored afterwards: none of these
+    calls is a launch of the main path."""
+    K, B, D = shape
+    x = torch.randn(shape, device="cuda")
+    g = torch.randn((B, K * D), device="cuda")
+    live = torch.ones(K, dtype=torch.float32, device="cuda")
+    dev = x.get_device()
+    if backward:
+        name = "repro_merge_concat_bwd"
+        dst = torch.empty(shape, device="cuda")
+        args = (live.data_ptr(), g.data_ptr(), dst.data_ptr(), 0, D, K,
+                mp.DTYPE_CODES[g.dtype], dev)
+        wrapper = lambda: mp.concat_bwd(live, g, k=K)
+        parts = {"allocation": lambda: g.new_empty((K, B, D)),
+                 "library": lambda: concat_bwd_library(live, g, K)}
+    else:
+        name = "repro_merge_concat"
+        dst = torch.empty((B, K * D), device="cuda")
+        args = (x.data_ptr(), live.data_ptr(), dst.data_ptr(), 0, D, K,
+                mp.DTYPE_CODES[x.dtype], dev)
+        wrapper = lambda: mp.merge_pool(x, live, strategy="concat")
+        parts = {"allocation": lambda: x.new_empty((B, K * D)),
+                 "library": lambda: library_call("concat")(x)}
+    entry, real_entry = fa.build.entry(name), fa.build.entry
+    stub = lambda *_: 0
+    parts.update(wrapper=wrapper, stubbed=wrapper,
+                 stream=lambda: fa.build.current_stream(dev),
+                 ctypes_only=lambda: entry(*args,
+                                           fa.build.current_stream(dev)))
+    if parts["ctypes_only"]() == 0:
+        raise AssertionError(f"{name} took B = 0")
+    counts = dict(mp.launches)
+    rounds = {part: [] for part in parts}
+
+    def run(part: str, fn, calls: int) -> None:
+        if part == "stubbed":
+            fa.build.entry = lambda _: stub
+        try:
+            for _ in range(calls):
+                fn()
+        finally:
+            fa.build.entry = real_entry
+
+    for part, fn in parts.items():
+        run(part, fn, 50)
+    for _ in range(HOST_ROUNDS):
+        for part, fn in parts.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(part, fn, HOST_CALLS)
+            rounds[part].append((time.perf_counter() - t0) / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    mp.launches.update(counts)
+    us = {part: sorted(t)[len(t) // 2] for part, t in rounds.items()}
+    us["call_and_launch"] = us["wrapper"] - us["stubbed"]
+    us["validation"] = us["stubbed"] - us["allocation"] - us["stream"]
+    return us
+
+
+def time_concat_host(rows: dict, card: str) -> None:
+    """Add each concat kernel's wrapper host breakdown to its timed row,
+    and print it."""
+    for shape, backward in (((4, 1024, 240), False),
+                            (CONCAT_TRAIN_SHAPE, True)):
+        row = rows[("concat", shape)]
+        row["host_us"] = host_breakdown(shape, backward)
+        name = "merge_concat_bwd_kernel" if backward else "merge_concat_kernel"
+        host = ", ".join(f"{part} {t:.2f}"
+                         for part, t in row["host_us"].items())
+        log(f"time {name} f32 {shape}: host us per call: {host}; per call "
+            f"{row['ms']:.6f} ms vs library {row['library_ms']:.6f} ms | "
+            f"{card}")
+
+
+def concat_bwd_library(live: torch.Tensor, g: torch.Tensor, K: int):
+    """One PyTorch call computing the concat backward: a permuted view of
+    ``g`` times the live flags."""
+    B = g.shape[0]
+    return g.view(B, K, -1).permute(1, 0, 2) * live[:, None, None]
 
 
 def library_call(strategy: str):
@@ -516,19 +699,25 @@ def time_path_shapes(card: str) -> dict:
                 "plain_": lambda x, lv: ref.merge_pool(x, strategy, lv),
                 "library_": lambda x, lv: library_call(strategy)(x),
             }
+            if concat:  # one copy, where torch.cat first unbinds the stack
+                fns["library_reshape_"] = lambda x, lv: x.transpose(
+                    0, 1).reshape(x.shape[1], -1)
             row = {}
             for prefix, fn in fns.items():
                 row[prefix + "ms"] = time_ms(fn, kern)
                 row[prefix + "device_ms"] = device_ms(fn, kern)
             row["bound_ms"], row["bound_by"] = bound(shape, 4, concat)
             rows[(strategy, shape)] = row
+            reshape = (f"transpose-reshape {row['library_reshape_ms']:.6f} "
+                       f"({row['library_reshape_device_ms']:.6f}) ms, "
+                       if concat else "")
             log(f"time {strategy} f32 {shape}: per call (device, launch cost "
                 f"removed): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) "
                 f"ms, plain {row['plain_ms']:.6f} "
                 f"({row['plain_device_ms']:.6f}) ms, library "
                 f"{row['library_ms']:.6f} ({row['library_device_ms']:.6f}) "
-                f"ms, bound {row['bound_ms']:.6f} ms ({row['bound_by']}) "
-                f"| {card}")
+                f"ms, {reshape}bound {row['bound_ms']:.6f} ms "
+                f"({row['bound_by']}) | {card}")
     return rows
 
 
@@ -638,7 +827,7 @@ def serve_full(card: str) -> dict:
         f"{cfg.vertical.num_clients} towers, merge {cfg.vertical.merge}, "
         f"cache_len {cache_len}")
 
-    # warm-up: Triton compiles, cuBLAS initializes (not measured)
+    # warm-up: cuBLAS initializes (not measured)
     serve(cfg, params, prompts[:2], [2, 2], **kw)
 
     # prefill only: one token per request, no decode round
@@ -1720,8 +1909,10 @@ def main() -> None:
     build_library()
     worst = check_kernels()
     worst.update(check_backward_kernels())
+    check_concat_edges()
     rows = time_path_shapes(card)
     rows.update(time_backward_shapes(card))
+    time_concat_host(rows, card)
     check_small_against_cpu()
     launches = serve_full(card)
     train_small_against_cpu()
@@ -1749,8 +1940,8 @@ def main() -> None:
             ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE,
              "src/repro/kernels/merge_pool.py:96")):
         row = rows[(strategy, shape)]
-        cuda = name == "merge_reduce_kernel"
-        kernels.append({
+        cuda = name in MERGE_CUDA_KERNELS
+        entry = {
             "name": name, "route": "cuda" if cuda else "triton",
             "source": ("src/repro_torch/kernels/csrc/merge_pool.cu" if cuda
                        else "src/repro_torch/kernels/merge_pool.py"),
@@ -1761,7 +1952,12 @@ def main() -> None:
             "device_ms": row["device_ms"],
             "plain_device_ms": row["plain_device_ms"],
             "library_device_ms": row["library_device_ms"],
-            "shape": list(shape), "dtype": "float32"})
+            "shape": list(shape), "dtype": "float32"}
+        for key in ("host_us", "library_reshape_ms",
+                    "library_reshape_device_ms"):
+            if key in row:
+                entry[key] = row[key]
+        kernels.append(entry)
     def flash_entry(shape, launched=None):
         """The kernel's row at a timed shape; ``launched`` is its count on
         a main path (a head dim on no path has none)."""

@@ -53,11 +53,16 @@ SIGNATURES = {
     # x, live, out, n (= B * D), K, strategy, dtype, device, stream
     "repro_merge_reduce": ([_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
                            _I),
+    # x, live, out, B, D, K, dtype, device, stream
+    "repro_merge_concat": ([_P] * 3 + [_I] * 5 + [_P], _I),
+    # live, g, dx, B, D, K, dtype, device, stream
+    "repro_merge_concat_bwd": ([_P] * 3 + [_I] * 5 + [_P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
+_entries: dict = {}
 
 
 def sources() -> list[Path]:
@@ -128,25 +133,37 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded library, built first if needed; signatures set."""
+    """The loaded library, built first if needed; signatures set.  The
+    lock is taken only until the library is loaded."""
     global _library
-    with _lock:
-        if _library is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, (argtypes, restype) in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes, fn.restype = argtypes, restype
-            _library = lib
-    return _library
+    lib = _library
+    if lib is None:
+        with _lock:
+            if _library is None:
+                lib = ctypes.CDLL(str(build()))
+                for name, (argtypes, restype) in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes, fn.restype = argtypes, restype
+                _library = lib
+            lib = _library
+    return lib
 
 
-def current_stream(device: torch.device) -> int:
-    """PyTorch's current stream on the CUDA ``device``, as the raw
-    ``cudaStream_t`` the C entry points take.  The raw query is what
-    PyTorch's own Triton launcher reads; ``torch.cuda.current_stream``
+def entry(name: str):
+    """The library's C entry point ``name``, resolved once."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    return fn
+
+
+def current_stream(device: int) -> int:
+    """PyTorch's current stream on CUDA device ``device`` (an index), as
+    the raw ``cudaStream_t`` the C entry points take.  The raw query is
+    what PyTorch's own Triton launcher reads; ``torch.cuda.current_stream``
     builds a ``Stream`` object around it first, host time that a small
     kernel such as the merge's would pay on every call."""
-    return torch._C._cuda_getCurrentRawStream(device.index)
+    return torch._C._cuda_getCurrentRawStream(device)
 
 
 def check(code: int, what: str) -> None:

@@ -95,14 +95,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raises on anything the kernel does not take and when the launch is
     refused.  There is no fallback."""
     _check(q, k, v)
-    lib = build.library()
     B, H, S, D = q.shape
     out = torch.empty((B, S, H, D), dtype=q.dtype,
                       device=q.device).transpose(1, 2)
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
-    stream = build.current_stream(q.device)
-    code = lib.repro_flash_attention(
+    stream = build.current_stream(q.device.index)
+    code = build.entry("repro_flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         ctypes.addressof(strides), DTYPE_CODES[q.dtype], B, H, k.shape[1], S,
         D, int(bool(causal)), q.device.index, stream)

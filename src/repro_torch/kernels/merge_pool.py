@@ -1,30 +1,42 @@
 """The fused K-client cut-layer merge and its backward (the paper's
-jacobian splitting): one CUDA C++ kernel and three Triton kernels for
+jacobian splitting): three CUDA C++ kernels and one Triton kernel for
 Hopper.
 
 :func:`merge_pool` launches the two forward kernels, :func:`merge_pool_bwd`
-and :func:`concat_bwd` the two backward kernels, on CUDA tensors only:
+and :func:`concat_bwd` the two backward kernels, on CUDA tensors only.
 
-``merge_reduce_kernel`` (CUDA C++, ``csrc/merge_pool.cu``, launched through
-``ctypes`` from the library that :mod:`repro_torch.kernels.build` makes)
-replaces the JAX package's Pallas kernel ``_merge_kernel``
-(``src/repro/kernels/merge_pool.py:29``, launched by
+Three are CUDA C++ (``csrc/merge_pool.cu``), launched through ``ctypes``
+from the library that :mod:`repro_torch.kernels.build` makes; the source
+says what bounds each and how its design answers that:
+
+``merge_reduce_kernel`` replaces the JAX package's Pallas kernel
+``_merge_kernel`` (``src/repro/kernels/merge_pool.py:29``, launched by
 ``_merge_pool_fwd_call``): the masked K-way sum / avg / max / mul of a
 ``(K, B, D)`` stack into ``(B, D)``, accumulated in f32.  avg divides by
 ``max(sum(live), 1)``; max takes ``-3e38`` for a dropped client and gives
-zeros when every client is dropped; mul takes 1 for a dropped client.  The
-source says what bounds it and how its design answers that.
-
-The other three are Triton:
+zeros when every client is dropped; mul takes 1 for a dropped client.
 
 ``merge_concat_kernel`` replaces ``_concat_kernel``
 (``src/repro/kernels/merge_pool.py:67``, launched by ``_concat_fwd_call``):
 client k's ``(B, D)`` slice lands in columns ``k*D .. (k+1)*D`` of the
 ``(B, K*D)`` output, times ``live[k]``.
 
-``merge_reduce_bwd_kernel`` replaces ``_merge_bwd_kernel``
-(``src/repro/kernels/merge_pool.py:144``, launched by
-``_merge_pool_bwd_call``): from the merged gradient ``g (B, D)`` it
+``merge_concat_bwd_kernel`` replaces ``_concat_bwd_kernel``
+(``src/repro/kernels/merge_pool.py:96``, launched by
+``_concat_bwd_call``): ``dx_k = g[:, k*D:(k+1)*D] * l_k``.
+
+Both concat directions multiply a dropped client's values by its 0 flag
+rather than skip them, so a NaN there gives NaN, as the plain merge does.
+
+The three share one host path, kept lean because the kernels take a few
+microseconds on the device: the checks, ``new_empty`` for the output,
+then :func:`_launch`, which calls the C entry point (resolved once by
+:func:`repro_torch.kernels.build.entry`) with the raw pointers, the device
+index and the raw current stream, and raises on a returned CUDA error.
+
+The fourth, ``merge_reduce_bwd_kernel``, is Triton.  It replaces
+``_merge_bwd_kernel`` (``src/repro/kernels/merge_pool.py:144``, launched
+by ``_merge_pool_bwd_call``): from the merged gradient ``g (B, D)`` it
 writes every client's ``dx_k (B, D)``, in ``stacked.dtype``:
 
 * sum: ``g * l_k``; avg: ``g * l_k / max(sum(live), 1)`` — ``g`` and the
@@ -38,15 +50,8 @@ writes every client's ``dx_k (B, D)``, in ``stacked.dtype``:
   exclusive product is what autodiff of ``torch.prod`` / ``jnp.prod``
   gives there, and the port is held to that.
 
-``merge_concat_bwd_kernel`` replaces ``_concat_bwd_kernel``
-(``src/repro/kernels/merge_pool.py:96``, launched by
-``_concat_bwd_call``): ``dx_k = g[:, k*D:(k+1)*D] * l_k``.
-
-Bound on an H100 SXM: the three Triton kernels are pure data movement
-with a handful of flops per element, so the bound is bytes over the
-3.35 TB/s of device memory — ``(K*B*D + B*K*D) * itemsize`` for the
-concat (plus the ``K`` f32 live flags); backward, ``B*D + K*B*D`` for
-sum/avg, ``2*K*B*D`` for concat, ``2*B*D + 2*K*B*D`` for max (it reads the
+Its bound on an H100 SXM is bytes over the 3.35 TB/s of device memory:
+``B*D + K*B*D`` for sum/avg, ``2*B*D + 2*K*B*D`` for max (it reads the
 stack and the forward output) and ``B*D + 2*K*B*D`` for mul.  Each program
 loads its ``(BLOCK_B, BLOCK_D)`` tile of what it needs, keeps running sums
 and products in registers (K is a compile-time constant, the client loop
@@ -54,15 +59,15 @@ is unrolled), and stores each output tile once.  The max backward reads
 the stack twice (tie count, then credit) and the mul backward re-reads the
 suffix clients (K(K-1)/2 extra tile loads); the repeats are the same
 program's tiles, served from L1/L2 rather than device memory.  The grid is
-``(B-tiles, D-tiles)`` (plus the client axis for concat); blocks run in
-parallel in any order, so nothing carries from one program to the next.
-Ragged edges (D = 960 is not a power of two, decode has B = 1) are
-masked, so no tile width has to divide D.
+``(B-tiles, D-tiles)``; blocks run in parallel in any order, so nothing
+carries from one program to the next.  Ragged edges (D = 960 is not a
+power of two, decode has B = 1) are masked, so no tile width has to
+divide D.
 
-``triton`` is imported at the first launch, not when this module is
-imported: the CPU tests import every module, and the CPU has no Triton.
-Its compile cache goes to ``build/triton/`` in the checkout unless
-``TRITON_CACHE_DIR`` is already set.
+``triton`` is imported at the first launch of the Triton kernel, not when
+this module is imported: the CPU tests import every module, and the CPU
+has no Triton.  Its compile cache goes to ``build/triton/`` in the
+checkout unless ``TRITON_CACHE_DIR`` is already set.
 """
 from __future__ import annotations
 
@@ -87,8 +92,8 @@ launches = {"merge_reduce_kernel": 0, "merge_concat_kernel": 0,
             "merge_reduce_bwd_kernel": 0, "merge_concat_bwd_kernel": 0}
 
 # ``triton.language``: bound by _compiled() at the first launch.  The
-# kernel bodies below resolve ``tl`` from this module's globals when Triton
-# compiles them, which happens after that binding.
+# kernel body below resolves ``tl`` from this module's globals when Triton
+# compiles it, which happens after that binding.
 tl = None
 _KERNELS: Optional[dict] = None
 
@@ -96,23 +101,6 @@ _KERNELS: Optional[dict] = None
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def merge_concat_kernel(x_ptr, live_ptr, out_ptr, B, D, stride_k,
-                        K: tl.constexpr, BLOCK_B: tl.constexpr,
-                        BLOCK_D: tl.constexpr):
-    """Client program_id(2)'s (BLOCK_B, BLOCK_D) tile, times its live
-    flag, into its column block of the (B, K*D) output."""
-    k = tl.program_id(2)
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
-    mask = (rows[:, None] < B) & (cols[None, :] < D)
-    live = tl.load(live_ptr + k)
-    blk = tl.load(x_ptr + k * stride_k + rows[:, None] * D + cols[None, :],
-                  mask=mask, other=0.0)
-    out = blk.to(tl.float32) * live
-    tl.store(out_ptr + rows[:, None] * (K * D) + k * D + cols[None, :],
-             out.to(out_ptr.dtype.element_ty), mask=mask)
 
 
 def merge_reduce_bwd_kernel(x_ptr, live_ptr, out_ptr, g_ptr, dx_ptr, B, D,
@@ -175,26 +163,9 @@ def merge_reduce_bwd_kernel(x_ptr, live_ptr, out_ptr, g_ptr, dx_ptr, B, D,
             prefix *= tl.where(live > 0, x, 1.0)
 
 
-def merge_concat_bwd_kernel(live_ptr, g_ptr, dx_ptr, B, D, stride_k,
-                            K: tl.constexpr, BLOCK_B: tl.constexpr,
-                            BLOCK_D: tl.constexpr):
-    """Client program_id(2)'s column block of the (B, K*D) merged
-    gradient, times its live flag, into its (B, D) gradient."""
-    k = tl.program_id(2)
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
-    mask = (rows[:, None] < B) & (cols[None, :] < D)
-    live = tl.load(live_ptr + k)
-    g = tl.load(g_ptr + rows[:, None] * (K * D) + k * D + cols[None, :],
-                mask=mask, other=0.0)
-    dx = g.to(tl.float32) * live
-    tl.store(dx_ptr + k * stride_k + rows[:, None] * D + cols[None, :],
-             dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-
 def _compiled() -> dict:
-    """JIT-wrap the kernels (Triton compiles each specialization at its
-    first launch and caches it under TRITON_CACHE_DIR)."""
+    """JIT-wrap the Triton kernel (Triton compiles each specialization at
+    its first launch and caches it under TRITON_CACHE_DIR)."""
     global _KERNELS, tl
     if _KERNELS is None:
         os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
@@ -202,9 +173,7 @@ def _compiled() -> dict:
         import triton.language
 
         tl = triton.language
-        _KERNELS = {"concat": triton.jit(merge_concat_kernel),
-                    "reduce_bwd": triton.jit(merge_reduce_bwd_kernel),
-                    "concat_bwd": triton.jit(merge_concat_bwd_kernel)}
+        _KERNELS = {"reduce_bwd": triton.jit(merge_reduce_bwd_kernel)}
     return _KERNELS
 
 
@@ -212,18 +181,17 @@ def _next_pow2(n: int) -> int:
     return 1 << max(0, (n - 1).bit_length())
 
 
-def _check_tensor(t: torch.Tensor, what: str, shape: tuple,
+def _check_tensor(t: torch.Tensor, what: str, shape: Optional[tuple] = None,
                   dtype: Optional[torch.dtype] = None) -> None:
-    """A kernel operand: a contiguous float32/bfloat16 CUDA tensor of
-    ``shape`` (and ``dtype``, when given) that int32 offsets can address."""
+    """A kernel operand: a contiguous float32/bfloat16 CUDA tensor (of
+    ``shape`` and ``dtype``, when given) that int32 offsets can address."""
     if not t.is_cuda:
         raise ValueError(f"merge_pool kernel: {what} is on {t.device}, "
                          "the kernel takes CUDA tensors only")
-    if t.dtype not in (torch.float32, torch.bfloat16) or \
-            (dtype is not None and t.dtype != dtype):
+    if t.dtype not in DTYPE_CODES or (dtype is not None and t.dtype != dtype):
         raise TypeError(f"merge_pool kernel: {what} dtype {t.dtype} "
                         "(takes float32 or bfloat16, one for all operands)")
-    if tuple(t.shape) != tuple(shape):
+    if shape is not None and t.shape != shape:
         raise ValueError(f"merge_pool kernel: {what} must have shape "
                          f"{tuple(shape)}, got {tuple(t.shape)}")
     if not t.is_contiguous():
@@ -233,22 +201,48 @@ def _check_tensor(t: torch.Tensor, what: str, shape: tuple,
                          f"{t.numel()} elements")
 
 
-def _check_live(live: torch.Tensor, k: int, device: torch.device) -> None:
-    if (live.device != device or live.dtype != torch.float32
-            or tuple(live.shape) != (k,) or not live.is_contiguous()):
+def _check_live(live: torch.Tensor, k: int, like: torch.Tensor) -> None:
+    """``live``: a contiguous ``(k,)`` float32 tensor on ``like``'s card."""
+    if (live.get_device() != like.get_device() or live.dtype != torch.float32
+            or live.shape != (k,) or not live.is_contiguous()):
         raise ValueError(f"merge_pool kernel: live must be a contiguous ({k},) "
-                         f"float32 tensor on {device}, got "
+                         f"float32 tensor on {like.device}, got "
                          f"{tuple(live.shape)} {live.dtype} on {live.device}")
 
 
-def _check(stacked: torch.Tensor, live: torch.Tensor, strategy: str) -> None:
+def _check(stacked: torch.Tensor, live: torch.Tensor,
+           strategy: str) -> torch.Size:
+    """The forward's operands; returns the stack's ``(K, B, D)``."""
     if strategy not in STRATEGY_CODES and strategy != "concat":
         raise ValueError(f"unknown merge {strategy!r}")
-    if stacked.ndim != 3:
+    shape = stacked.shape
+    if len(shape) != 3:
         raise ValueError(f"merge_pool kernel: stacked must be (K, B, D), got "
-                         f"shape {tuple(stacked.shape)}")
-    _check_tensor(stacked, "stacked", stacked.shape)
-    _check_live(live, stacked.shape[0], stacked.device)
+                         f"shape {tuple(shape)}")
+    _check_tensor(stacked, "stacked")
+    _check_live(live, shape[0], stacked)
+    return shape
+
+
+def _check_concat_bwd(live: torch.Tensor, g: torch.Tensor,
+                      k: int) -> tuple[int, int]:
+    """The concat backward's operands; returns ``(B, D)``."""
+    shape = g.shape
+    if len(shape) != 2 or shape[1] % k:
+        raise ValueError(f"merge_pool kernel: g must be (B, {k}*D), got "
+                         f"shape {tuple(shape)}")
+    _check_tensor(g, "g")
+    _check_live(live, k, g)
+    return shape[0], shape[1] // k
+
+
+def _launch(kernel: str, entry: str, *args) -> None:
+    """Call the C entry point ``entry`` with ``args`` (its arguments up to
+    the device index, which comes last) and the device's current stream;
+    raise on a CUDA error, else count one launch of ``kernel``."""
+    code = build.entry(entry)(*args, build.current_stream(args[-1]))
+    build.check(code, kernel)
+    launches[kernel] += 1
 
 
 def _tiles(B: int, D: int) -> tuple[int, int, tuple[int, int]]:
@@ -262,34 +256,26 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                strategy: str = "avg") -> torch.Tensor:
     """Launch the merge kernel on a CUDA ``(K, B, D)`` stack; ``live`` is a
     ``(K,)`` float32 mask (None = all live).  Returns ``(B, D)`` for the
-    reductions (the CUDA C++ kernel, on the current stream), ``(B, K*D)``
-    for concat (the Triton kernel).  Raises on anything the kernel does not
-    take and when a launch is refused; there is no fallback."""
+    reductions, ``(B, K*D)`` for concat, from the CUDA C++ kernels on the
+    current stream.  Raises on anything the kernels do not take and when a
+    launch is refused; there is no fallback."""
     if live is None:
         live = torch.ones((stacked.shape[0],), dtype=torch.float32,
                           device=stacked.device)
-    if live.dtype != torch.float32:
+    elif live.dtype != torch.float32:
         live = live.to(torch.float32)
-    _check(stacked, live, strategy)
-    K, B, D = stacked.shape
-    if strategy != "concat":
-        lib = build.library()
-        out = torch.empty((B, D), dtype=stacked.dtype, device=stacked.device)
-        code = lib.repro_merge_reduce(
-            stacked.data_ptr(), live.data_ptr(), out.data_ptr(), B * D, K,
-            STRATEGY_CODES[strategy], DTYPE_CODES[stacked.dtype],
-            stacked.device.index, build.current_stream(stacked.device))
-        build.check(code, "merge_reduce_kernel")
-        launches["merge_reduce_kernel"] += 1
+    K, B, D = _check(stacked, live, strategy)
+    if strategy == "concat":
+        out = stacked.new_empty((B, K * D))
+        _launch("merge_concat_kernel", "repro_merge_concat",
+                stacked.data_ptr(), live.data_ptr(), out.data_ptr(), B, D, K,
+                DTYPE_CODES[stacked.dtype], stacked.get_device())
         return out
-    kernels = _compiled()
-    block_b, block_d, tiles = _tiles(B, D)
-    out = torch.empty((B, K * D), dtype=stacked.dtype, device=stacked.device)
-    with torch.cuda.device(stacked.device):
-        kernels["concat"][tiles + (K,)](
-            stacked, live, out, B, D, B * D, K=K, BLOCK_B=block_b,
-            BLOCK_D=block_d, num_warps=NUM_WARPS)
-        launches["merge_concat_kernel"] += 1
+    out = stacked.new_empty((B, D))
+    _launch("merge_reduce_kernel", "repro_merge_reduce", stacked.data_ptr(),
+            live.data_ptr(), out.data_ptr(), B * D, K,
+            STRATEGY_CODES[strategy], DTYPE_CODES[stacked.dtype],
+            stacked.get_device())
     return out
 
 
@@ -311,7 +297,7 @@ def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
                          f"{tuple(g.shape)}")
     B, D = g.shape
     _check_tensor(g, "g", (B, D))
-    _check_live(live, K, g.device)
+    _check_live(live, K, g)
     if strategy in ("max", "mul"):
         if stacked is None:
             raise ValueError(f"merge_pool kernel: the {strategy} backward "
@@ -340,19 +326,11 @@ def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
 def concat_bwd(live: torch.Tensor, g: torch.Tensor, *, k: int) -> torch.Tensor:
     """Launch the concat backward on CUDA: ``g`` is the merged output's
     ``(B, k*D)`` gradient, contiguous; returns ``dx (k, B, D)`` in ``g``'s
-    dtype.  Raises on anything the kernel does not take."""
-    if g.ndim != 2 or g.shape[1] % k:
-        raise ValueError(f"merge_pool kernel: g must be (B, {k}*D), got "
-                         f"shape {tuple(g.shape)}")
-    B, D = g.shape[0], g.shape[1] // k
-    _check_tensor(g, "g", (B, k * D))
-    _check_live(live, k, g.device)
-    kernels = _compiled()
-    block_b, block_d, tiles = _tiles(B, D)
-    dx = torch.empty((k, B, D), dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        kernels["concat_bwd"][tiles + (k,)](
-            live, g, dx, B, D, B * D, K=k, BLOCK_B=block_b, BLOCK_D=block_d,
-            num_warps=NUM_WARPS)
-        launches["merge_concat_bwd_kernel"] += 1
+    dtype, from the CUDA C++ kernel on the current stream.  Raises on
+    anything the kernel does not take; there is no fallback."""
+    B, D = _check_concat_bwd(live, g, k)
+    dx = g.new_empty((k, B, D))
+    _launch("merge_concat_bwd_kernel", "repro_merge_concat_bwd",
+            live.data_ptr(), g.data_ptr(), dx.data_ptr(), B, D, k,
+            DTYPE_CODES[g.dtype], g.get_device())
     return dx

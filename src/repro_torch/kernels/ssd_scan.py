@@ -102,7 +102,7 @@ def plan(B: int, S: int, H: int, P: int, N: int, chunk: int,
     heads per block (``heads``, HG), head groups, blocks per chunk along
     d_state (``slices``), state columns per block and the block count."""
     out = (ctypes.c_int * 4)()
-    code = build.library().repro_ssd_chunk_plan(
+    code = build.entry("repro_ssd_chunk_plan")(
         B, S, H, P, N, chunk, device.index, ctypes.addressof(out))
     build.check(code, "ssd_chunk_kernel plan")
     heads, groups, slices, columns = out
@@ -122,7 +122,6 @@ def ssd_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     fallback."""
     _check(xdt, a, Bm, Cm, chunk)
     xdt = _rows_of_16_bytes(xdt)
-    lib = build.library()
     B, S, H, P = xdt.shape
     N = Bm.shape[-1]
     nc = S // chunk
@@ -133,8 +132,8 @@ def ssd_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     cum = torch.empty((B, S, H), **out)
     strides = (ctypes.c_longlong * 13)(*(
         s for t in (xdt, a, Bm, Cm) for s in t.stride()))
-    stream = build.current_stream(xdt.device)
-    code = lib.repro_ssd_chunk(
+    stream = build.current_stream(xdt.device.index)
+    code = build.entry("repro_ssd_chunk")(
         xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
         y.data_ptr(), state.data_ptr(), decay.data_ptr(), cum.data_ptr(),
         ctypes.addressof(strides), B, S, H, P, N, chunk, xdt.device.index,

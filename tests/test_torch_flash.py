@@ -385,9 +385,15 @@ def test_build_compiles_for_sm90a_and_reports_failure(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc failed") as err:
         build.build()
     assert "error: refused" in str(err.value)
-    args = log.read_text().split()
-    assert "arch=compute_90a,code=sm_90a" in args and "-c" in args
-    assert Path(args[args.index("-c") + 1]).name == "flash_attention.cu"
+    # the compiles run in parallel: one line each, in no fixed order
+    compiled = []
+    for line in log.read_text().splitlines():
+        args = line.split()
+        assert "arch=compute_90a,code=sm_90a" in args and "-c" in args
+        compiled.append(Path(args[args.index("-c") + 1]).name)
+    assert "flash_attention.cu" in compiled
+    assert sorted(compiled) == sorted(
+        p.name for p in build.sources() if p.suffix == ".cu")
     assert not build.library_path().exists()
 
 

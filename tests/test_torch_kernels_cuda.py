@@ -1,7 +1,7 @@
-"""The port's kernels — the merge kernels (the reductions' forward in CUDA
-C++, the concat forward and both backward kernels in Triton) and the CUDA
-C++ flash-attention and SSD chunk kernels — against their plain PyTorch
-versions.
+"""The port's kernels — the merge kernels (both forward kernels and the
+concat backward in CUDA C++, the reductions' backward in Triton) and the
+CUDA C++ flash-attention and SSD chunk kernels — against their plain
+PyTorch versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -58,7 +58,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("strategy", STRATEGIES)
 def test_kernels_match_plain_version_on_card(strategy, dtype):
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
     gen = torch.Generator(device="cuda").manual_seed(0)
     name = ("merge_concat_kernel" if strategy == "concat"
             else "merge_reduce_kernel")
@@ -79,7 +79,7 @@ def test_kernels_match_plain_version_on_card(strategy, dtype):
 @pytest.mark.cuda
 def test_kernel_wrapper_validates_inputs_on_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
     x = torch.randn(4, 8, 16, device="cuda")
     with pytest.raises(TypeError, match="dtype"):
         kernel_module.merge_pool(x.half(), strategy="avg")
@@ -134,6 +134,65 @@ def test_reduce_kernel_edges_on_card(strategy, dtype):
                                rtol=TOL[dtype], atol=TOL[dtype])
 
 
+# (K, B, D) for the concat kernels' scalar path: D % 4 != 0, B = 1, K = 10
+CONCAT_EDGE_SHAPES = [(10, 3, 7), (4, 1, 7), (10, 1, 240), (3, 5, 6),
+                      (1, 2, 1)]
+
+
+def _concat_pair(x, live, g):
+    """Both concat directions, kernel and plain, one launch each."""
+    K = x.shape[0]
+    counts = dict(kernel_module.launches)
+    got = (kernel_module.merge_pool(x, live, strategy="concat"),
+           kernel_module.concat_bwd(live, g, k=K))
+    assert kernel_module.launches["merge_concat_kernel"] == \
+        counts["merge_concat_kernel"] + 1
+    assert kernel_module.launches["merge_concat_bwd_kernel"] == \
+        counts["merge_concat_bwd_kernel"] + 1
+    want = (ref.merge_pool(x, "concat", live), ref.concat_bwd(live, g, K))
+    torch.cuda.synchronize()
+    return got, want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_concat_kernels_edges_on_card(dtype):
+    """The CUDA C++ concat merge and its backward at their edges, both
+    bit-identical to the plain versions (a product by 0.0 or 1.0 is exact,
+    and so is the bf16 round trip): the scalar path (D % 4 != 0, B = 1,
+    K = 10), operands that start off a vector boundary (contiguous views
+    at an odd storage offset), a dropped client, every client dropped;
+    and a NaN in a dropped client's slice gives NaN where the plain
+    versions give it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    for shape in CONCAT_EDGE_SHAPES + [(4, 128, 240)]:
+        K, B, D = shape
+        n = K * B * D
+        fx = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        fg = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        for start in (0, 1):
+            x = fx[start:start + n].view(shape)
+            g = fg[start:start + n].view(B, K * D)
+            for kind in ("all", "dropped", "none"):
+                live = _live(K, kind)
+                for got, want in zip(*_concat_pair(x, live, g)):
+                    assert got.shape == want.shape and got.dtype == dtype
+                    assert torch.equal(got, want), (shape, start, kind)
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, K * D), generator=gen, device="cuda").to(dtype)
+        x[K - 1, 0, 0] = float("nan")
+        x[K - 1, B - 1, D - 1] = float("inf")
+        g[0, (K - 1) * D] = float("nan")
+        g[B - 1, K * D - 1] = float("-inf")
+        live = _live(K, "dropped")
+        for got, want in zip(*_concat_pair(x, live, g)):
+            nan = torch.isnan(want)
+            assert nan.any() and torch.equal(torch.isnan(got), nan)
+            assert torch.equal(got[~nan], want[~nan])
+
+
 def _plain_grad(x, live, g, strategy):
     """The plain backward, through PyTorch's autograd of the plain merge."""
     xp = x.detach().clone().requires_grad_(True)
@@ -149,7 +208,7 @@ def test_backward_kernels_match_plain_version_on_card(strategy, dtype):
     equals the plain backward (the ref functions and autograd of the plain
     merge), for every live mask and shape."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
     gen = torch.Generator(device="cuda").manual_seed(1)
     name = BWD_NAME.get(strategy, "merge_reduce_bwd_kernel")
     for kind in ("all", "dropped", "none"):
@@ -180,7 +239,7 @@ def test_backward_kernel_edge_cases_on_card():
     finite), max with exact ties (the credit split), and a strided
     gradient reaching the Function through fast_merge's reshape."""
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
     from repro_torch.runtime.executor import fast_merge
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -219,7 +278,7 @@ def test_backward_kernel_edge_cases_on_card():
 @pytest.mark.cuda
 def test_backward_wrappers_validate_inputs_on_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the Triton kernels run only there)")
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
     live = torch.ones(4, device="cuda")
     g = torch.randn(8, 16, device="cuda")
     with pytest.raises(ValueError, match="reads the stack"):

@@ -135,6 +135,71 @@ def test_reduce_wrapper_refuses_cpu_tensors_without_building(monkeypatch,
     assert kernel_module.launches == before
 
 
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_concat_wrappers_refuse_cpu_tensors_without_building(monkeypatch,
+                                                             direction):
+    """The concat merge and its backward are the CUDA C++ kernels
+    ``repro_merge_concat`` (stack, live, output, B, D, K, dtype, device,
+    stream) and ``repro_merge_concat_bwd`` (live, gradient, stack
+    gradient, B, D, K, dtype, device, stream).  A CPU tensor is refused
+    before the library is built or loaded, and no launch is counted."""
+    from repro_torch.kernels import build
+
+    entry = {"forward": "repro_merge_concat",
+             "backward": "repro_merge_concat_bwd"}[direction]
+    argtypes, restype = build.SIGNATURES[entry]
+    assert len(argtypes) == 9 and restype is not None
+
+    def no_build(*_):
+        raise AssertionError("the library was built for a CPU tensor")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build, "entry", no_build)
+    before = dict(kernel_module.launches)
+    with pytest.raises(ValueError, match="CUDA"):
+        if direction == "forward":
+            kernel_module.merge_pool(torch.ones((3, 2, 5)), torch.ones(3),
+                                     strategy="concat")
+        else:
+            kernel_module.concat_bwd(torch.ones(3), torch.ones((2, 15)), k=3)
+    assert kernel_module.launches == before
+
+
+def _c_entry_points():
+    """{name: parameter count} of every function defined inside an
+    ``extern "C"`` block of the CUDA sources."""
+    import re
+
+    from repro_torch.kernels import build
+
+    found = {}
+    for path in build.sources():
+        text = path.read_text()
+        for block in re.findall(r'extern "C" \{(.*?)\n\}  // extern "C"',
+                                text, re.S):
+            for name, params in re.findall(
+                    r"^[A-Za-z_][\w ]*?\**\s*\b(repro_\w+)\(([^)]*)\)\s*\{",
+                    block, re.M):
+                found[name] = len([p for p in params.split(",") if p.strip()])
+    return found
+
+
+def test_every_c_entry_point_has_its_signature():
+    """Every ``extern "C"`` function of ``csrc/*.cu`` has a ctypes
+    signature in ``build.SIGNATURES`` with as many arguments, and every
+    signature names such a function: a pointer or a stream passed without
+    one would be cut to 32 bits."""
+    from repro_torch.kernels import build
+
+    found = _c_entry_points()
+    assert {"repro_merge_reduce", "repro_merge_concat",
+            "repro_merge_concat_bwd", "repro_flash_attention",
+            "repro_ssd_chunk"} <= set(found)
+    assert found == {name: len(argtypes)
+                     for name, (argtypes, _) in build.SIGNATURES.items()}
+
+
 def _port_vjp(x, live, g, strategy):
     """The port's gradient of the merge w.r.t. the stack, through
     ``ops.merge_pool`` (MergePool on the CPU)."""
