@@ -1,12 +1,12 @@
 """Port smoke test on one NVIDIA GPU: the PyTorch port's split serving,
 split training and long-prompt split serving of full-width smollm-360m,
-with its merge kernels in CUDA C++ (both forward kernels and the concat
-backward; only the reductions' backward is still Triton) and its
-flash-attention kernel in CUDA C++ on the tensor cores (3xTF32), the
-full-sequence forward and greedy generation of full-width mamba2-1.3b
-with its SSD chunk kernel in CUDA C++ on the tensor cores (3xTF32), and
-long-prompt split serving of full-width starcoder2-3b, whose attention
-(head dim 128) runs the flash kernel's wider instantiation.
+with its four merge kernels (the reductions and the concat, forward and
+backward) in CUDA C++ and its flash-attention kernel in CUDA C++ on the
+tensor cores (3xTF32), the full-sequence forward and greedy generation
+of full-width mamba2-1.3b with its SSD chunk kernel in CUDA C++ on the
+tensor cores (3xTF32), and long-prompt split serving of full-width
+starcoder2-3b, whose attention (head dim 128) runs the flash kernel's
+wider instantiation.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -18,20 +18,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    logit parity and greedy-token identity between runs).
 2. The CUDA C++ library (every source under ``kernels/csrc``, built by
    ``nvcc`` for sm_90a into ``build/kernels/`` before the first launch;
-   its build time and the merge kernels' ptxas reports printed, a spill
-   fails), then the merge kernels against their plain PyTorch version on
-   CUDA tensors: every strategy, f32 and bf16, a dropped client, all
-   dropped, a ragged shape, and the serving and training paths' shapes,
-   forward and backward (plus mul at an exact zero and max with exact
-   ties).  Both concat kernels must be bit-identical to their plain
-   versions there and on their scalar path (D = 7, B = 1, K = 10, views at
-   an odd storage offset), and give NaN where the plain versions do when a
-   dropped client holds a NaN or an Inf.  Per path shape, the kernel's
-   time, the plain version's, one PyTorch call's (``library_ms``) and the
-   bound; for the concat forward also the one-copy library call
-   ``x.transpose(0, 1).reshape(B, K*D)``, and for both concat kernels the
-   wrapper's host time split into validation, output allocation, the
-   stream query and the ctypes call with its launch.
+   its build time and the four merge kernels' ptxas reports printed, a
+   spill fails), then the merge kernels against their plain PyTorch
+   version on CUDA tensors: every strategy, f32 and bf16, a dropped
+   client, all dropped, a ragged shape, and the serving and training
+   paths' shapes, forward and backward (plus mul at an exact zero and max
+   with exact ties).  Both concat kernels, and the reductions' backward
+   for sum, avg and max, must be bit-identical to their plain versions
+   (mul within the backward tolerance) there and on their scalar and
+   runtime-K paths (D = 7, B = 1, K = 10, views at an odd storage offset),
+   and give NaN where the plain versions do when a dropped client holds a
+   NaN or an Inf (the reductions' max and mul backward: no NaN at all).
+   Per path shape, the kernel's time, the plain version's, one PyTorch
+   call's (``library_ms``) and the bound; for the concat forward also the
+   one-copy library call ``x.transpose(0, 1).reshape(B, K*D)``, for the
+   avg backward the two-call form that PRs 12-18 timed, and for all four
+   kernels the wrapper's host time split into validation, output
+   allocation, the stream query and the ctypes call with its launch.
 3. The slice: full-width smollm-360m (random weights from a seed), K = 4
    ``TowerWorker``s over ``SimTransport``, ``SplitLMServer`` continuous
    with 4 slots, 8 greedy requests.  Every merge must go through the
@@ -164,6 +167,10 @@ TRAIN_SHAPE, CONCAT_TRAIN_SHAPE = (4, 2048, 960), (4, 2048, 240)
 # the concat kernels' scalar path: D % 4 != 0, B = 1, K = 10
 CONCAT_EDGE_SHAPES = [(10, 3, 7), (4, 1, 7), (10, 1, 240), (3, 5, 6),
                       (1, 2, 1)]
+# the reductions' backward: K = 1, 3, 8 and 10 (the runtime-K
+# instantiation), D = 7 and B = 1 (the scalar path)
+REDUCE_BWD_EDGE_SHAPES = [(1, 3, 8), (3, 5, 7), (8, 4, 12), (10, 3, 8),
+                          (4, 1, 7), (8, 1, 960), (10, 1, 7)]
 # the host-cost breakdown: rounds per part, calls per round
 HOST_ROUNDS, HOST_CALLS = 5, 400
 # traffic: prompt lengths spread over 64..1024, 8..48 new tokens each
@@ -271,7 +278,9 @@ def _live(k: int, kind: str, device) -> torch.Tensor:
 
 
 MERGE_CUDA_KERNELS = ("merge_reduce_kernel", "merge_concat_kernel",
-                      "merge_concat_bwd_kernel")
+                      "merge_reduce_bwd_kernel", "merge_concat_bwd_kernel")
+# one instantiation per dtype, strategy and client count: summarised only
+MANY_INSTANTIATIONS = ("merge_reduce_kernel", "merge_reduce_bwd_kernel")
 
 
 def build_library() -> None:
@@ -285,7 +294,7 @@ def build_library() -> None:
         f"{', '.join(p.name for p in fa.build.sources())})")
     for kernel in MERGE_CUDA_KERNELS:
         log(f"kernels: {kernel} ptxas: {ptxas_summary(kernel)}")
-        if kernel != "merge_reduce_kernel":
+        if kernel not in MANY_INSTANTIATIONS:
             log(f"kernels: {kernel} ptxas: {ptxas_report(kernel)}")
         counts = _ptxas_counts(kernel)
         if not counts or any(spill for _, spill in counts.values()):
@@ -397,11 +406,14 @@ def check_concat_edges() -> int:
 def check_backward_kernels() -> dict:
     """Every strategy x dtype x live mask x shape: the backward kernels
     against the plain backward, plus mul at an exact zero and max with
-    exact ties.  Returns the largest f32 |error| per kernel."""
+    exact ties.  The concat backward and the reductions' sum, avg and max
+    must be bit-identical; mul is held at ``GRAD_TOL`` and its identical
+    cases are counted.  Returns the largest f32 |error| per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE]
     n = 0
+    mul_identical = [0, 0]  # identical, all
 
     def compare(name, got, want, dtype):
         nonlocal n
@@ -416,6 +428,16 @@ def check_backward_kernels() -> dict:
         if dtype == torch.float32:
             worst[name] = max(worst[name], float((got - want).abs().max()))
         n += 1
+
+    def reduce_bwd(x, live, out, g, strategy, dtype):
+        got = mp.merge_pool_bwd(x, live, out, g, strategy=strategy)
+        want = ref.merge_pool_bwd(x, live, out, g, strategy)
+        if strategy == "mul":
+            mul_identical[0] += int(torch.equal(got, want))
+            mul_identical[1] += 1
+        else:
+            expect_identical("merge_reduce_bwd_kernel", got, want)
+        compare("merge_reduce_bwd_kernel", got, want, dtype)
 
     for strategy in STRATEGIES:
         for dtype in (torch.float32, torch.bfloat16):
@@ -435,11 +457,8 @@ def check_backward_kernels() -> dict:
                                          want)
                         compare("merge_concat_bwd_kernel", got, want, dtype)
                     else:
-                        compare("merge_reduce_bwd_kernel",
-                                mp.merge_pool_bwd(x, live, out, g,
-                                                  strategy=strategy),
-                                ref.merge_pool_bwd(x, live, out, g, strategy),
-                                dtype)
+                        reduce_bwd(x, live, out, g, strategy, dtype)
+
     # mul at an exact zero of a live client; max with exact ties
     x = torch.randn(TRAIN_SHAPE, generator=gen, device="cuda")
     x[1, 7, :100] = 0.0
@@ -449,13 +468,82 @@ def check_backward_kernels() -> dict:
     g = torch.randn(TRAIN_SHAPE[1:], generator=gen, device="cuda")
     for strategy in ("mul", "max"):
         out = mp.merge_pool(x, live, strategy=strategy)
-        compare("merge_reduce_bwd_kernel",
-                mp.merge_pool_bwd(x, live, out, g, strategy=strategy),
-                ref.merge_pool_bwd(x, live, out, g, strategy), torch.float32)
+        reduce_bwd(x, live, out, g, strategy, torch.float32)
     log(f"backward kernels: {n} cases match the plain backward (f32 tol "
-        f"1e-5, bf16 tol 5e-2, concat bit-identical; mul at an exact zero, "
-        f"max with ties); worst f32 |err| {worst}")
+        f"1e-5, bf16 tol 5e-2; concat, and the reductions' sum, avg and "
+        f"max, bit-identical; mul bit-identical in {mul_identical[0]} of "
+        f"{mul_identical[1]} cases; mul at an exact zero, max with ties); "
+        f"worst f32 |err| {worst}")
     return worst
+
+
+def check_reduce_bwd_edges() -> int:
+    """The reductions' backward on its scalar and runtime-K paths, with
+    operands at storage offset 1, every live mask, and non-finite values,
+    against the plain backward: sum, avg and max bit for bit, mul within
+    ``GRAD_TOL``.  A NaN and an Inf in a dropped client reach no gradient
+    of max or mul; a NaN in g gives NaN where the plain sum and avg give
+    it.  Returns the number of cases."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n_cases = 0
+
+    def check(x, live, out, g, strategy, dtype, finite=False):
+        nonlocal n_cases
+        got = mp.merge_pool_bwd(x, live, out, g, strategy=strategy)
+        want = ref.merge_pool_bwd(x, live, out, g, strategy)
+        torch.cuda.synchronize()
+        if finite and not (torch.isfinite(got).all()
+                           and torch.isfinite(want).all()):
+            raise AssertionError(f"merge_reduce_bwd_kernel {strategy}: a "
+                                 "dropped NaN or Inf reached a gradient")
+        if strategy == "mul":
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError("merge_reduce_bwd_kernel mul: shape or "
+                                     "dtype")
+            torch.testing.assert_close(got.float(), want.float(),
+                                       rtol=GRAD_TOL[dtype],
+                                       atol=GRAD_TOL[dtype], equal_nan=True)
+        else:
+            expect_identical("merge_reduce_bwd_kernel", got, want)
+        n_cases += 1
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in REDUCE_BWD_EDGE_SHAPES:
+            K, B, D = shape
+            n = K * B * D
+            fx = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+            fg = torch.randn(B * D + 1, generator=gen, device="cuda").to(dtype)
+            fo = torch.empty(B * D + 1, device="cuda", dtype=dtype)
+            # start 1: contiguous views off the vector boundary
+            for start in (0, 1):
+                x = fx[start:start + n].view(shape)
+                g = fg[start:start + B * D].view(B, D)
+                out = fo[start:start + B * D].view(B, D)
+                for kind in ("all", "dropped", "none"):
+                    live = _live(K, kind, "cuda")
+                    for strategy in ("sum", "avg", "max", "mul"):
+                        out.copy_(mp.merge_pool(x, live, strategy=strategy))
+                        check(x, live, out, g, strategy, dtype)
+            if K == 1:
+                continue
+            # a NaN and an Inf in the dropped client's plane
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            g = torch.randn((B, D), generator=gen, device="cuda").to(dtype)
+            live = _live(K, "dropped", "cuda")
+            k = int(torch.nonzero(live == 0)[0])
+            x[k, 0, 0], x[k, B - 1, D - 1] = float("nan"), float("inf")
+            for strategy in ("max", "mul"):
+                check(x, live, mp.merge_pool(x, live, strategy=strategy), g,
+                      strategy, dtype, finite=True)
+            g[0, 0] = float("nan")
+            for strategy in ("sum", "avg"):
+                check(None, live, None, g, strategy, dtype)
+    log(f"kernels: reduction backward edges: {n_cases} cases (shapes "
+        f"{REDUCE_BWD_EDGE_SHAPES}, f32 and bf16, at storage offsets 0 and "
+        "1, every live mask; sum, avg and max bit-identical, mul within "
+        "1e-5 / 5e-2; a dropped NaN and Inf reach no max or mul gradient, "
+        "a NaN in g gives NaN where the plain sum and avg do)")
+    return n_cases
 
 
 def time_ms(fn, inputs: list, iters: int = 200) -> float:
@@ -557,7 +645,11 @@ def time_backward_shapes(card: str) -> dict:
                    "plain_": lambda x, o, g: ref.merge_pool_bwd(
                        x, live, o, g, strategy)}
             if strategy == "avg":
-                fns["library_"] = lambda x, o, g: (
+                # one call; the two-call form PRs 12-18 timed is kept beside
+                # it, labelled, so that their figures stay comparable
+                w = avg_weights(live)
+                fns["library_"] = lambda x, o, g: w[:, None, None] * g
+                fns["library_two_call_"] = lambda x, o, g: (
                     live / float(K))[:, None, None] * g
         row = {}
         for prefix, fn in fns.items():
@@ -568,6 +660,10 @@ def time_backward_shapes(card: str) -> dict:
         lib = (f"library {row['library_ms']:.6f} "
                f"({row['library_device_ms']:.6f}) ms, "
                if "library_ms" in row else "")
+        if "library_two_call_ms" in row:
+            lib += (f"library as two calls (PRs 12-18) "
+                    f"{row['library_two_call_ms']:.6f} "
+                    f"({row['library_two_call_device_ms']:.6f}) ms, ")
         log(f"time backward {strategy} f32 {shape}: per call (device, launch "
             f"cost removed): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) "
             f"ms, plain {row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) "
@@ -577,41 +673,62 @@ def time_backward_shapes(card: str) -> dict:
     return rows
 
 
-def host_breakdown(shape, backward: bool) -> dict:
-    """The concat wrapper's host time per call in microseconds (host
-    clock).  Measured: the public wrapper (``wrapper``); the same wrapper
-    with its C entry point replaced by a Python stub that launches nothing
-    (``stubbed``); the output's allocation; the current-stream query; the
-    bare ctypes call with B = 0, which the C entry point refuses before
-    any CUDA call (``ctypes_only``: the Python and ctypes share of a
-    call); and the library call of ``time_path_shapes`` /
-    ``time_backward_shapes``.  Derived: ``call_and_launch`` = wrapper -
-    stubbed, ``validation`` = stubbed - allocation - stream (the checks
-    and the wrapper's own Python).  Each part runs ``HOST_ROUNDS`` rounds
-    of ``HOST_CALLS`` calls, the parts taking turns; the median round is
+def host_breakdown(shape, kind: str) -> dict:
+    """A merge wrapper's host time per call in microseconds (host clock);
+    ``kind`` is the kernel's name.  Measured: the public wrapper
+    (``wrapper``); the same wrapper with its C entry point replaced by a
+    Python stub that launches nothing (``stubbed``); the output's
+    allocation; the current-stream query; the bare ctypes call with
+    B = 0 or n = 0, which the C entry point refuses before any CUDA call
+    (``ctypes_only``: the Python and ctypes share of a call); and the
+    library call of ``time_path_shapes`` / ``time_backward_shapes``
+    (reductions: avg).  Derived: ``call_and_launch`` = wrapper - stubbed,
+    ``validation`` = stubbed - allocation - stream (the checks and the
+    wrapper's own Python).  Each part runs ``HOST_ROUNDS`` rounds of
+    ``HOST_CALLS`` calls, the parts taking turns; the median round is
     reported.  The launch counts are restored afterwards: none of these
     calls is a launch of the main path."""
     K, B, D = shape
     x = torch.randn(shape, device="cuda")
-    g = torch.randn((B, K * D), device="cuda")
     live = torch.ones(K, dtype=torch.float32, device="cuda")
     dev = x.get_device()
-    if backward:
+    avg, f32 = mp.STRATEGY_CODES["avg"], mp.DTYPE_CODES[torch.float32]
+    if kind == "merge_concat_bwd_kernel":
+        g = torch.randn((B, K * D), device="cuda")
         name = "repro_merge_concat_bwd"
         dst = torch.empty(shape, device="cuda")
-        args = (live.data_ptr(), g.data_ptr(), dst.data_ptr(), 0, D, K,
-                mp.DTYPE_CODES[g.dtype], dev)
+        args = (live.data_ptr(), g.data_ptr(), dst.data_ptr(), 0, D, K, f32,
+                dev)
         wrapper = lambda: mp.concat_bwd(live, g, k=K)
         parts = {"allocation": lambda: g.new_empty((K, B, D)),
                  "library": lambda: concat_bwd_library(live, g, K)}
-    else:
+    elif kind == "merge_concat_kernel":
         name = "repro_merge_concat"
         dst = torch.empty((B, K * D), device="cuda")
-        args = (x.data_ptr(), live.data_ptr(), dst.data_ptr(), 0, D, K,
-                mp.DTYPE_CODES[x.dtype], dev)
+        args = (x.data_ptr(), live.data_ptr(), dst.data_ptr(), 0, D, K, f32,
+                dev)
         wrapper = lambda: mp.merge_pool(x, live, strategy="concat")
         parts = {"allocation": lambda: x.new_empty((B, K * D)),
                  "library": lambda: library_call("concat")(x)}
+    elif kind == "merge_reduce_bwd_kernel":
+        g = torch.randn((B, D), device="cuda")
+        w = avg_weights(live)
+        name = "repro_merge_reduce_bwd"
+        dst = torch.empty(shape, device="cuda")
+        args = (g.data_ptr(), live.data_ptr(), None, None, dst.data_ptr(), 0,
+                K, avg, f32, dev)
+        wrapper = lambda: mp.merge_pool_bwd(None, live, None, g,
+                                            strategy="avg")
+        parts = {"allocation": lambda: g.new_empty((K, B, D)),
+                 "library": lambda: w[:, None, None] * g}
+    else:
+        name = "repro_merge_reduce"
+        dst = torch.empty((B, D), device="cuda")
+        args = (x.data_ptr(), live.data_ptr(), dst.data_ptr(), 0, K, avg, f32,
+                dev)
+        wrapper = lambda: mp.merge_pool(x, live, strategy="avg")
+        parts = {"allocation": lambda: x.new_empty((B, D)),
+                 "library": lambda: library_call("avg")(x)}
     entry, real_entry = fa.build.entry(name), fa.build.entry
     stub = lambda *_: 0
     parts.update(wrapper=wrapper, stubbed=wrapper,
@@ -619,7 +736,7 @@ def host_breakdown(shape, backward: bool) -> dict:
                  ctypes_only=lambda: entry(*args,
                                            fa.build.current_stream(dev)))
     if parts["ctypes_only"]() == 0:
-        raise AssertionError(f"{name} took B = 0")
+        raise AssertionError(f"{name} took an empty run")
     counts = dict(mp.launches)
     rounds = {part: [] for part in parts}
 
@@ -648,19 +765,31 @@ def host_breakdown(shape, backward: bool) -> dict:
     return us
 
 
-def time_concat_host(rows: dict, card: str) -> None:
-    """Add each concat kernel's wrapper host breakdown to its timed row,
+#: (kernel, its timed row): the shapes whose wrapper host time is split
+HOST_ROWS = (("merge_reduce_kernel", ("avg", (4, 1024, 960))),
+             ("merge_concat_kernel", ("concat", (4, 1024, 240))),
+             ("merge_reduce_bwd_kernel", ("avg", TRAIN_SHAPE)),
+             ("merge_concat_bwd_kernel", ("concat", CONCAT_TRAIN_SHAPE)))
+
+
+def time_merge_host(rows: dict, card: str) -> None:
+    """Add each merge kernel's wrapper host breakdown to its timed row,
     and print it."""
-    for shape, backward in (((4, 1024, 240), False),
-                            (CONCAT_TRAIN_SHAPE, True)):
-        row = rows[("concat", shape)]
-        row["host_us"] = host_breakdown(shape, backward)
-        name = "merge_concat_bwd_kernel" if backward else "merge_concat_kernel"
+    for name, key in HOST_ROWS:
+        row = rows[key]
+        row["host_us"] = host_breakdown(key[1], name)
         host = ", ".join(f"{part} {t:.2f}"
                          for part, t in row["host_us"].items())
-        log(f"time {name} f32 {shape}: host us per call: {host}; per call "
+        log(f"time {name} f32 {key[1]}: host us per call: {host}; per call "
             f"{row['ms']:.6f} ms vs library {row['library_ms']:.6f} ms | "
             f"{card}")
+
+
+def avg_weights(live: torch.Tensor) -> torch.Tensor:
+    """The avg backward's per-client weights ``l_k / max(sum(live), 1)``,
+    formed once outside a timed loop: the library call is then one
+    broadcast multiply."""
+    return live / live.sum().clamp(min=1)
 
 
 def concat_bwd_library(live: torch.Tensor, g: torch.Tensor, K: int):
@@ -1910,9 +2039,10 @@ def main() -> None:
     worst = check_kernels()
     worst.update(check_backward_kernels())
     check_concat_edges()
+    check_reduce_bwd_edges()
     rows = time_path_shapes(card)
     rows.update(time_backward_shapes(card))
-    time_concat_host(rows, card)
+    time_merge_host(rows, card)
     check_small_against_cpu()
     launches = serve_full(card)
     train_small_against_cpu()
@@ -1940,11 +2070,9 @@ def main() -> None:
             ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE,
              "src/repro/kernels/merge_pool.py:96")):
         row = rows[(strategy, shape)]
-        cuda = name in MERGE_CUDA_KERNELS
         entry = {
-            "name": name, "route": "cuda" if cuda else "triton",
-            "source": ("src/repro_torch/kernels/csrc/merge_pool.cu" if cuda
-                       else "src/repro_torch/kernels/merge_pool.py"),
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/merge_pool.cu",
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": worst[name], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1954,7 +2082,8 @@ def main() -> None:
             "library_device_ms": row["library_device_ms"],
             "shape": list(shape), "dtype": "float32"}
         for key in ("host_us", "library_reshape_ms",
-                    "library_reshape_device_ms"):
+                    "library_reshape_device_ms", "library_two_call_ms",
+                    "library_two_call_device_ms"):
             if key in row:
                 entry[key] = row[key]
         kernels.append(entry)

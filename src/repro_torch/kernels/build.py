@@ -53,6 +53,9 @@ SIGNATURES = {
     # x, live, out, n (= B * D), K, strategy, dtype, device, stream
     "repro_merge_reduce": ([_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
                            _I),
+    # g, live, x, out, dx, n (= B * D), K, strategy, dtype, device, stream
+    "repro_merge_reduce_bwd": ([_P] * 5 + [ctypes.c_longlong] + [_I] * 4
+                               + [_P], _I),
     # x, live, out, B, D, K, dtype, device, stream
     "repro_merge_concat": ([_P] * 3 + [_I] * 5 + [_P], _I),
     # live, g, dx, B, D, K, dtype, device, stream

@@ -1,13 +1,12 @@
 """The fused K-client cut-layer merge and its backward (the paper's
-jacobian splitting): three CUDA C++ kernels and one Triton kernel for
-Hopper.
+jacobian splitting): four CUDA C++ kernels for Hopper, in
+``csrc/merge_pool.cu``.
 
 :func:`merge_pool` launches the two forward kernels, :func:`merge_pool_bwd`
-and :func:`concat_bwd` the two backward kernels, on CUDA tensors only.
-
-Three are CUDA C++ (``csrc/merge_pool.cu``), launched through ``ctypes``
-from the library that :mod:`repro_torch.kernels.build` makes; the source
-says what bounds each and how its design answers that:
+and :func:`concat_bwd` the two backward kernels, on CUDA tensors only,
+through ``ctypes`` from the library that :mod:`repro_torch.kernels.build`
+makes.  The source says what bounds each kernel and how its design
+answers that:
 
 ``merge_reduce_kernel`` replaces the JAX package's Pallas kernel
 ``_merge_kernel`` (``src/repro/kernels/merge_pool.py:29``, launched by
@@ -15,6 +14,23 @@ says what bounds each and how its design answers that:
 ``(K, B, D)`` stack into ``(B, D)``, accumulated in f32.  avg divides by
 ``max(sum(live), 1)``; max takes ``-3e38`` for a dropped client and gives
 zeros when every client is dropped; mul takes 1 for a dropped client.
+
+``merge_reduce_bwd_kernel`` replaces ``_merge_bwd_kernel``
+(``src/repro/kernels/merge_pool.py:144``, launched by
+``_merge_pool_bwd_call``): from the merged gradient ``g (B, D)`` it writes
+every client's ``dx_k (B, D)``, in ``g``'s dtype, formed in f32 as
+:func:`repro_torch.kernels.ref.merge_pool_bwd` forms it:
+
+* sum: ``g * l_k``; avg: ``g * (l_k / max(sum(live), 1))`` — ``g`` and the
+  live flags only, neither the stack nor the forward output is read;
+* max: ``g / ties`` where ``x_k == out`` and client k is live, else 0
+  (``ties`` counts the live clients holding the maximum, so tied clients
+  split the credit, as autodiff of ``amax`` does);
+* mul: ``g`` times the product of the OTHER live clients (prefix times
+  suffix, a dropped client selected to 1).  The Pallas kernel computes
+  ``g * out / x_k``, which is 0/0 at a live ``x_k == 0``; the exclusive
+  product is what autodiff of ``torch.prod`` / ``jnp.prod`` gives there,
+  and the port is held to that.
 
 ``merge_concat_kernel`` replaces ``_concat_kernel``
 (``src/repro/kernels/merge_pool.py:67``, launched by ``_concat_fwd_call``):
@@ -28,51 +44,14 @@ client k's ``(B, D)`` slice lands in columns ``k*D .. (k+1)*D`` of the
 Both concat directions multiply a dropped client's values by its 0 flag
 rather than skip them, so a NaN there gives NaN, as the plain merge does.
 
-The three share one host path, kept lean because the kernels take a few
+The four share one host path, kept lean because the kernels take a few
 microseconds on the device: the checks, ``new_empty`` for the output,
 then :func:`_launch`, which calls the C entry point (resolved once by
 :func:`repro_torch.kernels.build.entry`) with the raw pointers, the device
 index and the raw current stream, and raises on a returned CUDA error.
-
-The fourth, ``merge_reduce_bwd_kernel``, is Triton.  It replaces
-``_merge_bwd_kernel`` (``src/repro/kernels/merge_pool.py:144``, launched
-by ``_merge_pool_bwd_call``): from the merged gradient ``g (B, D)`` it
-writes every client's ``dx_k (B, D)``, in ``stacked.dtype``:
-
-* sum: ``g * l_k``; avg: ``g * l_k / max(sum(live), 1)`` — ``g`` and the
-  live flags only, neither the stack nor the forward output is read;
-* max: ``g / ties`` where ``x_k == out`` and client k is live, else 0
-  (``ties`` counts the live clients holding the maximum, so tied clients
-  split the credit, as autodiff of ``amax`` does);
-* mul: ``g`` times the product of the OTHER live clients, formed as a
-  running prefix times the suffix over the unrolled K.  The Pallas kernel
-  computes ``g * out / x_k``, which is 0/0 at a live ``x_k == 0``; the
-  exclusive product is what autodiff of ``torch.prod`` / ``jnp.prod``
-  gives there, and the port is held to that.
-
-Its bound on an H100 SXM is bytes over the 3.35 TB/s of device memory:
-``B*D + K*B*D`` for sum/avg, ``2*B*D + 2*K*B*D`` for max (it reads the
-stack and the forward output) and ``B*D + 2*K*B*D`` for mul.  Each program
-loads its ``(BLOCK_B, BLOCK_D)`` tile of what it needs, keeps running sums
-and products in registers (K is a compile-time constant, the client loop
-is unrolled), and stores each output tile once.  The max backward reads
-the stack twice (tie count, then credit) and the mul backward re-reads the
-suffix clients (K(K-1)/2 extra tile loads); the repeats are the same
-program's tiles, served from L1/L2 rather than device memory.  The grid is
-``(B-tiles, D-tiles)``; blocks run in parallel in any order, so nothing
-carries from one program to the next.  Ragged edges (D = 960 is not a
-power of two, decode has B = 1) are masked, so no tile width has to
-divide D.
-
-``triton`` is imported at the first launch of the Triton kernel, not when
-this module is imported: the CPU tests import every module, and the CPU
-has no Triton.  Its compile cache goes to ``build/triton/`` in the
-checkout unless ``TRITON_CACHE_DIR`` is already set.
 """
 from __future__ import annotations
 
-import os
-from pathlib import Path
 from typing import Optional
 
 import torch
@@ -81,104 +60,16 @@ from repro_torch.kernels import build
 
 STRATEGY_CODES = {"sum": 0, "avg": 1, "max": 2, "mul": 3}
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-BLOCK_B_MAX = 32
-BLOCK_D_MAX = 128
-NUM_WARPS = 4
-TRITON_CACHE_DIR = Path(__file__).resolve().parents[3] / "build" / "triton"
 
 #: kernel launches since the last :func:`reset_launches` — one per launch,
 #: counted where the wrapper launches the kernel and nowhere else
 launches = {"merge_reduce_kernel": 0, "merge_concat_kernel": 0,
             "merge_reduce_bwd_kernel": 0, "merge_concat_bwd_kernel": 0}
 
-# ``triton.language``: bound by _compiled() at the first launch.  The
-# kernel body below resolves ``tl`` from this module's globals when Triton
-# compiles it, which happens after that binding.
-tl = None
-_KERNELS: Optional[dict] = None
-
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
-
-
-def merge_reduce_bwd_kernel(x_ptr, live_ptr, out_ptr, g_ptr, dx_ptr, B, D,
-                            stride_k, K: tl.constexpr, STRATEGY: tl.constexpr,
-                            BLOCK_B: tl.constexpr, BLOCK_D: tl.constexpr):
-    """Every client's (BLOCK_B, BLOCK_D) gradient tile from the merged
-    gradient's tile.  STRATEGY: 0 sum, 1 avg, 2 max, 3 mul
-    (STRATEGY_CODES); sum/avg never touch x_ptr or out_ptr, mul never
-    touches out_ptr."""
-    rows = tl.program_id(0) * BLOCK_B + tl.arange(0, BLOCK_B)
-    cols = tl.program_id(1) * BLOCK_D + tl.arange(0, BLOCK_D)
-    mask = (rows[:, None] < B) & (cols[None, :] < D)
-    offs = rows[:, None] * D + cols[None, :]
-    g = tl.load(g_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-
-    if STRATEGY <= 1:
-        n_live = 1.0
-        if STRATEGY == 1:
-            total = tl.load(live_ptr)
-            for i in tl.static_range(1, K):
-                total += tl.load(live_ptr + i)
-            n_live = tl.maximum(total, 1.0)
-        for i in tl.static_range(K):
-            dx = g * (tl.load(live_ptr + i) / n_live)
-            tl.store(dx_ptr + i * stride_k + offs,
-                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
-    elif STRATEGY == 2:
-        out = tl.load(out_ptr + offs, mask=mask, other=0.0).to(tl.float32)
-        ties = tl.zeros((BLOCK_B, BLOCK_D), tl.float32)
-        for i in tl.static_range(K):
-            live = tl.load(live_ptr + i)
-            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
-                        other=0.0).to(tl.float32)
-            ties += tl.where((x == out) & (live > 0), 1.0, 0.0)
-        share = g / tl.maximum(ties, 1.0)
-        for i in tl.static_range(K):
-            live = tl.load(live_ptr + i)
-            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
-                        other=0.0).to(tl.float32)
-            dx = tl.where((x == out) & (live > 0), share, 0.0)
-            tl.store(dx_ptr + i * stride_k + offs,
-                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
-    else:
-        # exclusive product: prefix (clients before i, carried) times
-        # suffix (clients after i); a dropped client is the neutral 1
-        prefix = tl.full((BLOCK_B, BLOCK_D), 1.0, tl.float32)
-        for i in tl.static_range(K):
-            suffix = tl.full((BLOCK_B, BLOCK_D), 1.0, tl.float32)
-            for j in tl.static_range(i + 1, K):
-                live_j = tl.load(live_ptr + j)
-                x_j = tl.load(x_ptr + j * stride_k + offs, mask=mask,
-                              other=0.0).to(tl.float32)
-                suffix *= tl.where(live_j > 0, x_j, 1.0)
-            live = tl.load(live_ptr + i)
-            dx = tl.where(live > 0, g * (prefix * suffix), 0.0)
-            tl.store(dx_ptr + i * stride_k + offs,
-                     dx.to(dx_ptr.dtype.element_ty), mask=mask)
-            x = tl.load(x_ptr + i * stride_k + offs, mask=mask,
-                        other=0.0).to(tl.float32)
-            prefix *= tl.where(live > 0, x, 1.0)
-
-
-def _compiled() -> dict:
-    """JIT-wrap the Triton kernel (Triton compiles each specialization at
-    its first launch and caches it under TRITON_CACHE_DIR)."""
-    global _KERNELS, tl
-    if _KERNELS is None:
-        os.environ.setdefault("TRITON_CACHE_DIR", str(TRITON_CACHE_DIR))
-        import triton
-        import triton.language
-
-        tl = triton.language
-        _KERNELS = {"reduce_bwd": triton.jit(merge_reduce_bwd_kernel)}
-    return _KERNELS
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(0, (n - 1).bit_length())
 
 
 def _check_tensor(t: torch.Tensor, what: str, shape: Optional[tuple] = None,
@@ -245,13 +136,6 @@ def _launch(kernel: str, entry: str, *args) -> None:
     launches[kernel] += 1
 
 
-def _tiles(B: int, D: int) -> tuple[int, int, tuple[int, int]]:
-    block_b = min(BLOCK_B_MAX, _next_pow2(B))
-    block_d = min(BLOCK_D_MAX, _next_pow2(D))
-    return block_b, block_d, ((B + block_b - 1) // block_b,
-                              (D + block_d - 1) // block_d)
-
-
 def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                strategy: str = "avg") -> torch.Tensor:
     """Launch the merge kernel on a CUDA ``(K, B, D)`` stack; ``live`` is a
@@ -286,8 +170,9 @@ def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
     ``(B, D)`` gradient, already in the stack's dtype and contiguous;
     ``live`` the ``(K,)`` float32 mask.  ``stacked`` (K, B, D) is read by
     max and mul, ``out`` (the forward output) by max; pass None where the
-    strategy does not read it.  Returns ``dx (K, B, D)`` in ``g``'s dtype.
-    Raises on anything the kernel does not take; there is no fallback."""
+    strategy does not read it.  Returns ``dx (K, B, D)`` in ``g``'s dtype,
+    from the CUDA C++ kernel on the current stream.  Raises on anything
+    the kernel does not take; there is no fallback."""
     if strategy not in STRATEGY_CODES:
         raise ValueError(f"unknown merge {strategy!r} for the reduction "
                          "backward")
@@ -308,18 +193,14 @@ def merge_pool_bwd(stacked: Optional[torch.Tensor], live: torch.Tensor,
             raise ValueError("merge_pool kernel: the max backward reads the "
                              "forward output")
         _check_tensor(out, "out", (B, D), g.dtype)
-    kernels = _compiled()
-    block_b, block_d, tiles = _tiles(B, D)
-    dx = torch.empty((K, B, D), dtype=g.dtype, device=g.device)
-    with torch.cuda.device(g.device):
-        # sum/avg never dereference x_ptr/out_ptr, mul never out_ptr: any
-        # valid pointer stands in for what the strategy does not read
-        kernels["reduce_bwd"][tiles](
-            g if stacked is None else stacked, live,
-            g if out is None else out, g, dx, B, D, B * D, K=K,
-            STRATEGY=STRATEGY_CODES[strategy], BLOCK_B=block_b,
-            BLOCK_D=block_d, num_warps=NUM_WARPS)
-        launches["merge_reduce_bwd_kernel"] += 1
+    dx = g.new_empty((K, B, D))
+    # sum/avg never read the stack, mul never the output: null for those
+    _launch("merge_reduce_bwd_kernel", "repro_merge_reduce_bwd",
+            g.data_ptr(), live.data_ptr(),
+            stacked.data_ptr() if strategy in ("max", "mul") else None,
+            out.data_ptr() if strategy == "max" else None, dx.data_ptr(),
+            B * D, K, STRATEGY_CODES[strategy], DTYPE_CODES[g.dtype],
+            g.get_device())
     return dx
 
 

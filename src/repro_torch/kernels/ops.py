@@ -3,11 +3,10 @@ tensor, the hand-written kernel for a CUDA tensor (or an exception — there
 is no fallback from the kernel to the plain version).
 
 :class:`MergePool` makes the merge differentiable on every device: its
-forward and backward launch the merge kernels on CUDA (both forward
-kernels and the concat backward in CUDA C++, only the reductions'
-backward in Triton) and run the plain versions of
-:mod:`repro_torch.kernels.ref` on the CPU, the port's counterpart of the
-JAX package's ``custom_vjp`` around the Pallas calls.
+forward and backward launch the four CUDA C++ merge kernels on CUDA and
+run the plain versions of :mod:`repro_torch.kernels.ref` on the CPU, the
+port's counterpart of the JAX package's ``custom_vjp`` around the Pallas
+calls.
 :func:`flash_attention` and :func:`ssd_scan` are forward-only, as the
 Pallas kernels are.
 """

@@ -1,6 +1,5 @@
-"""The port's kernels — the merge kernels (both forward kernels and the
-concat backward in CUDA C++, the reductions' backward in Triton) and the
-CUDA C++ flash-attention and SSD chunk kernels — against their plain
+"""The port's kernels — the four merge kernels, the flash-attention
+kernel and the SSD chunk kernel, all CUDA C++ — against their plain
 PyTorch versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
@@ -273,6 +272,86 @@ def test_backward_kernel_edge_cases_on_card():
         want, = torch.autograd.grad(
             (fast_merge(sp, strategy, use_kernel=False) * w).sum(), sp)
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# (K, B, D) for the reductions' backward: K = 1, 3, 8 and 10 (the
+# runtime-K instantiation), D = 7 and B = 1 (the scalar path)
+REDUCE_BWD_EDGE_SHAPES = [(1, 3, 8), (3, 5, 7), (8, 4, 12), (10, 3, 8),
+                          (4, 1, 7), (8, 1, 960), (10, 1, 7)]
+
+
+def _reduce_bwd_pair(x, live, out, g, strategy):
+    """The reductions' backward, kernel and plain, one launch counted."""
+    before = kernel_module.launches["merge_reduce_bwd_kernel"]
+    got = kernel_module.merge_pool_bwd(x, live, out, g, strategy=strategy)
+    assert kernel_module.launches["merge_reduce_bwd_kernel"] == before + 1
+    want = ref.merge_pool_bwd(x, live, out, g, strategy)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype
+    return got, want
+
+
+def _expect_reduce_bwd(got, want, strategy, dtype):
+    """sum, avg and max bit-identical to the plain backward (the same f32
+    operations, one rounding to the dtype), NaN where it has NaN; mul
+    within the backward tolerance (its products may round in another
+    order than the plain version's cumprods)."""
+    if strategy == "mul":
+        torch.testing.assert_close(got.float(), want.float(),
+                                   rtol=GRAD_TOL[dtype], atol=GRAD_TOL[dtype],
+                                   equal_nan=True)
+        return
+    nan = torch.isnan(want)
+    assert torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_reduce_bwd_kernel_edges_on_card(dtype):
+    """The CUDA C++ reductions' backward at its edges: K = 1, 3, 8, 10, the
+    scalar path (D = 7, B = 1), g, the stack and the forward output as
+    contiguous views at storage offset 1, a dropped client, every client
+    dropped; a NaN and an Inf in a dropped client reach no other client's
+    max or mul gradient, and a NaN in g gives NaN where the plain sum and
+    avg give it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape in REDUCE_BWD_EDGE_SHAPES:
+        K, B, D = shape
+        n = K * B * D
+        fx = torch.randn(n + 1, generator=gen, device="cuda").to(dtype)
+        fg = torch.randn(B * D + 1, generator=gen, device="cuda").to(dtype)
+        for start in (0, 1):
+            x = fx[start:start + n].view(shape)
+            g = fg[start:start + B * D].view(B, D)
+            for kind in ("all", "dropped", "none"):
+                live = _live(K, kind)
+                for strategy in ("sum", "avg", "max", "mul"):
+                    fo = torch.empty(B * D + 1, device="cuda", dtype=dtype)
+                    out = fo[start:start + B * D].view(B, D)
+                    out.copy_(kernel_module.merge_pool(x, live,
+                                                       strategy=strategy))
+                    got, want = _reduce_bwd_pair(x, live, out, g, strategy)
+                    _expect_reduce_bwd(got, want, strategy, dtype)
+        if K == 1:
+            continue
+        x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+        g = torch.randn((B, D), generator=gen, device="cuda").to(dtype)
+        live = _live(K, "dropped")
+        x[K - 1, 0, 0] = float("nan")
+        x[K - 1, B - 1, D - 1] = float("inf")
+        for strategy in ("max", "mul"):
+            out = kernel_module.merge_pool(x, live, strategy=strategy)
+            got, want = _reduce_bwd_pair(x, live, out, g, strategy)
+            assert torch.isfinite(got).all() and torch.isfinite(want).all()
+            _expect_reduce_bwd(got, want, strategy, dtype)
+        g[0, 0] = float("nan")
+        for strategy in ("sum", "avg"):
+            got, want = _reduce_bwd_pair(None, live, None, g, strategy)
+            assert torch.isnan(want).any()
+            _expect_reduce_bwd(got, want, strategy, dtype)
 
 
 @pytest.mark.cuda

@@ -135,6 +135,57 @@ def test_reduce_wrapper_refuses_cpu_tensors_without_building(monkeypatch,
     assert kernel_module.launches == before
 
 
+@pytest.mark.parametrize("strategy", ["sum", "avg", "max", "mul"])
+def test_reduce_bwd_wrapper_refuses_cpu_tensors_without_building(
+        monkeypatch, strategy):
+    """The reductions' backward is the CUDA C++ kernel
+    ``repro_merge_reduce_bwd`` (an entry of the library's ctypes
+    signatures, taking the gradient, the live flags, the stack, the
+    forward output, the stack's gradient, n = B * D, K, strategy, dtype,
+    device and stream).  A CPU gradient is refused before the library is
+    built or loaded, and no launch is counted."""
+    from repro_torch.kernels import build
+
+    argtypes, restype = build.SIGNATURES["repro_merge_reduce_bwd"]
+    assert len(argtypes) == 11 and restype is not None
+
+    def no_build(*_):
+        raise AssertionError("the library was built for a CPU tensor")
+
+    monkeypatch.setattr(build, "library", no_build)
+    monkeypatch.setattr(build, "build", no_build)
+    monkeypatch.setattr(build, "entry", no_build)
+    before = dict(kernel_module.launches)
+    x = torch.ones((3, 2, 5))
+    with pytest.raises(ValueError, match="CUDA"):
+        kernel_module.merge_pool_bwd(x, torch.ones(3), torch.ones((2, 5)),
+                                     torch.ones((2, 5)), strategy=strategy)
+    assert kernel_module.launches == before
+
+
+def test_port_has_no_triton():
+    """Every kernel of the port is CUDA C++ on the ctypes route: no module
+    under ``src/repro_torch`` imports ``triton``, at any depth of the
+    module (a lazy import inside a function included)."""
+    import ast
+    from pathlib import Path
+
+    import repro_torch
+
+    files = sorted(Path(repro_torch.__file__).parent.rglob("*.py"))
+    assert len(files) > 10
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [alias.name for alias in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(name.split(".")[0] == "triton" for name in names), \
+                (path, node.lineno)
+
+
 @pytest.mark.parametrize("direction", ["forward", "backward"])
 def test_concat_wrappers_refuse_cpu_tensors_without_building(monkeypatch,
                                                              direction):
@@ -193,9 +244,9 @@ def test_every_c_entry_point_has_its_signature():
     from repro_torch.kernels import build
 
     found = _c_entry_points()
-    assert {"repro_merge_reduce", "repro_merge_concat",
-            "repro_merge_concat_bwd", "repro_flash_attention",
-            "repro_ssd_chunk"} <= set(found)
+    assert {"repro_merge_reduce", "repro_merge_reduce_bwd",
+            "repro_merge_concat", "repro_merge_concat_bwd",
+            "repro_flash_attention", "repro_ssd_chunk"} <= set(found)
     assert found == {name: len(argtypes)
                      for name, (argtypes, _) in build.SIGNATURES.items()}
 
