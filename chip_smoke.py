@@ -4,9 +4,11 @@ with its four merge kernels (the reductions and the concat, forward and
 backward) in CUDA C++ and its flash-attention kernel in CUDA C++ on the
 tensor cores (3xTF32), the full-sequence forward and greedy generation
 of full-width mamba2-1.3b with its SSD chunk kernel in CUDA C++ on the
-tensor cores (3xTF32), and long-prompt split serving of full-width
+tensor cores (3xTF32), long-prompt split serving of full-width
 starcoder2-3b, whose attention (head dim 128) runs the flash kernel's
-wider instantiation.
+wider instantiation, and the paper's own experiment: vertically split
+MLP training on the three financial stand-in datasets, through the
+Executor and the merge kernels.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -22,19 +24,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    spill fails), then the merge kernels against their plain PyTorch
    version on CUDA tensors: every strategy, f32 and bf16, a dropped
    client, all dropped, a ragged shape, and the serving and training
-   paths' shapes, forward and backward (plus mul at an exact zero and max
-   with exact ties).  Both concat kernels, and the reductions' backward
+   paths' shapes and the MLP path's cut stacks (phase 10), forward and
+   backward (plus mul at an exact zero and max with exact ties at the
+   training and MLP shapes).  Both concat kernels, and the reductions' backward
    for sum, avg and max, must be bit-identical to their plain versions
    (mul within the backward tolerance) there and on their scalar and
    runtime-K paths (D = 7, B = 1, K = 10, views at an odd storage offset),
    and give NaN where the plain versions do when a dropped client holds a
    NaN or an Inf (the reductions' max and mul backward: no NaN at all).
-   Per path shape, the kernel's time, the plain version's, one PyTorch
-   call's (``library_ms``) and the bound; for the concat forward also the
-   one-copy library call ``x.transpose(0, 1).reshape(B, K*D)``, for the
-   avg backward the two-call form that PRs 12-18 timed, and for all four
-   kernels the wrapper's host time split into validation, output
-   allocation, the stream query and the ctypes call with its launch.
+   Per path shape (the MLP path's: max both ways at its three stacks,
+   concat both ways at (4, 256, 64)), the kernel's time, the plain
+   version's, one PyTorch call's (``library_ms``) and the bound; for the
+   concat forward also the one-copy library call ``x.transpose(0,
+   1).reshape(B, K*D)``, for the avg backward the two-call form that PRs
+   12-18 timed, and for all four kernels the wrapper's host time split
+   into validation, output allocation, the stream query and the ctypes
+   call with its launch.
 3. The slice: full-width smollm-360m (random weights from a seed), K = 4
    ``TowerWorker``s over ``SimTransport``, ``SplitLMServer`` continuous
    with 4 slots, 8 greedy requests.  Every merge must go through the
@@ -115,6 +120,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    tokens gives identical tokens and prefill logits within 1e-3; the
    32768-token prompt's logits are finite (phase 5 holds the kernel at
    that shape).
+10. The paper MLP slice (Bank Marketing, Give Me Some Credit, Financial
+   PhraseBank stand-ins at their published widths and full size, f32,
+   random init from a seed; its merge kernels are held against their
+   plain versions and timed at its cut stacks in phase 2).  First the
+   paper tables' loop
+   (``make_split_train_step``, AdamW 3e-3, batch 256, 400 steps over
+   ``minibatches(seed=0)`` of a split held on the card) for every dataset
+   and merge and the centralized baseline, and PhraseBank's max pooling
+   with 1-3 of 4 clients dropped per step (masks drawn on the card) and
+   at test time: each run's first 5 losses within 1e-5 of the same run
+   on the CPU, both runs' test accuracy and F1, samples/s; this loop
+   merges with the plain version and launches no kernel.  Last,
+   PhraseBank (K = 4) through four ``build_mlp_worker``s over
+   ``InprocTransport`` and the Executor's fused policy, plain SGD at 0.1:
+   max for 200 steps, then 20 at 4 microbatches and 20 for each other
+   merge.  Counters reset just before each run and read just after: one
+   forward and one backward merge launch per microbatch; step 0's grads
+   within 1e-5 of ``protocol_step``'s; the neutral policy's run (the
+   plain merge) launches none and its losses match per step within 1e-5.
+   Steps/s, test accuracy and, under the profiler, the device's busy
+   share.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -137,17 +163,23 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch.configs.base import get_arch  # noqa: E402
+from repro_torch.configs.vertical_mlp import PAPER_DATASETS  # noqa: E402
+from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.loader import LMBatchLoader  # noqa: E402
-from repro_torch.core import costs  # noqa: E402
+from repro_torch.core import costs, dropping, protocol  # noqa: E402
+from repro_torch.core import split_model, towers  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import merge_pool as mp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, mamba, split_program  # noqa: E402
+from repro_torch.optim import SGD, AdamW  # noqa: E402
+from repro_torch.runtime.executor import Executor  # noqa: E402
 from repro_torch.serve import SplitLMServer, generate  # noqa: E402
 from repro_torch.train.loop import train_split  # noqa: E402
-from repro_torch.transport import SimTransport, build_split_worker  # noqa: E402
+from repro_torch.transport import (InprocTransport, SimTransport,  # noqa: E402
+                                   build_mlp_worker, build_split_worker)
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -232,6 +264,21 @@ SC_PROMPTS = [2500, 8192, 32768, 1024]
 SC_NEW = [8, 8, 4, 8]
 SC_MAX_BATCH = 2
 SC_PLAIN_MAX = 8192
+# the paper MLP slice: the paper tables' loop (AdamW 3e-3, batch 256, 400
+# steps) on the three datasets at their published widths; the Executor
+# run on PhraseBank (plain SGD at 0.1 in the towers and the server)
+MLP_MERGES = ("max", "avg", "concat", "mul", "sum")
+MLP_LR, MLP_BATCH, MLP_STEPS, MLP_CHECK_STEPS = 3e-3, 256, 400, 5
+MLP_DROPS, MLP_TEST_DROP_SEEDS = (1, 2, 3), 4
+EXEC_LR, EXEC_STEPS, EXEC_SHORT = 0.1, 200, 20
+# the cut stacks: PhraseBank (K 4, cut 64) at batch 256 and at its
+# microbatches-4 run's 64 rows, where phase 10 launches the kernels; Bank
+# Marketing and Give Me Some Credit (K 2, cut 16) at batch 256, which no
+# path launches (their tables' loop merges plainly) but which is checked
+# and timed all the same; timed: max at all three, concat at batch 256
+MLP_SHAPES = [(4, 256, 64), (4, 64, 64), (2, 256, 16)]
+MLP_TIME_SHAPES = [("max", (4, 256, 64)), ("max", (4, 64, 64)),
+                   ("max", (2, 256, 16)), ("concat", (4, 256, 64))]
 
 
 def log(*parts) -> None:
@@ -307,7 +354,7 @@ def check_kernels() -> dict:
     Returns the largest f32 |error| per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
-    shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES
+    shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -408,10 +455,13 @@ def check_backward_kernels() -> dict:
     against the plain backward, plus mul at an exact zero and max with
     exact ties.  The concat backward and the reductions' sum, avg and max
     must be bit-identical; mul is held at ``GRAD_TOL`` and its identical
-    cases are counted.  Returns the largest f32 |error| per kernel."""
+    cases are counted.  The zero and the ties are set at the training
+    path's shape and at each MLP shape.  Returns the largest f32 |error|
+    per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
-    shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE]
+    shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
+        MLP_SHAPES
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -459,16 +509,19 @@ def check_backward_kernels() -> dict:
                     else:
                         reduce_bwd(x, live, out, g, strategy, dtype)
 
-    # mul at an exact zero of a live client; max with exact ties
-    x = torch.randn(TRAIN_SHAPE, generator=gen, device="cuda")
-    x[1, 7, :100] = 0.0
-    x[2] = torch.where(torch.rand(x[2].shape, generator=gen,
-                                  device="cuda") < 0.5, x[0], x[2])
-    live = _live(4, "all", "cuda")
-    g = torch.randn(TRAIN_SHAPE[1:], generator=gen, device="cuda")
-    for strategy in ("mul", "max"):
-        out = mp.merge_pool(x, live, strategy=strategy)
-        reduce_bwd(x, live, out, g, strategy, torch.float32)
+    # mul at an exact zero of a live client; max with the last client
+    # tied to the first on half the elements
+    for shape in [TRAIN_SHAPE] + MLP_SHAPES:
+        K, B, D = shape
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x[1, 7, :100] = 0.0
+        x[K - 1] = torch.where(torch.rand(x[0].shape, generator=gen,
+                                          device="cuda") < 0.5, x[0], x[K - 1])
+        live = _live(K, "all", "cuda")
+        g = torch.randn((B, D), generator=gen, device="cuda")
+        for strategy in ("mul", "max"):
+            out = mp.merge_pool(x, live, strategy=strategy)
+            reduce_bwd(x, live, out, g, strategy, torch.float32)
     log(f"backward kernels: {n} cases match the plain backward (f32 tol "
         f"1e-5, bf16 tol 5e-2; concat, and the reductions' sum, avg and "
         f"max, bit-identical; mul bit-identical in {mul_identical[0]} of "
@@ -620,14 +673,18 @@ def bwd_bound(shape, strategy: str, itemsize: int = 4) -> tuple[float, str]:
 
 
 def time_backward_shapes(card: str) -> dict:
-    """Backward times at the training path's shapes (all clients live, as
-    trained): the kernel, the plain backward, one PyTorch call, the
-    bound.  max and mul are timed at the avg shape too, for the record."""
+    """Backward times at the training paths' shapes (all clients live, as
+    trained): the kernel, the plain backward, one PyTorch call where there
+    is one, the bound.  max and mul are timed at the avg shape too, for
+    the record.  Rows are keyed (kernel, strategy, shape)."""
     rows = {}
-    for strategy, shape in (("avg", TRAIN_SHAPE),
+    for strategy, shape in [("avg", TRAIN_SHAPE),
                             ("concat", CONCAT_TRAIN_SHAPE),
-                            ("max", TRAIN_SHAPE), ("mul", TRAIN_SHAPE)):
+                            ("max", TRAIN_SHAPE),
+                            ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES:
         K, B, D = shape
+        name = ("merge_concat_bwd_kernel" if strategy == "concat"
+                else "merge_reduce_bwd_kernel")
         n_buf = min(16, max(1, math.ceil(2 * L2_BYTES / (K * B * D * 4))))
         live = torch.ones(K, dtype=torch.float32, device="cuda")
         inputs = []
@@ -656,7 +713,7 @@ def time_backward_shapes(card: str) -> dict:
             row[prefix + "ms"] = time_ms(fn, inputs)
             row[prefix + "device_ms"] = device_ms(fn, inputs)
         row["bound_ms"], row["bound_by"] = bwd_bound(shape, strategy)
-        rows[(strategy, shape)] = row
+        rows[(name, strategy, shape)] = row
         lib = (f"library {row['library_ms']:.6f} "
                f"({row['library_device_ms']:.6f}) ms, "
                if "library_ms" in row else "")
@@ -765,22 +822,22 @@ def host_breakdown(shape, kind: str) -> dict:
     return us
 
 
-#: (kernel, its timed row): the shapes whose wrapper host time is split
-HOST_ROWS = (("merge_reduce_kernel", ("avg", (4, 1024, 960))),
-             ("merge_concat_kernel", ("concat", (4, 1024, 240))),
-             ("merge_reduce_bwd_kernel", ("avg", TRAIN_SHAPE)),
-             ("merge_concat_bwd_kernel", ("concat", CONCAT_TRAIN_SHAPE)))
+#: the timed rows (kernel, strategy, shape) whose wrapper host time is split
+HOST_ROWS = (("merge_reduce_kernel", "avg", (4, 1024, 960)),
+             ("merge_concat_kernel", "concat", (4, 1024, 240)),
+             ("merge_reduce_bwd_kernel", "avg", TRAIN_SHAPE),
+             ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE))
 
 
 def time_merge_host(rows: dict, card: str) -> None:
     """Add each merge kernel's wrapper host breakdown to its timed row,
     and print it."""
-    for name, key in HOST_ROWS:
-        row = rows[key]
-        row["host_us"] = host_breakdown(key[1], name)
+    for name, strategy, shape in HOST_ROWS:
+        row = rows[(name, strategy, shape)]
+        row["host_us"] = host_breakdown(shape, name)
         host = ", ".join(f"{part} {t:.2f}"
                          for part, t in row["host_us"].items())
-        log(f"time {name} f32 {key[1]}: host us per call: {host}; per call "
+        log(f"time {name} f32 {shape}: host us per call: {host}; per call "
             f"{row['ms']:.6f} ms vs library {row['library_ms']:.6f} ms | "
             f"{card}")
 
@@ -811,42 +868,45 @@ def library_call(strategy: str):
 
 
 def time_path_shapes(card: str) -> dict:
-    """Times at the serving path's shapes (all clients live, as served)."""
+    """Forward times at the serving path's and the MLP path's shapes (all
+    clients live, as served and trained).  Rows are keyed (kernel,
+    strategy, shape)."""
     rows = {}
-    for strategy, shapes in (("avg", PATH_SHAPES),
-                             ("concat", CONCAT_PATH_SHAPES)):
+    pairs = [("avg", s) for s in PATH_SHAPES] + \
+        [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES
+    for strategy, shape in pairs:
         concat = strategy == "concat"
-        for shape in shapes:
-            K, B, D = shape
-            nbytes = K * B * D * 4
-            n_buf = min(16, max(1, math.ceil(2 * L2_BYTES / nbytes)))
-            bufs = [torch.randn(shape, device="cuda") for _ in range(n_buf)]
-            live = torch.ones(K, dtype=torch.float32, device="cuda")
-            kern = [(b, live) for b in bufs]
-            fns = {
-                "": lambda x, lv: mp.merge_pool(x, lv, strategy=strategy),
-                "plain_": lambda x, lv: ref.merge_pool(x, strategy, lv),
-                "library_": lambda x, lv: library_call(strategy)(x),
-            }
-            if concat:  # one copy, where torch.cat first unbinds the stack
-                fns["library_reshape_"] = lambda x, lv: x.transpose(
-                    0, 1).reshape(x.shape[1], -1)
-            row = {}
-            for prefix, fn in fns.items():
-                row[prefix + "ms"] = time_ms(fn, kern)
-                row[prefix + "device_ms"] = device_ms(fn, kern)
-            row["bound_ms"], row["bound_by"] = bound(shape, 4, concat)
-            rows[(strategy, shape)] = row
-            reshape = (f"transpose-reshape {row['library_reshape_ms']:.6f} "
-                       f"({row['library_reshape_device_ms']:.6f}) ms, "
-                       if concat else "")
-            log(f"time {strategy} f32 {shape}: per call (device, launch cost "
-                f"removed): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) "
-                f"ms, plain {row['plain_ms']:.6f} "
-                f"({row['plain_device_ms']:.6f}) ms, library "
-                f"{row['library_ms']:.6f} ({row['library_device_ms']:.6f}) "
-                f"ms, {reshape}bound {row['bound_ms']:.6f} ms "
-                f"({row['bound_by']}) | {card}")
+        name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
+        K, B, D = shape
+        nbytes = K * B * D * 4
+        n_buf = min(16, max(1, math.ceil(2 * L2_BYTES / nbytes)))
+        bufs = [torch.randn(shape, device="cuda") for _ in range(n_buf)]
+        live = torch.ones(K, dtype=torch.float32, device="cuda")
+        kern = [(b, live) for b in bufs]
+        fns = {
+            "": lambda x, lv: mp.merge_pool(x, lv, strategy=strategy),
+            "plain_": lambda x, lv: ref.merge_pool(x, strategy, lv),
+            "library_": lambda x, lv: library_call(strategy)(x),
+        }
+        if concat:  # one copy, where torch.cat first unbinds the stack
+            fns["library_reshape_"] = lambda x, lv: x.transpose(
+                0, 1).reshape(x.shape[1], -1)
+        row = {}
+        for prefix, fn in fns.items():
+            row[prefix + "ms"] = time_ms(fn, kern)
+            row[prefix + "device_ms"] = device_ms(fn, kern)
+        row["bound_ms"], row["bound_by"] = bound(shape, 4, concat)
+        rows[(name, strategy, shape)] = row
+        reshape = (f"transpose-reshape {row['library_reshape_ms']:.6f} "
+                   f"({row['library_reshape_device_ms']:.6f}) ms, "
+                   if concat else "")
+        log(f"time {strategy} f32 {shape}: per call (device, launch cost "
+            f"removed): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) "
+            f"ms, plain {row['plain_ms']:.6f} "
+            f"({row['plain_device_ms']:.6f}) ms, library "
+            f"{row['library_ms']:.6f} ({row['library_device_ms']:.6f}) "
+            f"ms, {reshape}bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}) | {card}")
     return rows
 
 
@@ -2011,6 +2071,325 @@ def serve_starcoder(card: str) -> int:
     return launches["flash_attention_kernel"]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the paper's vertically split MLP
+# ---------------------------------------------------------------------------
+
+def mlp_metrics(logits_fn, x, y, num_classes, batch=2048) -> tuple:
+    """Test accuracy and F1 as the paper's tables compute them: macro-F1,
+    or the positive class's F1 for two classes."""
+    with torch.no_grad():
+        pred = torch.cat([logits_fn(x[i:i + batch]).argmax(-1)
+                          for i in range(0, len(x), batch)]).cpu().numpy()
+    y = y.cpu().numpy()
+    acc = float((pred == y).mean())
+    f1s = []
+    for c in range(num_classes):
+        tp = float(((pred == c) & (y == c)).sum())
+        fp = float(((pred == c) & (y != c)).sum())
+        fn = float(((pred != c) & (y == c)).sum())
+        denom = 2 * tp + fp + fn
+        f1s.append(2 * tp / denom if denom else 0.0)
+    return acc, f1s[1] if num_classes == 2 else float(np.mean(f1s))
+
+
+def mlp_train(cfg, ds, params, *, centralized=False, num_drop=0, gen=None,
+              masks=None) -> tuple:
+    """The paper tables' loop (``paper_tables.train_split`` /
+    ``train_centralized``): AdamW(3e-3), batch 256, 400 steps over
+    ``minibatches(seed=0)`` of a device-resident split, on the params'
+    device.  Drops draw their masks from ``gen``, or take ``masks[i]``.
+    Returns (params, losses, seconds)."""
+    device = ds.x_train.device
+    opt = AdamW(learning_rate=MLP_LR)
+    state = opt.init(params)
+    if centralized:
+        step = split_model.make_centralized_train_step(cfg, opt)
+    else:
+        step = split_model.make_split_train_step(cfg, opt, num_drop=num_drop)
+    losses = []
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    it = synthetic.minibatches(ds.x_train, ds.y_train, MLP_BATCH, seed=SEED,
+                               epochs=1000)
+    for i, (xb, yb) in enumerate(it):
+        if i >= MLP_STEPS:
+            break
+        if centralized:
+            params, state, loss = step(params, state, xb, yb)
+        else:
+            params, state, loss = step(
+                params, state, gen, xb, yb,
+                live_mask=None if masks is None else masks[i])
+        losses.append(loss)
+    losses = torch.stack(losses).tolist()
+    seconds = time.perf_counter() - t0
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{cfg.name}: non-finite loss")
+    return params, losses, seconds
+
+
+def mlp_eval(cfg, ds, params, centralized=False, live_mask=None) -> tuple:
+    if centralized:
+        fn = lambda x: split_model.centralized_forward(params, x)
+    else:
+        fn = lambda x: split_model.split_forward(params, x, cfg,
+                                                 live_mask=live_mask)
+    return mlp_metrics(fn, ds.x_test, ds.y_test, cfg.num_classes)
+
+
+def mlp_card_and_cpu(label, cfg, dsets, init, card, *, centralized=False,
+                     num_drop=0, gen=None, cpu_masks=None):
+    """One run on the card and the same run on the card's CPU from the same
+    weights: the first MLP_CHECK_STEPS losses must agree within 1e-5.
+    Prints both runs' test accuracy and F1 and the card's samples/s.  The
+    card's run draws its drop masks from ``gen``; the CPU's takes
+    ``cpu_masks``, the same masks.  Returns the card's params."""
+    out = {
+        "card": mlp_train(cfg, dsets["card"], _to(init, "cuda"),
+                          centralized=centralized, num_drop=num_drop,
+                          gen=gen),
+        "cpu": mlp_train(cfg, dsets["cpu"], init, centralized=centralized,
+                         num_drop=num_drop, masks=cpu_masks)}
+    diff = max(abs(a - b) for a, b in zip(out["card"][1][:MLP_CHECK_STEPS],
+                                          out["cpu"][1][:MLP_CHECK_STEPS]))
+    if diff > 1e-5:
+        raise AssertionError(f"{label}: the first {MLP_CHECK_STEPS} losses "
+                             f"on the card {out['card'][1][:5]} and the CPU "
+                             f"{out['cpu'][1][:5]} differ by {diff:.3e}")
+    metrics = {d: mlp_eval(cfg, dsets[d], out[d][0], centralized)
+               for d in out}
+    seconds = out["card"][2]
+    log(f"mlp {label}: {MLP_STEPS} steps, {MLP_STEPS * MLP_BATCH / seconds:.1f}"
+        f" train samples/s on the card ({seconds:.4f} s; CPU "
+        f"{MLP_STEPS * MLP_BATCH / out['cpu'][2]:.1f}), loss "
+        f"{out['card'][1][0]:.6f} -> {out['card'][1][-1]:.6f}, first "
+        f"{MLP_CHECK_STEPS} losses within {diff:.3e} of the CPU's; test acc "
+        f"/ F1 card {metrics['card'][0]:.4f} / {metrics['card'][1]:.4f}, CPU "
+        f"{metrics['cpu'][0]:.4f} / {metrics['cpu'][1]:.4f} | {card}")
+    return out["card"][0]
+
+
+def mlp_tables(card: str) -> None:
+    """Phase 10, part 1: the paper tables' loop on the card for every
+    dataset and merge, the centralized baseline, and PhraseBank's drops.
+    It merges with the plain version, as the JAX package's step does, so
+    no kernel may launch."""
+    reset_launches()
+    for name, base in PAPER_DATASETS.items():
+        ds = synthetic.make_dataset(name, seed=SEED)
+        dsets = {"card": synthetic.to_device(ds, "cuda"),
+                 "cpu": synthetic.to_device(ds, "cpu")}
+        log(f"mlp {name}: {len(ds.x_train)} train / {len(ds.x_test)} test "
+            f"rows x {ds.num_features} features, {ds.num_classes} classes, "
+            f"K={base.num_clients} clients {base.client_feature_sizes}, "
+            f"towers {base.tower_hidden} -> cut {base.cut_dim}, server "
+            f"{base.server_hidden}")
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        init = split_model.init_centralized_mlp(gen, base, device="cpu")
+        mlp_card_and_cpu(f"{name} centralized", base, dsets, init, card,
+                         centralized=True)
+        for merge in MLP_MERGES:
+            cfg = dataclasses.replace(base, merge=merge)
+            gen = torch.Generator(device="cpu").manual_seed(SEED)
+            init = split_model.init_split_mlp(gen, cfg, device="cpu")
+            params = mlp_card_and_cpu(f"{name} {merge}", cfg, dsets, init,
+                                      card)
+            if name != "financial_phrasebank" or merge != "max":
+                continue
+            # paper Table 4: drops at test time on the clean model ...
+            for nd in MLP_DROPS:
+                accs = [mlp_eval(cfg, dsets["card"], params, live_mask=(
+                    dropping.sample_live_mask(torch.Generator(
+                        device="cuda").manual_seed(100 + s),
+                        cfg.num_clients, nd)))[0]
+                    for s in range(MLP_TEST_DROP_SEEDS)]
+                log(f"mlp {name} max: {nd} of {cfg.num_clients} clients "
+                    f"dropped at test time: acc {np.mean(accs):.4f} (mean "
+                    f"over {MLP_TEST_DROP_SEEDS} masks {accs})")
+            # ... and during training: masks drawn on the card, the same
+            # masks handed to the CPU run
+            for nd in MLP_DROPS:
+                twin = torch.Generator(device="cuda").manual_seed(SEED + nd)
+                masks = torch.stack([
+                    dropping.sample_live_mask(twin, cfg.num_clients, nd)
+                    for _ in range(MLP_STEPS)]).cpu()
+                mlp_card_and_cpu(
+                    f"{name} max, {nd} of {cfg.num_clients} clients dropped "
+                    "per step", cfg, dsets, init, card, num_drop=nd,
+                    gen=torch.Generator(device="cuda").manual_seed(SEED + nd),
+                    cpu_masks=masks)
+    launches = read_launches()
+    if any(launches.values()):
+        raise AssertionError(f"the paper tables' loop launched kernels "
+                             f"(it merges with the plain version): "
+                             f"{launches}")
+    log("mlp tables: no kernel launched (the one-program step merges with "
+        "the plain version, as the JAX package's does)")
+
+
+def mlp_exec_run(cfg, params, batches, steps, microbatches, policy, *,
+                 verify=None) -> dict:
+    """``steps`` Executor steps of ``cfg`` over ``InprocTransport``: K
+    ``build_mlp_worker``s serving their columns of ``batches`` (already on
+    the card) under local SGD, role 0's server under the port's SGD.
+    Launch counters reset just before the run and read just after.  With
+    ``verify`` (protocol_step's grads for step 0), step 0's grads must
+    match them within 1e-5."""
+    K = cfg.num_clients
+    loss_fn = lambda logits, y: split_model.softmax_xent(logits, y,
+                                                         cfg.num_classes)
+    workers = [build_mlp_worker(
+        k, cfg=cfg, batch=MLP_BATCH, microbatches=microbatches,
+        learning_rate=EXEC_LR, params=params,
+        features=lambda step: batches[step][0], device="cuda")
+        for k in range(K)]
+    opt = SGD(learning_rate=EXEC_LR)
+    server = params["server"]
+    state = opt.init(server)
+    losses = []
+    with InprocTransport(workers) as tr:
+        executor = Executor(tr, towers.mlp_tower_apply, loss_fn, cfg.merge,
+                            mode="pipelined", microbatches=microbatches,
+                            drop_policy=policy)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for step in range(steps):
+            res = executor.run_step(server, batches[step][1], step=step,
+                                    collect_grads=step == 0)
+            if step == 0:
+                first = res
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+            server, state = opt.update(server, res.server_grads, state)
+            losses.append(res.loss)
+        torch.cuda.synchronize()
+        t_end = time.perf_counter()
+        launches = read_launches()
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"executor {cfg.merge}: non-finite loss")
+    dgrad = None
+    if verify is not None:
+        dgrad = max(float((a - b).abs().max()) for a, b in zip(
+            _leaves([first.tower_grads, first.server_grads]),
+            _leaves(list(verify))))
+        if dgrad > 1e-5:
+            raise AssertionError(f"executor {cfg.merge} M={microbatches}: "
+                                 f"step-0 grads differ from protocol_step "
+                                 f"by {dgrad:.3e} > 1e-5")
+    tower_params = [w.params for w in workers]
+    return dict(losses=losses, launches=launches, seconds=t_end - t0,
+                steady_s=t_end - t1, dgrad=dgrad,
+                params={"towers": tower_params, "server": server})
+
+
+def mlp_protocol_grads(cfg, params, batch) -> tuple:
+    """protocol_step (serial, the plain merge) on one batch: the reference
+    for an Executor run's step-0 grads."""
+    feats = [split_model.client_columns(batch[0], s)
+             for s in split_model.feature_slices(cfg)]
+    _, tg, sg, _ = protocol.protocol_step(
+        towers.mlp_tower_apply, towers.mlp_tower_apply,
+        lambda logits, y: split_model.softmax_xent(logits, y,
+                                                   cfg.num_classes),
+        params["towers"], params["server"], feats, batch[1], cfg.merge)
+    return tg, sg
+
+
+def busy_share(fn) -> tuple:
+    """(wall seconds, device-busy seconds, kernel launches) of ``fn()``
+    under ``torch.profiler``; busy is None where the profiler recorded no
+    device activity."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in kernels) / 1e6
+    return wall, (busy if kernels else None), sum(e.count for e in kernels)
+
+
+def mlp_executor(card: str) -> dict:
+    """Phase 10, part 2: PhraseBank (K = 4) through ``build_mlp_worker`` and
+    the Executor over ``InprocTransport``, the merge kernels on the path.
+    Returns the merge kernels' launches over the kernel runs."""
+    name = "financial_phrasebank"
+    ds = synthetic.to_device(synthetic.make_dataset(name, seed=SEED), "cuda")
+    it = synthetic.minibatches(ds.x_train, ds.y_train, MLP_BATCH, seed=SEED,
+                               epochs=1000)
+    batches = [next(it) for _ in range(EXEC_STEPS)]
+    total = dict.fromkeys(MERGE_CUDA_KERNELS, 0)
+    runs = [("max", 1, EXEC_STEPS), ("max", 4, EXEC_SHORT)] + [
+        (m, 1, EXEC_SHORT) for m in MLP_MERGES if m != "max"]
+    for merge, mb, steps in runs:
+        cfg = dataclasses.replace(PAPER_DATASETS[name], merge=merge)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = split_model.init_split_mlp(gen, cfg, device="cuda")
+        verify = mlp_protocol_grads(cfg, params, batches[0])
+        fused = mlp_exec_run(cfg, params, batches, steps, mb, "fused",
+                             verify=verify)
+        plain = mlp_exec_run(cfg, params, batches, steps, mb, "neutral")
+        fwd, bwd = (("merge_concat_kernel", "merge_concat_bwd_kernel")
+                    if merge == "concat" else
+                    ("merge_reduce_kernel", "merge_reduce_bwd_kernel"))
+        expect_launches(fused["launches"], {fwd: steps * mb, bwd: steps * mb})
+        if any(plain["launches"].values()):
+            raise AssertionError(f"executor {merge}: the neutral run "
+                                 f"launched kernels: {plain['launches']}")
+        diff = max(abs(a - b) for a, b in zip(fused["losses"],
+                                               plain["losses"]))
+        if diff > 1e-5:
+            raise AssertionError(f"executor {merge} M={mb}: the kernel and "
+                                 f"plain runs' losses differ by {diff:.3e}")
+        for kernel in (fwd, bwd):
+            total[kernel] += fused["launches"][kernel]
+        acc, f1 = mlp_eval(cfg, ds, fused["params"])
+        log(f"mlp executor {name} {merge} M={mb}: {steps} steps, "
+            f"{fused['launches'][fwd]} {fwd} and {fused['launches'][bwd]} "
+            f"{bwd} launches (one each per microbatch), step-0 max |dgrad| vs "
+            f"protocol_step {fused['dgrad']:.3e} (<= 1e-5), losses "
+            f"{fused['losses'][0]:.6f} -> {fused['losses'][-1]:.6f} within "
+            f"{diff:.3e} of the neutral (plain-merge) run's, "
+            f"{(steps - 1) / fused['steady_s']:.1f} steps/s over steps 1-"
+            f"{steps - 1} ({(steps - 1) * MLP_BATCH / fused['steady_s']:.1f} "
+            f"samples/s; neutral {(steps - 1) / plain['steady_s']:.1f} "
+            f"steps/s), test acc / F1 {acc:.4f} / {f1:.4f} | {card}")
+    # the device's busy share over EXEC_SHORT steps of the main run's
+    # configuration (after the counted runs: launches here count nowhere)
+    cfg = dataclasses.replace(PAPER_DATASETS[name], merge="max")
+    params = split_model.init_split_mlp(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    wall, busy, n = busy_share(lambda: mlp_exec_run(
+        cfg, params, batches, EXEC_SHORT, 1, "fused"))
+    share = "not measured" if busy is None else (
+        f"{busy:.6f} s busy = {100 * busy / wall:.2f}% of wall")
+    log(f"mlp executor {name} max M=1 under the profiler: {EXEC_SHORT} steps "
+        f"in {wall:.4f} s wall, {n} kernel launches, device {share} | {card}")
+    return total
+
+
+def mlp_phase(card: str) -> dict:
+    """Phase 10 (its merge kernels are checked and timed at the MLP shapes
+    in phase 2); returns the launches per merge kernel."""
+    t0 = time.perf_counter()
+    mlp_tables(card)
+    launches = mlp_executor(card)
+    log(f"mlp: phase 10 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -2058,6 +2437,7 @@ def main() -> None:
     launches["ssd_chunk_kernel"] = ssm_full(card)
     check_small_long_against_cpu(SC_ARCH, head_dim=128)
     flash_launches[128] = serve_starcoder(card)
+    mlp_launches = mlp_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -2069,12 +2449,14 @@ def main() -> None:
              "src/repro/kernels/merge_pool.py:144"),
             ("merge_concat_bwd_kernel", "concat", CONCAT_TRAIN_SHAPE,
              "src/repro/kernels/merge_pool.py:96")):
-        row = rows[(strategy, shape)]
+        row = rows[(name, strategy, shape)]
         entry = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/merge_pool.cu",
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst[name], "ms": row["ms"],
+            "replaces": replaces,
+            "launches": launches[name] + mlp_launches[name],
+            "max_abs_err": worst[name],
+            "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "device_ms": row["device_ms"],
@@ -2086,6 +2468,11 @@ def main() -> None:
                     "library_two_call_device_ms"):
             if key in row:
                 entry[key] = row[key]
+        # the MLP path's shapes (phase 10), whose launches are in the count
+        entry["shapes"] = [
+            {"strategy": s, "shape": list(sh), "dtype": "float32",
+             "library_ms": None, **rows[(name, s, sh)]}
+            for s, sh in MLP_TIME_SHAPES if (name, s, sh) in rows]
         kernels.append(entry)
     def flash_entry(shape, launched=None):
         """The kernel's row at a timed shape; ``launched`` is its count on

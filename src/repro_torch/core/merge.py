@@ -67,3 +67,8 @@ def collective_bytes_per_merge(strategy: str, cut_elements: int,
     if strategy in ("sum", "avg", "max"):
         return 2 * payload * (num_clients - 1) // max(num_clients, 1)
     return payload * (num_clients - 1)
+
+
+def merged_dim(strategy: str, cut_dim: int, num_clients: int) -> int:
+    """Width of the merged activation seen by the server network."""
+    return cut_dim * num_clients if strategy == "concat" else cut_dim

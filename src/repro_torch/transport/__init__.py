@@ -22,8 +22,9 @@ Worker ops (:data:`repro_torch.transport.ops.WORKER_OPS`):
 * ``shutdown {}`` -> ``bye {}``
 """
 from repro_torch.transport.base import SimTransport, TowerWorker, Transport
-from repro_torch.transport.builders import build_split_worker
+from repro_torch.transport.builders import (build_mlp_worker,
+                                             build_split_worker)
 from repro_torch.transport.inproc import InprocTransport
 
 __all__ = ["InprocTransport", "SimTransport", "TowerWorker", "Transport",
-           "build_split_worker"]
+           "build_mlp_worker", "build_split_worker"]

@@ -9,12 +9,82 @@ handed in (for example the JAX package's weights carried across by
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch import DeviceLike, resolve_device, tree_device
 from repro_torch.transport.base import TowerWorker
+from repro_torch.tree_util import tree_map
+
+
+def _sgd(learning_rate: float):
+    """Dependency-free local optimizer for MLP workers: ``p - lr * g``, out
+    of place (the worker keeps the params each step's forwards ran
+    under)."""
+
+    class _SGD:
+        def init(self, params):
+            return None
+
+        def update(self, params, grads, state):
+            return tree_map(lambda p, g: p - learning_rate * g, params,
+                            grads), state
+
+    return _SGD()
+
+
+def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
+                     data_seed: int = 0, batch: int = 16,
+                     microbatches: int = 1,
+                     learning_rate: Optional[float] = None,
+                     forward_delay_s: float = 0.0,
+                     compress: Optional[str] = None,
+                     params: Optional[dict] = None,
+                     features: Optional[Callable[[int], torch.Tensor]] = None,
+                     device: DeviceLike = None) -> TowerWorker:
+    """Paper-MLP feature holder: keeps only its own tower of the shared
+    seeded init and serves its own feature columns of a per-step stream.
+
+    ``params`` None runs :func:`~repro_torch.core.split_model.init_split_mlp`
+    from a generator seeded with ``param_seed`` on ``device``; otherwise
+    ``params`` is the full ``{"towers", "server"}`` tree (for example the
+    JAX package's, carried across by ``repro_torch.interop``), already on
+    ``device``.  ``features(step) -> (batch, input_dim)`` is the full
+    feature matrix of ``step``, of which the worker serves microbatch
+    ``mb``'s rows and its client's columns; None means the stream
+    ``x_step ~ N(0, 1)`` drawn from a generator seeded with ``data_seed +
+    step``.  With ``learning_rate`` set the tower trains locally under
+    plain SGD.  Cut compression is not ported yet and is refused."""
+    from repro_torch.core import split_model, towers
+    from repro_torch.core.protocol import _reject_unported
+
+    _reject_unported(compress=compress)
+    dev = resolve_device(device)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(param_seed)
+        params = split_model.init_split_mlp(gen, cfg, device=dev)
+    elif tree_device(params).type != dev.type:
+        raise ValueError(f"params are on {tree_device(params)}, the worker "
+                         f"runs on {dev}")
+    tower = params["towers"][client_id]
+    columns = split_model.feature_slices(cfg)[client_id]
+    mbsz = batch // microbatches
+
+    if features is None:
+        def features(step: int) -> torch.Tensor:
+            gen = torch.Generator(device=dev).manual_seed(data_seed + step)
+            return torch.randn((batch, cfg.input_dim), generator=gen,
+                               device=dev)
+
+    def feature_fn(step: int, mb: int) -> torch.Tensor:
+        x = features(step)[mb * mbsz:(mb + 1) * mbsz]
+        return split_model.client_columns(x, columns)
+
+    return TowerWorker(
+        client_id, towers.mlp_tower_apply, tower, feature_fn=feature_fn,
+        optimizer=_sgd(learning_rate) if learning_rate else None,
+        forward_delay_s=forward_delay_s, device=dev)
 
 
 def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,

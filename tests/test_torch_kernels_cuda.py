@@ -354,6 +354,65 @@ def test_reduce_bwd_kernel_edges_on_card(dtype):
             _expect_reduce_bwd(got, want, strategy, dtype)
 
 
+# the paper MLP's cut stacks: PhraseBank (K 4, cut 64) at batch 256 and at
+# a quarter of it (its 4-microbatch run), Bank Marketing / Give Me Some
+# Credit (K 2, cut 16) at batch 256
+MLP_SHAPES = [(4, 256, 64), (4, 64, 64), (2, 256, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", MLP_SHAPES)
+@pytest.mark.parametrize("strategy", STRATEGIES)
+def test_merge_kernels_at_mlp_shapes_on_card(strategy, shape):
+    """Forward and backward at the MLP shapes, every live mask, with half
+    the rows tied between clients 0 and 1 (max splits their credit):
+    concat both ways and the sum, avg and max backward bit-identical to
+    the plain versions, the rest within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the merge kernels run only there)")
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    K, B, _ = shape
+    fwd_name = ("merge_concat_kernel" if strategy == "concat"
+                else "merge_reduce_kernel")
+    bwd_name = BWD_NAME.get(strategy, "merge_reduce_bwd_kernel")
+    exact = strategy in ("concat", "sum", "avg", "max")
+    for kind in ("all", "dropped", "none"):
+        x = torch.randn(shape, generator=gen, device="cuda")
+        x[1, :B // 2] = x[0, :B // 2]
+        live = _live(K, kind)
+        xk = x.clone().requires_grad_(True)
+        before = dict(kernel_module.launches)
+        out = ops.merge_pool(xk, live, strategy=strategy)
+        g = torch.randn(out.shape, generator=gen, device="cuda")
+        got, = torch.autograd.grad(out, xk, g)
+        want_out = ref.merge_pool(x, strategy, live)
+        if strategy == "concat":
+            want = ref.concat_bwd(live, g, K)
+        else:
+            want = ref.merge_pool_bwd(x, live, want_out, g, strategy)
+        torch.cuda.synchronize()
+        assert kernel_module.launches[fwd_name] == before[fwd_name] + 1
+        assert kernel_module.launches[bwd_name] == before[bwd_name] + 1
+        tol = TOL[torch.float32]
+        torch.testing.assert_close(out.detach(), want_out, rtol=0 if
+                                   strategy == "concat" else tol,
+                                   atol=0 if strategy == "concat" else tol)
+        torch.testing.assert_close(got, want, rtol=0 if exact else tol,
+                                   atol=0 if exact else tol)
+        torch.testing.assert_close(got, _plain_grad(x, live, g, strategy),
+                                   rtol=GRAD_TOL[torch.float32],
+                                   atol=GRAD_TOL[torch.float32])
+        if strategy == "max" and kind == "all":
+            # a tied element's credit is split in half between the clients
+            tied = x[0, :B // 2] == want_out[:B // 2]
+            assert tied.any()
+            half = g[:B // 2] / 2
+            torch.testing.assert_close(got[0, :B // 2][tied], half[tied],
+                                       rtol=0, atol=0)
+            torch.testing.assert_close(got[1, :B // 2][tied], half[tied],
+                                       rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 def test_backward_wrappers_validate_inputs_on_card():
     if not torch.cuda.is_available():

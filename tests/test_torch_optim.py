@@ -1,10 +1,11 @@
-"""The port's AdamW, clipping and schedules against the JAX package's.
+"""The port's AdamW, SGD, clipping and schedules against the JAX
+package's.
 
 A small param tree and five steps of gradients, made from a seed with
 numpy, go through both optimizers: weight decay on, global-norm clipping
 active (the gradients' norm is far above the clip), a warmup-cosine
-schedule.  Params and both moments are held to each other at 1e-6 after
-every step (f32 throughout; the two packages sum the global norm over
+schedule.  Params and both moments (SGD: the velocity) are held to each
+other at 1e-6 after every step (f32 throughout; the two packages sum the global norm over
 leaves in the same order and differ by rounding only).
 """
 import jax.numpy as jnp
@@ -12,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from repro.optim import SGD as JaxSGD
 from repro.optim import AdamW as JaxAdamW
 from repro.optim.clipping import clip_by_global_norm as jax_clip
 from repro.optim.schedules import linear_warmup_cosine as jax_sched
 from repro_torch.interop import to_numpy
-from repro_torch.optim import AdamW
+from repro_torch.optim import SGD, AdamW
 from repro_torch.optim.clipping import clip_by_global_norm
 from repro_torch.optim.schedules import linear_warmup_cosine
 
@@ -99,3 +101,33 @@ def test_linear_warmup_cosine_matches_jax(peak, warmup, total):
         assert got.dtype == torch.float32
         np.testing.assert_allclose(float(got), float(want), rtol=1e-6,
                                    atol=1e-12)
+
+
+@pytest.mark.parametrize("momentum,nesterov,clip,schedule", [
+    (0.0, False, None, False), (0.9, False, None, False),
+    (0.9, True, None, True), (0.9, False, 1.0, False), (0.0, False, 1.0, True)])
+def test_sgd_matches_jax_step_for_step(momentum, nesterov, clip, schedule):
+    """Plain and momentum SGD, Nesterov, global-norm clipping (active: the
+    gradients' norm is ~20) and a callable schedule."""
+    kw = dict(momentum=momentum, nesterov=nesterov, grad_clip_norm=clip)
+    jopt = JaxSGD(learning_rate=jax_sched(5e-2, 2, 5) if schedule else 5e-2,
+                  **kw)
+    topt = SGD(learning_rate=linear_warmup_cosine(5e-2, 2, 5) if schedule
+               else 5e-2, **kw)
+    params = _tree(1)
+    jp = _map(jnp.asarray, params)
+    tp = _map(torch.from_numpy, params)
+    js, ts = jopt.init(jp), topt.init(tp)
+    assert set(ts) == set(js)
+    for step in range(5):
+        grads = _tree(200 + step, scale=3.0)
+        handed, before = tp, _map(lambda t: t.numpy().copy(), tp)
+        jp, js = jopt.update(jp, _map(jnp.asarray, grads), js)
+        tp, ts = topt.update(tp, _map(torch.from_numpy, grads), ts)
+        _assert_close(tp, jp)
+        if momentum:
+            _assert_close(ts["velocity"], js["velocity"])
+            assert ts["velocity"]["scale"].dtype == torch.float32
+        assert int(ts["count"]) == int(js["count"]) == step + 1
+        assert ts["count"].dtype == torch.int32
+        _assert_close(handed, before)  # out of place

@@ -409,8 +409,8 @@ def test_port_imports_neither_jax_nor_repro():
     """The port and its chip scripts import torch and numpy, never jax and
     nothing of the JAX package — checked by AST and by importing the
     serving, training, optimizer and data packages, the kernel build, the
-    flash-attention and SSD modules and the ssm model with both
-    blocked."""
+    flash-attention and SSD modules, the ssm model and the paper MLP's
+    modules with both blocked."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
@@ -426,7 +426,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.ssd_scan, repro_torch.models.mamba, "
             "repro_torch.models.backbone, repro_torch.configs.mamba2_1_3b, "
             "repro_torch.optim, repro_torch.data.loader, "
-            "repro_torch.train.loop, repro_torch.runtime.pipeline; "
+            "repro_torch.train.loop, repro_torch.runtime.pipeline, "
+            "repro_torch.core.split_model, repro_torch.core.dropping, "
+            "repro_torch.core.partition, repro_torch.data.synthetic, "
+            "repro_torch.optim.sgd, repro_torch.configs.vertical_mlp; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
