@@ -6,9 +6,11 @@ tensor cores (3xTF32), the full-sequence forward and greedy generation
 of full-width mamba2-1.3b with its SSD chunk kernel in CUDA C++ on the
 tensor cores (3xTF32), long-prompt split serving of full-width
 starcoder2-3b, whose attention (head dim 128) runs the flash kernel's
-wider instantiation, and the paper's own experiment: vertically split
+wider instantiation, the paper's own experiment: vertically split
 MLP training on the three financial stand-in datasets, through the
-Executor and the merge kernels.
+Executor and the merge kernels, and no-wait split training with a
+straggler (the simulated clock, adaptive deadlines and EMA imputation),
+whose imputed merges run the reduce kernels both ways.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -24,8 +26,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    spill fails), then the merge kernels against their plain PyTorch
    version on CUDA tensors: every strategy, f32 and bf16, a dropped
    client, all dropped, a ragged shape, and the serving and training
-   paths' shapes and the MLP path's cut stacks (phase 10), forward and
-   backward (plus mul at an exact zero and max with exact ties at the
+   paths' shapes, the MLP path's cut stacks (phase 10) and the no-wait
+   smollm stack (4, 512, 960) (phase 11), forward and backward (plus mul at an exact zero and max with exact ties at the
    training and MLP shapes).  Both concat kernels, and the reductions' backward
    for sum, avg and max, must be bit-identical to their plain versions
    (mul within the backward tolerance) there and on their scalar and
@@ -33,7 +35,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    and give NaN where the plain versions do when a dropped client holds a
    NaN or an Inf (the reductions' max and mul backward: no NaN at all).
    Per path shape (the MLP path's: max both ways at its three stacks,
-   concat both ways at (4, 256, 64)), the kernel's time, the plain
+   concat both ways at (4, 256, 64); no-wait's: avg both ways at
+   (4, 512, 960)), the kernel's time, the plain
    version's, one PyTorch call's (``library_ms``) and the bound; for the
    concat forward also the one-copy library call ``x.transpose(0,
    1).reshape(B, K*D)``, for the avg backward the two-call form that PRs
@@ -105,7 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    forward's argmax, the replayed logits are printed against the
    forward's.  The reduced model on the card matches the CPU path
    (forward logits 1e-4, 3 launches, generated tokens identical; decode
-   replay within 2e-3 of the forward).
+   replay within 2e-3 of the forward), and with a bf16 tree its greedy
+   ``generate`` over the f32 decode cache matches the CPU's tokens up to
+   each row's first step whose CPU top-2 gap is 6e-2 or less.
 9. The starcoder2-3b slice: first reduced starcoder2-3b at head dim 128
    on the card against the CPU path on a 2304-token prompt (as in phase
    6).  Then full-width starcoder2-3b (30 layers, d_model 3072, 24 q / 2
@@ -140,13 +145,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 1e-5 of ``protocol_step``'s; the neutral policy's run (the
    plain merge) launches none and its losses match per step within 1e-5.
    Steps/s, test accuracy and, under the profiler, the device's busy
-   share.
+   share.  Then PhraseBank with a bf16 tree: ``split_forward`` and one
+   Executor step on the card against the CPU within 3e-2.
+11. No-wait split training, counters reset just before each run and read
+   just after.  (a) PhraseBank at full size through
+   ``engine.pipelined_step(mode="nowait")`` on the simulated clock
+   (``plan_step(cfg, 256, 4)``, client 1's links and compute 20x slower),
+   avg and max, 40 steps of SGD at 0.2, on the card and on its CPU from
+   the same weights: client 1 misses every microbatch and no other
+   client one, identical live matrices, losses within 1e-5 per step, one
+   forward and one backward ``merge_reduce`` launch per microbatch on
+   the card and none on the CPU, the last five losses below the first
+   five; steps/s, test accuracy and F1.  (b) PhraseBank max over
+   ``InprocTransport`` with client 1 sleeping 0.06 s per forward: 20
+   no-wait steps with the adaptive deadline, 20 with a 0.015 s static
+   window (client 1 misses every microbatch, and gets a zero tower
+   gradient on each step it missed entirely) and 20 pipelined steps;
+   misses per client, the deadline per step, steps/s.  (c) Full-width
+   smollm-360m, ``train_split`` over inproc, batch 8 x 256 tokens, M = 4,
+   5 steps, after a warm-up step: no-wait without a straggler, its
+   adaptive window bootstrapped from at least 5 s (no miss, step 0
+   verified within 1e-5, losses within 1e-6 of the pipelined run at the
+   same M), then with client 1 sleeping 0.1 s per forward under the
+   default window; one
+   forward and one backward ``merge_reduce`` launch per microbatch in
+   every run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -175,11 +205,15 @@ from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, mamba, split_program  # noqa: E402
 from repro_torch.optim import SGD, AdamW  # noqa: E402
+from repro_torch.runtime import engine  # noqa: E402
+from repro_torch.runtime.deadline import AdaptiveDeadline  # noqa: E402
 from repro_torch.runtime.executor import Executor  # noqa: E402
+from repro_torch.runtime.links import LinkModel  # noqa: E402
 from repro_torch.serve import SplitLMServer, generate  # noqa: E402
 from repro_torch.train.loop import train_split  # noqa: E402
 from repro_torch.transport import (InprocTransport, SimTransport,  # noqa: E402
                                    build_mlp_worker, build_split_worker)
+from repro_torch.tree_util import tree_map  # noqa: E402
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -279,6 +313,27 @@ EXEC_LR, EXEC_STEPS, EXEC_SHORT = 0.1, 200, 20
 MLP_SHAPES = [(4, 256, 64), (4, 64, 64), (2, 256, 16)]
 MLP_TIME_SHAPES = [("max", (4, 256, 64)), ("max", (4, 64, 64)),
                    ("max", (2, 256, 16)), ("concat", (4, 256, 64))]
+# the no-wait slice (phase 11): smollm-360m's cut stack at batch 8 x 256
+# tokens over 4 microbatches, where the imputed merges run the reduce
+# kernels both ways; the MLP runs it at phase 10's (4, 64, 64)
+NOWAIT_SHAPE = (4, 512, 960)
+NOWAIT_TIME_SHAPES = [("avg", NOWAIT_SHAPE)]
+NOWAIT_M, NOWAIT_BATCH, NOWAIT_LR = 4, 256, 0.2
+NOWAIT_SIM_STEPS, NOWAIT_WALL_STEPS, NOWAIT_LM_STEPS = 40, 20, 5
+NOWAIT_SLOWDOWN = 20.0  # the simulated straggler's links and compute
+# the wall-clock straggler: 0.06 s per forward against a 0.015 s static
+# window, so its m-th cut lands ~4x after role 0's m-th window closes
+NOWAIT_DELAY_S, NOWAIT_STATIC_S = 0.06, 0.015
+NOWAIT_LM_DELAY_S = 0.1  # smollm's straggler, per forward
+# smollm without a straggler: the adaptive window's bootstrap minimum is
+# raised from 0.05 s (a 0.025 s floor) to 5 s (a 2.5 s floor), as the CPU
+# twin of this run does.  At a step's first microbatch the four feature
+# holders regenerate the step's tokens and launch their towers on threads
+# that share one interpreter lock, and their cuts can land more than
+# 0.025 s apart: a healthy client then misses, and the run checks the
+# host's scheduling instead of the no-wait numerics
+NOWAIT_LM_BOOTSTRAP_S = 5.0
+BF16_TOL, BF16_GAP = 3e-2, 6e-2
 
 
 def log(*parts) -> None:
@@ -354,7 +409,8 @@ def check_kernels() -> dict:
     Returns the largest f32 |error| per kernel."""
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
-    shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES
+    shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES + \
+        [NOWAIT_SHAPE]
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -461,7 +517,7 @@ def check_backward_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
-        MLP_SHAPES
+        MLP_SHAPES + [NOWAIT_SHAPE]
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -681,7 +737,8 @@ def time_backward_shapes(card: str) -> dict:
     for strategy, shape in [("avg", TRAIN_SHAPE),
                             ("concat", CONCAT_TRAIN_SHAPE),
                             ("max", TRAIN_SHAPE),
-                            ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES:
+                            ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES + \
+            NOWAIT_TIME_SHAPES:
         K, B, D = shape
         name = ("merge_concat_bwd_kernel" if strategy == "concat"
                 else "merge_reduce_bwd_kernel")
@@ -873,7 +930,8 @@ def time_path_shapes(card: str) -> dict:
     strategy, shape)."""
     rows = {}
     pairs = [("avg", s) for s in PATH_SHAPES] + \
-        [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES
+        [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES + \
+        NOWAIT_TIME_SHAPES
     for strategy, shape in pairs:
         concat = strategy == "concat"
         name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
@@ -1953,6 +2011,53 @@ def check_small_ssm_against_cpu() -> None:
         f"replay vs forward {rdiff:.3e} <= 2e-3")
 
 
+def check_small_ssm_bf16_against_cpu(card: str) -> None:
+    """Reduced mamba2-1.3b with a bf16 tree: greedy ``generate`` over its
+    f32 decode cache (the path of Queue 3's second fault), the card
+    against the CPU from the same weights.  Each row's tokens must be
+    equal up to its first step whose top-2 logit gap on the CPU is
+    ``BF16_GAP`` or less (past such a near-tie the runs may part)."""
+    cfg = get_arch("mamba2-1.3b").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = backbone.init_params(cfg, gen, device="cpu",
+                                      dtype=torch.bfloat16)
+    gpu_params = _to(cpu_params, "cuda")
+    prompts = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (3, 10)))
+    new = 8
+    toks = {"cpu": generate(cpu_params, cfg, prompts, max_new_tokens=new),
+            "cuda": generate(gpu_params, cfg, prompts.to("cuda"),
+                             max_new_tokens=new).cpu()}
+    # the CPU's logits at each generated position: its prompt and its
+    # own tokens replayed through the decode step
+    seq = torch.cat([prompts, toks["cpu"]], dim=1)
+    logits, _ = replay(cfg, cpu_params, seq[:, :-1], seq.shape[1])
+    top = torch.topk(logits[:, prompts.shape[1] - 1:].float(), 2,
+                     dim=-1).values
+    gaps = top[..., 0] - top[..., 1]  # (3, new)
+    held = 0
+    for row in range(3):
+        for t in range(new):
+            if float(gaps[row, t]) <= BF16_GAP:
+                break
+            if int(toks["cuda"][row, t]) != int(toks["cpu"][row, t]):
+                raise AssertionError(
+                    f"bf16 ssm generate: row {row} step {t}: card token "
+                    f"{int(toks['cuda'][row, t])} != CPU "
+                    f"{int(toks['cpu'][row, t])} at top-2 gap "
+                    f"{float(gaps[row, t]):.4f}")
+            held += 1
+    if not held:
+        raise AssertionError(f"bf16 ssm generate: no token held (gaps "
+                             f"{gaps.tolist()})")
+    log(f"small ssm bf16: reduced mamba2-1.3b, bf16 tree over the f32 "
+        f"decode cache, greedy generate of 3 x {new} tokens on the card "
+        f"and the CPU: {held} of {3 * new} tokens held equal (each row up "
+        f"to its first CPU top-2 gap <= {BF16_GAP}), all equal "
+        f"{torch.equal(toks['cuda'], toks['cpu'])}, smallest gap "
+        f"{float(gaps.min()):.4f} | {card}")
+
+
 # ---------------------------------------------------------------------------
 # phase 9: long-prompt split serving of starcoder2-3b (head dim 128)
 # ---------------------------------------------------------------------------
@@ -2380,14 +2485,406 @@ def mlp_executor(card: str) -> dict:
     return total
 
 
+def mlp_bf16_card_vs_cpu(card: str) -> None:
+    """PhraseBank with a bf16 tree (the path of Queue 3's first fault):
+    ``split_forward`` on test rows, and one Executor step (four
+    ``build_mlp_worker``s over ``InprocTransport``, the fused policy, 4
+    microbatches), the card against the CPU from the same weights, within
+    ``BF16_TOL``."""
+    name = "financial_phrasebank"
+    cfg = PAPER_DATASETS[name]
+    ds = synthetic.make_dataset(name, seed=SEED)
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = split_model.init_split_mlp(gen, cfg, dtype=torch.bfloat16,
+                                            device="cpu")
+    x = torch.as_tensor(ds.x_test[:MLP_BATCH], dtype=torch.float32)
+    y = torch.as_tensor(ds.y_test[:MLP_BATCH]).long()
+    out = {}
+    for device in ("cpu", "cuda"):
+        params = cpu_params if device == "cpu" else _to(cpu_params, device)
+        xd, yd = x.to(device), y.to(device)
+        logits = split_model.split_forward(params, xd, cfg)
+        workers = [build_mlp_worker(k, cfg=cfg, batch=MLP_BATCH,
+                                    microbatches=4, params=params,
+                                    features=lambda step, xd=xd: xd,
+                                    device=device)
+                   for k in range(cfg.num_clients)]
+        with InprocTransport(workers) as tr:
+            ex = Executor(tr, towers.mlp_tower_apply,
+                          lambda lg, lb: split_model.softmax_xent(
+                              lg, lb, cfg.num_classes), cfg.merge,
+                          microbatches=4)
+            reset_launches()
+            res = ex.run_step(params["server"], yd)
+            launches = read_launches()
+        out[device] = (logits, res, launches)
+    expect_launches(out["cuda"][2], {"merge_reduce_kernel": 4,
+                                     "merge_reduce_bwd_kernel": 4})
+    if any(out["cpu"][2].values()):
+        raise AssertionError(f"bf16 executor on the CPU launched kernels: "
+                             f"{out['cpu'][2]}")
+    logits, res = out["cuda"][0], out["cuda"][1]
+    if logits.dtype != torch.float32:
+        raise AssertionError(f"bf16 split_forward gave {logits.dtype}, not "
+                             "the promoted float32")
+    worst = {"logits": float((logits.cpu() - out["cpu"][0]).abs().max()),
+             "loss": abs(float(res.loss) - float(out["cpu"][1].loss))}
+    worst["grads"] = max(
+        float((a.float().cpu() - b.float()).abs().max()) for a, b in zip(
+            _leaves([res.tower_grads, res.server_grads]),
+            _leaves([out["cpu"][1].tower_grads, out["cpu"][1].server_grads])))
+    if max(worst.values()) > BF16_TOL:
+        raise AssertionError(f"bf16 PhraseBank: card vs CPU {worst} > "
+                             f"{BF16_TOL}")
+    log(f"mlp bf16 {name} max: split_forward of {MLP_BATCH} test rows "
+        f"(float32 logits) and one Executor step at 4 microbatches (4 + 4 "
+        f"merge_reduce launches on the card), card vs CPU max |diff| "
+        f"{worst} (<= {BF16_TOL}) | {card}")
+
+
 def mlp_phase(card: str) -> dict:
     """Phase 10 (its merge kernels are checked and timed at the MLP shapes
     in phase 2); returns the launches per merge kernel."""
     t0 = time.perf_counter()
     mlp_tables(card)
     launches = mlp_executor(card)
+    mlp_bf16_card_vs_cpu(card)
     log(f"mlp: phase 10 took {time.perf_counter() - t0:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 11: no-wait split training
+# ---------------------------------------------------------------------------
+
+def nowait_sim_run(cfg, batches, params, device, plan, link) -> dict:
+    """NOWAIT_SIM_STEPS of ``engine.pipelined_step(mode="nowait")`` under
+    plain SGD on ``device`` (the simulated clock decides who made each
+    merge; the Executor runs that liveness over SimTransport).  Launch
+    counters reset just before the run and read just after."""
+    slices = split_model.feature_slices(cfg)
+    loss_fn = lambda logits, y: split_model.softmax_xent(logits, y,
+                                                         cfg.num_classes)
+    sgd = lambda p, g: p - NOWAIT_LR * g
+    losses, lives, ema = [], [], None
+    if device == "cuda":
+        torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for xb, yb in batches[:NOWAIT_SIM_STEPS]:
+        feats = [split_model.client_columns(xb, sl) for sl in slices]
+        loss, tg, sg, _, report, ema = engine.pipelined_step(
+            towers.mlp_tower_apply, towers.mlp_tower_apply, loss_fn,
+            params["towers"], params["server"], feats, yb, cfg.merge,
+            microbatches=NOWAIT_M, mode="nowait", plan=plan, link=link,
+            ema_state=ema, device=device)
+        params = {"towers": [tree_map(sgd, p, g)
+                             for p, g in zip(params["towers"], tg)],
+                  "server": tree_map(sgd, params["server"], sg)}
+        losses.append(loss)
+        lives.append(report.live)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"no-wait {cfg.merge} on {device}: non-finite "
+                             "loss")
+    return dict(losses=losses, lives=lives, launches=launches,
+                seconds=seconds, params=params)
+
+
+def nowait_sim_mlp(card: str) -> dict:
+    """Phase 11 (a): PhraseBank at full size through ``pipelined_step`` on
+    the simulated clock, client 1 a 20x straggler, avg and max: on the
+    card and on the card's CPU from the same weights.  Returns the merge
+    launches of the card runs."""
+    name = "financial_phrasebank"
+    ds = synthetic.make_dataset(name, seed=SEED)
+    dsets = {d: synthetic.to_device(ds, d) for d in ("cuda", "cpu")}
+    total = dict.fromkeys(MERGE_CUDA_KERNELS, 0)
+    K, M, steps = 4, NOWAIT_M, NOWAIT_SIM_STEPS
+    for merge in ("avg", "max"):
+        cfg = dataclasses.replace(PAPER_DATASETS[name], merge=merge)
+        plan = engine.plan_step(cfg, NOWAIT_BATCH, M)
+        link = LinkModel.uniform(K).with_straggler(1,
+                                                   slowdown=NOWAIT_SLOWDOWN)
+        init = split_model.init_split_mlp(
+            torch.Generator(device="cpu").manual_seed(SEED), cfg,
+            device="cpu")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            it = synthetic.minibatches(dsets[device].x_train,
+                                       dsets[device].y_train, NOWAIT_BATCH,
+                                       seed=SEED, epochs=100)
+            batches = [next(it) for _ in range(steps)]
+            params = init if device == "cpu" else _to(init, device)
+            runs[device] = nowait_sim_run(cfg, batches, params, device, plan,
+                                          link)
+        card_run, cpu_run = runs["cuda"], runs["cpu"]
+        want_row = [1.0, 0.0, 1.0, 1.0]
+        if any(row != want_row for live in card_run["lives"]
+               for row in live):
+            raise AssertionError(f"no-wait sim {merge}: live rows "
+                                 f"{card_run['lives'][:2]} (client 1 should "
+                                 "miss every microbatch, no other client)")
+        if card_run["lives"] != cpu_run["lives"]:
+            raise AssertionError(f"no-wait sim {merge}: card and CPU live "
+                                 "matrices differ")
+        diff = max(abs(a - b) for a, b in zip(card_run["losses"],
+                                               cpu_run["losses"]))
+        if diff > 1e-5:
+            raise AssertionError(f"no-wait sim {merge}: card and CPU losses "
+                                 f"differ by {diff:.3e} > 1e-5")
+        expect_launches(card_run["launches"], {
+            "merge_reduce_kernel": steps * M,
+            "merge_reduce_bwd_kernel": steps * M})
+        if any(cpu_run["launches"].values()):
+            raise AssertionError(f"no-wait sim {merge}: the CPU run launched "
+                                 f"kernels: {cpu_run['launches']}")
+        first = sum(card_run["losses"][:5]) / 5
+        last = sum(card_run["losses"][-5:]) / 5
+        if not last < first:
+            raise AssertionError(f"no-wait sim {merge}: mean loss of the "
+                                 f"last five steps {last:.6f} is not below "
+                                 f"the first five's {first:.6f}")
+        for kernel in ("merge_reduce_kernel", "merge_reduce_bwd_kernel"):
+            total[kernel] += card_run["launches"][kernel]
+        acc, f1 = mlp_eval(cfg, dsets["cuda"], card_run["params"])
+        cacc, cf1 = mlp_eval(cfg, dsets["cpu"], cpu_run["params"])
+        log(f"nowait sim {name} {merge}: K={K}, batch {NOWAIT_BATCH}, "
+            f"M={M}, client 1 {NOWAIT_SLOWDOWN:g}x slower (links and "
+            f"compute), {steps} steps of SGD {NOWAIT_LR}: client 1 missed "
+            f"all {steps * M} microbatches, no other client missed one; "
+            f"live matrices identical on the card and the CPU; losses "
+            f"{card_run['losses'][0]:.6f} -> {card_run['losses'][-1]:.6f} "
+            f"(mean of first / last five {first:.6f} / {last:.6f}), within "
+            f"{diff:.3e} of the CPU's per step; "
+            f"{card_run['launches']['merge_reduce_kernel']} merge_reduce and "
+            f"{card_run['launches']['merge_reduce_bwd_kernel']} "
+            f"merge_reduce_bwd launches on the card (one each per "
+            f"microbatch), none on the CPU; {steps / card_run['seconds']:.1f}"
+            f" steps/s on the card ({card_run['seconds']:.4f} s; CPU "
+            f"{steps / cpu_run['seconds']:.1f}); test acc / F1 card "
+            f"{acc:.4f} / {f1:.4f}, CPU {cacc:.4f} / {cf1:.4f} | {card}")
+    return total
+
+
+def nowait_wall_run(cfg, params, batches, mode, deadline) -> dict:
+    """NOWAIT_WALL_STEPS Executor steps over ``InprocTransport``: four
+    ``build_mlp_worker``s (client 1 sleeping NOWAIT_DELAY_S per forward)
+    under local SGD, role 0's server under SGD, the EMA threaded.  Launch
+    counters reset just before the run and read just after."""
+    K, M = cfg.num_clients, NOWAIT_M
+    loss_fn = lambda logits, y: split_model.softmax_xent(logits, y,
+                                                         cfg.num_classes)
+    workers = [build_mlp_worker(
+        k, cfg=cfg, batch=NOWAIT_BATCH, microbatches=M,
+        learning_rate=NOWAIT_LR, params=params,
+        features=lambda step: batches[step][0],
+        forward_delay_s=NOWAIT_DELAY_S if k == 1 else 0.0, device="cuda")
+        for k in range(K)]
+    opt = SGD(learning_rate=NOWAIT_LR)
+    server = params["server"]
+    state = opt.init(server)
+    ema, misses, used, course, losses, zero_steps = None, [], [], [], [], 0
+    with InprocTransport(workers) as tr:
+        ex = Executor(tr, towers.mlp_tower_apply, loss_fn, cfg.merge,
+                      mode=mode, microbatches=M, deadline=deadline)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        for step in range(NOWAIT_WALL_STEPS):
+            res = ex.run_step(server, batches[step][1], step=step,
+                              ema_state=ema)
+            ema = res.ema_state
+            server, state = opt.update(server, res.server_grads, state)
+            misses.append(res.report.misses_per_client)
+            used.append(res.report.deadline_s)
+            if ex.deadline is not None:
+                course.append(ex.deadline.deadline_s())
+            losses.append(res.loss)
+            if res.report.misses_per_client[1] == M:
+                # it missed every microbatch: no jacobian, zero gradient
+                if any(float(g.abs().max()) != 0.0
+                       for g in _leaves(res.tower_grads[1])):
+                    raise AssertionError(
+                        f"no-wait {mode} step {step}: client 1 missed every "
+                        "microbatch but its tower gradient is not zero")
+                zero_steps += 1
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    losses = torch.stack(losses).tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"no-wait {mode}: non-finite loss {losses}")
+    expect_launches(launches, {"merge_reduce_kernel": NOWAIT_WALL_STEPS * M,
+                               "merge_reduce_bwd_kernel":
+                               NOWAIT_WALL_STEPS * M})
+    return dict(misses=misses, used=used, course=course, losses=losses,
+                seconds=seconds, launches=launches, zero_steps=zero_steps,
+                spreads=ex.deadline.spreads() if ex.deadline else None)
+
+
+def nowait_wall_mlp(card: str) -> dict:
+    """Phase 11 (b): PhraseBank max over threads with a real straggler:
+    no-wait with the adaptive deadline (``deadline=None``), no-wait with
+    a static window, and the pipelined barrier beside them.  Returns the
+    merge launches."""
+    name = "financial_phrasebank"
+    cfg = dataclasses.replace(PAPER_DATASETS[name], merge="max")
+    ds = synthetic.to_device(synthetic.make_dataset(name, seed=SEED), "cuda")
+    it = synthetic.minibatches(ds.x_train, ds.y_train, NOWAIT_BATCH,
+                               seed=SEED, epochs=100)
+    batches = [next(it) for _ in range(NOWAIT_WALL_STEPS)]
+    params = split_model.init_split_mlp(
+        torch.Generator(device="cuda").manual_seed(SEED), cfg, device="cuda")
+    total = dict.fromkeys(MERGE_CUDA_KERNELS, 0)
+    M, steps = NOWAIT_M, NOWAIT_WALL_STEPS
+    for label, mode, deadline in (("adaptive", "nowait", None),
+                                  ("static", "nowait", NOWAIT_STATIC_S),
+                                  ("pipelined", "pipelined", None)):
+        run = nowait_wall_run(cfg, params, batches, mode, deadline)
+        per_client = [sum(m[k] for m in run["misses"]) for k in range(4)]
+        if label == "static" and per_client[1] != steps * M:
+            raise AssertionError(f"no-wait static: client 1 missed "
+                                 f"{per_client[1]} of {steps * M} "
+                                 f"microbatches ({run['misses']})")
+        if label == "pipelined" and any(per_client):
+            raise AssertionError(f"pipelined: misses {per_client}")
+        for kernel in ("merge_reduce_kernel", "merge_reduce_bwd_kernel"):
+            total[kernel] += run["launches"][kernel]
+        fmt = lambda xs: "[" + ", ".join(
+            "none" if x is None else f"{x:.4f}" for x in xs) + "]"
+        log(f"nowait wall {label} ({mode}, deadline "
+            f"{'adaptive' if deadline is None else deadline}): {name} max, "
+            f"K=4, batch {NOWAIT_BATCH}, M={M}, client 1 sleeping "
+            f"{NOWAIT_DELAY_S} s per forward, {steps} steps: "
+            f"{steps / run['seconds']:.2f} steps/s ({run['seconds']:.4f} s); "
+            f"misses per client {per_client} of {steps * M} microbatches, "
+            f"client 1 per step {[m[1] for m in run['misses']]}; steps on "
+            f"which client 1 missed every microbatch and got a zero "
+            f"gradient: {run['zero_steps']}; losses {run['losses'][0]:.6f} "
+            f"-> {run['losses'][-1]:.6f}; "
+            f"{run['launches']['merge_reduce_kernel']} merge_reduce and "
+            f"{run['launches']['merge_reduce_bwd_kernel']} merge_reduce_bwd "
+            f"launches | {card}")
+        if mode == "nowait":
+            log(f"nowait wall {label}: deadline used per step (s) "
+                f"{fmt(run['used'])}; the controller's window after each "
+                f"step (s) {fmt(run['course'])}; arrival-spread EWMAs at the "
+                f"end {fmt(run['spreads'] or [])}")
+    return total
+
+
+@contextlib.contextmanager
+def bootstrap_minimum(min_initial_s: float):
+    """Every ``AdaptiveDeadline`` bootstraps its window from at least
+    ``min_initial_s`` inside the block (the floor is half of it)."""
+    seed = AdaptiveDeadline.seed_from_observations
+    AdaptiveDeadline.seed_from_observations = (
+        lambda self, min_initial_s=min_initial_s: seed(self, min_initial_s))
+    try:
+        yield
+    finally:
+        AdaptiveDeadline.seed_from_observations = seed
+
+
+def nowait_lm_run(cfg, runtime, **kw):
+    """``train_split`` of ``cfg`` over inproc, batch 8 x 256 tokens, M = 4,
+    NOWAIT_LM_STEPS steps; returns (metrics, report, seconds, launches),
+    the counters reset just before the run and read just after."""
+    loader = LMBatchLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    _, metrics, report = train_split(
+        cfg, loader, steps=NOWAIT_LM_STEPS, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, runtime=runtime, microbatches=NOWAIT_M,
+        learning_rate=3e-4, warmup=20, seed=SEED, log_every=1,
+        device="cuda", print_fn=log, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if not all(math.isfinite(x) for x in metrics.losses):
+        raise AssertionError(f"{runtime}: non-finite loss {metrics.losses}")
+    per = NOWAIT_LM_STEPS * NOWAIT_M
+    expect_launches(launches, {"merge_reduce_kernel": per,
+                               "merge_reduce_bwd_kernel": per})
+    return metrics, report, seconds, launches
+
+
+def nowait_lm(card: str) -> int:
+    """Phase 11 (c): full-width smollm-360m, ``train_split`` no-wait over
+    inproc, without a straggler against the pipelined run at the same M,
+    then with client 1 a straggler.  Returns the forward merge launches
+    of the three runs (all at ``NOWAIT_SHAPE``; each backward kernel's
+    count is the same)."""
+    cfg = get_arch("smollm-360m")
+    steps, M = NOWAIT_LM_STEPS, NOWAIT_M
+    # warm-up at these shapes (not measured, its launches count nowhere):
+    # the first run at M = 4 pays cuBLAS's and the allocator's start-up
+    train_split(cfg, LMBatchLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED),
+                steps=1, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                runtime="pipelined", microbatches=M, seed=SEED,
+                device="cuda", verify_step0=False, print_fn=lambda *a: None)
+    piped, _, p_s, plaunches = nowait_lm_run(cfg, "pipelined")
+    with bootstrap_minimum(NOWAIT_LM_BOOTSTRAP_S):
+        nowait, report, n_s, launches = nowait_lm_run(cfg, "nowait")
+    if any(any(m) for m in nowait.misses_per_client):
+        raise AssertionError(f"no-wait smollm without a straggler missed: "
+                             f"{nowait.misses_per_client}")
+    if nowait.step0_max_dgrad is None or nowait.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"no-wait smollm: step 0 not verified "
+                             f"({nowait.step0_max_dgrad})")
+    diff = max(abs(a - b) for a, b in zip(nowait.losses, piped.losses))
+    if diff > 1e-6:
+        raise AssertionError(f"no-wait smollm: losses {nowait.losses} vs "
+                             f"pipelined {piped.losses} differ by "
+                             f"{diff:.3e} > 1e-6")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    rate = lambda m: (len(m.step_times) - 1) / sum(m.step_times[1:])
+    log(f"nowait smollm-360m: {steps} steps of {tokens} tokens at M={M} "
+        f"(stack {NOWAIT_SHAPE}), no straggler, the window's bootstrap "
+        f"minimum {NOWAIT_LM_BOOTSTRAP_S} s: 0 misses, step-0 max |dgrad| "
+        f"vs protocol_step {nowait.step0_max_dgrad:.3e} (<= 1e-5), losses "
+        f"{nowait.losses} within {diff:.3e} of the pipelined run's; "
+        f"{launches['merge_reduce_kernel']} merge_reduce and "
+        f"{launches['merge_reduce_bwd_kernel']} merge_reduce_bwd launches; "
+        f"{rate(nowait):.3f} steps/s over steps 1-{steps - 1} (pipelined "
+        f"{rate(piped):.3f}), wall {n_s:.4f} s (pipelined {p_s:.4f} s), "
+        f"last deadline {report.deadline_s} | {card}")
+    slow, sreport, s_s, slaunches = nowait_lm_run(
+        cfg, "nowait", straggler=1, straggler_delay_s=NOWAIT_LM_DELAY_S)
+    per_client = [sum(m[k] for m in slow.misses_per_client)
+                  for k in range(cfg.vertical.num_clients)]
+    log(f"nowait smollm-360m, client 1 sleeping {NOWAIT_LM_DELAY_S} s per "
+        f"forward, the default adaptive window: misses per client "
+        f"{per_client} of {steps * M} microbatches (per step "
+        f"{slow.misses_per_client}), losses {slow.losses} (finite), step 0 "
+        f"verified {slow.step0_max_dgrad is not None}; {rate(slow):.3f} steps/s "
+        f"over steps 1-{steps - 1}, wall {s_s:.4f} s; "
+        f"{slaunches['merge_reduce_kernel']} merge_reduce and "
+        f"{slaunches['merge_reduce_bwd_kernel']} merge_reduce_bwd launches; "
+        f"last deadline {sreport.deadline_s} | {card}")
+    return sum(n["merge_reduce_kernel"]
+               for n in (plaunches, launches, slaunches))
+
+
+def nowait_phase(card: str) -> tuple[dict, int]:
+    """Phase 11; returns (the merge kernels' launches over its MLP runs,
+    the forward launches at ``NOWAIT_SHAPE``).  The LM runs' launches at
+    that shape, backward included, are counted in the first as well."""
+    t0 = time.perf_counter()
+    launches = nowait_sim_mlp(card)
+    for kernel, n in nowait_wall_mlp(card).items():
+        launches[kernel] += n
+    lm = nowait_lm(card)
+    launches["merge_reduce_kernel"] += lm
+    launches["merge_reduce_bwd_kernel"] += lm
+    log(f"nowait: phase 11 took {time.perf_counter() - t0:.1f} s")
+    return launches, lm
 
 
 def _leaves(tree):
@@ -2434,10 +2931,12 @@ def main() -> None:
     ssd_rows, timed_worst = time_ssd(card)
     ssd_worst = max(ssd_worst, timed_worst)
     check_small_ssm_against_cpu()
+    check_small_ssm_bf16_against_cpu(card)
     launches["ssd_chunk_kernel"] = ssm_full(card)
     check_small_long_against_cpu(SC_ARCH, head_dim=128)
     flash_launches[128] = serve_starcoder(card)
     mlp_launches = mlp_phase(card)
+    nowait_launches, nowait_shape_launches = nowait_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -2454,7 +2953,8 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/merge_pool.cu",
             "replaces": replaces,
-            "launches": launches[name] + mlp_launches[name],
+            "launches": (launches[name] + mlp_launches[name]
+                         + nowait_launches[name]),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2468,11 +2968,16 @@ def main() -> None:
                     "library_two_call_device_ms"):
             if key in row:
                 entry[key] = row[key]
-        # the MLP path's shapes (phase 10), whose launches are in the count
+        # the MLP path's shapes (phases 10 and 11) and the no-wait LM
+        # stack (phase 11), whose launches are in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
-            for s, sh in MLP_TIME_SHAPES if (name, s, sh) in rows]
+            for s, sh in MLP_TIME_SHAPES + NOWAIT_TIME_SHAPES
+            if (name, s, sh) in rows]
+        for sub in entry["shapes"]:
+            if tuple(sub["shape"]) == NOWAIT_SHAPE:
+                sub["launches"] = nowait_shape_launches
         kernels.append(entry)
     def flash_entry(shape, launched=None):
         """The kernel's row at a timed shape; ``launched`` is its count on

@@ -2,15 +2,16 @@
 
 Carries the rules of the JAX package's matrix that the port enforces:
 those whose enforcement layers include ``schedule`` (``step_schedule`` /
-``serve_schedule`` construction), ``executor`` (``Executor``
-construction), ``worker`` (``TowerWorker``, the privacy principal's own
-guard), ``train`` (``train_split``, before workers are built) or
-``serve`` (``SplitLMServer``), each listed at the port's layers only.
+``serve_schedule`` construction), ``engine`` (the simulators' step
+plans), ``executor`` (``Executor`` construction), ``worker``
+(``TowerWorker``, the privacy principal's own guard), ``train``
+(``train_split``, before workers are built) or ``serve``
+(``SplitLMServer``), each listed at the port's layers only.
 Each layer rejects through :func:`check`; a rule's key, features and
 ``reason`` are the JAX package's, so both packages reject a composition
 with the same words (``tests/test_torch_train.py`` holds the two tables
 together).  A composition the matrix accepts may still be one the port
-has not ported yet (secure aggregation, compression, trees, no-wait);
+has not ported yet (secure aggregation, compression, tree execution);
 those raise ``NotImplementedError`` at the same layers.
 """
 from __future__ import annotations
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 #: enforcement-layer name -> the port module whose source calls check()
 LAYER_MODULES = {
     "schedule": "src/repro_torch/core/protocol.py",
+    "engine": "src/repro_torch/runtime/engine.py",
     "executor": "src/repro_torch/runtime/executor.py",
     "worker": "src/repro_torch/transport/base.py",
     "train": "src/repro_torch/train/loop.py",
@@ -87,7 +89,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="secure-compress",
         features=("compress", "secure"),
-        layers=("schedule", "executor", "worker", "train"),
+        layers=("schedule", "engine", "executor", "worker", "train"),
         reason=(
             "secure aggregation and cut compression cannot compose: "
             "additive masks do not cancel through quantized/sparsified "
@@ -108,7 +110,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-nonadditive",
         features=("tree", "nonadditive"),
-        layers=("executor", "train"),
+        layers=("engine", "executor", "train"),
         reason=(
             "tree aggregation needs an additively homomorphic merge: "
             "relays forward SUBTREE PARTIAL SUMS, which only a plain "
@@ -128,7 +130,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-compress",
         features=("tree", "compress"),
-        layers=("schedule", "executor", "worker", "train"),
+        layers=("schedule", "engine", "executor", "worker", "train"),
         reason=(
             "tree aggregation and cut compression cannot compose: relays "
             "partial-sum cut tensors, and codec frames (topk bitmaps / "
@@ -138,7 +140,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-nowait",
         features=("tree", "nowait"),
-        layers=("executor", "train"),
+        layers=("engine", "executor", "train"),
         reason=(
             "tree aggregation requires barrier execution "
             "(drop_policy='fused'): a client folded into a relay's "

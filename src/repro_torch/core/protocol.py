@@ -162,14 +162,12 @@ def step_schedule(num_clients: int, label_holder: int = 0, *,
     )
 
 
-def _reject_unported(*, secure=False, compress=None, tree=None,
-                     nowait=False) -> None:
+def _reject_unported(*, secure=False, compress=None, tree=None) -> None:
     """The training overlays the port does not carry yet raise here, by
     name, rather than run silently without them."""
     for name, on in (("secure aggregation", secure),
                      ("cut compression", compress is not None),
-                     ("tree aggregation", tree is not None),
-                     ("no-wait execution", nowait)):
+                     ("tree aggregation", tree is not None)):
         if on:
             raise NotImplementedError(
                 f"{name} is not ported to repro_torch yet (see ROADMAP.md, "

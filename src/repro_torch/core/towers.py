@@ -23,9 +23,11 @@ def init_mlp_tower(gen: torch.Generator, dims: list[int],
 
 
 def mlp_tower_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """relu MLP; every product promotes its operands as ``jnp`` does, so
+    f32 features through a bf16 tree give f32 activations."""
     n = len([k for k in params if k.startswith("w")])
     for i in range(n):
-        x = x @ params[f"w{i}"] + params[f"b{i}"]
+        x = layers.matmul(x, params[f"w{i}"]) + params[f"b{i}"]
         if i < n - 1:
             x = torch.relu(x)
     return x

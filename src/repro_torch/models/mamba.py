@@ -186,7 +186,11 @@ def mamba_decode_step(params: dict, x: torch.Tensor, ssm_state: torch.Tensor,
     z, xs, Bm, Cm, dt = _split_proj(proj, d_inner, G, N, H)
     u_new = torch.cat([xs, Bm, Cm], dim=-1)  # (B, ch)
     window = torch.cat([conv_state, u_new[:, None, :]], dim=1)  # (B, W, ch)
-    u = torch.einsum("bwc,wc->bc", window, params["conv_w"]) + \
+    # an f32 cache (generate's) promotes the window, and with it the
+    # product, to f32 over a bf16 conv_w, as jnp.einsum promotes
+    conv_w = params["conv_w"].to(torch.promote_types(window.dtype,
+                                                     params["conv_w"].dtype))
+    u = torch.einsum("bwc,wc->bc", window.to(conv_w.dtype), conv_w) + \
         params["conv_b"]
     u = F.silu(u)
     xs, Bm, Cm = torch.split(u, [d_inner, G * N, G * N], dim=-1)

@@ -1,17 +1,19 @@
 """Executor: drive the training schedule over any transport.
 
-The single execution path behind ``protocol_step`` (serial) and the
-split-executing train loop: one role-0 driver that walks
-``step_schedule``, records every message in a per-step
-:class:`~repro_torch.core.protocol.Ledger`, merges the cut activations,
-backprops the server network and returns per-client jacobians — over a
-:class:`~repro_torch.transport.Transport`.
+The single execution path behind ``protocol_step`` (serial),
+``engine.pipelined_step`` (microbatch pipelining / no-wait over the
+simulated clock) and the split-executing train loop: one role-0 driver
+that walks ``step_schedule``, records every message in a per-step
+:class:`~repro_torch.core.protocol.Ledger`, merges the cut activations
+(EMA-imputing no-wait misses), backprops the server network and returns
+per-client jacobians — over a :class:`~repro_torch.transport.Transport`.
 
 The step is split into two halves so a driver can keep several steps in
 flight (:class:`~repro_torch.runtime.pipeline.StepPipeline`):
 
 * :meth:`Executor.submit_step` ships every tower-forward request for one
-  step and registers its in-flight state (its own Ledger, cut buffers);
+  step and registers its in-flight state (its own Ledger, cut buffers,
+  deadline bookkeeping);
 * :meth:`Executor.collect_step` gathers the OLDEST in-flight step's cuts,
   runs the role-0 merge/forward/backward per microbatch, fans the
   jacobians out, and barriers on the workers' ``step_done`` acks.
@@ -31,13 +33,23 @@ Drop policies, as in the JAX package:
   stack: the forward merge kernel on the card, and autograd's backward
   through it is the backward merge kernel
   (:class:`~repro_torch.kernels.ops.MergePool`).
+* ``"impute"`` — no-wait: missing seats are filled from the per-client
+  EMA (:mod:`repro_torch.core.straggler`) inside the graph the server
+  backward differentiates, the filled stack goes through
+  :func:`fast_merge` (both merge kernels on the card), and only live
+  clients get a jacobian.
 
-Not ported yet, and refused loudly: the ``"impute"`` policy and the
-``"nowait"`` mode (deadlines, EMA imputation), secure aggregation, cut
-compression and aggregation trees (unsound compositions reject through
-the compat matrix first, the same words as the JAX package), and the
-program shapes the dense family does not use (``server_takes_batch``,
-``server_aux``, ``merge_fn``).
+Liveness comes either from a predetermined matrix (the simulated clock of
+``engine.simulate_pipelined``: every payload still flows, the clock just
+decides who made the merge) or, in ``"nowait"`` mode over a real
+transport, from wall-clock deadlines driven by the
+:class:`~repro_torch.runtime.deadline.AdaptiveDeadline` arrival EWMAs.
+
+Not ported yet, and refused loudly: secure aggregation, cut compression
+and aggregation trees (unsound compositions reject through the compat
+matrix first, the same words as the JAX package), and the program shapes
+the dense family does not use (``server_takes_batch``, ``server_aux``,
+``merge_fn``).
 """
 from __future__ import annotations
 
@@ -49,12 +61,19 @@ import torch
 
 from repro_torch.core import compat
 from repro_torch.core import merge as merge_lib
+from repro_torch.core import straggler as straggler_lib
 from repro_torch.core.merge import collective_bytes_per_merge
 from repro_torch.core.protocol import Ledger, _reject_unported, step_schedule
 from repro_torch.kernels import ops
+from repro_torch.runtime.deadline import AdaptiveDeadline
 from repro_torch.tree_util import tree_leaves, tree_map, tree_unflatten
 
 DROP_POLICIES = ("neutral", "fused", "impute")
+
+# retired (step, mb) first-arrival timestamps kept around so a no-wait
+# straggler's cut landing after its step was collected still feeds the
+# deadline EWMA (that is how a recovered client re-opens the window)
+_RETIRED_FIRST_T_KEEP = 64
 
 
 def fast_merge(stacked: torch.Tensor, strategy: str, *,
@@ -81,19 +100,26 @@ def tree_mean(trees: list):
 
 @dataclass
 class ExecReport:
-    """Measured (wall-clock) report of one collected step.  Every client
-    makes every merge in the ported modes, so the JAX report's liveness
-    matrix and miss counts have no counterpart yet."""
+    """Measured (wall-clock) sibling of ``engine.SimReport`` — the same
+    field contract, but ``step_time_s`` is real elapsed time on a real
+    transport and ``live`` reflects deadlines that actually fired."""
 
     mode: str
     transport: str
     step_time_s: float
     microbatches: int
+    live: list[list[float]]  # (M, K) — 1.0 = client's cut made the merge
+    misses_per_client: list[int]
     cut_bytes_per_client: int
     collective_bytes_per_client: int
+    deadline_s: Optional[float] = None  # last deadline used (nowait)
     # steps submitted after this one before it was collected: the tower
     # params' delayed-gradient lag (0 = serial semantics, W-1 at window W)
     staleness: int = 0
+
+    @property
+    def total_misses(self) -> int:
+        return sum(self.misses_per_client)
 
 
 @dataclass
@@ -102,7 +128,8 @@ class ExecutionResult:
     tower_grads: Optional[list]
     server_grads: object
     ledger: Ledger
-    report: ExecReport
+    report: object  # SimReport (simulated liveness) or ExecReport (measured)
+    ema_state: Optional[dict] = None  # the no-wait EMA, detached
     step: int = 0  # which training step this result belongs to
 
 
@@ -116,6 +143,8 @@ class _InflightStep:
     ledger: Ledger
     submit_t: float
     cuts: dict = field(default_factory=dict)  # mb -> {client: cut}
+    first_t: dict = field(default_factory=dict)  # mb -> first drain time
+    merged: set = field(default_factory=set)  # mbs already merged
     sent_jacs: list = field(default_factory=list)  # per-client bwd count
     done: list = field(default_factory=list)  # per-client step_done
     grads: list = field(default_factory=list)  # per-client final tower grads
@@ -132,11 +161,18 @@ class Executor:
     labels) -> scalar`` come from the program.  The server backward is
     ``torch.autograd.grad`` of the loss over the server param leaves and
     the stacked cuts, both fresh leaves made from detached tensors, so it
-    never runs back into a tower's graph."""
+    never runs back into a tower's graph.
+
+    ``deadline`` (no-wait over a real transport): ``None`` bootstraps an
+    :class:`~repro_torch.runtime.deadline.AdaptiveDeadline` from the first
+    full barrier, a float is a static grace window after a microbatch's
+    first cut, and a controller is used as given.  ``ema_decay`` is the
+    imputation EMA's decay."""
 
     def __init__(self, transport, server_fwd: Callable, loss_fn: Callable,
                  merge: str, *, mode: str = "pipelined", microbatches: int = 1,
                  label_holder: int = 0, drop_policy: Optional[str] = None,
+                 ema_decay: float = 0.95, deadline=None,
                  server_takes_batch: bool = False, server_aux: bool = False,
                  merge_fn: Optional[Callable] = None,
                  secure_agg: bool = False, compress: Optional[str] = None,
@@ -153,8 +189,7 @@ class Executor:
             nowait=mode == "nowait" or drop_policy != "fused",
             impute=drop_policy == "impute",
             context=f"Executor(mode={mode!r}, drop_policy={drop_policy!r})")
-        _reject_unported(secure=secure_agg, compress=compress, tree=agg_tree,
-                         nowait=mode == "nowait" or drop_policy == "impute")
+        _reject_unported(secure=secure_agg, compress=compress, tree=agg_tree)
         for name, on in (("server_takes_batch", server_takes_batch),
                          ("server_aux", server_aux),
                          ("merge_fn", merge_fn is not None)):
@@ -170,8 +205,21 @@ class Executor:
         self.microbatches = microbatches
         self.label_holder = label_holder
         self.drop_policy = drop_policy
+        self.ema_decay = ema_decay
+        # deadline: None -> bootstrap an AdaptiveDeadline from the first
+        # full barrier; float -> static window; AdaptiveDeadline -> as given
+        if deadline is None:
+            self.deadline = AdaptiveDeadline(transport.num_clients)
+            self.static_deadline_s = None
+        elif isinstance(deadline, AdaptiveDeadline):
+            self.deadline = deadline
+            self.static_deadline_s = None
+        else:
+            self.deadline = None
+            self.static_deadline_s = float(deadline)
         self._schedule = step_schedule(transport.num_clients, label_holder)
         self._inflight: dict[int, _InflightStep] = {}  # insertion-ordered
+        self._retired_first_t: dict[tuple[int, int], float] = {}
 
     def _idle_error(self, phase: str, detail: str = "") -> RuntimeError:
         msg = f"transport idle {phase}"
@@ -216,11 +264,21 @@ class Executor:
                     req["feats"] = features[spec.client][sl]
                 transport.submit(spec.client, req)
 
-    def collect_step(self, server_params, *, merge_mask=None,
-                     collect_grads: bool = True) -> ExecutionResult:
+    def collect_step(self, server_params, *, liveness=None, merge_mask=None,
+                     ema_state: Optional[dict] = None,
+                     collect_grads: bool = True,
+                     report=None) -> ExecutionResult:
         """Collect the OLDEST in-flight step: merge its microbatches, run the
         role-0 forward/backward, fan jacobians out, barrier on
-        ``step_done``."""
+        ``step_done``.
+
+        ``liveness`` is an (M, K) 0/1 matrix from a simulated clock;
+        without it, ``"nowait"`` measures liveness against wall-clock
+        deadlines and other modes barrier on all K cuts.  ``ema_state`` is
+        the imputation state the ``"impute"`` policy threads from step to
+        step (made on the first merge when None).  A ``report`` passed in
+        (the simulated clock's) is returned untouched; otherwise a measured
+        :class:`ExecReport` is built."""
         if not self._inflight:
             raise RuntimeError("no in-flight step to collect "
                                "(call submit_step first)")
@@ -232,19 +290,48 @@ class Executor:
         mbsz = st.mbsz
         server_leaves = tree_leaves(server_params)
 
-        losses, server_grad_acc = [], []
+        losses, server_grad_acc, live_matrix = [], [], []
+        misses = [0] * K
+        last_deadline: Optional[float] = self.static_deadline_s
         cuts_in = None
         for m in range(M):
-            self._gather(st, m)
-            arrived = st.cuts.pop(m)
-            cuts_in = torch.stack([arrived[k] for k in range(K)])
+            live_row, deadline_used = self._gather(st, m, liveness)
+            if deadline_used is not None:
+                last_deadline = deadline_used
+            for k in range(K):
+                if live_row[k] <= 0:
+                    misses[k] += 1
+            live_matrix.append(live_row)
+            st.merged.add(m)
+
+            arrived = st.cuts.pop(m, {})
+            proto = next(iter(arrived.values()))
+            cuts_in = torch.stack([arrived[k] if k in arrived
+                                   else torch.zeros_like(proto)
+                                   for k in range(K)])
+            if self.drop_policy == "impute" and ema_state is None:
+                ema_state = {
+                    "ema": torch.zeros((K, cuts_in.shape[-1]),
+                                       dtype=torch.float32,
+                                       device=cuts_in.device),
+                    "initialized": torch.zeros((K,), dtype=torch.float32,
+                                               device=cuts_in.device)}
             labels_m = st.labels[m * mbsz:(m + 1) * mbsz]
 
             # fresh leaves over the same storage: the graph starts here
             leaves = [t.detach().requires_grad_(True) for t in server_leaves]
             cuts = cuts_in.requires_grad_(True)
             with torch.enable_grad():
-                if self.drop_policy == "neutral":
+                if self.drop_policy == "impute":
+                    # inside the differentiated graph: a filled seat gets
+                    # zero gradient, a live seat the merge's backward
+                    live_vec = torch.tensor(live_row, dtype=torch.float32,
+                                            device=cuts_in.device)
+                    imputed, ema_state = straggler_lib.impute_stack(
+                        cuts, live_vec, ema_state, decay=self.ema_decay)
+                    ema_state = straggler_lib.detach_state(ema_state)
+                    merged = fast_merge(imputed, self.merge)
+                elif self.drop_policy == "neutral":
                     merged = merge_lib.merge_stacked(cuts, self.merge,
                                                      live_mask=merge_mask)
                 else:
@@ -262,11 +349,14 @@ class Executor:
             cut_grads = grads[-1]
             for spec in schedule.jacs:
                 k = spec.client
-                jac_out = cut_grads[k]
-                st.ledger.record_spec(spec, jac_out)
-                st.sent_jacs[k] += 1
-                transport.submit(k, {"op": "backward", "step": st.step,
-                                     "mb": m, "jac": jac_out})
+                # serial/neutral semantics: jacobians flow to every client;
+                # no-wait: a missed deadline skips this microbatch's update
+                if self.drop_policy == "neutral" or live_row[k] > 0:
+                    jac_out = cut_grads[k]
+                    st.ledger.record_spec(spec, jac_out)
+                    st.sent_jacs[k] += 1
+                    transport.submit(k, {"op": "backward", "step": st.step,
+                                         "mb": m, "jac": jac_out})
             losses.append(loss_m.detach())
             server_grad_acc.append(tree_unflatten(server_params,
                                                   list(grads[:-1])))
@@ -280,24 +370,28 @@ class Executor:
                 raise self._idle_error(
                     "awaiting step_done",
                     f"step {st.step}: {sum(st.done)}/{K} workers done")
-        del self._inflight[st.step]
+        self._retire(st)
 
         loss = sum(losses) / M
         server_grads = tree_mean(server_grad_acc)
         tower_grads = list(st.grads) if collect_grads else None
-        report = self._build_report(time.monotonic() - st.submit_t,
-                                    st.ledger, cuts_in, staleness)
+        if report is None:
+            report = self._build_report(
+                time.monotonic() - st.submit_t, live_matrix, misses,
+                st.ledger, cuts_in, last_deadline, staleness)
         return ExecutionResult(loss, tower_grads, server_grads, st.ledger,
-                               report, step=st.step)
+                               report, ema_state, step=st.step)
 
     def run_step(self, server_params, labels, *, step: int = 0,
-                 features: Optional[list] = None, merge_mask=None,
-                 ledger: Optional[Ledger] = None,
-                 collect_grads: bool = True) -> ExecutionResult:
+                 features: Optional[list] = None, liveness=None,
+                 merge_mask=None, ema_state: Optional[dict] = None,
+                 ledger: Optional[Ledger] = None, collect_grads: bool = True,
+                 report=None) -> ExecutionResult:
         """``submit_step`` + ``collect_step`` back-to-back (window 1)."""
         self.submit_step(step, labels, features=features, ledger=ledger)
-        return self.collect_step(server_params, merge_mask=merge_mask,
-                                 collect_grads=collect_grads)
+        return self.collect_step(
+            server_params, liveness=liveness, merge_mask=merge_mask,
+            ema_state=ema_state, collect_grads=collect_grads, report=report)
 
     # -- the shared event pump ------------------------------------------------
 
@@ -320,26 +414,112 @@ class Executor:
         return True
 
     def _on_cut(self, k: int, resp: dict) -> None:
-        st = self._inflight.get(resp["step"])
+        now = time.monotonic()
+        step, m = resp["step"], resp["mb"]
+        st = self._inflight.get(step)
         if st is None:
-            raise RuntimeError(f"client {k}: cut for step {resp['step']}, "
-                               "which is not in flight")
+            # the step was already collected (a no-wait straggler finishing
+            # long after the fact): the payload is dropped, but the arrival
+            # still feeds the EWMA so a recovered client can re-open the
+            # deadline window
+            first = self._retired_first_t.get((step, m))
+            if self.deadline is not None and first is not None:
+                self.deadline.observe(k, now - first)
+            return
+        if m not in st.first_t:
+            st.first_t[m] = now
+        if self.deadline is not None:
+            spread = now - st.first_t[m]
+            if self.mode == "nowait" and m not in st.merged:
+                # this cut will make the merge — but role 0 may have drained
+                # it long after delivery (busy on an earlier microbatch or
+                # the expired-window sweep), so the raw drain spread can
+                # include server time.  Clamp to the deadline window: a cut
+                # that made the merge arrived within it by definition.
+                window = self.static_deadline_s
+                if window is None:
+                    window = self.deadline.deadline_s()
+                if window is not None:
+                    spread = min(spread, window)
+            # genuinely late arrivals (mb already merged) observe their raw
+            # spread — that is how a recovered straggler earns its way back
+            self.deadline.observe(k, spread)
         cut = resp["cut"].detach()  # the wire carries values, no history
         st.ledger.record_spec(self._schedule.cuts[k], cut)
-        st.cuts.setdefault(resp["mb"], {})[k] = cut
+        if m in st.merged:
+            return  # missed the merge: payload discarded at role 0
+        st.cuts.setdefault(m, {})[k] = cut
 
-    def _gather(self, st: _InflightStep, m: int) -> None:
-        """Barrier on all K cuts of microbatch ``m``."""
+    def _retire(self, st: _InflightStep) -> None:
+        del self._inflight[st.step]
+        for m, t in st.first_t.items():
+            self._retired_first_t[(st.step, m)] = t
+        while len(self._retired_first_t) > _RETIRED_FIRST_T_KEEP:
+            self._retired_first_t.pop(next(iter(self._retired_first_t)))
+
+    # -- gathering ------------------------------------------------------------
+
+    def _gather(self, st: _InflightStep, m: int, liveness):
+        """Collect microbatch ``m``'s cuts; returns (live_row, deadline_s)."""
         K = self.transport.num_clients
-        while len(st.cuts.get(m, {})) < K:
-            if not self._pump(None):
-                raise self._idle_error(
-                    "awaiting cuts",
-                    f"step {st.step} mb {m}: {len(st.cuts.get(m, {}))}/{K} "
-                    "in")
 
-    def _build_report(self, elapsed_s, ledger, cuts,
-                      staleness) -> ExecReport:
+        def have() -> int:
+            return len(st.cuts.get(m, {}))
+
+        def barrier() -> None:
+            while have() < K:
+                if not self._pump(None):
+                    raise self._idle_error(
+                        "awaiting cuts", f"step {st.step} mb {m}: "
+                        f"{have()}/{K} in")
+
+        if liveness is not None:
+            # simulated clock: the transport delivers every cut; the given
+            # matrix decides who made the merge
+            barrier()
+            return [float(x) for x in liveness[m]], None
+        if self.mode != "nowait":
+            barrier()
+            return [1.0] * K, None
+
+        # real no-wait: grace window after the first arrival
+        deadline_used = None
+        while have() < K:
+            if m not in st.first_t:
+                self._pump(None)  # the first cut opens the window
+                continue
+            d = self.static_deadline_s
+            if d is None:
+                d = self.deadline.deadline_s()
+            if d is None:
+                # bootstrap barrier: no estimate yet, wait for everyone
+                if not self._pump(None):
+                    raise self._idle_error(
+                        "awaiting cuts at the bootstrap barrier",
+                        f"step {st.step} mb {m}: {have()}/{K} in")
+                continue
+            deadline_used = d
+            remaining = (st.first_t[m] + d) - time.monotonic()
+            if remaining <= 0:
+                # window expired — but sweep the queue first: a cut that was
+                # DELIVERED while role 0 was busy on an earlier microbatch
+                # beat the deadline and must not be counted as a miss (the
+                # drain timestamp, not the true arrival, is all we see)
+                while have() < K and self._pump(0.0):
+                    pass
+                if have() < K:
+                    break
+                continue
+            self._pump(remaining)
+        if (self.deadline is not None and self.deadline.initial_s is None
+                and have() == K):
+            # seed the adaptive controller from the first full barrier
+            self.deadline.seed_from_observations()
+        arrived = st.cuts.get(m, {})
+        return [1.0 if k in arrived else 0.0 for k in range(K)], deadline_used
+
+    def _build_report(self, elapsed_s, live_matrix, misses, ledger, cuts,
+                      deadline_s, staleness) -> ExecReport:
         """``cuts`` is the last microbatch's (K, ...) cut stack."""
         K = self.transport.num_clients
         return ExecReport(
@@ -347,10 +527,13 @@ class Executor:
             transport=type(self.transport).__name__,
             step_time_s=elapsed_s,
             microbatches=self.microbatches,
+            live=live_matrix,
+            misses_per_client=misses,
             cut_bytes_per_client=ledger.bytes_with_tag(
                 self._schedule.cuts[0].tag),
             collective_bytes_per_client=self.microbatches
             * collective_bytes_per_merge(self.merge, cuts[0].numel(), K,
                                          cuts.element_size()),
+            deadline_s=deadline_s,
             staleness=staleness,
         )

@@ -10,6 +10,19 @@ backward and jacobian drain are still running.
 * ``window=W>1`` — delayed gradients on the towers: a client computes step
   t's forward before step t-1's optimizer update has reached it
   (``ExecReport.staleness``); server params are never stale.
+
+Typical drive loop (the shape ``train.loop.train_split`` uses; a no-wait
+run threads the EMA state from each collect into the next)::
+
+    pipeline = StepPipeline(executor, window=W)
+    for step in range(steps):
+        pipeline.submit(step, batch_ctx(next(it)))
+        if pipeline.inflight >= W:
+            res = pipeline.collect(server_params, ema_state=ema_state)
+            ...apply server update, ema_state = res.ema_state...
+    while pipeline.inflight:  # drain
+        res = pipeline.collect(server_params, ema_state=ema_state)
+        ...
 """
 from __future__ import annotations
 
@@ -54,8 +67,9 @@ class StepPipeline:
         self._pending.append(step)
 
     def collect(self, server_params, **collect_kwargs) -> ExecutionResult:
-        """Collect the oldest in-flight step (``merge_mask`` /
-        ``collect_grads`` pass through to :meth:`Executor.collect_step`)."""
+        """Collect the oldest in-flight step (``liveness`` / ``merge_mask``
+        / ``ema_state`` / ``collect_grads`` / ``report`` pass through to
+        :meth:`Executor.collect_step`)."""
         if not self._pending:
             raise RuntimeError("pipeline empty: nothing to collect")
         res = self.executor.collect_step(server_params, **collect_kwargs)

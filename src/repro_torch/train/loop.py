@@ -10,9 +10,13 @@ params at role 0 — the JAX package's ``repro.train.loop.train_split`` with
 ``protocol_step``, which merges with the plain version, so every run
 checks the kernel merge (forward and backward) against it.
 
+``runtime="nowait"`` runs the no-wait schedule: adaptive wall-clock
+deadlines and EMA imputation of the cuts that miss them, through the merge
+kernels on the card.
+
 Not ported yet, and refused before any worker is built: the multiproc
-transport, no-wait mode, secure aggregation, cut compression, aggregation
-trees; the monolithic ``train`` and checkpoints.
+transport, secure aggregation, cut compression, aggregation trees; the
+monolithic ``train`` and checkpoints.
 """
 from __future__ import annotations
 
@@ -39,6 +43,8 @@ class TrainMetrics:
     step_times: list[float] = field(default_factory=list)
     # largest |step-0 gradient - serial protocol_step gradient|, when verified
     step0_max_dgrad: Optional[float] = None
+    # per step, each client's missed microbatches (runtime="nowait")
+    misses_per_client: list[list[int]] = field(default_factory=list)
 
     def log(self, step: int, loss: float, dt: float) -> None:
         self.steps.append(step)
@@ -144,8 +150,13 @@ def train_split(
 
     ``loader`` yields the role-0 batches (an ``LMBatchLoader`` with
     ``seed``); each feature holder regenerates the same token stream from
-    ``seed``.  ``runtime`` is ``serial`` (M = 1 barrier) or ``pipelined``
-    (``microbatches`` per step); ``inflight_steps`` is the cross-step
+    ``seed``.  ``runtime`` is ``serial`` (M = 1 barrier), ``pipelined``
+    (``microbatches`` per step, staleness 0) or ``nowait`` (adaptive
+    deadlines and EMA imputation of late cuts, the EMA state threaded
+    from step to step; step 0 is verified only when it had no miss, since
+    a miss reroutes its gradients through the imputation by design).
+    ``straggler`` slows that client's forwards by ``straggler_delay_s``
+    (a wall-clock straggler).  ``inflight_steps`` is the cross-step
     window W of :class:`~repro_torch.runtime.pipeline.StepPipeline` (at
     W > 1 the towers train on delayed gradients).  Runs on ``device``
     (``cuda`` unless ``"cpu"`` is asked for).  ``params`` is the full
@@ -178,8 +189,7 @@ def train_split(
         "train", secure=secure, compress=compress, tree=agg_tree_fanout,
         nowait=runtime == "nowait", merge_fn=program.merge_fn,
         merge=program.merge, context=f"train_split({cfg.name})")
-    _reject_unported(secure=secure, compress=compress, tree=agg_tree_fanout,
-                     nowait=runtime == "nowait")
+    _reject_unported(secure=secure, compress=compress, tree=agg_tree_fanout)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = backbone.init_params(cfg, gen, device=dev)
@@ -199,23 +209,37 @@ def train_split(
     metrics = TrainMetrics()
     report = None
     max_staleness = 0
+    ema_state = None
     b0 = None  # step-0 batch retained for the deferred verification
     it = iter(loader)
     t_last = time.time()
 
     def handle(res):
         """Consume one collected step: verify (step 0), update the server,
-        log."""
-        nonlocal server_params, opt_state, report, t_last, max_staleness
+        thread the EMA state, log."""
+        nonlocal server_params, opt_state, ema_state, report, t_last, \
+            max_staleness
         max_staleness = max(max_staleness, res.report.staleness)
         if res.step == 0 and verify_step0:
-            metrics.step0_max_dgrad = _verify_step0(
-                res, program, tower_params, server_params,
-                program.features(b0, dev), program.batch_ctx(b0, dev), M,
-                verify_atol, print_fn)
+            if mode == "nowait" and res.report.total_misses > 0:
+                # the serial identity holds only at staleness 0: a step-0
+                # deadline miss reroutes gradients through the imputation
+                print_fn("step-0 verification skipped: "
+                         f"{res.report.total_misses} no-wait deadline "
+                         "miss(es) — gradients are intentionally imputed, "
+                         "not serial")
+            else:
+                metrics.step0_max_dgrad = _verify_step0(
+                    res, program, tower_params, server_params,
+                    program.features(b0, dev), program.batch_ctx(b0, dev),
+                    M, verify_atol, print_fn)
         server_params, opt_state = opt.update(server_params,
                                               res.server_grads, opt_state)
+        ema_state = res.ema_state
         report = res.report
+        if mode == "nowait":
+            metrics.misses_per_client.append(
+                list(res.report.misses_per_client))
         loss = float(res.loss)
         now = time.time()
         dt, t_last = now - t_last, now
@@ -223,7 +247,9 @@ def train_split(
         if res.step % log_every == 0 or res.step == steps - 1:
             print_fn(f"step {res.step:5d}  loss {loss:8.4f}  "
                      f"{dt * 1e3:8.1f} ms  [{transport}/{mode}"
-                     + (f" W={W}" if W > 1 else "") + "]")
+                     + (f" W={W}" if W > 1 else "")
+                     + (f" misses={res.report.total_misses}"
+                        if mode == "nowait" else "") + "]")
 
     try:
         executor = Executor(tr, program.server_fwd, program.loss_fn,
@@ -234,7 +260,7 @@ def train_split(
         def collect_one():
             target = pipeline.next_collect
             handle(pipeline.collect(
-                server_params,
+                server_params, ema_state=ema_state,
                 collect_grads=(target == 0 and verify_step0)))
 
         for step in range(steps):

@@ -409,8 +409,9 @@ def test_port_imports_neither_jax_nor_repro():
     """The port and its chip scripts import torch and numpy, never jax and
     nothing of the JAX package — checked by AST and by importing the
     serving, training, optimizer and data packages, the kernel build, the
-    flash-attention and SSD modules, the ssm model and the paper MLP's
-    modules with both blocked."""
+    flash-attention and SSD modules, the ssm model, the paper MLP's
+    modules, the simulation layer and the no-wait modules with both
+    blocked."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
@@ -429,7 +430,12 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.train.loop, repro_torch.runtime.pipeline, "
             "repro_torch.core.split_model, repro_torch.core.dropping, "
             "repro_torch.core.partition, repro_torch.data.synthetic, "
-            "repro_torch.optim.sgd, repro_torch.configs.vertical_mlp; "
+            "repro_torch.optim.sgd, repro_torch.configs.vertical_mlp, "
+            "repro_torch.runtime, repro_torch.runtime.engine, "
+            "repro_torch.runtime.clock, repro_torch.runtime.links, "
+            "repro_torch.runtime.topology, repro_torch.runtime.deadline, "
+            "repro_torch.core.straggler, repro_torch.core.costs, "
+            "repro_torch.core.secure_agg, repro_torch.core.compression; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

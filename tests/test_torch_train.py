@@ -273,9 +273,9 @@ def test_unported_features_raise(setup):
         Executor(*args, "max", agg_tree=object())
     with pytest.raises(compat.CompatError, match="cannot compose"):
         Executor(*args, "avg", secure_agg=True, compress="int8")
+    # no-wait and the impute policy are ported (tests/test_torch_nowait.py)
     for kw in (dict(secure_agg=True), dict(compress="topk"),
-               dict(agg_tree=object()), dict(mode="nowait"),
-               dict(drop_policy="impute"), dict(merge_fn=lambda c, m: c)):
+               dict(agg_tree=object()), dict(merge_fn=lambda c, m: c)):
         with pytest.raises(NotImplementedError, match="not ported"):
             Executor(*args, "avg", **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
