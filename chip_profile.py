@@ -4,7 +4,8 @@ port on full-width smollm-360m, mamba2-1.3b and starcoder2-3b.
 
     python3 chip_profile.py      # from the repo root; needs one CUDA card
     python3 chip_profile.py starcoder   # only some sections, by name:
-                                        # serve, train, long, ssm, starcoder
+                                        # serve, train, long, ssm, starcoder,
+                                        # ssmtrain
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
@@ -26,8 +27,11 @@ tokens with 16 new tokens each, each under the profiler after an
 unprofiled warm-up, with the SSD chunk kernel's share.  Last,
 full-width starcoder2-3b (``chip_smoke.py``'s phase 9): the prefill of
 its 32768-token prompt alone, then of all four of its prompts, one new
-token each, after an unprofiled warm-up.  Every run also prints the f32
-GEMMs' share (kernels named ``*gemm*``: cuBLAS and CUTLASS).
+token each, after an unprofiled warm-up.  Last, full-width mamba2-1.3b
+trained as ``chip_smoke.py``'s phase 12 does (as the smollm training
+run above, 8 x 256 tokens a step), with the SSD forward and backward
+kernels' shares.  Every run also prints the f32 GEMMs' share (kernels
+named ``*gemm*``: cuBLAS and CUTLASS).
 """
 from __future__ import annotations
 
@@ -87,7 +91,9 @@ def profiled(fn, card: str, label: str, describe, host_ops=()) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
-    for name in ("flash_attention_kernel", "ssd_chunk_kernel", "gemm"):
+    for name in ("flash_attention_kernel", "ssd_chunk_kernel",
+                 "ssd_chunk_bwd_kernel", "ssd_chunk_bwd_reduce_kernel",
+                 "gemm"):
         mine = [e for e in kernels if name in e.key.lower()]
         if mine:
             us = sum(_device_us(e) for e in mine)
@@ -128,7 +134,7 @@ def run_training(cfg, params, steps: int):
                        print_fn=lambda *a: None)
 
 
-def profile_training(cfg, params, card: str) -> None:
+def profile_training(cfg, params, card: str, label: str = "train") -> None:
     run_training(cfg, params, 1)  # warm-up: cuBLAS's backward paths start
     # the token streams are numpy on the host, outside the profiler's ops:
     # role 0 and every worker draw one batch per step
@@ -137,7 +143,7 @@ def profile_training(cfg, params, card: str) -> None:
     t0 = time.perf_counter()
     for _ in range(3):
         loader.next_batch()
-    smoke.log(f"[train] host: one {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ} "
+    smoke.log(f"[{label}] host: one {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ} "
               f"token batch takes {(time.perf_counter() - t0) / 3:.4f} s; "
               f"{1 + cfg.vertical.num_clients} streams draw one per step")
 
@@ -147,7 +153,7 @@ def profile_training(cfg, params, card: str) -> None:
                 f"{launches / TRAIN_STEPS:.1f} launches and "
                 f"{syncs / TRAIN_STEPS:.1f} device-to-host reads per step")
 
-    profiled(lambda: run_training(cfg, params, TRAIN_STEPS), card, "train",
+    profiled(lambda: run_training(cfg, params, TRAIN_STEPS), card, label,
              describe)
 
 
@@ -170,6 +176,13 @@ def profile_ssm(card: str) -> None:
              card, "ssm generate", lambda _, launches, syncs: (
                  f"{launches / (64 + 15):.1f} launches per decode step "
                  "(64 replay + 15 decode steps)"))
+
+
+def profile_ssm_training(card: str) -> None:
+    cfg = get_arch("mamba2-1.3b")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    profile_training(cfg, params, card, "ssm train")
 
 
 def profile_starcoder(card: str) -> None:
@@ -218,7 +231,7 @@ def profile_smollm(card: str, sections) -> None:
                         "long full", **kw)
 
 
-SECTIONS = ("serve", "train", "long", "ssm", "starcoder")
+SECTIONS = ("serve", "train", "long", "ssm", "starcoder", "ssmtrain")
 
 
 def main() -> None:
@@ -238,6 +251,9 @@ def main() -> None:
         profile_ssm(card)
     if "starcoder" in sections:
         profile_starcoder(card)
+        torch.cuda.empty_cache()
+    if "ssmtrain" in sections:
+        profile_ssm_training(card)
 
 
 if __name__ == "__main__":

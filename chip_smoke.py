@@ -8,9 +8,11 @@ tensor cores (3xTF32), long-prompt split serving of full-width
 starcoder2-3b, whose attention (head dim 128) runs the flash kernel's
 wider instantiation, the paper's own experiment: vertically split
 MLP training on the three financial stand-in datasets, through the
-Executor and the merge kernels, and no-wait split training with a
+Executor and the merge kernels, no-wait split training with a
 straggler (the simulated clock, adaptive deadlines and EMA imputation),
-whose imputed merges run the reduce kernels both ways.
+whose imputed merges run the reduce kernels both ways, and split training
+of full-width mamba2-1.3b, whose every Mamba2 layer runs the SSD chunk
+kernel forward and its hand-written backward kernel.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -87,14 +89,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    count it takes at every phase-8 shape, then the kernel against its
    plain version on CUDA tensors at mamba2-1.3b's server and tower
    shapes, batch 4, the reduced config's chunks and a prompt shorter than
-   a chunk (tol 3e-4, the JAX package's), and the full scan
-   (``ops.ssd_scan``) against the model's ``ssd_chunked`` on the
-   card; a grad-requiring call must raise.  At the server shape at S =
-   8192 and 32768 and the tower shape at 32768: the kernel against its
-   plain version (3e-4), its time per call and on the device, the plain
-   version's, and the bound: the larger of its bytes and its operations as
-   3xTF32 on the tensor cores, with the f32-FMA figure beside it (no
-   single PyTorch call computes the function).
+   a chunk and phase 12's training shapes (tol 3e-4, the JAX package's),
+   and the full scan (``ops.ssd_scan``) against the model's
+   ``ssd_chunked`` on the card, values and, under autograd, gradients
+   (within 3e-4 of each gradient's largest entry).  At the server shape
+   at S = 8192 and 32768 and the tower shape at 32768: the kernel against
+   its plain version (3e-4), its time per call and on the device, the
+   plain version's, and the bound: the larger of its bytes and its
+   operations as 3xTF32 on the tensor cores, with the f32-FMA figure
+   beside it (no single PyTorch call computes the function).  Then the
+   SSD backward kernel (``ssd_chunk_bwd_kernel`` and its reduce pass over
+   the heads): its ptxas report, then against ``ref.ssd_chunks_bwd`` at
+   phase 12's server and tower shapes, the reduced config's, and one
+   chunk per sequence, with every upstream gradient, at the server shape
+   also with each alone and with a = -80 per step (each gradient within
+   1e-4 of the plain one's largest entry, all finite), two launches
+   bit-identical; at the server and tower shapes its time per call and on
+   the device, the plain backward's and the bound (f32 FMA; no single
+   PyTorch call computes the gradient).
 8. The ssm slice: full-width mamba2-1.3b (K = 4, avg, f32, random weights
    from a seed).  ``forward`` over one request of 2048, 8192 and 32768
    tokens and over 4 x 2048, 54 SSD launches each (46 server + 4 x 2
@@ -170,6 +182,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    default window; one
    forward and one backward ``merge_reduce`` launch per microbatch in
    every run.
+12. ssm split training, counters reset just before each run and read
+   just after.  (a) Reduced mamba2-1.3b, same weights: 2 steps of 8 x 256
+   tokens through ``train_split`` on the card against 2 on the CPU,
+   losses and final params within 1e-4.  (b) Full-width mamba2-1.3b
+   (K = 4 towers of 2 Mamba2 layers, avg, 46 server layers, f32, random
+   weights from a seed) through ``train_split`` over inproc, serial,
+   batch 8 x 256 tokens, 5 steps after a warm-up step, step 0 verified
+   against ``protocol_step`` at 1e-5; train tokens/s over steps 1-4 and
+   peak memory.  Launch counts exact in both: per step each server layer
+   runs ``ssd_chunk_kernel`` once and each tower layer twice (the worker
+   re-runs its forward for the vjp), every layer ``ssd_chunk_bwd_kernel``
+   once, one merge each way; step 0's verification once more of each SSD
+   kernel's count (its merge is the plain version).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -279,7 +304,23 @@ SSD_TOL = 3e-4  # the JAX package's tolerance for its SSD chunk kernel
 SSD_SHAPES = [(1, 2048, 64, 64, 128, 128), (1, 8192, 64, 64, 128, 128),
               (1, 8192, 16, 64, 128, 128), (1, 32768, 16, 64, 128, 128),
               (4, 2048, 64, 64, 128, 128), (2, 256, 8, 64, 16, 32),
-              (2, 256, 4, 64, 16, 32), (1, 96, 64, 64, 128, 128)]
+              (2, 256, 4, 64, 16, 32), (1, 96, 64, 64, 128, 128),
+              (8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
+              (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32)]
+# the SSD backward kernel (phase 7) at phase 12's training shapes: 8 x 256
+# tokens through the server (64 heads) and the towers (16), the reduced
+# config's server and towers (Q 32, N 16; phase 12 (a)), and one chunk per
+# sequence (S = Q); each gradient within 1e-4 of the plain one's largest
+# entry (f32 FMA against PyTorch's f32 products, summed in other orders)
+SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
+                  (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32),
+                  (8, 128, 64, 64, 128, 128)]
+SSD_BWD_REL = 1e-4
+SSD_BWD_NEG_A = -80.0  # a per step: exp above the diagonal would overflow
+# the ssm training slice (phase 12): mamba2-1.3b's cut stack at 8 x 256
+# tokens, where its merges run the reduce kernels both ways
+SSM_TRAIN_SHAPE = (4, 2048, 2048)
+SSM_TRAIN_TIME_SHAPES = [("avg", SSM_TRAIN_SHAPE)]
 # timed: the server shape at 8192 and 32768 tokens, the tower's at 32768
 SSD_TIME_SHAPES = [(1, 8192, 64, 64, 128, 128), (1, 32768, 64, 64, 128, 128),
                    (1, 32768, 16, 64, 128, 128)]
@@ -410,7 +451,7 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES + \
-        [NOWAIT_SHAPE]
+        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE]
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -517,7 +558,7 @@ def check_backward_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
-        MLP_SHAPES + [NOWAIT_SHAPE]
+        MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE]
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -738,7 +779,7 @@ def time_backward_shapes(card: str) -> dict:
                             ("concat", CONCAT_TRAIN_SHAPE),
                             ("max", TRAIN_SHAPE),
                             ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES + \
-            NOWAIT_TIME_SHAPES:
+            NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES:
         K, B, D = shape
         name = ("merge_concat_bwd_kernel" if strategy == "concat"
                 else "merge_reduce_bwd_kernel")
@@ -931,7 +972,7 @@ def time_path_shapes(card: str) -> dict:
     rows = {}
     pairs = [("avg", s) for s in PATH_SHAPES] + \
         [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES + \
-        NOWAIT_TIME_SHAPES
+        NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES
     for strategy, shape in pairs:
         concat = strategy == "concat"
         name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
@@ -1722,19 +1763,185 @@ def check_ssd_kernel() -> float:
         torch.testing.assert_close(fin, wfin, rtol=SSD_TOL, atol=SSD_TOL)
         worst_scan = max(worst_scan, float((y - wy).abs().max()),
                          float((fin - wfin).abs().max()))
-    x.requires_grad_(True)
-    try:
-        ops.ssd_scan(x, dt, A, Bm, Cm, 128)
-    except NotImplementedError as err:
-        refused = str(err)
-    else:
-        raise AssertionError("a grad-requiring CUDA ssd_scan did not raise")
+    grad_worst = check_ssd_scan_grads(gen)
     log(f"ssd kernel: {len(SSD_SHAPES)} shapes (B, S, H, P, N, chunk) "
         f"{SSD_SHAPES} match ref.ssd_chunks (tol 3e-4; worst |err| "
         f"{worst:.3e}); ops.ssd_scan matches ssd_chunked on the card (worst "
-        f"|err| {worst_scan:.3e}); a grad-requiring call raises "
-        f"({refused[:60]}...)")
+        f"|err| {worst_scan:.3e}); under autograd its gradients (both SSD "
+        f"kernels) match autograd of ssd_chunked within 3e-4 of each "
+        f"gradient's largest entry (worst {grad_worst:.3e} of it)")
     return worst
+
+
+def check_ssd_scan_grads(gen) -> float:
+    """ops.ssd_scan under autograd on the card (the forward and backward
+    kernels through ops.SSDChunk) against autograd of the model's own
+    ssd_chunked, from a nonzero state, at the reduced config's and the
+    server's shapes: every input's gradient within 3e-4 (the forward
+    kernel's tolerance: the recurrence's gradients read its 3xTF32 states)
+    of its largest entry.  Returns the worst error over that entry."""
+    worst = 0.0
+    for shape in [(2, 256, 8, 64, 16, 32), (2, 2048, 64, 64, 128, 128)]:
+        x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
+        B, _, H, P, N, chunk = shape
+        state = torch.randn((B, H, P, N), generator=gen, device="cuda") * 0.1
+        inputs = [x, dt, A, Bm, Cm, state]
+        gy, gfin = torch.randn_like(x), torch.randn_like(state)
+        runs = []
+        for fn in (ops.ssd_scan, mamba.ssd_chunked):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            before = ssd.launches["ssd_chunk_bwd_kernel"]
+            y, fin = fn(*leaves[:5], chunk, initial_state=leaves[5])
+            runs.append(torch.autograd.grad(
+                (y * gy).sum() + (fin * gfin).sum(), leaves))
+            launched = ssd.launches["ssd_chunk_bwd_kernel"] - before
+            if launched != (fn is ops.ssd_scan):
+                raise AssertionError(f"ssd grads {shape}: {fn.__name__} "
+                                     f"launched the backward {launched}x")
+        for name, g, w in zip(("x", "dt", "A", "B", "C", "state"), *runs):
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max()) / scale
+            if not torch.isfinite(g).all() or err > SSD_TOL:
+                raise AssertionError(f"ssd grads {shape} d{name}: |err| "
+                                     f"{err:.3e} of its largest entry")
+            worst = max(worst, err)
+    return worst
+
+
+def ssd_bwd_bound(B, S, H, P, N, Q) -> tuple:
+    """Least time on an H100 SXM for one backward call, f32 FMA.  The
+    operations the function needs: per (batch, chunk) C B^T over the
+    causal half (Q(Q+1)/2 pairs, 2N each; B and C are shared by the
+    heads) and dC, dB as (sum over heads of dM o L) times B and C (2N per
+    pair each); per (batch, chunk, head) dM = gy x^T and M^T gy over the
+    causal half (2P per pair each), L, M, dM o L, R and its sums (6 per
+    pair), B gS^T and (x o w) gS (2QPN each), and the w-terms of dx and T
+    (4QP).  Bytes: xdt, a, B, C, gy, gstate, gcum read once, dx, da, dB,
+    dC written once.  Returns the bound, what bounds it and the flops."""
+    nc = S // Q
+    pairs = Q * (Q + 1) // 2
+    flops = B * nc * (3 * pairs * 2 * N + H * (
+        pairs * (4 * P + 6) + 4 * Q * P * N + 4 * Q * P))
+    nbytes = 4 * (3 * B * S * H * P + B * nc * H * P * N + 3 * B * S * H
+                  + 4 * B * S * N)
+    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes", flops)
+
+
+def _ssd_bwd_inputs(shape, gen, upstream=(True, True, True)):
+    """The backward's arguments at ``shape``: the forward's inputs (xdt, a,
+    B and C as the model passes them) and random upstream gradients of
+    y_intra, the states and cum, None where ``upstream`` says absent."""
+    x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
+    B, S, H, P, N, Q = shape
+    ups = (torch.randn((B, S, H, P), generator=gen, device="cuda"),
+           torch.randn((B, S // Q, H, P, N), generator=gen, device="cuda"),
+           torch.randn((B, S, H), generator=gen, device="cuda"))
+    return [x * dt[..., None], dt * A, Bm[:, :, 0], Cm[:, :, 0]] + [
+        u if on else None for u, on in zip(ups, upstream)] + [Q]
+
+
+def _bwd_error(shape, what, got, want) -> float:
+    """The largest |kernel - plain| over each gradient's largest plain
+    entry; raises past SSD_BWD_REL or on a non-finite value."""
+    worst = 0.0
+    for name, g, w in zip(("dx", "da", "dB", "dC"), got, want):
+        if g.shape != w.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"ssd bwd {shape} {what} {name}: "
+                                 f"{tuple(g.shape)}, finite "
+                                 f"{bool(torch.isfinite(g).all())}")
+        scale = float(w.abs().max())
+        err = float((g - w).abs().max()) / scale if scale else \
+            float(g.abs().max())
+        if err > SSD_BWD_REL:
+            raise AssertionError(f"ssd bwd {shape} {what} {name}: |kernel - "
+                                 f"plain| {err:.3e} of its largest entry > "
+                                 f"{SSD_BWD_REL}")
+        worst = max(worst, err)
+    return worst
+
+
+def check_ssd_bwd_kernel() -> float:
+    """The backward kernel against ref.ssd_chunks_bwd at every
+    SSD_BWD_SHAPES shape with every upstream gradient, at the server shape
+    with each upstream alone and with very negative a; two launches
+    bit-identical.  Returns the worst |error| over each gradient's largest
+    plain entry."""
+    log(f"ssd bwd: ptxas: {ptxas_report('ssd_chunk_bwd_kernel')}; reduce "
+        f"pass: {ptxas_report('ssd_chunk_bwd_reduce_kernel')}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    worst, n = 0.0, 0
+    alone = {"gy": (True, False, False), "gstate": (False, True, False),
+             "gcum": (False, False, True)}
+    for shape in SSD_BWD_SHAPES:
+        cases = {"all": (True, True, True)}
+        if shape == SSD_BWD_SHAPES[0]:
+            cases.update(alone)
+        for what, upstream in cases.items():
+            args = _ssd_bwd_inputs(shape, gen, upstream)
+            got = ssd.ssd_chunk_bwd(*args)
+            want = ref.ssd_chunks_bwd(*args)
+            torch.cuda.synchronize()
+            worst = max(worst, _bwd_error(shape, what, got, want))
+            n += 1
+    shape = SSD_BWD_SHAPES[0]
+    args = _ssd_bwd_inputs(shape, gen)
+    args[1] = torch.full_like(args[1], SSD_BWD_NEG_A)
+    worst = max(worst, _bwd_error(shape, f"a = {SSD_BWD_NEG_A}",
+                                  ssd.ssd_chunk_bwd(*args),
+                                  ref.ssd_chunks_bwd(*args)))
+    args = _ssd_bwd_inputs(shape, gen)
+    first, second = ssd.ssd_chunk_bwd(*args), ssd.ssd_chunk_bwd(*args)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "da", "dB", "dC"), first, second):
+        if not torch.equal(a, b):
+            raise AssertionError(f"ssd bwd {shape}: two launches differ in "
+                                 f"{name}")
+    log(f"ssd bwd kernel: {n} cases (B, S, H, P, N, chunk) over "
+        f"{SSD_BWD_SHAPES} (every upstream gradient; at the first shape "
+        f"also each alone) and a = {SSD_BWD_NEG_A} per step there match "
+        f"ref.ssd_chunks_bwd within {SSD_BWD_REL} of each gradient's "
+        f"largest entry (worst {worst:.3e} of it), all finite; two "
+        f"launches bit-identical")
+    return worst
+
+
+def time_ssd_bwd(card: str) -> dict:
+    """The backward kernel at phase 12's server and tower shapes: per call
+    and on the device, the plain backward likewise, and the bound (f32
+    FMA).  No single PyTorch call computes this gradient (autograd of the
+    plain forward is a dozen calls), so there is no library time."""
+    rows = {}
+    for shape in SSD_BWD_SHAPES[:2]:
+        gen = torch.Generator(device="cuda").manual_seed(shape[2])
+        args = _ssd_bwd_inputs(shape, gen)
+        fns = {"": lambda: ssd.ssd_chunk_bwd(*args),
+               "plain_": lambda: ref.ssd_chunks_bwd(*args)}
+        row = {"max_abs_err": max(float((g - w).abs().max()) for g, w in zip(
+            fns[""](), fns["plain_"]()))}
+        for prefix, fn in fns.items():
+            row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)], iters=20)
+            row[prefix + "device_ms"] = device_ms(lambda _: fn(), [(None,)],
+                                                  iters=10, reps=3)
+        row["bound_ms"], row["bound_by"], flops = ssd_bwd_bound(*shape)
+        rows[shape] = row
+        B, S, H = shape[:3]
+        log(f"time ssd bwd f32 ({B}, {S}, {H} heads, P 64, N 128, Q 128): "
+            f"kernel vs plain max |err| {row['max_abs_err']:.3e}; per call "
+            f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms "
+            f"= {flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s of the "
+            f"function's {flops / 1e9:.3f} GFLOP "
+            f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
+            f"bound), plain {row['plain_ms']:.6f} "
+            f"({row['plain_device_ms']:.6f}) ms, library none (no single "
+            f"PyTorch call computes it), bound {row['bound_ms']:.6f} ms "
+            f"({row['bound_by']}; f32 FMA at 67 TFLOP/s vs 3.35 TB/s) | "
+            f"{card}")
+        del args, fns
+        torch.cuda.empty_cache()
+    return rows
 
 
 def ssd_bound(B, S, H, P, N, Q) -> tuple:
@@ -2887,6 +3094,98 @@ def nowait_phase(card: str) -> tuple[dict, int]:
     return launches, lm
 
 
+# ---------------------------------------------------------------------------
+# phase 12: ssm split training — mamba2-1.3b through both SSD kernels
+# ---------------------------------------------------------------------------
+
+def ssm_train_launches(cfg, steps: int, verified: bool) -> dict:
+    """The kernel launches of a serial ``train_split`` of ``steps`` steps
+    of the ssm family (M = 1): per step each server layer runs the SSD
+    forward once and each tower layer twice (the worker re-runs its
+    forward for the vjp), each layer's backward once, and one merge each
+    way; a verified step 0 runs ``protocol_step`` once more, whose merge is
+    the plain version."""
+    v = cfg.vertical
+    server, towers = cfg.num_layers - v.tower_layers, \
+        v.num_clients * v.tower_layers
+    runs = steps + int(verified)
+    return {"ssd_chunk_kernel": runs * (server + 2 * towers),
+            "ssd_chunk_bwd_kernel": runs * (server + towers),
+            "merge_reduce_kernel": steps, "merge_reduce_bwd_kernel": steps}
+
+
+def train_ssm_small_against_cpu() -> dict:
+    """Phase 12 (a): reduced mamba2-1.3b, same weights, 2 steps of 8 x 256
+    tokens on the card (both SSD kernels, the merge kernels) against 2 on
+    the CPU (the plain versions): losses and final params within 1e-4,
+    launch counts exact.  Returns the card run's launches."""
+    cfg = get_arch("mamba2-1.3b").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = backbone.init_params(cfg, gen, device="cpu")
+    runs = {}
+    for device, params in (("cpu", cpu_params),
+                           ("cuda", _to(cpu_params, "cuda"))):
+        out, metrics, _, launches, _ = train(cfg, 2, device, params=params)
+        runs[device] = (out, metrics.losses)
+        if device == "cpu" and any(launches.values()):
+            raise AssertionError(f"the CPU run launched kernels: {launches}")
+    expect_launches(launches, ssm_train_launches(cfg, 2, True))
+    torch.testing.assert_close(torch.tensor(runs["cuda"][1]),
+                               torch.tensor(runs["cpu"][1]), rtol=1e-4,
+                               atol=1e-4)
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+        _leaves(runs["cuda"][0]), _leaves(runs["cpu"][0])))
+    if worst > 1e-4:
+        raise AssertionError(f"reduced mamba2: card params differ from the "
+                             f"CPU path by {worst:.3e} > 1e-4")
+    log(f"ssm train small: reduced mamba2-1.3b (chunk {cfg.ssm.chunk_size}, "
+        f"d_state {cfg.ssm.d_state}), 2 steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens on the card match the CPU path (losses "
+        f"{runs['cuda'][1]} vs {runs['cpu'][1]}; final params max |diff| "
+        f"{worst:.3e} <= 1e-4); launches {launches}")
+    return launches
+
+
+def train_ssm_full(card: str) -> dict:
+    """Phase 12 (b): full-width mamba2-1.3b trained split, serial, 8 x 256
+    tokens, after one warm-up step: losses, step 0 against protocol_step,
+    train tokens/s over steps 1-4, peak memory, exact launch counts.
+    Returns the launches."""
+    cfg = get_arch("mamba2-1.3b")
+    v = cfg.vertical
+    train(cfg, 1, "cuda", verify_step0=False)  # warm-up, not measured
+    torch.cuda.empty_cache()
+    _, metrics, seconds, launches, peak = train(cfg, TRAIN_STEPS, "cuda")
+    expect_launches(launches, ssm_train_launches(cfg, TRAIN_STEPS, True))
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"ssm train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = metrics.step_times[1:]
+    log(f"ssm train: {cfg.name} full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}; K={v.num_clients} towers of {v.tower_layers} "
+        f"layers, merge {v.merge}, {cfg.num_layers - v.tower_layers} server "
+        f"layers), f32, serial, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens: losses {metrics.losses}, step-0 max |dgrad| "
+        f"vs protocol_step {metrics.step0_max_dgrad:.3e} (<= 1e-5); "
+        f"launches {launches} | {card}")
+    log(f"ssm train: {len(steady) * tokens / sum(steady):.1f} train tokens/s "
+        f"over steps 1-{TRAIN_STEPS - 1} (step times {metrics.step_times} s; "
+        f"step 0 includes the verification), wall {seconds:.4f} s with "
+        f"set-up, max_memory_allocated {peak} bytes | {card}")
+    return launches
+
+
+def ssm_train_phase(card: str) -> dict:
+    """Phase 12; returns the launches of (a) and (b) summed, and (b)'s
+    alone under the key ``"full"``."""
+    t0 = time.perf_counter()
+    small = train_ssm_small_against_cpu()
+    full = train_ssm_full(card)
+    log(f"ssm train: phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {**{k: small[k] + full[k] for k in full}, "full": full}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -2930,6 +3229,8 @@ def main() -> None:
     ssd_worst = check_ssd_kernel()
     ssd_rows, timed_worst = time_ssd(card)
     ssd_worst = max(ssd_worst, timed_worst)
+    ssd_bwd_worst = check_ssd_bwd_kernel()
+    ssd_bwd_rows = time_ssd_bwd(card)
     check_small_ssm_against_cpu()
     check_small_ssm_bf16_against_cpu(card)
     launches["ssd_chunk_kernel"] = ssm_full(card)
@@ -2937,6 +3238,7 @@ def main() -> None:
     flash_launches[128] = serve_starcoder(card)
     mlp_launches = mlp_phase(card)
     nowait_launches, nowait_shape_launches = nowait_phase(card)
+    ssm_train = ssm_train_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -2954,7 +3256,7 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/merge_pool.cu",
             "replaces": replaces,
             "launches": (launches[name] + mlp_launches[name]
-                         + nowait_launches[name]),
+                         + nowait_launches[name] + ssm_train.get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2968,16 +3270,19 @@ def main() -> None:
                     "library_two_call_device_ms"):
             if key in row:
                 entry[key] = row[key]
-        # the MLP path's shapes (phases 10 and 11) and the no-wait LM
-        # stack (phase 11), whose launches are in the count
+        # the MLP path's shapes (phases 10 and 11), the no-wait LM stack
+        # (phase 11) and the ssm training stack (phase 12), whose launches
+        # are in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
             for s, sh in MLP_TIME_SHAPES + NOWAIT_TIME_SHAPES
-            if (name, s, sh) in rows]
+            + SSM_TRAIN_TIME_SHAPES if (name, s, sh) in rows]
         for sub in entry["shapes"]:
             if tuple(sub["shape"]) == NOWAIT_SHAPE:
                 sub["launches"] = nowait_shape_launches
+            if tuple(sub["shape"]) == SSM_TRAIN_SHAPE:
+                sub["launches"] = ssm_train["full"][name]
         kernels.append(entry)
     def flash_entry(shape, launched=None):
         """The kernel's row at a timed shape; ``launched`` is its count on
@@ -3015,7 +3320,8 @@ def main() -> None:
             "name": "ssd_chunk_kernel", "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:23",
-            "launches": launches["ssd_chunk_kernel"],
+            "launches": launches["ssd_chunk_kernel"]
+            + ssm_train["ssd_chunk_kernel"],
             "max_abs_err": ssd_worst, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
@@ -3033,6 +3339,34 @@ def main() -> None:
     for entry in ssd_row["other_shapes"]:
         del entry["launches"]
     kernels.append(ssd_row)
+
+    def ssd_bwd_entry(shape):
+        row = ssd_bwd_rows[shape]
+        return {
+            "name": "ssd_chunk_bwd_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+            # the gradient of that kernel's function: the JAX package has
+            # no backward kernel (jax.grad of its plain chunked scan)
+            "replaces": "src/repro/kernels/ssd_scan.py:23",
+            "launches": ssm_train["ssd_chunk_bwd_kernel"],
+            "max_abs_err": row["max_abs_err"],
+            "max_err_over_largest_entry": ssd_bwd_worst,
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "device_ms": row["device_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "second_kernel": "ssd_chunk_bwd_reduce_kernel (the sum of dB "
+                             "and dC over the heads, launched with it and "
+                             "timed with it)",
+            "shape": list(shape[:4]), "d_state": shape[4],
+            "chunk": shape[5], "dtype": "float32"}
+
+    # the server shape of phase 12; the towers' rides in it (its launches
+    # are in the count)
+    bwd_row = ssd_bwd_entry(SSD_BWD_SHAPES[0])
+    bwd_row["other_shapes"] = [ssd_bwd_entry(SSD_BWD_SHAPES[1])]
+    del bwd_row["other_shapes"][0]["launches"]
+    kernels.append(bwd_row)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

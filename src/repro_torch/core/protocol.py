@@ -289,7 +289,8 @@ def assert_equivalent_to_monolithic(
                                for k in range(K)])
         merged = merge_lib.merge_stacked(stacked, merge)
         loss_m = loss_fn(server_fwd(server, merged), labels)
-    grads_m = torch.autograd.grad(loss_m, leaves)
+    grads_m = [torch.zeros_like(t) if g is None else g for t, g in zip(
+        leaves, torch.autograd.grad(loss_m, leaves, allow_unused=True))]
 
     torch.testing.assert_close(loss_p, loss_m.detach(), atol=atol, rtol=1e-5)
     for a, b in zip(tree_leaves((tg_p, sg_p)), grads_m):

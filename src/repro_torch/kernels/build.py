@@ -48,6 +48,9 @@ SIGNATURES = {
     # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
     # N, Q, device, stream
     "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),
+    # x, a, bm, cm, gy, gstate, gcum, dx, da, dbm, dcm, work, strides (13 x
+    # int64), B, S, H, P, N, Q, device, stream
+    "repro_ssd_chunk_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
     # B, S, H, P, N, Q, device, out (4 x int)
     "repro_ssd_chunk_plan": ([_I] * 7 + [_P], _I),
     # x, live, out, n (= B * D), K, strategy, dtype, device, stream

@@ -7,8 +7,11 @@ forward and backward launch the four CUDA C++ merge kernels on CUDA and
 run the plain versions of :mod:`repro_torch.kernels.ref` on the CPU, the
 port's counterpart of the JAX package's ``custom_vjp`` around the Pallas
 calls.
-:func:`flash_attention` and :func:`ssd_scan` are forward-only, as the
-Pallas kernels are.
+:class:`SSDChunk` does the same for the SSD chunk terms: the CUDA
+forward and backward kernels on CUDA, the plain versions on the CPU (the
+Pallas SSD kernel has no backward; the JAX package differentiates its
+plain scan).  :func:`flash_attention` is forward-only, as the Pallas
+kernel is.
 """
 from __future__ import annotations
 
@@ -66,6 +69,34 @@ class MergePool(torch.autograd.Function):
         return dx, None, None
 
 
+class SSDChunk(torch.autograd.Function):
+    """The SSD scan's chunk terms, ``(xdt, a, B, C) -> (y_intra, state,
+    decay, cum)`` in the layouts of :func:`ref.ssd_chunks`, differentiable
+    on every device: ``ssd_chunk_kernel`` forward and
+    ``ssd_chunk_bwd_kernel`` backward on CUDA, the plain versions on the
+    CPU.  Saves the four inputs; the backward recomputes the rest.  decay
+    is marked non-differentiable (:func:`ssd_scan` reads cum instead), and
+    an output whose gradient is absent reaches the backward as None."""
+
+    @staticmethod
+    def forward(ctx, xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                Cm: torch.Tensor, chunk: int):
+        fwd = ssd_kernel.ssd_chunk if xdt.is_cuda else ref.ssd_chunks
+        y, state, decay, cum = fwd(xdt, a, Bm, Cm, chunk)
+        ctx.chunk = chunk
+        ctx.save_for_backward(xdt, a, Bm, Cm)
+        ctx.mark_non_differentiable(decay)
+        ctx.set_materialize_grads(False)
+        return y, state, decay, cum
+
+    @staticmethod
+    def backward(ctx, gy, gstate, _gdecay, gcum):
+        xdt, a, Bm, Cm = ctx.saved_tensors
+        bwd = ssd_kernel.ssd_chunk_bwd if xdt.is_cuda else ref.ssd_chunks_bwd
+        dx, da, dB, dC = bwd(xdt, a, Bm, Cm, gy, gstate, gcum, ctx.chunk)
+        return dx, da, dB, dC, None
+
+
 def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                strategy: str = "avg", use_kernel: bool = True) -> torch.Tensor:
     """Differentiable merge of a ``(K, B, D)`` stack through
@@ -113,14 +144,16 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
     x ``(B, S, H, P)``, dt ``(B, S, H)``, A ``(H,)``, Bm and Cm
     ``(B, S, 1, N)`` (one group).  Returns y ``(B, S, H, P)`` and the final
-    state ``(B, H, P, N)``, both f32.  The chunk terms come from the CUDA
-    kernel for CUDA tensors and from :func:`ref.ssd_chunks` for CPU tensors.
+    state ``(B, H, P, N)``, both f32.  The chunk terms go through
+    :class:`SSDChunk`: the CUDA kernels for CUDA tensors, forward and
+    backward, and the plain versions for CPU tensors.  The pre-scaling,
+    the inter-chunk recurrence and y_off are plain differentiable torch
+    ops, which autograd differentiates as ``jax.grad`` does the JAX
+    package's.
 
     Raises on ``n_groups != 1`` (the chunk kernel shares one B/C across the
     heads, as the Pallas host side does), on a chunk that does not divide
-    S, on a CUDA call whose inputs require grad (the kernel is forward-only,
-    and the JAX package has no backward for it either) and on any device
-    other than the CPU and CUDA."""
+    S and on any device other than the CPU and CUDA."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     if G != 1:
@@ -133,22 +166,12 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                          f"length {S}")
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ssd_scan: no kernel for device {x.device}")
-    tensors = (x, dt, A, Bm, Cm) + (
-        () if initial_state is None else (initial_state,))
-    if x.is_cuda and torch.is_grad_enabled() and any(
-            t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            "ssd_scan: the CUDA kernel is forward-only; training the ssm "
-            "family (a backward kernel) comes with a later slice of the port")
     nc = S // Q
     a = (dt * A[None, None, :]).to(torch.float32)
     xdt = (x * dt[..., None]).to(torch.float32)
     Bs = Bm[:, :, 0].to(torch.float32)
     Cs = Cm[:, :, 0].to(torch.float32)
-    if x.is_cuda:
-        y_intra, states, _, cums = ssd_kernel.ssd_chunk(xdt, a, Bs, Cs, Q)
-    else:
-        y_intra, states, _, cums = ref.ssd_chunks(xdt, a, Bs, Cs, Q)
+    y_intra, states, _, cums = SSDChunk.apply(xdt, a, Bs, Cs, Q)
 
     # inter-chunk recurrence (the JAX package's lax.scan carry) as one
     # product over the chunks, Mamba2's chunk-level segsum: with l_0 = 0

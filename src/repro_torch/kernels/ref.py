@@ -120,7 +120,10 @@ def ssd_chunk(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     cum = torch.cumsum(af, dim=-1)
     diff = cum[..., :, None] - cum[..., None, :]
     lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(lower, torch.exp(diff), torch.zeros_like(diff))
+    # masked before the exponential: above the diagonal diff is positive
+    # and may overflow, and autograd of a where over exp(diff) would give
+    # inf * 0 = NaN there
+    L = torch.exp(diff.masked_fill(~lower, float("-inf")))
     scores = (Cf @ Bf.transpose(-1, -2)) * L
     y_intra = scores @ xf
     decay_to_end = torch.exp(cum[..., -1:] - cum)
@@ -149,3 +152,73 @@ def ssd_chunks(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     y = y.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P)
     cum = cum.permute(0, 1, 3, 2).reshape(Bsz, S, H)
     return y, state.contiguous(), decay.contiguous(), cum
+
+
+def ssd_chunks_bwd(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                   Cm: torch.Tensor, gy: Optional[torch.Tensor],
+                   gstate: Optional[torch.Tensor],
+                   gcum: Optional[torch.Tensor], chunk: int):
+    """The backward of :func:`ssd_chunks` in its own layouts, written out
+    (the plain twin of ``kernels.ssd_scan.ssd_chunk_bwd``).
+
+    Takes the forward's inputs and the upstream gradients of y_intra
+    ``gy (B, S, H, P)``, of the states ``gstate (B, nc, H, P, N)`` and of
+    cum ``gcum (B, S, H)``; any of them may be None (zero).  decay has no
+    gradient path: ``ops.ssd_scan`` reads cum instead.  Per (batch, chunk,
+    head), with M = (C B^T) o L, w_j = exp(cum_Q - cum_j) and dM = gy x^T
+    masked to i >= j:
+
+      dx   = M^T gy + w o (B gS^T)
+      dC   = (dM o L) B
+      dB   = (dM o L)^T C + (x o w) gS
+      dcum = rowsum(R) - colsum(R) - T + [j = Q-1] sum(T) + gcum,
+             R = dM o M,  T_j = w_j sum_p x_jp (B gS^T)_jp
+
+    and da is the reverse cumsum of dcum.  B and C are shared by every
+    head (one group), so dB and dC are summed over the heads.  Returns
+    dxdt ``(B, S, H, P)``, da ``(B, S, H)``, dB and dC ``(B, S, N)``, f32
+    and contiguous."""
+    Bsz, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    Q, nc = chunk, S // chunk
+    f32 = torch.float32
+
+    def heads_last(t, width):  # (B, S, H, width) -> (B, nc, H, Q, width)
+        return t.to(f32).reshape(Bsz, nc, Q, H, width).permute(0, 1, 3, 2, 4)
+
+    x = heads_last(xdt, P)
+    cum = torch.cumsum(heads_last(a[..., None], 1)[..., 0], dim=-1)
+    Bg = Bm.to(f32).reshape(Bsz, nc, 1, Q, N)
+    Cg = Cm.to(f32).reshape(Bsz, nc, 1, Q, N)
+    lower = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    L = torch.exp((cum[..., :, None] - cum[..., None, :]).masked_fill(
+        ~lower, float("-inf")))
+    M = (Cg @ Bg.transpose(-1, -2)) * L
+    w = torch.exp(cum[..., -1:] - cum)
+    dx = torch.zeros_like(x)
+    dcum = torch.zeros_like(cum)
+    dB = torch.zeros((Bsz, nc, Q, N), dtype=f32, device=x.device)
+    dC = torch.zeros_like(dB)
+    if gy is not None:
+        g = heads_last(gy, P)
+        dM = (g @ x.transpose(-1, -2)).masked_fill(~lower, 0.0)
+        dG = dM * L
+        R = dM * M
+        dcum = dcum + R.sum(-1) - R.sum(-2)
+        dx = dx + M.transpose(-1, -2) @ g
+        dC = dC + (dG @ Bg).sum(2)
+        dB = dB + (dG.transpose(-1, -2) @ Cg).sum(2)
+    if gstate is not None:
+        gS = gstate.to(f32)
+        V = Bg @ gS.transpose(-1, -2)  # (B, nc, H, Q, P)
+        dx = dx + w[..., None] * V
+        dB = dB + ((x * w[..., None]) @ gS).sum(2)
+        T = w * (x * V).sum(-1)
+        dcum = dcum - T
+        dcum[..., -1] += T.sum(-1)
+    if gcum is not None:
+        dcum = dcum + heads_last(gcum[..., None], 1)[..., 0]
+    da = torch.flip(torch.cumsum(torch.flip(dcum, [-1]), dim=-1), [-1])
+    return (dx.permute(0, 1, 3, 2, 4).reshape(Bsz, S, H, P).contiguous(),
+            da.permute(0, 1, 3, 2).reshape(Bsz, S, H).contiguous(),
+            dB.reshape(Bsz, S, N), dC.reshape(Bsz, S, N))

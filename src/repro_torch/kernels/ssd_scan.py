@@ -1,5 +1,5 @@
-"""The Mamba2 SSD chunk kernel (CUDA C++, ``csrc/ssd_chunk.cu``) and its
-wrapper.
+"""The Mamba2 SSD chunk kernel (CUDA C++, ``csrc/ssd_chunk.cu``), its
+backward (``csrc/ssd_chunk_bwd.cu``) and their wrappers.
 
 ``ssd_chunk_kernel`` replaces the JAX package's Pallas kernel
 ``_ssd_chunk_kernel`` (``src/repro/kernels/ssd_scan.py:23``, launched by
@@ -18,15 +18,24 @@ B^T, the masked and decay-weighted S_h x_h, and the state — as 3xTF32
 of HG heads (:func:`plan` reports HG and the block count).  The source
 says how.
 
-:func:`ssd_chunk` takes CUDA tensors only and raises on anything the kernel
-does not take; the plain version is
-:func:`repro_torch.kernels.ref.ssd_chunks`, and
-:func:`repro_torch.kernels.ops.ssd_scan` dispatches by device.  The library
+``ssd_chunk_bwd_kernel`` has no Pallas counterpart (the JAX package
+differentiates its plain chunked scan): it computes the gradients of x,
+a, B and C from the forward's inputs and the upstream gradients, in f32
+FMA, and sums dB and dC over the heads in a second, deterministic pass.
+At the training shape it is bound by its operations, not its bytes.
+
+:func:`ssd_chunk` and :func:`ssd_chunk_bwd` take CUDA tensors only and
+raise on anything the kernels do not take; the plain versions are
+:func:`repro_torch.kernels.ref.ssd_chunks` and
+:func:`~repro_torch.kernels.ref.ssd_chunks_bwd`, and
+:func:`repro_torch.kernels.ops.ssd_scan` dispatches by device through
+:class:`~repro_torch.kernels.ops.SSDChunk`.  The library
 is built by :mod:`repro_torch.kernels.build` at the first launch.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -41,7 +50,9 @@ GRID_LIMIT = 65535  # head groups and batch ride the grid's y and z axes
 
 #: kernel launches since the last :func:`reset_launches` — one per launch,
 #: counted where the wrapper launches the kernel and nowhere else
-launches = {"ssd_chunk_kernel": 0}
+#: (``ssd_chunk_bwd_kernel``: one per call of :func:`ssd_chunk_bwd`, which
+#: launches the kernel and its reduce pass over the heads)
+launches = {"ssd_chunk_kernel": 0, "ssd_chunk_bwd_kernel": 0}
 
 
 def reset_launches() -> None:
@@ -49,18 +60,23 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+def _check_tensors(kernel: str, ref: torch.Tensor, named) -> None:
+    for name, t in named:
+        if not t.is_cuda:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, the kernel "
+                             "takes CUDA tensors only")
+        if t.device != ref.device:
+            raise ValueError(f"{kernel}: {name} is on {t.device}, xdt on "
+                             f"{ref.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel}: {name} dtype {t.dtype} (takes "
+                            "float32)")
+
+
 def _check(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
            Cm: torch.Tensor, chunk: int) -> None:
-    for name, t in (("xdt", xdt), ("a", a), ("B", Bm), ("C", Cm)):
-        if not t.is_cuda:
-            raise ValueError(f"ssd_chunk kernel: {name} is on {t.device}, "
-                             "the kernel takes CUDA tensors only")
-        if t.device != xdt.device:
-            raise ValueError(f"ssd_chunk kernel: {name} is on {t.device}, "
-                             f"xdt on {xdt.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"ssd_chunk kernel: {name} dtype {t.dtype} "
-                            "(takes float32)")
+    _check_tensors("ssd_chunk kernel", xdt,
+                   (("xdt", xdt), ("a", a), ("B", Bm), ("C", Cm)))
     if xdt.ndim != 4:
         raise ValueError("ssd_chunk kernel: xdt must be (B, S, H, P), got "
                          f"shape {tuple(xdt.shape)}")
@@ -141,3 +157,55 @@ def ssd_chunk(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
     build.check(code, "ssd_chunk_kernel")
     launches["ssd_chunk_kernel"] += 1
     return y, state, decay, cum
+
+
+def ssd_chunk_bwd(xdt: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,
+                  Cm: torch.Tensor, gy: Optional[torch.Tensor],
+                  gstate: Optional[torch.Tensor],
+                  gcum: Optional[torch.Tensor], chunk: int):
+    """The backward of :func:`ssd_chunk`: ``ssd_chunk_bwd_kernel`` (CUDA
+    C++, ``csrc/ssd_chunk_bwd.cu``) over every (chunk, head, batch), then
+    its reduce pass, which sums dB and dC over the heads in order.
+
+    Takes the forward's inputs (f32, any strides) and the upstream
+    gradients of y_intra ``gy (B, S, H, P)``, of the states ``gstate (B,
+    nc, H, P, N)`` and of cum ``gcum (B, S, H)``, any of them None (zero);
+    decay has no gradient path.  Returns dxdt ``(B, S, H, P)``, da ``(B,
+    S, H)``, dB and dC ``(B, S, N)``, contiguous f32.  Recomputes cum, L
+    and C B^T from the inputs.  Launches on the current stream without
+    synchronizing; raises on anything the kernel does not take and when
+    the launch is refused.  There is no fallback: the plain version is
+    :func:`repro_torch.kernels.ref.ssd_chunks_bwd`."""
+    _check(xdt, a, Bm, Cm, chunk)
+    B, S, H, P = xdt.shape
+    N = Bm.shape[-1]
+    nc = S // chunk
+    want = {"gy": (B, S, H, P), "gstate": (B, nc, H, P, N),
+            "gcum": (B, S, H)}
+    ups = {"gy": gy, "gstate": gstate, "gcum": gcum}
+    for name, t in ups.items():
+        if t is None:
+            continue
+        _check_tensors("ssd_chunk_bwd kernel", xdt, ((name, t),))
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"ssd_chunk_bwd kernel: {name} must be "
+                             f"{want[name]}, got {tuple(t.shape)}")
+        ups[name] = t.contiguous()
+    out = dict(dtype=torch.float32, device=xdt.device)
+    dx = torch.empty((B, S, H, P), **out)
+    da = torch.empty((B, S, H), **out)
+    dB = torch.empty((B, S, N), **out)
+    dC = torch.empty((B, S, N), **out)
+    work = torch.empty((2, B, S, H, N), **out)
+    strides = (ctypes.c_longlong * 13)(*(
+        s for t in (xdt, a, Bm, Cm) for s in t.stride()))
+    stream = build.current_stream(xdt.device.index)
+    code = build.entry("repro_ssd_chunk_bwd")(
+        xdt.data_ptr(), a.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in ups.values()),
+        dx.data_ptr(), da.data_ptr(), dB.data_ptr(), dC.data_ptr(),
+        work.data_ptr(), ctypes.addressof(strides), B, S, H, P, N, chunk,
+        xdt.device.index, stream)
+    build.check(code, "ssd_chunk_bwd_kernel")
+    launches["ssd_chunk_bwd_kernel"] += 1
+    return dx, da, dB, dC

@@ -3,10 +3,11 @@ the JAX package's ``models/mamba.py``.
 
 Full-sequence path: chunked SSD — the intra-chunk quadratic term plus the
 inter-chunk linear state recurrence.  :func:`mamba_apply` sends it to the
-SSD chunk kernel (``kernels/ops.ssd_scan``: the CUDA kernel on the card,
-its plain version on the CPU) or, with ``use_kernel=False``, to the model's
-own :func:`ssd_chunked`, as the JAX model runs it.  Decode path: the exact
-single-step recurrence with a conv ring state.
+SSD chunk kernel (``kernels/ops.ssd_scan``: the CUDA kernels on the card,
+forward and backward, their plain versions on the CPU) or, with
+``use_kernel=False``, to the model's own :func:`ssd_chunked`, as the JAX
+model runs it.  Decode path: the exact single-step recurrence with a
+conv ring state.
 """
 from __future__ import annotations
 
@@ -75,7 +76,9 @@ def _segsum_exp(a: torch.Tensor) -> torch.Tensor:
     cum = torch.cumsum(a, dim=-1)
     diff = cum[..., :, None] - cum[..., None, :]
     lower = torch.ones((Q, Q), dtype=torch.bool, device=a.device).tril()
-    return torch.where(lower, torch.exp(diff), torch.zeros_like(diff))
+    # masked before the exponential, so that autograd meets no inf * 0
+    # above the diagonal, where diff is positive and may overflow
+    return torch.exp(diff.masked_fill(~lower, float("-inf")))
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -133,11 +136,12 @@ def mamba_apply(params: dict, x: torch.Tensor, cfg: SSMConfig, d_model: int,
     """Full-sequence forward.  Returns (out, final_ssm_state, conv_tail).
 
     ``use_kernel`` (the default) sends the SSD scan to ``ops.ssd_scan``:
-    the CUDA chunk kernel for CUDA tensors, its plain version for CPU
-    tensors; that path takes one group only and, on the card, no gradient,
-    and raises otherwise rather than fall back.  ``use_kernel=False`` runs
-    the model's own :func:`ssd_chunked` on any device, as the JAX model
-    does."""
+    the CUDA chunk kernels for CUDA tensors (forward, and backward when
+    autograd differentiates the call), their plain versions for CPU
+    tensors; that path takes one group only and raises otherwise rather
+    than fall back.  ``use_kernel=False`` runs the model's own
+    :func:`ssd_chunked` on any device, as the JAX model does.  Nothing
+    here writes in place, so autograd may save any intermediate."""
     d_inner = cfg.d_inner(d_model)
     H, G, N, W = cfg.n_heads(d_model), cfg.n_groups, cfg.d_state, \
         cfg.conv_width

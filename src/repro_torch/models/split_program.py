@@ -14,8 +14,8 @@ role-0 server:
   seed, so only protocol messages cross a transport);
 * the tower / server serving bundles.
 
-The port registers the dense token-LM program; the other families come
-with later slices.
+The port registers the token-LM program for the dense and ssm families;
+the other families come with later slices.
 """
 from __future__ import annotations
 
@@ -70,7 +70,7 @@ class SplitProgram:
     """Family-agnostic contract; subclasses register one family each.
 
     The class-level shape flags are the JAX package's (``executor_kwargs``
-    hands them to the Executor); the dense program sets none of them."""
+    hands them to the Executor); the token-LM program sets none of them."""
 
     server_takes_batch = False
     has_aux = False
@@ -173,11 +173,16 @@ class TokenLMSplitProgram(SplitProgram):
     The role-0 server keeps the trunk, the final norm, and the full table
     for the unembed head.
 
-    Serving is the split of the monolithic prefill / decode along the cut:
-    the tower half (embedding-column slice -> proj_in -> tower blocks ->
-    proj_out, with the tower KV cache) runs at the client; the server half
-    (server stack -> final norm -> unembed, with the server KV cache) runs
-    at role 0 from the MERGED cut.  Training runs the same split through
+    The towers are dense blocks for the dense family and Mamba2 blocks of
+    width ``proj_in.shape[1]`` (d_model / K) for the ssm family, whose
+    server trunk is the Mamba2 stack (``backbone._server_trunk_apply``).
+
+    Serving (dense only, as in the JAX package) is the split of the
+    monolithic prefill / decode along the cut: the tower half
+    (embedding-column slice -> proj_in -> tower blocks -> proj_out, with
+    the tower KV cache) runs at the client; the server half (server stack
+    -> final norm -> unembed, with the server KV cache) runs at role 0
+    from the MERGED cut.  Training runs the same split through
     full-sequence forwards with no cache."""
 
     def partition(self, params):
@@ -198,15 +203,22 @@ class TokenLMSplitProgram(SplitProgram):
         return towers, server
 
     def tower_fwd(self, client: int) -> Callable:
-        dims_t = _tower_dims(self.cfg)
+        cfg = self.cfg
+        dims_t = None if cfg.family == "ssm" else _tower_dims(cfg)
 
         def tower_fwd(tp, tokens):
             x = tp["embed_slice"][tokens.long()]  # (B, S, d/K)
-            positions = torch.arange(tokens.shape[-1], device=tokens.device)
-            h = x @ tp["proj_in"]
-            h = tfm.dense_stack_apply(tp["blocks"], h, dims_t, causal=True,
-                                      positions=positions)
-            return h @ tp["proj_out"]
+            h = layers.matmul(x, tp["proj_in"])
+            if cfg.family == "ssm":
+                h = tfm.mamba_stack_apply(tp["blocks"], h, cfg.ssm,
+                                          tp["proj_in"].shape[1],
+                                          cfg.norm_eps)
+            else:
+                positions = torch.arange(tokens.shape[-1],
+                                         device=tokens.device)
+                h = tfm.dense_stack_apply(tp["blocks"], h, dims_t,
+                                          causal=True, positions=positions)
+            return layers.matmul(h, tp["proj_out"])
 
         return tower_fwd
 
@@ -326,7 +338,8 @@ class TokenLMSplitProgram(SplitProgram):
                               decode=decode)
 
 
-_PROGRAMS: dict[str, type] = {"dense": TokenLMSplitProgram}
+_PROGRAMS: dict[str, type] = {"dense": TokenLMSplitProgram,
+                               "ssm": TokenLMSplitProgram}
 
 SPLIT_EXEC_FAMILIES = tuple(_PROGRAMS)
 
@@ -336,11 +349,6 @@ def get_program(cfg: ArchConfig) -> SplitProgram:
     if cfg.vertical is None:
         raise ValueError(f"{cfg.name}: split execution needs a vertical "
                          "config")
-    if cfg.family == "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: split execution of the ssm family (the "
-            "TokenLMSplitProgram ssm branch) comes with a later slice of the "
-            "port; the ssm family runs monolithic forward and generate")
     try:
         cls = _PROGRAMS[cfg.family]
     except KeyError:

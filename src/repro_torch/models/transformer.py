@@ -70,6 +70,20 @@ def layer_params(stacked, index: int):
     return stacked[index]
 
 
+def unstack_layers(stacked) -> list:
+    """Every layer of a stacked param tree, from one ``unbind`` per leaf.
+    Autograd then stacks the layers' gradients once; indexing layer by
+    layer would give each layer a zero-filled gradient of the whole stack
+    and sum L of them (on mamba2-1.3b's server, 46 adds of a 3.2 GB
+    in_proj stack a step)."""
+    if isinstance(stacked, dict):
+        per_key = {key: unstack_layers(val) for key, val in stacked.items()}
+        count = len(next(iter(per_key.values())))
+        return [{key: layers_[i] for key, layers_ in per_key.items()}
+                for i in range(count)]
+    return list(torch.unbind(stacked, 0))
+
+
 def num_layers(stacked) -> int:
     while isinstance(stacked, dict):
         stacked = next(iter(stacked.values()))
@@ -121,10 +135,9 @@ def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
     """Full-sequence forward through L stacked layers, no cache (training,
     the monolithic forward and the split program's tower / server
     forwards)."""
-    for i in range(num_layers(stacked)):
-        x = dense_block_apply(layer_params(stacked, i), x, dims,
-                              causal=causal, positions=positions,
-                              use_kernel=use_kernel)
+    for params in unstack_layers(stacked):
+        x = dense_block_apply(params, x, dims, causal=causal,
+                              positions=positions, use_kernel=use_kernel)
     return x
 
 
@@ -211,9 +224,9 @@ def mamba_stack_apply(stacked: dict, x: torch.Tensor, ssm_cfg: SSMConfig,
                       d_model: int, eps: float, *,
                       use_kernel: bool = True) -> torch.Tensor:
     """Full-sequence forward through L stacked Mamba blocks."""
-    for i in range(num_layers(stacked)):
-        x, _, _ = mamba_block_apply(layer_params(stacked, i), x, ssm_cfg,
-                                    d_model, eps, use_kernel=use_kernel)
+    for params in unstack_layers(stacked):
+        x, _, _ = mamba_block_apply(params, x, ssm_cfg, d_model, eps,
+                                    use_kernel=use_kernel)
     return x
 
 

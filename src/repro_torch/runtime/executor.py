@@ -48,8 +48,8 @@ transport, from wall-clock deadlines driven by the
 Not ported yet, and refused loudly: secure aggregation, cut compression
 and aggregation trees (unsound compositions reject through the compat
 matrix first, the same words as the JAX package), and the program shapes
-the dense family does not use (``server_takes_batch``, ``server_aux``,
-``merge_fn``).
+that no ported family uses (``server_takes_batch``, ``server_aux``,
+``merge_fn``: the JAX package's moe, audio and vlm programs).
 """
 from __future__ import annotations
 
@@ -196,7 +196,8 @@ class Executor:
             if on:
                 raise NotImplementedError(
                     f"Executor: {name} programs are not ported to repro_torch "
-                    "yet (the dense family uses none)")
+                    "yet (the ported token-LM and MLP programs use none; the "
+                    "moe, audio and vlm families come with a later slice)")
         self.transport = transport
         self.server_fwd = server_fwd
         self.loss_fn = loss_fn
@@ -339,7 +340,12 @@ class Executor:
                 logits = self.server_fwd(
                     tree_unflatten(server_params, leaves), merged)
                 loss_m = self.loss_fn(logits, labels_m)
-            grads = torch.autograd.grad(loss_m, leaves + [cuts])
+            # a server leaf that the forward does not read (an untied
+            # model's input table: the towers embed from their own
+            # slices) gets a zero gradient, as jax.grad gives it
+            grads = [torch.zeros_like(t) if g is None else g
+                     for t, g in zip(leaves + [cuts], torch.autograd.grad(
+                         loss_m, leaves + [cuts], allow_unused=True))]
             # the ledger needs the head output's size only: the logits are
             # not kept past this microbatch
             head_bytes = logits.numel() * logits.element_size()

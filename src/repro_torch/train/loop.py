@@ -1,6 +1,7 @@
 """Training loop of the port: split execution through the Executor.
 
-:func:`train_split` trains the dense token-LM family split for real:
+:func:`train_split` trains the token-LM families (dense and ssm) split for
+real:
 per-role workers behind an :class:`~repro_torch.transport.InprocTransport`
 (one thread per feature holder), the
 :class:`~repro_torch.runtime.executor.Executor` driving ``step_schedule``

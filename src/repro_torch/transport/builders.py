@@ -95,8 +95,8 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
                        params: Optional[dict] = None,
                        device: DeviceLike = None,
                        use_kernel: bool = True) -> TowerWorker:
-    """Feature holder for ``cfg``'s split program: trains (and serves) the
-    client's tower.
+    """Feature holder for ``cfg``'s split program: trains the client's
+    tower and, for the dense family, serves it.
 
     With ``params`` None, runs the seeded init (``torch.Generator`` seeded
     with ``seed`` on ``device``) and keeps only client ``client_id``'s
@@ -129,6 +129,12 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
         optimizer = AdamW(
             learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
             weight_decay=0.1, grad_clip_norm=grad_clip)
+    # a family without a serving decomposition (ssm) gets a worker that
+    # trains and refuses serving ops by name, as in the JAX package
+    try:
+        serve_fns = program.tower_serve_fns(client_id, use_kernel=use_kernel)
+    except NotImplementedError:
+        serve_fns = None
     return TowerWorker(
         client_id, program.tower_fwd(client_id), tower,
         feature_fn=program.feature_fn(client_id, batch=batch, seq=seq,
@@ -136,5 +142,5 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
                                       device=dev),
         optimizer=optimizer, forward_delay_s=forward_delay_s,
         compress=cfg.vertical.compression,
-        serve_fns=program.tower_serve_fns(client_id, use_kernel=use_kernel),
+        serve_fns=serve_fns,
         device=dev)

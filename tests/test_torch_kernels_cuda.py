@@ -698,13 +698,16 @@ def test_ssd_scan_matches_ssd_chunked_on_card(shape):
 @pytest.mark.cuda
 def test_ssd_kernel_refusals_on_card():
     """No silent fallback on the card: grad-requiring inputs (through
-    ops.ssd_scan and mamba_apply), grouped B/C and anything the kernel
-    does not take raise."""
+    ops.ssd_scan and mamba_apply) go through the backward kernel, and
+    grouped B/C and anything the kernel does not take raise."""
     _ssd_needs_card()
     gen = torch.Generator(device="cuda").manual_seed(0)
     x, dt, A, Bm, Cm = _ssd_inputs((1, 64, 2, 64, 16, 32), gen)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, 32)
+    before = ssd_module.launches["ssd_chunk_bwd_kernel"]
+    y, _ = ops.ssd_scan(x.requires_grad_(True), dt, A, Bm, Cm, 32)
+    y.sum().backward()
+    assert ssd_module.launches["ssd_chunk_bwd_kernel"] == before + 1
+    assert x.grad is not None and torch.isfinite(x.grad).all()
     with torch.no_grad():
         ops.ssd_scan(x, dt, A, Bm, Cm, 32)
     x = x.detach()
@@ -725,7 +728,134 @@ def test_ssd_kernel_refusals_on_card():
     params = mamba.init_mamba(gen, 64, cfg)
     h = torch.randn((1, 64, 64), generator=gen, device="cuda")
     params["in_proj"].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        mamba.mamba_apply(params, h, cfg, 64)
-    out, _, _ = mamba.mamba_apply(params, h, cfg, 64, use_kernel=False)
-    assert out.requires_grad
+    grads = []
+    for use_kernel in (True, False):
+        out, _, _ = mamba.mamba_apply(params, h, cfg, 64,
+                                      use_kernel=use_kernel)
+        grads.append(torch.autograd.grad(out.sum(), params["in_proj"]))
+    _close_to_plain(*grads, rel=SSD_TOL["rtol"])
+
+
+# the backward kernel: held to ref.ssd_chunks_bwd at 1e-4 of the largest
+# plain gradient (f32 FMA against PyTorch's f32 products, summed in other
+# orders); (B, S, H, P, N, chunk) as SSD_SHAPES, with mamba2-1.3b's
+# training shapes (8 x 256 tokens, server and tower heads) first
+SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128)] \
+    + SSD_SHAPES
+SSD_BWD_UPSTREAMS = {"all": (True, True, True), "gy": (True, False, False),
+                     "gstate": (False, True, False),
+                     "gcum": (False, False, True)}
+
+
+def _ssd_bwd_inputs(shape, gen, upstream="all"):
+    x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
+    B, S, H, P, N, chunk = shape
+    Q = min(chunk, S)
+    ups = (torch.randn((B, S, H, P), generator=gen, device="cuda"),
+           torch.randn((B, S // Q, H, P, N), generator=gen, device="cuda"),
+           torch.randn((B, S, H), generator=gen, device="cuda"))
+    ups = [u if on else None
+           for u, on in zip(ups, SSD_BWD_UPSTREAMS[upstream])]
+    return (x * dt[..., None], dt * A, Bm[:, :, 0], Cm[:, :, 0], *ups, Q)
+
+
+def _close_to_plain(got, want, rel=1e-4):
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all()
+        err = float((g - w).abs().max())
+        assert err <= rel * max(float(w.abs().max()), 1e-30), (err, rel)
+
+
+def test_ssd_bwd_wrapper_refuses_cpu_tensors():
+    """The backward wrapper takes CUDA tensors only: there is no
+    fallback."""
+    x = torch.ones((1, 16, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_module.ssd_chunk_bwd(x, x[..., 0], x[:, :, 0], x[:, :, 0], x,
+                                 None, None, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("upstream", list(SSD_BWD_UPSTREAMS))
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_bwd_kernel_matches_plain_version_on_card(shape, upstream):
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[1] + shape[2])
+    args = _ssd_bwd_inputs(shape, gen, upstream)
+    before = ssd_module.launches["ssd_chunk_bwd_kernel"]
+    got = ssd_module.ssd_chunk_bwd(*args)
+    assert ssd_module.launches["ssd_chunk_bwd_kernel"] == before + 1
+    want = ref.ssd_chunks_bwd(*args)
+    torch.cuda.synchronize()
+    _close_to_plain(got, want)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_is_deterministic_and_finite_on_card():
+    """Two launches give the same bits (the heads' dB and dC are summed in
+    order, no float atomics); a = -80 per step (exp above the diagonal
+    would overflow) stays finite and matches the plain version."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = _ssd_bwd_inputs((2, 256, 64, 64, 128, 128), gen)
+    first = ssd_module.ssd_chunk_bwd(*args)
+    second = ssd_module.ssd_chunk_bwd(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    args = list(args)
+    args[1] = torch.full_like(args[1], -80.0)
+    _close_to_plain(ssd_module.ssd_chunk_bwd(*args),
+                    ref.ssd_chunks_bwd(*args))
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_wrapper_refusals_on_card():
+    """The backward kernel's wrapper raises on what the kernel does not
+    take, upstream gradients of the wrong shape or dtype included."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    xdt, a, b, c, gy, gs, gc, Q = _ssd_bwd_inputs((1, 64, 2, 64, 16, 32),
+                                                  gen)
+    with pytest.raises(ValueError, match="gy must be"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b, c, gy[:, :32], gs, gc, Q)
+    with pytest.raises(ValueError, match="gstate must be"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b, c, gy, gs[:, :1], gc, Q)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b, c, gy, gs, gc.double(), Q)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b, c, gy.cpu(), gs, gc, Q)
+    with pytest.raises(ValueError, match="head dim"):
+        ssd_module.ssd_chunk_bwd(xdt[..., :48], a, b, c, None, None, gc, Q)
+    with pytest.raises(ValueError, match="d_state"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b[..., :8], c[..., :8], gy, None,
+                                 None, Q)
+    with pytest.raises(ValueError, match="chunk"):
+        ssd_module.ssd_chunk_bwd(xdt, a, b, c, gy, None, None, 48)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+def test_ssd_scan_grads_match_ssd_chunked_on_card(shape):
+    """ops.ssd_scan under autograd on the card (both chunk kernels, the
+    host's recurrence through autograd) against autograd of the model's
+    own ssd_chunked, from a nonzero state: every input's gradient within
+    3e-4 of its largest entry (the forward kernel's tolerance: the
+    recurrence's gradients read its 3xTF32 states)."""
+    _ssd_needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[1] * 5)
+    B, _, H, P, N, chunk = shape
+    inputs = list(_ssd_inputs(shape, gen))
+    inputs.append(torch.randn((B, H, P, N), generator=gen,
+                              device="cuda") * 0.1)
+    gy = torch.randn_like(inputs[0])
+    gfin = torch.randn_like(inputs[-1])
+    runs = []
+    for fn in (ops.ssd_scan, mamba.ssd_chunked):
+        leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+        before = ssd_module.launches["ssd_chunk_bwd_kernel"]
+        y, fin = fn(*leaves[:5], chunk, initial_state=leaves[5])
+        runs.append(torch.autograd.grad(
+            (y * gy).sum() + (fin * gfin).sum(), leaves))
+        launched = ssd_module.launches["ssd_chunk_bwd_kernel"] - before
+        assert launched == (1 if fn is ops.ssd_scan else 0)
+    _close_to_plain(*runs, rel=SSD_TOL["rtol"])

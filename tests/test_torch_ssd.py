@@ -32,7 +32,7 @@ from repro_torch.configs.base import get_arch
 from repro_torch.interop import params_from_numpy, to_numpy
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd_kernel
-from repro_torch.models import backbone, mamba, split_program
+from repro_torch.models import backbone, mamba
 from repro_torch.serve import generate
 from wgmma_model import (CORE, _core_index, _fragments, _from_wgmma, _lanes,
                          _split, _tf32_product, _wgmma, _wgmma_b)
@@ -450,15 +450,13 @@ def test_generate_greedy_matches_jax(setup):
 
 
 def test_unported_paths_raise_by_name(setup):
-    """Dense generate needs prefill_tokens; split execution of the ssm
-    family is a later slice; so are the other families and compression."""
+    """Dense generate needs prefill_tokens; the other families and
+    compression are later slices.  (Split execution of the ssm family is
+    ported: ``tests/test_torch_ssd_train.py``.)"""
     _, cfg, _, params = setup
     dense = get_arch("smollm-360m").reduced()
     with pytest.raises(NotImplementedError, match="prefill_tokens"):
         generate({"x": torch.zeros(1)}, dense, np.zeros((1, 2)))
-    with pytest.raises(NotImplementedError, match="split execution of the "
-                                                  "ssm family"):
-        split_program.get_program(cfg)
     with pytest.raises(NotImplementedError, match="dense family's"):
         backbone.init_cache(dense, 1, 4, device="cpu")
     compressed = cfg.with_vertical(dataclasses.replace(
