@@ -98,15 +98,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain version's, and the bound: the larger of its bytes and its
    operations as 3xTF32 on the tensor cores, with the f32-FMA figure
    beside it (no single PyTorch call computes the function).  Then the
-   SSD backward kernel (``ssd_chunk_bwd_kernel`` and its reduce pass over
-   the heads): its ptxas report, then against ``ref.ssd_chunks_bwd`` at
-   phase 12's server and tower shapes, the reduced config's, and one
-   chunk per sequence, with every upstream gradient, at the server shape
-   also with each alone and with a = -80 per step (each gradient within
-   1e-4 of the plain one's largest entry, all finite), two launches
-   bit-identical; at the server and tower shapes its time per call and on
-   the device, the plain backward's and the bound (f32 FMA; no single
-   PyTorch call computes the gradient).
+   SSD backward kernel (``ssd_chunk_bwd_kernel``, 3xTF32 on the tensor
+   cores, one block per (chunk, group of HG heads, batch), and its reduce
+   pass over the head groups): its ptxas report (a spill or a C7515 or
+   C7520 note fails), the HGMMA instructions in the SASS of every
+   instantiation (none fails), the plan (HG, groups, blocks) at every
+   shape, then against ``ref.ssd_chunks_bwd`` at phase 12's server and
+   tower shapes, the reduced config's, one chunk per sequence, a shape
+   whose last head group is partly filled and one with P 32, with every
+   upstream gradient, at the server shape also with each alone and with
+   a = -80 per step (each gradient within 1e-4 of the plain one's largest
+   entry, all finite), two launches bit-identical; at the server and
+   tower shapes its time per call and on the device, the plain backward's
+   and the bound: the larger of its bytes and its operations as 3xTF32 on
+   the tensor cores, with the f32-FMA figure beside it (no single PyTorch
+   call computes the gradient).
 8. The ssm slice: full-width mamba2-1.3b (K = 4, avg, f32, random weights
    from a seed).  ``forward`` over one request of 2048, 8192 and 32768
    tokens and over 4 x 2048, 54 SSD launches each (46 server + 4 x 2
@@ -309,12 +315,14 @@ SSD_SHAPES = [(1, 2048, 64, 64, 128, 128), (1, 8192, 64, 64, 128, 128),
               (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32)]
 # the SSD backward kernel (phase 7) at phase 12's training shapes: 8 x 256
 # tokens through the server (64 heads) and the towers (16), the reduced
-# config's server and towers (Q 32, N 16; phase 12 (a)), and one chunk per
-# sequence (S = Q); each gradient within 1e-4 of the plain one's largest
-# entry (f32 FMA against PyTorch's f32 products, summed in other orders)
+# config's server and towers (Q 32, N 16; phase 12 (a)), one chunk per
+# sequence (S = Q), a last head group partly filled (201 heads: HG 2 on
+# 132 SMs) and P 32; each gradient within 1e-4 of the plain one's largest
+# entry (3xTF32 against PyTorch's f32 products, summed in other orders)
 SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
                   (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32),
-                  (8, 128, 64, 64, 128, 128)]
+                  (8, 128, 64, 64, 128, 128), (1, 128, 201, 32, 128, 128),
+                  (2, 256, 24, 32, 128, 128)]
 SSD_BWD_REL = 1e-4
 SSD_BWD_NEG_A = -80.0  # a per step: exp above the diagonal would overflow
 # the ssm training slice (phase 12): mamba2-1.3b's cut stack at 8 x 256
@@ -1810,24 +1818,28 @@ def check_ssd_scan_grads(gen) -> float:
 
 
 def ssd_bwd_bound(B, S, H, P, N, Q) -> tuple:
-    """Least time on an H100 SXM for one backward call, f32 FMA.  The
-    operations the function needs: per (batch, chunk) C B^T over the
+    """Least time on an H100 SXM for one backward call: its operations as
+    three TF32 products each (3xTF32) at the tensor cores' dense TF32
+    rate, vs its bytes.  The operations the function needs: per (batch, chunk) C B^T over the
     causal half (Q(Q+1)/2 pairs, 2N each; B and C are shared by the
     heads) and dC, dB as (sum over heads of dM o L) times B and C (2N per
     pair each); per (batch, chunk, head) dM = gy x^T and M^T gy over the
     causal half (2P per pair each), L, M, dM o L, R and its sums (6 per
     pair), B gS^T and (x o w) gS (2QPN each), and the w-terms of dx and T
     (4QP).  Bytes: xdt, a, B, C, gy, gstate, gcum read once, dx, da, dB,
-    dC written once.  Returns the bound, what bounds it and the flops."""
+    dC written once.  Returns the bound, what bounds it, the f32-FMA
+    figure (the same flops at the f32 rate outside the tensor cores, vs
+    the bytes) and the f32 flops."""
     nc = S // Q
     pairs = Q * (Q + 1) // 2
     flops = B * nc * (3 * pairs * 2 * N + H * (
         pairs * (4 * P + 6) + 4 * Q * P * N + 4 * Q * P))
     nbytes = 4 * (3 * B * S * H * P + B * nc * H * P * N + 3 * B * S * H
                   + 4 * B * S * N)
-    t_ops, t_bytes = flops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops)
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
 
 
 def _ssd_bwd_inputs(shape, gen, upstream=(True, True, True)):
@@ -1868,9 +1880,41 @@ def check_ssd_bwd_kernel() -> float:
     SSD_BWD_SHAPES shape with every upstream gradient, at the server shape
     with each upstream alone and with very negative a; two launches
     bit-identical.  Returns the worst |error| over each gradient's largest
-    plain entry."""
+    plain entry.  Fails first on a spill, a ptxas note that the wgmmas
+    are serialized, or an instantiation without HGMMA in its SASS."""
     log(f"ssd bwd: ptxas: {ptxas_report('ssd_chunk_bwd_kernel')}; reduce "
         f"pass: {ptxas_report('ssd_chunk_bwd_reduce_kernel')}")
+    notes = {}
+    for line in fa.build.library_path().with_suffix(".log").read_text(
+            ).splitlines():
+        code = re.search(r"\((C75\d\d)\)", line)
+        if code and "ssd_chunk_bwd" in line:
+            notes[code[1]] = notes.get(code[1], 0) + 1
+    log(f"ssd bwd: ptxas notes on wgmma by code (C7511, C7512, C7515 and "
+        f"C7520: the wgmmas are serialized): {notes}")
+    if any(notes.get(code) for code in ("C7511", "C7512", "C7515", "C7520")):
+        raise AssertionError(f"ssd bwd kernel: ptxas serialized its "
+                             f"wgmmas: {notes}")
+    spills = {inst: spill for inst, (_, spill) in
+              _ptxas_counts("ssd_chunk_bwd_kernel").items() if spill}
+    if spills:
+        raise AssertionError(f"ssd bwd kernel spills registers: {spills}")
+    counts = tensor_core_instructions("ssd_chunk_bwd_kernel")
+    if counts is None:
+        log("ssd bwd: SASS not read: no cuobjdump in the CUDA toolkit or in "
+            "Triton's package")
+    else:
+        log(f"ssd bwd: tensor-core instructions (HMMA / HGMMA) in the SASS "
+            f"of each instantiation: {counts}")
+        if not counts or not all(counts.values()):
+            raise AssertionError(f"ssd bwd kernel without tensor-core "
+                                 f"instructions: {counts}")
+    plans = {shape: ssd.bwd_plan(*shape, torch.device("cuda", 0))
+             for shape in SSD_BWD_SHAPES}
+    log("ssd bwd: heads per block (HG), groups and blocks at each shape (B, "
+        "S, H, P, N, chunk): " + "; ".join(
+            f"{k}: HG {v['heads']}, {v['groups']} groups, {v['blocks']} "
+            f"blocks" for k, v in plans.items()))
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
     worst, n = 0.0, 0
     alone = {"gy": (True, False, False), "gstate": (False, True, False),
@@ -1910,9 +1954,10 @@ def check_ssd_bwd_kernel() -> float:
 
 def time_ssd_bwd(card: str) -> dict:
     """The backward kernel at phase 12's server and tower shapes: per call
-    and on the device, the plain backward likewise, and the bound (f32
-    FMA).  No single PyTorch call computes this gradient (autograd of the
-    plain forward is a dozen calls), so there is no library time."""
+    and on the device, the plain backward likewise, and the bound (3xTF32
+    vs bytes, with the f32-FMA figure beside it).  No single PyTorch call
+    computes this gradient (autograd of the plain forward is a dozen
+    calls), so there is no library time."""
     rows = {}
     for shape in SSD_BWD_SHAPES[:2]:
         gen = torch.Generator(device="cuda").manual_seed(shape[2])
@@ -1925,7 +1970,8 @@ def time_ssd_bwd(card: str) -> dict:
             row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)], iters=20)
             row[prefix + "device_ms"] = device_ms(lambda _: fn(), [(None,)],
                                                   iters=10, reps=3)
-        row["bound_ms"], row["bound_by"], flops = ssd_bwd_bound(*shape)
+        row["bound_ms"], row["bound_by"], row["fma_ms"], flops = \
+            ssd_bwd_bound(*shape)
         rows[shape] = row
         B, S, H = shape[:3]
         log(f"time ssd bwd f32 ({B}, {S}, {H} heads, P 64, N 128, Q 128): "
@@ -1937,8 +1983,8 @@ def time_ssd_bwd(card: str) -> dict:
             f"bound), plain {row['plain_ms']:.6f} "
             f"({row['plain_device_ms']:.6f}) ms, library none (no single "
             f"PyTorch call computes it), bound {row['bound_ms']:.6f} ms "
-            f"({row['bound_by']}; f32 FMA at 67 TFLOP/s vs 3.35 TB/s) | "
-            f"{card}")
+            f"({row['bound_by']}; 3xTF32 at 495 TFLOP/s vs 3.35 TB/s), "
+            f"f32-FMA figure {row['fma_ms']:.6f} ms (67 TFLOP/s) | {card}")
         del args, fns
         torch.cuda.empty_cache()
     return rows
@@ -3355,9 +3401,10 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "device_ms": row["device_ms"],
             "plain_device_ms": row["plain_device_ms"],
+            "f32_fma_ms": row["fma_ms"],
             "second_kernel": "ssd_chunk_bwd_reduce_kernel (the sum of dB "
-                             "and dC over the heads, launched with it and "
-                             "timed with it)",
+                             "and dC over the head groups, launched with it "
+                             "and timed with it)",
             "shape": list(shape[:4]), "d_state": shape[4],
             "chunk": shape[5], "dtype": "float32"}
 

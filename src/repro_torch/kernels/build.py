@@ -53,6 +53,7 @@ SIGNATURES = {
     "repro_ssd_chunk_bwd": ([_P] * 13 + [_I] * 7 + [_P], _I),
     # B, S, H, P, N, Q, device, out (4 x int)
     "repro_ssd_chunk_plan": ([_I] * 7 + [_P], _I),
+    "repro_ssd_chunk_bwd_plan": ([_I] * 7 + [_P], _I),
     # x, live, out, n (= B * D), K, strategy, dtype, device, stream
     "repro_merge_reduce": ([_P] * 3 + [ctypes.c_longlong] + [_I] * 4 + [_P],
                            _I),

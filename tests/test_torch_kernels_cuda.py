@@ -737,10 +737,13 @@ def test_ssd_kernel_refusals_on_card():
 
 
 # the backward kernel: held to ref.ssd_chunks_bwd at 1e-4 of the largest
-# plain gradient (f32 FMA against PyTorch's f32 products, summed in other
+# plain gradient (3xTF32 against PyTorch's f32 products, summed in other
 # orders); (B, S, H, P, N, chunk) as SSD_SHAPES, with mamba2-1.3b's
-# training shapes (8 x 256 tokens, server and tower heads) first
-SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128)] \
+# training shapes (8 x 256 tokens, server and tower heads) first, then a
+# last head group partly filled (201 heads, one chunk: HG 2 on 132 SMs)
+# at P 32, N 16 and S = Q, and P 32 at N 128
+SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
+                  (1, 128, 201, 32, 16, 128), (2, 256, 24, 32, 128, 128)] \
     + SSD_SHAPES
 SSD_BWD_UPSTREAMS = {"all": (True, True, True), "gy": (True, False, False),
                      "gstate": (False, True, False),
@@ -790,10 +793,71 @@ def test_ssd_bwd_kernel_matches_plain_version_on_card(shape, upstream):
     _close_to_plain(got, want)
 
 
+def _expected_bwd_heads(B, S, H, N, chunk, sms):
+    """The backward's heads per block by its launcher's rule: fewest waves
+    of blocks over the SMs times (HG + 1)."""
+    slices = -(-N // 128)
+    per_group = (S // chunk) * B * slices
+    return min(range(1, H + 1), key=lambda hg: (
+        -(-per_group * -(-H // hg) // sms) * (hg + 1), hg))
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_plan_on_card():
+    """The backward's plan at phase 12's server and tower shapes (8 x 256
+    tokens): HG 8 and HG 2, 128 blocks each on an H100's 132 SMs, and by
+    the launcher's rule on any other count; 201 heads in one chunk leave
+    the last group partly filled."""
+    _ssd_needs_card()
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for H, hg in ((64, 8), (16, 2)):
+        plan = ssd_module.bwd_plan(8, 256, H, 64, 128, 128, device)
+        want = hg if sms == 132 else _expected_bwd_heads(8, 256, H, 128, 128,
+                                                          sms)
+        assert plan["heads"] == want
+        assert plan["groups"] == -(-H // want) and plan["slices"] == 1
+        assert plan["blocks"] == 2 * 8 * plan["groups"]
+    plan = ssd_module.bwd_plan(1, 128, 201, 32, 16, 128, device)
+    if sms == 132:
+        assert plan["heads"] == 2 and plan["groups"] == 101
+    assert plan["heads"] == _expected_bwd_heads(1, 128, 201, 16, 128, sms)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_runs_on_tensor_cores():
+    """Every instantiation of the backward kernel has HGMMA (wgmma)
+    instructions in its SASS, read with the toolkit's cuobjdump."""
+    import re
+    import shutil
+    import subprocess
+    from pathlib import Path
+
+    _ssd_needs_card()
+    from repro_torch.kernels import build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        pytest.skip("no cuobjdump in the CUDA toolkit")
+    sass = subprocess.run([tool, "-sass", str(build.build())],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, current = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[-1].strip()
+            current = name if "ssd_chunk_bwd_kernel" in name else None
+            if current:
+                counts[current] = 0
+        elif current and re.search(r"\bHGMMA\b", line):
+            counts[current] += 1
+    assert len(counts) == 12 and all(counts.values()), counts
+
+
 @pytest.mark.cuda
 def test_ssd_bwd_kernel_is_deterministic_and_finite_on_card():
-    """Two launches give the same bits (the heads' dB and dC are summed in
-    order, no float atomics); a = -80 per step (exp above the diagonal
+    """Two launches give the same bits (the heads' dB and dC terms and the
+    groups' partials are summed in order, no float atomics); a = -80 per step (exp above the diagonal
     would overflow) stays finite and matches the plain version."""
     _ssd_needs_card()
     gen = torch.Generator(device="cuda").manual_seed(5)
