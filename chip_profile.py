@@ -5,7 +5,7 @@ port on full-width smollm-360m, mamba2-1.3b and starcoder2-3b.
     python3 chip_profile.py      # from the repo root; needs one CUDA card
     python3 chip_profile.py starcoder   # only some sections, by name:
                                         # serve, train, long, ssm, starcoder,
-                                        # ssmtrain
+                                        # ssmtrain, generate
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
@@ -30,8 +30,12 @@ its 32768-token prompt alone, then of all four of its prompts, one new
 token each, after an unprofiled warm-up.  Last, full-width mamba2-1.3b
 trained as ``chip_smoke.py``'s phase 12 does (as the smollm training
 run above, 8 x 256 tokens a step), with the SSD forward and backward
-kernels' shares.  Every run also prints the f32 GEMMs' share (kernels
-named ``*gemm*``: cuBLAS and CUTLASS).
+kernels' shares.  Last, monolithic dense serving of full-width
+smollm-360m (``chip_smoke.py``'s phase 13): ``prefill_tokens`` of its
+4096-token prompt, then 16 decode steps over a linear cache of 4096 at
+batch 1 and at batch 32, as ``batched_throughput_probe`` times them,
+after an unprofiled warm-up.  Every run also prints the f32 GEMMs'
+share (kernels named ``*gemm*``: cuBLAS and CUTLASS).
 """
 from __future__ import annotations
 
@@ -202,6 +206,40 @@ def profile_starcoder(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+def profile_generate(card: str) -> None:
+    """Monolithic dense serving: the prompt prefill and decode steps."""
+    cfg = get_arch("smollm-360m")
+    gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(smoke.SEED)
+    rng.integers(0, cfg.vocab_size, smoke.MONO_SHORT)  # chip_smoke's draws
+    prompt = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, smoke.MONO_LONG)), device="cuda")
+    generate(params, cfg, prompt[:, :2304], max_new_tokens=2)  # warm-up
+    profiled(lambda: smoke.mono_prefill(cfg, params, prompt)[0], card,
+             f"mono prefill {smoke.MONO_LONG}", lambda *_: "one request")
+    step = backbone.make_serve_step(cfg)
+    steps = smoke.MONO_PROBE_STEPS
+    for batch in (1, 32):
+        cache = backbone.init_cache(cfg, batch, smoke.MONO_PROBE_LEN,
+                                    device="cuda")
+        tok = torch.zeros((batch,), dtype=torch.long, device="cuda")
+        step(params, cache, tok)  # warm-up
+
+        def decode(cache=cache, tok=tok):
+            for _ in range(steps):
+                _, cache = step(params, cache, tok)
+
+        profiled(decode, card, f"mono decode b{batch} {smoke.MONO_PROBE_LEN}",
+                 lambda _, launches, syncs: (
+                     f"{steps} steps, {launches / steps:.1f} launches a "
+                     "step"),
+                 host_ops=[("aten::einsum", "decode attention's scores "
+                            "and values")])
+        del cache
+        torch.cuda.empty_cache()
+
+
 def profile_smollm(card: str, sections) -> None:
     """The serve, train and long sections, on full-width smollm-360m."""
     cfg = get_arch("smollm-360m")
@@ -231,7 +269,8 @@ def profile_smollm(card: str, sections) -> None:
                         "long full", **kw)
 
 
-SECTIONS = ("serve", "train", "long", "ssm", "starcoder", "ssmtrain")
+SECTIONS = ("serve", "train", "long", "ssm", "starcoder", "ssmtrain",
+            "generate")
 
 
 def main() -> None:
@@ -254,6 +293,9 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "ssmtrain" in sections:
         profile_ssm_training(card)
+        torch.cuda.empty_cache()
+    if "generate" in sections:
+        profile_generate(card)
 
 
 if __name__ == "__main__":

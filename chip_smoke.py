@@ -12,7 +12,10 @@ Executor and the merge kernels, no-wait split training with a
 straggler (the simulated clock, adaptive deadlines and EMA imputation),
 whose imputed merges run the reduce kernels both ways, and split training
 of full-width mamba2-1.3b, whose every Mamba2 layer runs the SSD chunk
-kernel forward and its hand-written backward kernel.
+kernel forward and its hand-written backward kernel, and monolithic
+dense serving of full-width smollm-360m (prompt prefill through the
+flash kernel, decode over linear, ring and int8 caches, the
+decode-throughput probe).
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -201,6 +204,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    re-runs its forward for the vjp), every layer ``ssd_chunk_bwd_kernel``
    once, one merge each way; step 0's verification once more of each SSD
    kernel's count (its merge is the plain version).
+13. Monolithic dense serving (``serve/decode.generate`` through
+   ``backbone.prefill_tokens`` and ``decode_step``; the towers merge with
+   the plain ``merge_stacked``, as in the JAX package).  (a) Reduced
+   smollm-360m, same weights, card against CPU: ``generate`` on a linear
+   cache and on a ring of 8 under window 8 (prefill logits within 1e-5,
+   greedy tokens identical), 4 decode chunks over 16 steps (logits
+   within 1e-5, argmax identical), and int8 KV with 4 decode chunks,
+   held to the CPU's int8 run as int8 is held to f32 (K/V within one
+   int8 level, relative error below 0.02, argmax agreement above 0.9:
+   an input within ~1e-6 of half a step rounds to either side on the two
+   devices).  (b) Full-width
+   smollm-360m (f32, seeded weights): ``generate`` of 1 x 4096 prompt
+   tokens with counters reset just before and read just after (38 flash
+   launches: 30 server + 4 x 2 tower layers, no merge kernel), and of
+   8 x 128, 32 new tokens each; greedy tokens equal ``SplitLMServer``'s
+   on the same params and prompts; the 4096-token prefill's last logits
+   within 1e-3 of the plain path (``use_kernel=False``, no launch);
+   prefill tokens/s and peak memory.  (c) A ring cache of 256 slots
+   under window 256, 4 x 128 prompt tokens and 256 new, gives the tokens
+   of a linear cache under the same window.  (d) int8 KV with 4 decode
+   chunks against the f32 cache over 64 steps of 4 streams: relative
+   error below 0.02, argmax agreement above 0.9 (the JAX package's
+   bounds).  (e) ``batched_throughput_probe``: decode tokens/s at a
+   linear cache of 4096 at batch 1, 8 and 32, and at a ring of
+   ``cfg.sliding_window`` (8192) at batch 8, each beside its byte bound
+   (every weight and K/V slot read once).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -235,12 +264,14 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, mamba, split_program  # noqa: E402
+from repro_torch.models.transformer import BlockDims  # noqa: E402
 from repro_torch.optim import SGD, AdamW  # noqa: E402
 from repro_torch.runtime import engine  # noqa: E402
 from repro_torch.runtime.deadline import AdaptiveDeadline  # noqa: E402
 from repro_torch.runtime.executor import Executor  # noqa: E402
 from repro_torch.runtime.links import LinkModel  # noqa: E402
-from repro_torch.serve import SplitLMServer, generate  # noqa: E402
+from repro_torch.serve import (SplitLMServer,  # noqa: E402
+                               batched_throughput_probe, generate)
 from repro_torch.train.loop import train_split  # noqa: E402
 from repro_torch.transport import (InprocTransport, SimTransport,  # noqa: E402
                                    build_mlp_worker, build_split_worker)
@@ -383,6 +414,19 @@ NOWAIT_LM_DELAY_S = 0.1  # smollm's straggler, per forward
 # host's scheduling instead of the no-wait numerics
 NOWAIT_LM_BOOTSTRAP_S = 5.0
 BF16_TOL, BF16_GAP = 3e-2, 6e-2
+# monolithic dense serving (phase 13): 8 x 128-token prompts and one of
+# 4096 (past the flash threshold), 32 new tokens each; a ring cache of 256
+# slots against a linear one under the same window; int8 KV with 4
+# flash-decoding chunks against f32 over 64 decode steps (the JAX
+# package's bounds, tests/test_kv_quant.py); the throughput probe at a
+# linear cache of 4096 and at the ring of cfg.sliding_window, which is
+# the JAX package's decode_cache_plan for prompts past 65536 tokens
+MONO_SHORT, MONO_LONG, MONO_NEW = (8, 128), 4096, 32
+MONO_RING_BATCH, MONO_RING_PROMPT, MONO_RING = 4, 128, 256
+MONO_INT8_BATCH, MONO_INT8_STEPS, MONO_INT8_CHUNKS = 4, 64, 4
+MONO_INT8_REL, MONO_INT8_AGREE = 0.02, 0.9
+MONO_PROBE_BATCHES, MONO_PROBE_LEN, MONO_PROBE_STEPS = (1, 8, 32), 4096, 16
+MONO_RING_PROBE_BATCH = 8
 
 
 def log(*parts) -> None:
@@ -3232,6 +3276,281 @@ def ssm_train_phase(card: str) -> dict:
     return {**{k: small[k] + full[k] for k in full}, "full": full}
 
 
+# ---------------------------------------------------------------------------
+# phase 13: monolithic dense serving
+# ---------------------------------------------------------------------------
+
+def mono_small_against_cpu() -> None:
+    """Reduced smollm-360m, same weights: the card against the CPU path.
+    ``generate`` on a linear cache and on a ring under a window (prefill
+    logits within 1e-5, greedy tokens identical); 4 decode chunks step
+    by step from an empty cache, over the f32 cache (logits within 1e-5,
+    argmax identical) and over int8 (int8 has no prefill).  The int8
+    runs are held to each other as int8 is held to f32: K/V within one
+    int8 level, relative error below 0.02, argmax agreement above 0.9.
+    An input that lands within ~1e-6 of half a step rounds to either
+    side on the two devices, and a few such one-level flips move the
+    reduced model's logits by up to 1.5e-3 (measured on the CPU with
+    inputs perturbed by 1e-6)."""
+    cfg = get_arch("smollm-360m").reduced()
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    cpu_params = backbone.init_params(cfg, gen, device="cpu")
+    gpu_params = _to(cpu_params, "cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 8))
+    diffs = {}
+    for label, kw in (("linear", dict(max_new_tokens=8)),
+                      ("window+ring", dict(max_new_tokens=12, cache_len=8,
+                                           window=8, ring=True))):
+        out = {}
+        for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            cache = backbone.init_cache(cfg, 2, kw.get("cache_len", 16),
+                                        ring=kw.get("ring", False),
+                                        device=device)
+            logits, _ = backbone.prefill_tokens(
+                params, cache, torch.as_tensor(prompts, device=device), cfg)
+            out[device] = (logits.cpu(),
+                           generate(params, cfg, prompts, **kw).cpu())
+        diffs[label] = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        if diffs[label] > 1e-5 or not torch.isfinite(out["cuda"][0]).all():
+            raise AssertionError(f"mono small {label}: prefill logits differ "
+                                 f"by {diffs[label]}")
+        if not torch.equal(out["cuda"][1], out["cpu"][1]):
+            raise AssertionError(f"mono small {label}: card tokens "
+                                 f"{out['cuda'][1].tolist()} vs CPU "
+                                 f"{out['cpu'][1].tolist()}")
+    # decode chunks over the f32 cache, then over int8, 16 steps from an
+    # empty cache (int8 has no prefill)
+    toks = rng.integers(0, cfg.vocab_size, (2, 16))
+    runs = {}
+    for quant in (False, True):
+        for device, params in (("cpu", cpu_params), ("cuda", gpu_params)):
+            cache = backbone.init_cache(cfg, 2, 16, kv_quant=quant,
+                                        device=device)
+            steps = []
+            for t in range(toks.shape[1]):
+                logits, cache = backbone.decode_step(
+                    params, cache, torch.as_tensor(toks[:, t], device=device),
+                    cfg, decode_chunks=MONO_INT8_CHUNKS)
+                steps.append(logits.cpu())
+            runs[quant, device] = (torch.stack(steps, 1), _to(cache, "cpu"))
+    fp = {d: runs[False, d][0] for d in ("cpu", "cuda")}
+    diffs["chunks"] = float((fp["cuda"] - fp["cpu"]).abs().max())
+    if diffs["chunks"] > 1e-5 or not torch.equal(fp["cuda"].argmax(-1),
+                                                 fp["cpu"].argmax(-1)):
+        raise AssertionError(f"mono small chunks: logits differ by "
+                             f"{diffs['chunks']} or argmax differs")
+    (q8, c_cpu), (q8_card, c_card) = runs[True, "cpu"], runs[True, "cuda"]
+    levels = max(int((c_card[key].int() - c_cpu[key].int()).abs().max())
+                 for key in ("k", "v"))
+    rel = float((q8_card - q8).abs().max() / q8.abs().max())
+    agree = float((q8_card.argmax(-1) == q8.argmax(-1)).float().mean())
+    diffs["int8+chunks"] = {"levels": levels, "rel": rel, "agree": agree}
+    if levels > 1 or rel >= MONO_INT8_REL or agree <= MONO_INT8_AGREE:
+        raise AssertionError(f"mono small int8: {diffs['int8+chunks']}")
+    log(f"mono small: reduced smollm-360m on the card matches the CPU path "
+        f"(generate, linear and window+ring: prefill logits within 1e-5, "
+        f"identical greedy tokens; {MONO_INT8_CHUNKS} decode chunks over "
+        f"16 steps: logits within 1e-5, identical argmax; int8 with chunks: "
+        f"caches within one level, relative error < {MONO_INT8_REL}, argmax "
+        f"agreement > {MONO_INT8_AGREE}): {diffs}")
+
+
+def mono_generate(cfg, params, prompts, **kw):
+    """``generate`` timed (host clock, synchronised); returns (tokens as
+    lists, seconds, launches during the run)."""
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches()
+    if out.device.type != "cuda" or not bool(
+            ((out >= 0) & (out < cfg.vocab_size)).all()):
+        raise AssertionError(f"generate: tokens on {out.device} or out of "
+                             "vocab")
+    return out.tolist(), seconds, launches
+
+
+def mono_prefill(cfg, params, prompt, use_kernel: bool = True):
+    """``prefill_tokens`` of ``prompt`` into a fresh cache, timed; returns
+    (last logits, seconds, launches during the run)."""
+    cache = backbone.init_cache(cfg, prompt.shape[0],
+                                prompt.shape[1] + MONO_NEW, device="cuda")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, _ = backbone.prefill_tokens(params, cache, prompt, cfg,
+                                        use_kernel=use_kernel)
+    torch.cuda.synchronize()
+    return logits, time.perf_counter() - t0, read_launches()
+
+
+def mono_int8(cfg, params, rng) -> tuple:
+    """int8 KV with decode chunks against the f32 cache, step by step from
+    an empty cache over the same tokens: (relative error, argmax
+    agreement), held to the JAX package's bounds."""
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        MONO_INT8_BATCH, MONO_INT8_STEPS)), device="cuda")
+    c_fp = backbone.init_cache(cfg, MONO_INT8_BATCH, MONO_INT8_STEPS,
+                               device="cuda")
+    c_q8 = backbone.init_cache(cfg, MONO_INT8_BATCH, MONO_INT8_STEPS,
+                               kv_quant=True, device="cuda")
+    fp, q8 = [], []
+    for t in range(MONO_INT8_STEPS):
+        logits, c_fp = backbone.decode_step(params, c_fp, toks[:, t], cfg)
+        fp.append(logits)
+        logits, c_q8 = backbone.decode_step(params, c_q8, toks[:, t], cfg,
+                                            decode_chunks=MONO_INT8_CHUNKS)
+        q8.append(logits)
+    fp, q8 = torch.stack(fp, 1), torch.stack(q8, 1)
+    if c_q8["k"].dtype != torch.int8 or not torch.isfinite(q8).all():
+        raise AssertionError("int8 decode: cache not int8 or logits not "
+                             "finite")
+    rel = float((fp - q8).abs().max() / fp.abs().max())
+    agree = float((fp.argmax(-1) == q8.argmax(-1)).float().mean())
+    if rel >= MONO_INT8_REL or agree <= MONO_INT8_AGREE:
+        raise AssertionError(f"int8 decode: relative error {rel} (< "
+                             f"{MONO_INT8_REL}), argmax agreement {agree} (> "
+                             f"{MONO_INT8_AGREE})")
+    return rel, agree
+
+
+def decode_bytes(cfg, n_params: int, batch: int, cache_len: int) -> int:
+    """Bytes a decode step must move at least, f32: every weight once (the
+    tied table once, for the unembedding) and every K/V slot of the
+    server and the towers once."""
+    v = cfg.vertical
+    dims = BlockDims.from_arch(cfg)
+    kv_t = dims.scaled(v.num_clients).n_kv_heads
+    slots = batch * cache_len * dims.head_dim * 2 * (
+        (cfg.num_layers - v.tower_layers) * dims.n_kv_heads
+        + v.num_clients * v.tower_layers * kv_t)
+    return 4 * (n_params + slots)
+
+
+def mono_probe(cfg, params, n_params: int, card: str) -> list:
+    """``batched_throughput_probe`` by batch at a linear cache of 4096,
+    and at the ring of ``cfg.sliding_window`` (window = its length)."""
+    rows = []
+    plans = [(b, MONO_PROBE_LEN, False) for b in MONO_PROBE_BATCHES]
+    plans.append((MONO_RING_PROBE_BATCH, cfg.sliding_window, True))
+    for batch, cache_len, ring in plans:
+        torch.cuda.empty_cache()
+        rep = batched_throughput_probe(
+            params, cfg, batch=batch, cache_len=cache_len,
+            steps=MONO_PROBE_STEPS, window=cache_len if ring else None,
+            ring=ring)
+        bound_ms = decode_bytes(cfg, n_params, batch,
+                                cache_len) / H100_BYTES_PER_S * 1e3
+        rows.append({**rep, "cache_len": cache_len, "bound_ms": bound_ms})
+        log(f"mono probe: batch {batch}, {'ring' if ring else 'linear'} "
+            f"cache {cache_len}{f', window {cache_len}' if ring else ''}: "
+            f"{rep['tokens_per_s']:.1f} decode tokens/s, "
+            f"{rep['ms_per_step']:.4f} ms a step (median of "
+            f"{MONO_PROBE_STEPS}); byte bound {bound_ms:.4f} ms a step | "
+            f"{card}")
+    return rows
+
+
+def mono_phase(card: str) -> int:
+    """Phase 13; returns the flash launches of its main path (the
+    4096-token ``generate``)."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    mono_small_against_cpu()
+    cfg = get_arch("smollm-360m")
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    K, Lt = cfg.vertical.num_clients, cfg.vertical.tower_layers
+    per_prompt = cfg.num_layers - Lt + K * Lt
+    rng = np.random.default_rng(SEED)
+    short = rng.integers(0, cfg.vocab_size, MONO_SHORT)
+    long = rng.integers(0, cfg.vocab_size, (1, MONO_LONG))
+    log(f"mono: {cfg.name} full width, {n_params} params f32, K={K} towers "
+        f"of {Lt} layers (plain merge), {cfg.num_layers - Lt} server layers; "
+        f"generate {MONO_SHORT[0]} x {MONO_SHORT[1]} and 1 x {MONO_LONG} "
+        f"prompt tokens, {MONO_NEW} new each")
+    # warm-up (not measured): cuBLAS, the flash kernel's first launch
+    generate(params, cfg, long[:, :2304], max_new_tokens=2)
+
+    # (b) the main path: counters reset just before, read just after
+    torch.cuda.reset_peak_memory_stats()
+    long_tokens, t_long, launches = mono_generate(cfg, params, long,
+                                                  max_new_tokens=MONO_NEW)
+    peak = torch.cuda.max_memory_allocated()
+    expect_launches(launches, {"flash_attention_kernel": per_prompt,
+                               flash_name(64): per_prompt})
+    short_tokens, t_short, slaunch = mono_generate(cfg, params, short,
+                                                   max_new_tokens=MONO_NEW)
+    expect_launches(slaunch, {})
+    split_short, _, _, _ = serve(cfg, params, list(short),
+                                 [MONO_NEW] * MONO_SHORT[0],
+                                 cache_len=MONO_SHORT[1] + MONO_NEW,
+                                 max_batch=MONO_SHORT[0])
+    split_long, _, _, _ = serve(cfg, params, list(long), [MONO_NEW],
+                                cache_len=MONO_LONG + MONO_NEW, max_batch=1)
+    if split_short != short_tokens or split_long != long_tokens:
+        raise AssertionError(f"generate differs from SplitLMServer: "
+                             f"{short_tokens + long_tokens} vs "
+                             f"{split_short + split_long}")
+    logits, t_prefill, _ = mono_prefill(cfg, params, torch.as_tensor(
+        long, device="cuda"))
+    plain, t_plain, plaunch = mono_prefill(cfg, params, torch.as_tensor(
+        long, device="cuda"), use_kernel=False)
+    if any(plaunch.values()):
+        raise AssertionError(f"the plain prefill launched kernels: "
+                             f"{plaunch}")
+    diff = float((logits - plain).abs().max())
+    if diff > 1e-3 or not torch.isfinite(logits).all():
+        raise AssertionError(f"4096-token prefill: kernel vs plain logits "
+                             f"differ by {diff} (tol 1e-3)")
+    log(f"mono generate: {per_prompt} flash_attention_kernel launches for "
+        f"the {MONO_LONG}-token prompt ({cfg.num_layers - Lt} server + "
+        f"{K} x {Lt} tower layers), no merge kernel; greedy tokens equal "
+        f"SplitLMServer's for all {MONO_SHORT[0] + 1} prompts; prefill "
+        f"logits kernel vs plain max |diff| {diff:.3e} (tol 1e-3) | {card}")
+    log(f"mono prefill: {MONO_LONG} tokens in {t_prefill:.4f} s = "
+        f"{MONO_LONG / t_prefill:.1f} prefill tokens/s (plain attention "
+        f"{t_plain:.4f} s); generate 1 x ({MONO_LONG} + {MONO_NEW}) "
+        f"{t_long:.4f} s, {MONO_SHORT[0]} x ({MONO_SHORT[1]} + {MONO_NEW}) "
+        f"{t_short:.4f} s ({MONO_SHORT[0] * MONO_NEW / t_short:.1f} tokens/s "
+        f"with the prefill); max_memory_allocated {peak} bytes | {card}")
+
+    # (c) a ring of 256 slots against a linear cache under the same window
+    prompts = rng.integers(0, cfg.vocab_size,
+                           (MONO_RING_BATCH, MONO_RING_PROMPT))
+    lin, t_lin, _ = mono_generate(cfg, params, prompts,
+                                  max_new_tokens=MONO_RING, window=MONO_RING)
+    ring, t_ring, _ = mono_generate(cfg, params, prompts,
+                                    max_new_tokens=MONO_RING,
+                                    cache_len=MONO_RING, window=MONO_RING,
+                                    ring=True)
+    if ring != lin:
+        raise AssertionError("ring cache tokens differ from the linear "
+                             "cache's under the same window")
+    log(f"mono ring: {MONO_RING_BATCH} x ({MONO_RING_PROMPT} + {MONO_RING}) "
+        f"tokens, window {MONO_RING}: a ring of {MONO_RING} slots gives the "
+        f"tokens of a linear cache of {MONO_RING_PROMPT + MONO_RING}; "
+        f"{t_ring:.4f} s vs {t_lin:.4f} s "
+        f"({MONO_RING_BATCH * MONO_RING / t_ring:.1f} vs "
+        f"{MONO_RING_BATCH * MONO_RING / t_lin:.1f} tokens/s) | {card}")
+
+    # (d) int8 KV with decode chunks against f32
+    rel, agree = mono_int8(cfg, params, rng)
+    log(f"mono int8: {MONO_INT8_BATCH} streams x {MONO_INT8_STEPS} decode "
+        f"steps, int8 KV with {MONO_INT8_CHUNKS} decode chunks vs f32: "
+        f"relative error {rel:.4e} (< {MONO_INT8_REL}), argmax agreement "
+        f"{agree:.4f} (> {MONO_INT8_AGREE})")
+
+    # (e) decode throughput by batch and cache plan
+    mono_probe(cfg, params, n_params, card)
+    log(f"mono: phase 13 took {time.perf_counter() - t_phase:.1f} s")
+    return launches["flash_attention_kernel"]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -3285,6 +3604,7 @@ def main() -> None:
     mlp_launches = mlp_phase(card)
     nowait_launches, nowait_shape_launches = nowait_phase(card)
     ssm_train = ssm_train_phase(card)
+    flash_launches[64] += mono_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (

@@ -7,8 +7,12 @@ flash path is the hand-written CUDA kernel for CUDA tensors
 (:func:`repro_torch.kernels.ops.flash_attention`) and the plain chunked
 online softmax (:func:`chunked_flash_attention`, differentiable through
 autograd) on the CPU or when a caller asks for the plain version.
-Decode supports the f32 linear cache with tracked ``kv_positions`` — no
-ring buffer, window, int8 KV or decode chunks yet.
+Decode writes one row into a linear or a ring cache (slot = index mod
+``S_cache``) with tracked ``kv_positions``, under an optional sliding
+``window``; the cache may be int8 with per-vector f32 scales
+(:func:`quantize_kv`), and the attention over it may be split into
+flash-decoding chunks (:func:`chunked_decode_attention`).  Decode
+attention is plain PyTorch, as it is plain ``jnp`` in the JAX package.
 
 Decode is written for a batch of independent streams, each at its own
 position: ``cache_index`` is a ``(B,)`` tensor and ``kv_positions`` a
@@ -64,8 +68,10 @@ def dense_attention(
     q_positions: torch.Tensor,  # (Sq,) or (B, Sq)
     kv_positions: torch.Tensor,  # (Skv,) or (B, Skv)
     kv_valid: Optional[torch.Tensor] = None,  # (B, Skv) bool
+    window: Optional[int] = None,
 ) -> torch.Tensor:
-    """Unblocked attention (short sequences and decode)."""
+    """Unblocked attention (short sequences and decode); ``window`` keeps
+    the keys with ``qpos - kpos < window``."""
     B, Sq, H, hd = q.shape
     Kv = k.shape[2]
     qg = q.reshape(B, Sq, Kv, H // Kv, hd)
@@ -77,6 +83,8 @@ def dense_attention(
     mask = torch.ones((B, Sq, k.shape[1]), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (qpos[:, :, None] >= kpos[:, None, :])
+    if window is not None:
+        mask = mask & (qpos[:, :, None] - kpos[:, None, :] < window)
     if kv_valid is not None:
         mask = mask & kv_valid[:, None, :]
     scores = torch.where(mask[:, None, None], scores,
@@ -210,10 +218,33 @@ def attention_apply(
                          params["wo"]), (k, v)
 
 
+def quantize_kv(x: torch.Tensor, dim: int = -1):
+    """Per-vector symmetric int8 quantization: returns (q int8, scale f32)
+    with ``scale = max(amax, 1e-8) / 127`` of shape ``(..., 1)``; rounds
+    half to even and clips to +-127, as the JAX package does."""
+    x32 = x.float()
+    amax = torch.amax(torch.abs(x32), dim=dim, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) / 127.0
+    q = torch.clamp(torch.round(x32 / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize_kv(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return q.float() * scale
+
+
+def _refuse_chunk_sharding(chunk_sharding) -> None:
+    if chunk_sharding is not None:
+        raise NotImplementedError(
+            "chunk_sharding is an XLA sharding constraint on the chunked "
+            "cache view; the port runs on one card and has no counterpart "
+            "yet (ROADMAP.md Queue 1 item 15, the multi-GPU modules)")
+
+
 def decode_attention_apply(
     params: dict,
     x: torch.Tensor,  # (B, 1, d_model)
-    cache_k: torch.Tensor,  # (B, S_cache, Kv, hd) f32
+    cache_k: torch.Tensor,  # (B, S_cache, Kv, hd): f32/bf16, or int8
     cache_v: torch.Tensor,
     cache_index: torch.Tensor,  # (B,) write position per stream
     *,
@@ -223,17 +254,24 @@ def decode_attention_apply(
     kv_positions: torch.Tensor,  # (B, S_cache); -1 marks an unwritten slot
     rope_theta: Optional[float] = 10000.0,
     position: Optional[torch.Tensor] = None,  # (B,); defaults to cache_index
+    window: Optional[int] = None,
+    ring: bool = False,  # ring-buffer cache (sliding window)
+    decode_chunks: Optional[int] = None,  # flash-decoding chunk count
+    chunk_sharding=None,
+    kv_scales=None,  # (k_scale, v_scale): (B, S_cache, Kv, 1) f32, int8
 ):
     """One-token cached decode.  Returns (attn_out, cache_k, cache_v,
-    kv_positions).
+    kv_positions, kv_scales).
 
-    The new K/V rows are written into ``cache_k``/``cache_v`` IN PLACE (the
-    JAX package returns new arrays; the caches here are owned by the
-    caller's session or slot, so writing in place saves a copy per step).
-    ``kv_positions`` is returned as a new tensor.  A write index past the
-    cache end is clamped to the last slot, as the JAX package's
-    ``dynamic_update_slice`` clamps: idle serving slots keep advancing
-    their index, and their output is discarded."""
+    The new K/V rows (and, for an int8 cache, their scales) are written
+    into the caches IN PLACE (the JAX package returns new arrays; the
+    caches here are owned by the caller's session or slot, so writing in
+    place saves a copy per step).  ``kv_positions`` is returned as a new
+    tensor.  A ring cache writes slot ``index mod S_cache``; a linear
+    cache clamps a write index past its end to the last slot, as the JAX
+    package's ``dynamic_update_slice`` clamps: idle serving slots keep
+    advancing their index, and their output is discarded."""
+    _refuse_chunk_sharding(chunk_sharding)
     B = x.shape[0]
     S_cache = cache_k.shape[1]
     if position is None:
@@ -250,15 +288,94 @@ def decode_attention_apply(
         k_new = layers.apply_rope(k_new, pos, rope_theta)
 
     rows = torch.arange(B, device=x.device)
-    slot = torch.clamp(cache_index, 0, S_cache - 1)
-    cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
-    cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
+    if ring:
+        slot = torch.remainder(cache_index, S_cache)
+    else:
+        slot = torch.clamp(cache_index, 0, S_cache - 1)
+    if kv_scales is not None:
+        k_q, k_s = quantize_kv(k_new)
+        v_q, v_s = quantize_kv(v_new)
+        cache_k[rows, slot] = k_q[:, 0]
+        cache_v[rows, slot] = v_q[:, 0]
+        kv_scales[0][rows, slot] = k_s[:, 0]
+        kv_scales[1][rows, slot] = v_s[:, 0]
+    else:
+        cache_k[rows, slot] = k_new[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v_new[:, 0].to(cache_v.dtype)
     kpos = kv_positions.clone()
     kpos[rows, slot] = position.to(kpos.dtype)
-    kv_valid = (kpos >= 0) & (kpos <= pos)
 
-    out = dense_attention(q, cache_k, cache_v, causal=True, q_positions=pos,
-                          kv_positions=kpos, kv_valid=kv_valid)
+    if decode_chunks:
+        out = chunked_decode_attention(
+            q, cache_k, cache_v, kpos, position, n_chunks=decode_chunks,
+            window=window, kv_scales=kv_scales)
+    else:
+        k_use, v_use = cache_k, cache_v
+        if kv_scales is not None:
+            k_use = dequantize_kv(cache_k, kv_scales[0]).to(q.dtype)
+            v_use = dequantize_kv(cache_v, kv_scales[1]).to(q.dtype)
+        kv_valid = (kpos >= 0) & (kpos <= pos)
+        out = dense_attention(q, k_use, v_use, causal=True, q_positions=pos,
+                              kv_positions=kpos, kv_valid=kv_valid,
+                              window=window)
     attn = layers.matmul(out.reshape(B, 1, n_heads * head_dim),
                          params["wo"])
-    return attn, cache_k, cache_v, kpos
+    return attn, cache_k, cache_v, kpos, kv_scales
+
+
+def chunked_decode_attention(
+    q: torch.Tensor,  # (B, 1, H, hd)
+    k: torch.Tensor,  # (B, S, Kv, hd)
+    v: torch.Tensor,
+    kv_positions: torch.Tensor,  # (B, S)
+    position: torch.Tensor,  # (B,)
+    *,
+    n_chunks: int,
+    window: Optional[int] = None,
+    chunk_sharding=None,
+    kv_scales=None,  # (k_scale, v_scale): (B, S, Kv, 1), int8 k and v
+) -> torch.Tensor:
+    """Flash-decoding layout: the KV sequence is split into ``n_chunks``
+    blocks, each block computes a partial softmax, and the partials
+    combine by log-sum-exp; a chunk with no valid key gets zero weight.
+    Per stream (``position`` and ``kv_positions`` carry the batch axis).
+    Returns ``(B, 1, H, hd)``."""
+    _refuse_chunk_sharding(chunk_sharding)
+    B, S, Kv, hd = k.shape
+    H = q.shape[2]
+    rep = H // Kv
+    if S % n_chunks:
+        raise ValueError(f"decode_chunks={n_chunks} must divide the cache "
+                         f"length {S}")
+    Sc = S // n_chunks
+    kc = k.reshape(B, n_chunks, Sc, Kv, hd)
+    vc = v.reshape(B, n_chunks, Sc, Kv, hd)
+    if kv_scales is not None:
+        kc = dequantize_kv(kc, kv_scales[0].reshape(B, n_chunks, Sc, Kv,
+                                                    1)).to(q.dtype)
+        vc = dequantize_kv(vc, kv_scales[1].reshape(B, n_chunks, Sc, Kv,
+                                                    1)).to(q.dtype)
+    pc = kv_positions.reshape(B, n_chunks, Sc)
+    p_now = position.reshape(B, 1, 1)
+
+    qg = q.reshape(B, Kv, rep, hd)
+    s = torch.einsum("bgrd,bcsgd->bcgrs", qg.float(), kc.float())
+    s = s * (1.0 / hd ** 0.5)  # (B, nc, Kv, rep, Sc) f32
+    valid = (pc >= 0) & (pc <= p_now)
+    if window is not None:
+        valid = valid & (pc > p_now - window)
+    s = torch.where(valid[:, :, None, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    m_c = torch.amax(s, dim=-1)  # (B, nc, Kv, rep)
+    p = torch.exp(s - m_c[..., None])
+    alive = torch.any(valid, dim=-1)[:, :, None, None]  # (B, nc, 1, 1)
+    p = torch.where(alive[..., None], p, torch.zeros_like(p))
+    num_c = torch.einsum("bcgrs,bcsgd->bcgrd", p, vc.float())
+    den_c = torch.sum(p, dim=-1)
+
+    m = torch.amax(m_c, dim=1, keepdim=True)
+    w = torch.where(alive, torch.exp(m_c - m), torch.zeros_like(m_c))
+    num = torch.sum(num_c * w[..., None], dim=1)  # (B, Kv, rep, hd)
+    den = torch.clamp(torch.sum(den_c * w, dim=1), min=1e-30)
+    out = num / den[..., None]
+    return out.reshape(B, 1, H, hd).to(q.dtype)

@@ -1,6 +1,7 @@
 """Architecture assembly for the dense and ssm families: params with the
-vertical split, the monolithic forward (prefill), the ssm decode caches and
-decode step, the server trunk, the LM loss and the per-role split helpers.
+vertical split, the monolithic forward, the decode caches, the dense
+prompt prefill (``prefill_tokens``) and the decode step, the server trunk,
+the LM loss and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
 K independent client towers over d_model/K feature slices; tower outputs
@@ -141,7 +142,7 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     cuts = []
     for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
         blocks = tfm.layer_params(towers["blocks"], k)
-        h = xk @ towers["proj_in"][k]
+        h = layers.matmul(xk, towers["proj_in"][k])
         if cfg.family == "ssm":
             h = tfm.mamba_stack_apply(blocks, h, cfg.ssm, h.shape[-1],
                                       cfg.norm_eps, use_kernel=use_kernel)
@@ -149,7 +150,7 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
             h = tfm.dense_stack_apply(blocks, h, _tower_dims(cfg),
                                       causal=True, positions=positions,
                                       use_kernel=use_kernel)
-        cuts.append(h @ towers["proj_out"][k])
+        cuts.append(layers.matmul(h, towers["proj_out"][k]))
     return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
                                    live_mask=live_mask)
 
@@ -205,7 +206,7 @@ def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
 
 
 # ---------------------------------------------------------------------------
-# ssm decode caches and the decode step
+# decode caches, prompt prefill and the decode step
 # ---------------------------------------------------------------------------
 
 def _ssm_cache(cfg: ArchConfig, lead: tuple, batch: int, d_model: int,
@@ -225,66 +226,205 @@ def _ssm_cache(cfg: ArchConfig, lead: tuple, batch: int, d_model: int,
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
-               dtype=torch.float32, *, device: DeviceLike = None) -> dict:
-    """The ssm family's decode cache, with the JAX package's keys and
-    shapes: ``index``, ``kv_positions`` (unused by an ssm, kept for the
-    layout), the server's ``ssm``/``conv`` stacks and the towers'."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's monolithic decode cache covers the ssm "
-            "family; the dense family's (prefill_tokens) comes with a later "
-            "slice of the port")
+               dtype=torch.float32, *, ring: bool = False,
+               kv_quant: bool = False, device: DeviceLike = None) -> dict:
+    """The decode cache, with the JAX package's keys, shapes and dtypes,
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for): ``index``
+    ``()`` int32 and ``kv_positions`` ``(cache_len,)`` int32 (-1 marks an
+    unwritten slot), then per family
+
+    - dense: the server's ``k``/``v`` ``(L, B, cache_len, Kv, hd)``
+      (int8 with ``kv_quant``, plus ``k_scale``/``v_scale``
+      ``(L, B, cache_len, Kv, 1)`` f32) and the towers' ``tower.k``/
+      ``tower.v`` ``(K, Lt, B, cache_len, Kv_t, hd)``;
+    - ssm: the server's ``ssm``/``conv`` stacks and the towers'.
+
+    ``cache_len`` is the longest sequence, or the window of a ``ring``
+    cache (which changes no shape: the ring is the decode step's slot
+    arithmetic)."""
     _check_family(cfg)
     dev = resolve_device(device)
     v = cfg.vertical
-    return {
+    cache = {
         "index": torch.zeros((), dtype=torch.int32, device=dev),
         "kv_positions": torch.full((cache_len,), -1, dtype=torch.int32,
                                    device=dev),
-        **_ssm_cache(cfg, (_server_layers(cfg),), batch, cfg.d_model, dtype,
-                     dev),
-        "tower": _ssm_cache(cfg, (v.num_clients, v.tower_layers), batch,
-                            _tower_ssm_d(cfg), dtype, dev),
     }
+    if cfg.family == "ssm":
+        return {
+            **cache,
+            **_ssm_cache(cfg, (_server_layers(cfg),), batch, cfg.d_model,
+                         dtype, dev),
+            "tower": _ssm_cache(cfg, (v.num_clients, v.tower_layers), batch,
+                                _tower_ssm_d(cfg), dtype, dev),
+        }
+    dims, dims_t = BlockDims.from_arch(cfg), _tower_dims(cfg)
+    kv = (_server_layers(cfg), batch, cache_len, dims.n_kv_heads,
+          dims.head_dim)
+    kv_dtype = torch.int8 if kv_quant else dtype
+    cache["k"] = torch.zeros(kv, dtype=kv_dtype, device=dev)
+    cache["v"] = torch.zeros(kv, dtype=kv_dtype, device=dev)
+    if kv_quant:
+        cache["k_scale"] = torch.zeros(kv[:-1] + (1,), dtype=torch.float32,
+                                       device=dev)
+        cache["v_scale"] = torch.zeros(kv[:-1] + (1,), dtype=torch.float32,
+                                       device=dev)
+    tkv = (v.num_clients, v.tower_layers, batch, cache_len, dims_t.n_kv_heads,
+           dims_t.head_dim)
+    cache["tower"] = {"k": torch.zeros(tkv, dtype=dtype, device=dev),
+                      "v": torch.zeros(tkv, dtype=dtype, device=dev)}
+    return cache
 
 
 def _towers_decode(params: dict, x: torch.Tensor, tower_cache: dict,
-                   cfg: ArchConfig, *, live_mask=None):
+                   index: torch.Tensor, kv_positions: torch.Tensor,
+                   cfg: ArchConfig, *, window=None, ring: bool = False,
+                   live_mask=None) -> torch.Tensor:
     """One-token tower pass, x ``(B, 1, d)``; the towers' caches are
-    written in place.  Returns the merged cut."""
+    written in place.  Dense towers decode at the per-stream ``index``
+    ``(B,)`` over ``kv_positions`` ``(B, S)`` with ``window``/``ring``
+    and no chunks or scales, as in the JAX package (their new positions
+    are the server's, which the caller keeps).  Returns the merged
+    cut."""
     v = cfg.vertical
     towers = params["towers"]
     cuts = []
     for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
-        h = xk @ towers["proj_in"][k]
-        h, _, _ = tfm.mamba_stack_decode(
-            tfm.layer_params(towers["blocks"], k), h, tower_cache["ssm"][k],
-            tower_cache["conv"][k], cfg.ssm, h.shape[-1], cfg.norm_eps)
-        cuts.append(h @ towers["proj_out"][k])
+        h = layers.matmul(xk, towers["proj_in"][k])
+        blocks = tfm.layer_params(towers["blocks"], k)
+        if cfg.family == "ssm":
+            h, _, _ = tfm.mamba_stack_decode(
+                blocks, h, tower_cache["ssm"][k], tower_cache["conv"][k],
+                cfg.ssm, h.shape[-1], cfg.norm_eps)
+        else:
+            h, _, _, _, _ = tfm.dense_stack_decode(
+                blocks, h, tower_cache["k"][k], tower_cache["v"][k], index,
+                kv_positions, _tower_dims(cfg), window=window, ring=ring,
+                position=index)
+        cuts.append(layers.matmul(h, towers["proj_out"][k]))
     return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
                                    live_mask=live_mask)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
-                cfg: ArchConfig, *, live_mask=None):
-    """One-token decode of the ssm family, tokens ``(B,)``.  Returns
-    (logits ``(B, V)``, cache): the ssm and conv states are written in
-    place, ``index`` advances by one."""
-    if cfg.family != "ssm":
-        raise NotImplementedError(
-            f"{cfg.name}: the port's monolithic decode step covers the ssm "
-            "family; the dense family's comes with a later slice of the port")
+                cfg: ArchConfig, *, window: Optional[int] = None,
+                ring: bool = False, live_mask=None,
+                decode_chunks: Optional[int] = None, chunk_sharding=None):
+    """One-token decode, tokens ``(B,)``.  Returns (logits ``(B, V)``,
+    cache): the K/V rows (dense) or the ssm and conv states are written
+    into the cache's tensors in place, ``index`` advances by one.
+
+    Dense: the cache's scalar ``index`` and ``(S,)`` ``kv_positions`` are
+    broadcast to the per-stream form of ``decode_attention_apply``;
+    towers and server decode at ``position = index`` against the old
+    positions, and the server's new ones are stored.  ``window``,
+    ``ring`` and ``live_mask`` reach the towers and the server,
+    ``decode_chunks`` and an int8 cache's scales the server only
+    (``chunk_sharding``, an XLA sharding constraint, is refused there).
+    The ssm family ignores the attention knobs, as the JAX package does."""
     _check_family(cfg)
     dims = BlockDims.from_arch(cfg)
     x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
+    B = x.shape[0]
     new_cache = dict(cache)
-    x = _towers_decode(params, x, cache["tower"], cfg, live_mask=live_mask)
-    x, _, _ = tfm.mamba_stack_decode(params["server"], x, cache["ssm"],
-                                     cache["conv"], cfg.ssm, cfg.d_model,
-                                     cfg.norm_eps)
+    if cfg.family == "ssm":
+        x = _towers_decode(params, x, cache["tower"], None, None, cfg,
+                           live_mask=live_mask)
+        x, _, _ = tfm.mamba_stack_decode(params["server"], x, cache["ssm"],
+                                         cache["conv"], cfg.ssm, cfg.d_model,
+                                         cfg.norm_eps)
+    else:
+        index = cache["index"].long().expand(B)
+        kv_positions = cache["kv_positions"].expand(B, -1)
+        x = _towers_decode(params, x, cache["tower"], index, kv_positions,
+                           cfg, window=window, ring=ring,
+                           live_mask=live_mask)
+        kv_scales = None
+        if "k_scale" in cache:
+            kv_scales = (cache["k_scale"], cache["v_scale"])
+        x, _, _, npos, _ = tfm.dense_stack_decode(
+            params["server"], x, cache["k"], cache["v"], index, kv_positions,
+            dims, window=window, ring=ring, position=index,
+            decode_chunks=decode_chunks, chunk_sharding=chunk_sharding,
+            kv_scales=kv_scales)
+        new_cache["kv_positions"] = npos[0]
     new_cache["index"] = cache["index"] + 1
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
     return layers.unembed(params["embed"], x)[:, 0, :], new_cache
+
+
+def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
+                   cfg: ArchConfig, *, use_kernel: bool = True):
+    """Dense family: the teacher-forced pass over a prompt ``(B, S)`` that
+    fills the cache (towers, the plain merge, the server).  Returns
+    (logits of the last position ``(B, V)``, cache): slots ``[0, S)`` of
+    the K/V tensors and ``kv_positions`` are written in place, ``index``
+    becomes S.  The prompt is attended in full (no window), as in the
+    JAX package.  Past 2048 tokens every attention runs the flash kernel
+    on the card; ``use_kernel=False`` keeps it on the plain chunked path
+    (comparison runs).
+
+    Refused: other families (they replay the prompt through
+    :func:`decode_step`), an int8 cache (the JAX package casts the K/V
+    to int8 and leaves the scales at zero there, which no entry point of
+    it reaches), and a prompt longer than the cache."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: prompt prefill is implemented for the dense "
+            f"family; the {cfg.family!r} family replays the prompt through "
+            "decode_step")
+    _check_family(cfg)
+    if "k_scale" in cache:
+        raise NotImplementedError(
+            "prefill_tokens into an int8 (kv_quant) cache: the JAX package "
+            "casts the prompt's K/V to int8 unscaled and leaves the scales "
+            "at zero; the port does not copy that, and quantized prefill "
+            "has no port yet")
+    dims = BlockDims.from_arch(cfg)
+    B, S = tokens.shape
+    cache_len = cache["kv_positions"].shape[0]
+    if S > cache_len:
+        raise ValueError(
+            f"a prompt of {S} tokens does not fit a cache of {cache_len} "
+            "slots (a ring cache too: prefill writes the prompt whole); "
+            "raise cache_len")
+    positions = torch.arange(S, device=tokens.device)
+    x = layers.embed(params["embed"], tokens)
+    v = cfg.vertical
+    towers, tcache = params["towers"], cache["tower"]
+    cuts = []
+    for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
+        h = layers.matmul(xk, towers["proj_in"][k])
+        h, ks, vs = tfm.dense_stack_prefill(
+            tfm.layer_params(towers["blocks"], k), h, _tower_dims(cfg),
+            positions=positions, use_kernel=use_kernel)
+        tcache["k"][k, :, :, :S] = ks.to(tcache["k"].dtype)
+        tcache["v"][k, :, :, :S] = vs.to(tcache["v"].dtype)
+        cuts.append(layers.matmul(h, towers["proj_out"][k]))
+    x = merge_lib.merge_stacked(torch.stack(cuts), v.merge)
+    x, ks, vs = tfm.dense_stack_prefill(params["server"], x, dims,
+                                        positions=positions,
+                                        use_kernel=use_kernel)
+    cache["k"][:, :, :S] = ks.to(cache["k"].dtype)
+    cache["v"][:, :, :S] = vs.to(cache["v"].dtype)
+    cache["kv_positions"][:S] = positions.to(cache["kv_positions"].dtype)
+    new_cache = dict(cache)
+    new_cache["index"] = torch.full_like(cache["index"], S)
+    x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
+    return layers.unembed(params["embed"], x[:, -1, :]), new_cache
+
+
+def make_serve_step(cfg: ArchConfig, *, window: Optional[int] = None,
+                    ring: bool = False, decode_chunks: Optional[int] = None,
+                    chunk_sharding=None):
+    """``serve(params, cache, tokens) -> (logits, cache)``: the decode step
+    with these knobs fixed (the JAX package's ``make_serve_step``)."""
+    def serve(params: dict, cache: dict, tokens: torch.Tensor):
+        return decode_step(params, cache, tokens, cfg, window=window,
+                           ring=ring, decode_chunks=decode_chunks,
+                           chunk_sharding=chunk_sharding)
+
+    return serve
 
 
 def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

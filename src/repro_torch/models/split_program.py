@@ -281,7 +281,7 @@ class TokenLMSplitProgram(SplitProgram):
 
         def decode(tp, session, token):
             h = tp["embed_slice"][token[:, None]] @ tp["proj_in"]  # (1,1,·)
-            h, nk, nv, npos = tfm.dense_stack_decode(
+            h, nk, nv, npos, _ = tfm.dense_stack_decode(
                 tp["blocks"], h, session["k"], session["v"],
                 session["index"], session["kv_positions"], dims_t,
                 position=session["index"])
@@ -325,7 +325,7 @@ class TokenLMSplitProgram(SplitProgram):
             return logits, cache
 
         def decode(sp, cache, merged):
-            x, nk, nv, npos = tfm.dense_stack_decode(
+            x, nk, nv, npos, _ = tfm.dense_stack_decode(
                 sp["server"], merged, cache["k"], cache["v"], cache["index"],
                 cache["kv_positions"], dims, position=cache["index"])
             new = {"k": nk, "v": nv, "kv_positions": npos,

@@ -157,36 +157,50 @@ def dense_stack_prefill(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
 
 
 def dense_block_decode(p: dict, x: torch.Tensor, cache_k, cache_v, index,
-                       kv_positions, dims: BlockDims, *, position=None):
-    """One-token decode.  Returns (x, cache_k, cache_v, kv_positions); the
-    caches are written in place (see ``decode_attention_apply``)."""
+                       kv_positions, dims: BlockDims, *, window=None,
+                       ring: bool = False, position=None, decode_chunks=None,
+                       chunk_sharding=None, kv_scales=None):
+    """One-token decode.  Returns (x, cache_k, cache_v, kv_positions,
+    kv_scales); the caches (and an int8 cache's scales) are written in
+    place (see ``decode_attention_apply``)."""
     h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
-    attn_out, nk, nv, npos = attn_lib.decode_attention_apply(
+    attn_out, nk, nv, npos, nsc = attn_lib.decode_attention_apply(
         p["attn"], h, cache_k, cache_v, index, n_heads=dims.n_heads,
         n_kv_heads=dims.n_kv_heads, head_dim=dims.head_dim,
         kv_positions=kv_positions, rope_theta=dims.rope_theta,
-        position=position)
+        position=position, window=window, ring=ring,
+        decode_chunks=decode_chunks, chunk_sharding=chunk_sharding,
+        kv_scales=kv_scales)
     x = x + attn_out
     h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
-    return x + layers.gated_mlp(p["mlp"], h), nk, nv, npos
+    return x + layers.gated_mlp(p["mlp"], h), nk, nv, npos, nsc
 
 
 def dense_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
                        cache_v: torch.Tensor, index: torch.Tensor,
                        kv_positions: torch.Tensor, dims: BlockDims, *,
-                       position: Optional[torch.Tensor] = None):
+                       window: Optional[int] = None, ring: bool = False,
+                       position: Optional[torch.Tensor] = None,
+                       decode_chunks: Optional[int] = None,
+                       chunk_sharding=None, kv_scales=None):
     """cache_k/v: (L, B, S, Kv, hd), written in place; index: (B,);
-    kv_positions: (B, S).  Returns (x, cache_k, cache_v, kv_positions) —
-    the new positions are the same for every layer, so layer 0's are
-    kept, as in the JAX package."""
+    kv_positions: (B, S); kv_scales: (k_scale, v_scale), each
+    (L, B, S, Kv, 1) f32, for an int8 cache (written in place too).
+    Returns (x, cache_k, cache_v, kv_positions, kv_scales) — the new
+    positions are the same for every layer, so layer 0's are kept, as in
+    the JAX package."""
     npos = kv_positions
     for i in range(num_layers(stacked)):
-        x, _, _, pos_i = dense_block_decode(
+        scales = None if kv_scales is None else (kv_scales[0][i],
+                                                 kv_scales[1][i])
+        x, _, _, pos_i, _ = dense_block_decode(
             layer_params(stacked, i), x, cache_k[i], cache_v[i], index,
-            kv_positions, dims, position=position)
+            kv_positions, dims, window=window, ring=ring, position=position,
+            decode_chunks=decode_chunks, chunk_sharding=chunk_sharding,
+            kv_scales=scales)
         if i == 0:
             npos = pos_i
-    return x, cache_k, cache_v, npos
+    return x, cache_k, cache_v, npos, kv_scales
 
 
 # ---------------------------------------------------------------------------

@@ -141,7 +141,7 @@ def test_stack_prefill_and_decode_match_jax(setup, part):
         jstack, jnp.asarray(x1), jk, jv, jnp.asarray(S, jnp.int32), jpos,
         jdims, position=jnp.asarray(S, jnp.int32))
     index = torch.full((B,), S)
-    tout, nk, nv, npos = tfm.dense_stack_decode(
+    tout, nk, nv, npos, _ = tfm.dense_stack_decode(
         stack, torch.from_numpy(x1), tensor_from_numpy(jk, "cpu"),
         tensor_from_numpy(jv, "cpu"),
         index, tensor_from_numpy(jpos, "cpu").long().expand(B, -1),

@@ -450,15 +450,19 @@ def test_generate_greedy_matches_jax(setup):
 
 
 def test_unported_paths_raise_by_name(setup):
-    """Dense generate needs prefill_tokens; the other families and
+    """The ssm family has no fused prompt prefill (its generate replays
+    the prompt, as the JAX package's does); the other families and
     compression are later slices.  (Split execution of the ssm family is
-    ported: ``tests/test_torch_ssd_train.py``.)"""
+    ported: ``tests/test_torch_ssd_train.py``; dense monolithic serving:
+    ``tests/test_torch_dense_decode.py``.)"""
     _, cfg, _, params = setup
-    dense = get_arch("smollm-360m").reduced()
-    with pytest.raises(NotImplementedError, match="prefill_tokens"):
-        generate({"x": torch.zeros(1)}, dense, np.zeros((1, 2)))
-    with pytest.raises(NotImplementedError, match="dense family's"):
-        backbone.init_cache(dense, 1, 4, device="cpu")
+    with pytest.raises(NotImplementedError, match="prompt prefill"):
+        backbone.prefill_tokens(params,
+                                backbone.init_cache(cfg, 1, 4, device="cpu"),
+                                torch.zeros((1, 2), dtype=int), cfg)
+    with pytest.raises(NotImplementedError, match="'hybrid' family"):
+        generate({"x": torch.zeros(1)}, dataclasses.replace(
+            cfg, family="hybrid"), np.zeros((1, 2)))
     compressed = cfg.with_vertical(dataclasses.replace(
         cfg.vertical, compression="int8"))
     with pytest.raises(NotImplementedError, match="compression"):
