@@ -15,7 +15,10 @@ of full-width mamba2-1.3b, whose every Mamba2 layer runs the SSD chunk
 kernel forward and its hand-written backward kernel, and monolithic
 dense serving of full-width smollm-360m (prompt prefill through the
 flash kernel, decode over linear, ring and int8 caches, the
-decode-throughput probe).
+decode-throughput probe), and the training launcher end to end: one
+spawned process per feature holder over TCP loopback, monolithic and
+centralized training with msgpack checkpoints, and
+``python -m repro_torch.launch.train``.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -230,6 +233,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    linear cache of 4096 at batch 1, 8 and 32, and at a ring of
    ``cfg.sliding_window`` (8192) at batch 8, each beside its byte bound
    (every weight and K/V slot read once).
+14. The training launcher, counters reset just before each run and read
+   just after (role 0's launches; a child's own launches are not
+   counted: the towers launch no kernel at these shapes).  (a) Reduced
+   smollm-360m, seeded on the card in role 0 and in each spawned feature
+   holder: 3 steps of ``train_split`` over ``MultiprocTransport`` against
+   3 over threads (losses and final params within 1e-6, per-step ledgers
+   equal, one merge each way per step).  (b) Full-width smollm-360m over
+   four spawned processes on the card, 5 serial steps of 8 x 256 (step 0,
+   the children's warm-up, verified against ``protocol_step`` at 1e-5):
+   one ``merge_reduce`` launch each way per step, train tokens/s over
+   steps 1-4 beside phase 4's threads, spawn-and-connect seconds, role
+   0's peak memory and the card's memory by process as ``nvidia-smi
+   --query-compute-apps`` lists it (one reading at the last step, while
+   every process is alive).  (c)
+   Phase 3's 8 requests through ``SplitLMServer`` over four spawned
+   processes: tokens equal phase 3's, bytes equal ``costs.serve_*``,
+   every merge through the kernel.  (d) The monolithic ``train`` in
+   process, 3 steps of 8 x 256 each: smollm-360m vertical (its msgpack
+   checkpoint loaded back bit for bit) and centralized (no launch), and
+   mamba2-1.3b (exactly 54 ``ssd_chunk_kernel`` and 54
+   ``ssd_chunk_bwd_kernel`` launches a step: 46 server layers and 4 x 2
+   tower layers, each once); train tokens/s and peak memory.  (e)
+   ``python -m repro_torch.launch.train --transport multiproc --steps 3
+   --batch 8 --seq 256 --json ...`` as a subprocess: exit 0, the step-0
+   verification line, the summary's keys.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -240,7 +268,9 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
+import signal
 import subprocess
 import sys
 import time
@@ -272,9 +302,13 @@ from repro_torch.runtime.executor import Executor  # noqa: E402
 from repro_torch.runtime.links import LinkModel  # noqa: E402
 from repro_torch.serve import (SplitLMServer,  # noqa: E402
                                batched_throughput_probe, generate)
+from repro_torch.checkpoint import load_checkpoint  # noqa: E402
+from repro_torch.train.loop import train as train_mono  # noqa: E402
 from repro_torch.train.loop import train_split  # noqa: E402
-from repro_torch.transport import (InprocTransport, SimTransport,  # noqa: E402
-                                   build_mlp_worker, build_split_worker)
+from repro_torch.transport import (InprocTransport,  # noqa: E402
+                                   MultiprocTransport, SimTransport,
+                                   WorkerSpec, build_mlp_worker,
+                                   build_split_worker)
 from repro_torch.tree_util import tree_map  # noqa: E402
 
 SEED = 0
@@ -427,6 +461,15 @@ MONO_INT8_BATCH, MONO_INT8_STEPS, MONO_INT8_CHUNKS = 4, 64, 4
 MONO_INT8_REL, MONO_INT8_AGREE = 0.02, 0.9
 MONO_PROBE_BATCHES, MONO_PROBE_LEN, MONO_PROBE_STEPS = (1, 8, 32), 4096, 16
 MONO_RING_PROBE_BATCH = 8
+# the training launcher (phase 14): 3 steps for the card-vs-card and the
+# monolithic runs, the launcher's own subprocess at 8 x 256; its files go
+# under build/ (ignored by git) and are deleted after
+LAUNCH_STEPS = 3
+LAUNCH_DIR = ROOT / "build" / "chip_smoke"
+LAUNCH_TIMEOUT_S = 420
+SAME_TOL = 1e-6
+# figures of earlier phases that phase 14 prints its own beside
+MEASURED: dict = {}
 
 
 def log(*parts) -> None:
@@ -1182,6 +1225,7 @@ def serve_full(card: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     merges = expect_merges(stats, NEW_TOKENS, launches, "merge_reduce_kernel")
 
+    MEASURED["serve"] = dict(tokens=tokens, seconds=t_main)
     static, sstats, t_static, slaunch = serve(
         cfg, params, prompts, NEW_TOKENS, continuous=False, **kw)
     expect_merges(sstats, NEW_TOKENS, slaunch, "merge_reduce_kernel")
@@ -1244,10 +1288,11 @@ def train(cfg, steps: int, device: str, params=None, **kw):
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
     t0 = time.perf_counter()
+    kw.setdefault("print_fn", log)
     out, metrics, _ = train_split(
         cfg, loader, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         runtime="serial", learning_rate=3e-4, warmup=20, seed=SEED,
-        log_every=1, device=device, params=params, print_fn=log, **kw)
+        log_every=1, device=device, params=params, **kw)
     if device == "cuda":
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
@@ -1307,6 +1352,7 @@ def train_full(card: str) -> dict:
         f"{launches['merge_reduce_kernel']} merge_reduce_kernel and "
         f"{launches['merge_reduce_bwd_kernel']} merge_reduce_bwd_kernel "
         f"launches | {card}")
+    MEASURED["inproc_train_tokens_s"] = len(steady) * tokens / sum(steady)
     log(f"train avg: {len(steady) * tokens / sum(steady):.1f} train tokens/s "
         f"over steps 1-{TRAIN_STEPS - 1} (step times {metrics.step_times} "
         f"s; step 0 includes the verification), wall {seconds:.4f} s with "
@@ -3551,6 +3597,314 @@ def mono_phase(card: str) -> int:
     return launches["flash_attention_kernel"]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the training launcher — one process per feature holder,
+# monolithic and centralized training, checkpoints, the CLI
+# ---------------------------------------------------------------------------
+
+def card_memory() -> tuple:
+    """One reading of the card's memory: ``nvidia-smi``'s compute
+    processes as (pid, MiB) rows, and the card's total ``memory.used`` in
+    MiB."""
+    def query(*args) -> list:
+        out = subprocess.run(["nvidia-smi", *args,
+                              "--format=csv,noheader,nounits"],
+                             capture_output=True, text=True, timeout=60)
+        return [line.strip() for line in out.stdout.strip().splitlines()]
+
+    rows = [tuple(part.strip() for part in line.split(","))
+            for line in query("--query-compute-apps=pid,used_memory")]
+    total = query("--query-gpu=memory.used")
+    return rows, (int(total[0]) if total and total[0].isdigit() else None)
+
+
+def by_route(ledger) -> list:
+    """A step's ledger as sorted (sender, receiver, tag, bytes): the
+    transports deliver cuts in arrival order."""
+    return sorted((m.sender, m.receiver, m.tag, m.num_bytes)
+                  for m in ledger.messages)
+
+
+def launch_small_card_vs_card() -> dict:
+    """(a) Reduced smollm-360m, seeded on the card in role 0 and in every
+    feature holder: 3 steps over spawned processes against 3 over
+    threads — losses and final params within 1e-6, the per-step ledgers
+    equal, one merge each way per step in both.  Returns the launches of
+    both runs."""
+    cfg = get_arch("smollm-360m").reduced()
+    runs, total = {}, {}
+    for transport in ("inproc", "multiproc"):
+        out, metrics, _, launches, _ = train(cfg, LAUNCH_STEPS, "cuda",
+                                             transport=transport)
+        expect_launches(launches, {"merge_reduce_kernel": LAUNCH_STEPS,
+                                   "merge_reduce_bwd_kernel": LAUNCH_STEPS})
+        runs[transport] = (out, metrics)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+    (out, metrics), (iout, imetrics) = runs["multiproc"], runs["inproc"]
+    loss_diff = max(abs(a - b) for a, b in zip(metrics.losses,
+                                               imetrics.losses))
+    worst = max(float((a - b).abs().max()) for a, b in zip(
+        _leaves(out), _leaves(iout)))
+    if loss_diff > SAME_TOL or worst > SAME_TOL:
+        raise AssertionError(f"launch small: multiproc vs inproc losses "
+                             f"{loss_diff:.3e}, params {worst:.3e} > "
+                             f"{SAME_TOL}")
+    if [by_route(x) for x in metrics.ledgers] != \
+            [by_route(x) for x in imetrics.ledgers]:
+        raise AssertionError("launch small: multiproc ledgers differ from "
+                             "inproc's")
+    log(f"launch small: reduced smollm-360m seeded on the card, "
+        f"{LAUNCH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: multiproc "
+        f"(K={cfg.vertical.num_clients} processes) vs inproc losses max "
+        f"|diff| {loss_diff:.3e}, final params {worst:.3e} (<= {SAME_TOL}); "
+        f"ledgers equal ({metrics.ledgers[0].total()} bytes a step); "
+        f"multiproc set-up {metrics.setup_s:.2f} s")
+    return total
+
+
+def launch_multiproc_full(card: str) -> dict:
+    """(b) Full-width smollm-360m through ``train_split`` over four
+    spawned feature holders on the card, serial, 5 steps of 8 x 256
+    (step 0 is the children's warm-up and is verified against
+    protocol_step at 1e-5): one merge each way per step at role 0, train
+    tokens/s over steps 1-4 beside phase 4's threads, the set-up time,
+    and the card's memory by process as ``nvidia-smi`` lists it, read
+    once while every process is alive.  Returns the launches."""
+    cfg = get_arch("smollm-360m")
+    torch.cuda.empty_cache()
+    memory = {}
+
+    def read_memory_at_last_step(line: str) -> None:
+        # every process is alive here, and the reading's time falls into
+        # no timed step (the last step's time is taken before its line)
+        log(line)
+        if line.startswith(f"step {TRAIN_STEPS - 1:5d}"):
+            memory["rows"], memory["total_mib"] = card_memory()
+            memory["role0_reserved"] = torch.cuda.memory_reserved()
+
+    _, metrics, seconds, launches, peak = train(
+        cfg, TRAIN_STEPS, "cuda", transport="multiproc",
+        print_fn=read_memory_at_last_step)
+    expect_launches(launches, {"merge_reduce_kernel": TRAIN_STEPS,
+                               "merge_reduce_bwd_kernel": TRAIN_STEPS})
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"multiproc train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = metrics.step_times[1:]
+    rate = len(steady) * tokens / sum(steady)
+    inproc = MEASURED.get("inproc_train_tokens_s")
+    log(f"multiproc train: {cfg.name} full width, K="
+        f"{cfg.vertical.num_clients} spawned processes on the card, "
+        f"{TRAIN_STEPS} steps of {tokens} tokens, losses {metrics.losses}, "
+        f"step-0 max |dgrad| vs protocol_step "
+        f"{metrics.step0_max_dgrad:.3e} (<= 1e-5); launches {launches} | "
+        f"{card}")
+    log(f"multiproc train: {rate:.1f} train tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1} (step times {metrics.step_times} s) vs "
+        f"{inproc if inproc is None else round(inproc, 1)} over threads "
+        f"(phase 4, this run); spawn and connect {metrics.setup_s:.2f} s; "
+        f"wall {seconds:.4f} s; role 0 max_memory_allocated {peak} bytes, "
+        f"memory_reserved {memory['role0_reserved']} bytes at the last "
+        f"step; nvidia-smi at the last step: compute processes (pid, MiB) "
+        f"{memory['rows']}, card memory.used {memory['total_mib']} MiB | "
+        f"{card}")
+    return launches
+
+
+def launch_serve_multiproc(card: str) -> int:
+    """(c) Phase 3's 8 requests through ``SplitLMServer`` over four
+    spawned feature holders (seeded on the card): tokens equal phase 3's
+    continuous run, bytes equal ``costs.serve_*``, every merge through
+    the kernel.  Returns the merge launches."""
+    cfg = get_arch("smollm-360m")
+    K = cfg.vertical.num_clients
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    _, server = split_program.get_program(cfg).partition(
+        backbone.init_params(cfg, gen, device="cuda"))
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, s) for s in PROMPT_LENS]
+    cache_len = max(s + n for s, n in zip(PROMPT_LENS, NEW_TOKENS))
+    specs = [WorkerSpec(build_split_worker,
+                        dict(cfg=cfg, seed=SEED, device="cuda"))
+             for _ in range(K)]
+    t0 = time.perf_counter()
+    with MultiprocTransport(specs, device="cuda") as tr:
+        setup = time.perf_counter() - t0
+        srv = SplitLMServer(tr, cfg, server, device="cuda",
+                            cache_len=cache_len, max_batch=4,
+                            continuous=True)
+        for prompt, n in zip(prompts, NEW_TOKENS):
+            srv.submit(prompt, max_new_tokens=n)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        results = srv.run()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+    tokens = [r.tokens for r in results]
+    if tokens != MEASURED["serve"]["tokens"]:
+        raise AssertionError("multiproc serving gave other tokens than "
+                             "phase 3")
+    merges = expect_merges(srv.stats, NEW_TOKENS, launches,
+                           "merge_reduce_kernel")
+    rounds = srv.stats["tokens"] - srv.stats["requests"]
+    pf = costs.serve_prefill_bytes(sum(PROMPT_LENS), cfg.d_model, K)
+    dc = costs.serve_decode_bytes(cfg.d_model, K, rounds=rounds)
+    led = srv.ledger
+    if (led.sent_by("role0"), led.received_by("role0"),
+            srv.wire_report()["total"]) != (
+            pf["role0_sent"] + dc["role0_sent"],
+            pf["role0_received"] + dc["role0_received"],
+            pf["total"] + dc["total"]):
+        raise AssertionError("multiproc serving: ledger differs from "
+                             "costs.serve_*")
+    log(f"multiproc serve: {len(prompts)} requests, {srv.stats['tokens']} "
+        f"tokens, {srv.stats['decode_rounds']} decode rounds over {K} "
+        f"spawned processes: tokens equal phase 3's, {merges} "
+        f"merge_reduce_kernel launches, {led.total()} bytes = "
+        f"costs.serve_*; wall {seconds:.4f} s vs "
+        f"{MEASURED['serve']['seconds']:.4f} s over the inline transport "
+        f"(phase 3); spawn and connect "
+        f"{setup:.2f} s | {card}")
+    return merges
+
+
+def ssd_per_mono_step(cfg) -> int:
+    """SSD launches of one monolithic ssm step, each way: every server
+    layer and every tower layer runs once (no re-run for a vjp)."""
+    v = cfg.vertical
+    return cfg.num_layers - v.tower_layers + v.num_clients * v.tower_layers
+
+
+def launch_mono(card: str) -> dict:
+    """(d) The monolithic ``train`` (in process), 3 steps of 8 x 256 each:
+    full-width smollm-360m vertical (with a checkpoint saved and loaded
+    back bit for bit) and centralized, and mamba2-1.3b vertical (exact
+    counts of both SSD kernels: 54 a step each way); train tokens/s over
+    steps 1-2 and peak memory.  Returns the launches."""
+    smollm = get_arch("smollm-360m")
+    ckpt = LAUNCH_DIR / "smollm.msgpack"
+    total: dict = {}
+    for label, cfg, path in (
+            ("smollm-360m", smollm, ckpt),
+            ("smollm-360m --vertical off", smollm.with_vertical(None), None),
+            ("mamba2-1.3b", get_arch("mamba2-1.3b"), None)):
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        params, metrics = train_mono(
+            cfg, LMBatchLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED),
+            steps=LAUNCH_STEPS, seed=SEED, device="cuda", log_every=1,
+            checkpoint_path=None if path is None else str(path),
+            print_fn=log)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(math.isfinite(x) for x in metrics.losses):
+            raise AssertionError(f"mono train {label}: {metrics.losses}")
+        want = {}
+        if cfg.family == "ssm":
+            n = LAUNCH_STEPS * ssd_per_mono_step(cfg)
+            want = {"ssd_chunk_kernel": n, "ssd_chunk_bwd_kernel": n}
+        expect_launches(launches, want)
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        if path is not None:
+            loaded, step = load_checkpoint(str(path), device="cuda")
+            same = step == LAUNCH_STEPS and all(
+                a.dtype == b.dtype and torch.equal(a, b)
+                for a, b in zip(_leaves(loaded), _leaves(params)))
+            size = path.stat().st_size
+            path.unlink()
+            if not same:
+                raise AssertionError("mono train: the checkpoint did not "
+                                     "load back bit for bit")
+            del loaded
+        steady = metrics.step_times[1:]
+        log(f"mono train: {label}, {backbone.param_count(cfg)} params f32, "
+            f"{LAUNCH_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ}: losses "
+            f"{metrics.losses}; "
+            f"{len(steady) * TRAIN_BATCH * TRAIN_SEQ / sum(steady):.1f} "
+            f"train tokens/s over steps 1-{LAUNCH_STEPS - 1} (step times "
+            f"{metrics.step_times} s), wall {seconds:.4f} s"
+            + (f" with the checkpoint ({size} bytes, loaded back bit for "
+               "bit)" if path is not None else "")
+            + f"; launches {launches}; max_memory_allocated {peak} bytes | "
+            f"{card}")
+        del params
+    return total
+
+
+def launch_cli(card: str) -> None:
+    """(e) ``python -m repro_torch.launch.train --transport multiproc`` as
+    a user runs it (full-width smollm-360m, the card by default): exit 0,
+    the step-0 verification line and the summary's keys."""
+    out_json = LAUNCH_DIR / "launch.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--transport",
+           "multiproc", "--steps", str(LAUNCH_STEPS), "--batch",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--json",
+           str(out_json)]
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
+               + (os.pathsep + path if path else ""))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout takes its children down too
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=LAUNCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"launcher: no exit within {LAUNCH_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"launcher exited {proc.returncode}: "
+                             f"{stderr[-3000:]}")
+    if "step-0 verification vs protocol_step" not in stdout:
+        raise AssertionError(f"launcher: no step-0 line in {stdout[-2000:]}")
+    with open(out_json) as f:
+        run = json.load(f)
+    out_json.unlink()
+    summary = run["summary"]
+    keys = {"first_loss", "last_loss", "best_loss", "mean_step_s",
+            "loss_drop", "arch", "params", "steps", "vertical", "transport",
+            "inflight_steps", "secure_agg", "compress", "agg_tree_fanout",
+            "runtime"}
+    if set(summary) != keys or summary["transport"] != "multiproc" or \
+            len(run["losses"]) != LAUNCH_STEPS:
+        raise AssertionError(f"launcher summary: {summary}")
+    step0 = next(line for line in stdout.splitlines()
+                 if "step-0 verification" in line)
+    log(f"launcher: {' '.join(cmd[1:])}: exit 0 in {seconds:.1f} s; "
+        f"{step0.strip()}; summary {json.dumps(summary)} | {card}")
+
+
+def launch_phase(card: str) -> dict:
+    """Phase 14; returns the launches of its in-process runs (the
+    launcher's subprocess counts in its own process)."""
+    t0 = time.perf_counter()
+    LAUNCH_DIR.mkdir(parents=True, exist_ok=True)
+    total: dict = {}
+    for part in (launch_small_card_vs_card(), launch_multiproc_full(card),
+                 {"merge_reduce_kernel": launch_serve_multiproc(card)},
+                 launch_mono(card)):
+        for name, n in part.items():
+            total[name] = total.get(name, 0) + n
+    launch_cli(card)
+    log(f"launch: phase 14 took {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}")
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -3605,6 +3959,7 @@ def main() -> None:
     nowait_launches, nowait_shape_launches = nowait_phase(card)
     ssm_train = ssm_train_phase(card)
     flash_launches[64] += mono_phase(card)
+    launch_launches = launch_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -3622,7 +3977,8 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/merge_pool.cu",
             "replaces": replaces,
             "launches": (launches[name] + mlp_launches[name]
-                         + nowait_launches[name] + ssm_train.get(name, 0)),
+                         + nowait_launches[name] + ssm_train.get(name, 0)
+                         + launch_launches.get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3687,7 +4043,8 @@ def main() -> None:
             "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:23",
             "launches": launches["ssd_chunk_kernel"]
-            + ssm_train["ssd_chunk_kernel"],
+            + ssm_train["ssd_chunk_kernel"]
+            + launch_launches.get("ssd_chunk_kernel", 0),
             "max_abs_err": ssd_worst, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
@@ -3714,7 +4071,8 @@ def main() -> None:
             # the gradient of that kernel's function: the JAX package has
             # no backward kernel (jax.grad of its plain chunked scan)
             "replaces": "src/repro/kernels/ssd_scan.py:23",
-            "launches": ssm_train["ssd_chunk_bwd_kernel"],
+            "launches": ssm_train["ssd_chunk_bwd_kernel"]
+            + launch_launches.get("ssd_chunk_bwd_kernel", 0),
             "max_abs_err": row["max_abs_err"],
             "max_err_over_largest_entry": ssd_bwd_worst,
             "ms": row["ms"], "plain_ms": row["plain_ms"],

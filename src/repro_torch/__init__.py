@@ -7,8 +7,9 @@ This package imports ``torch`` and numpy only: never ``jax``, never
 rules, byte models, op tables) it keeps its own copy.
 
 Entry points (``init_params``, ``build_split_worker``, ``SplitLMServer``,
-``train_split``) run on ``cuda`` unless the caller passes
-``device="cpu"``; with no card and no explicit ``"cpu"`` they raise
+``train_split``, ``train``, ``MultiprocTransport``, the launcher's
+``--device``) run on ``cuda`` unless the caller passes ``device="cpu"``;
+with no card and no explicit ``"cpu"`` they raise
 (:func:`resolve_device`).
 """
 from __future__ import annotations

@@ -5,8 +5,10 @@ those whose enforcement layers include ``schedule`` (``step_schedule`` /
 ``serve_schedule`` construction), ``engine`` (the simulators' step
 plans), ``executor`` (``Executor`` construction), ``worker``
 (``TowerWorker``, the privacy principal's own guard), ``train``
-(``train_split``, before workers are built) or ``serve``
-(``SplitLMServer``), each listed at the port's layers only.
+(``train_split``, before workers are built), ``launch`` (the CLI
+launcher, which phrases the rejection by flag through :func:`cli_reject`)
+or ``serve`` (``SplitLMServer``), each listed at the port's layers
+only.
 Each layer rejects through :func:`check`; a rule's key, features and
 ``reason`` are the JAX package's, so both packages reject a composition
 with the same words (``tests/test_torch_train.py`` holds the two tables
@@ -25,7 +27,20 @@ LAYER_MODULES = {
     "executor": "src/repro_torch/runtime/executor.py",
     "worker": "src/repro_torch/transport/base.py",
     "train": "src/repro_torch/train/loop.py",
+    "launch": "src/repro_torch/launch/train.py",
     "serve": "src/repro_torch/serve/split_serve.py",
+}
+
+#: feature name -> how the CLI launcher names it in a SystemExit
+CLI_NAMES = {
+    "secure": "--secure-agg",
+    "compress": "--compress",
+    "tree": "--agg-tree-fanout",
+    "nowait": "--runtime nowait",
+    "merge_fn": "a program merge_fn",
+    "nonadditive": "a non-additive merge",
+    "impute": "--runtime nowait (EMA imputation)",
+    "serve": "serving",
 }
 
 #: merges with a partial-sum regrouping / mask-cancelling sum
@@ -78,7 +93,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="secure-nowait",
         features=("secure", "nowait"),
-        layers=("executor", "train"),
+        layers=("executor", "train", "launch"),
         reason=(
             "secure aggregation requires barrier execution "
             "(drop_policy='fused'): a client dropped in no-wait mode (or "
@@ -89,7 +104,8 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="secure-compress",
         features=("compress", "secure"),
-        layers=("schedule", "engine", "executor", "worker", "train"),
+        layers=("schedule", "engine", "executor", "worker", "train",
+                "launch"),
         reason=(
             "secure aggregation and cut compression cannot compose: "
             "additive masks do not cancel through quantized/sparsified "
@@ -110,7 +126,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-nonadditive",
         features=("tree", "nonadditive"),
-        layers=("engine", "executor", "train"),
+        layers=("engine", "executor", "train", "launch"),
         reason=(
             "tree aggregation needs an additively homomorphic merge: "
             "relays forward SUBTREE PARTIAL SUMS, which only a plain "
@@ -130,7 +146,8 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-compress",
         features=("tree", "compress"),
-        layers=("schedule", "engine", "executor", "worker", "train"),
+        layers=("schedule", "engine", "executor", "worker", "train",
+                "launch"),
         reason=(
             "tree aggregation and cut compression cannot compose: relays "
             "partial-sum cut tensors, and codec frames (topk bitmaps / "
@@ -140,7 +157,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="tree-nowait",
         features=("tree", "nowait"),
-        layers=("engine", "executor", "train"),
+        layers=("engine", "executor", "train", "launch"),
         reason=(
             "tree aggregation requires barrier execution "
             "(drop_policy='fused'): a client folded into a relay's "
@@ -218,3 +235,10 @@ def check(layer: str, *, secure=False, compress=None, tree=None,
     for rule in RULES:
         if layer in rule.layers and all(active[f] for f in rule.features):
             raise CompatError(rule, layer, context)
+
+
+def cli_reject(e: CompatError) -> SystemExit:
+    """The launcher's phrasing of a matrix rejection: name the flags, then
+    the matrix reason — '--compress cannot run with --secure-agg: ...'."""
+    a, b = (CLI_NAMES[f] for f in e.rule.features[:2])
+    return SystemExit(f"{a} cannot run with {b}: {e.rule.reason}")

@@ -1,13 +1,16 @@
 """Architecture assembly for the dense and ssm families: params with the
-vertical split, the monolithic forward, the decode caches, the dense
-prompt prefill (``prefill_tokens``) and the decode step, the server trunk,
-the LM loss and the per-role split helpers.
+vertical split or without it (the centralized baseline), the monolithic
+forward, the decode caches, the dense prompt prefill (``prefill_tokens``)
+and the decode step, the server trunk, the LM loss and the monolithic
+training step, the parameter count, and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
 K independent client towers over d_model/K feature slices; tower outputs
 are merged (``cfg.vertical.merge``) at the cut layer; the remaining layers
-form the server network.  The tree has the JAX package's layout, so
-weights carry across by a straight copy (``repro_torch.interop``).
+form the server network.  With ``cfg.vertical`` None every layer is a
+server layer and the tree has no ``towers``.  The tree has the JAX
+package's layout, so weights carry across by a straight copy
+(``repro_torch.interop``).
 
 The other families (moe, hybrid, audio, vlm) and cut compression raise
 ``NotImplementedError`` naming the slice of the port that brings them.
@@ -25,6 +28,7 @@ from repro_torch.core import merge as merge_lib
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.transformer import BlockDims
+from repro_torch.tree_util import tree_leaves, tree_unflatten
 
 
 def _tower_dims(cfg: ArchConfig) -> BlockDims:
@@ -58,11 +62,7 @@ def _check_family(cfg: ArchConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
             "of the port (it runs the dense and ssm families so far)")
-    if cfg.vertical is None:
-        raise NotImplementedError(
-            f"{cfg.name}: the port runs the vertical split so far; the "
-            "centralized baseline (vertical=None) comes with a later slice")
-    if cfg.vertical.compression is not None:
+    if cfg.vertical is not None and cfg.vertical.compression is not None:
         raise NotImplementedError(
             f"{cfg.name}: cut compression ({cfg.vertical.compression!r}) "
             "comes with the protocol-features slice of the port")
@@ -93,10 +93,10 @@ def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, dtype=torch.float32) -> dict:
-    """Seeded init of the dense or ssm family with its vertical section,
-    on ``device`` (``cuda`` unless ``"cpu"`` is asked for).
-    ``generator`` must live on that device; None means a fresh one seeded
-    with 0.
+    """Seeded init of the dense or ssm family, with its vertical section
+    or centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    for).  ``generator`` must live on that device; None means a fresh one
+    seeded with 0.
 
     Shapes and scales are the JAX package's; the numbers are not (torch
     and jax draw differently from a seed) — tests that compare the two
@@ -108,6 +108,10 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     if generator.device.type != dev.type:
         raise ValueError(f"generator is on {generator.device}, params go to "
                          f"{dev}")
+    return _init_tree(cfg, generator, dev, dtype)
+
+
+def _init_tree(cfg: ArchConfig, generator, dev: torch.device, dtype) -> dict:
     n_server = _server_layers(cfg)
     # draws in the order embedding, server, towers
     embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model,
@@ -118,13 +122,32 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
     else:
         server = tfm.init_dense_block(generator, BlockDims.from_arch(cfg),
                                       lead=(n_server,), dtype=dtype)
-    return {
+    params = {
         "embed": embed,
         "final_norm": layers.init_rmsnorm(cfg.d_model, device=dev,
                                           dtype=dtype),
         "server": server,
-        "towers": _init_towers(cfg, generator, dtype),
     }
+    if cfg.vertical is not None:
+        params["towers"] = _init_towers(cfg, generator, dtype)
+    return params
+
+
+class _ShapeOnly(torch.Generator):
+    """A CPU generator whose tensors go to the ``meta`` device: the init
+    runs for its shapes and allocates nothing."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
+
+
+def param_count(cfg: ArchConfig) -> int:
+    """Total parameter count, from shapes only (the init on the ``meta``
+    device; nothing is allocated)."""
+    _check_family(cfg)
+    tree = _init_tree(cfg, _ShapeOnly(), torch.device("meta"), torch.float32)
+    return sum(t.numel() for t in tree_leaves(tree))
 
 
 # ---------------------------------------------------------------------------
@@ -139,10 +162,15 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     JAX package's monolithic path merges (no merge kernel here)."""
     v = cfg.vertical
     towers = params["towers"]
+    # one unbind per stacked leaf: under autograd, indexing client by
+    # client would sum K zero-filled whole-stack gradients
+    per_client = zip(torch.unbind(towers["proj_in"]),
+                     tfm.unstack_layers(towers["blocks"]),
+                     torch.unbind(towers["proj_out"]))
     cuts = []
-    for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
-        blocks = tfm.layer_params(towers["blocks"], k)
-        h = layers.matmul(xk, towers["proj_in"][k])
+    for xk, (w_in, blocks, w_out) in zip(
+            torch.chunk(x, v.num_clients, dim=-1), per_client):
+        h = layers.matmul(xk, w_in)
         if cfg.family == "ssm":
             h = tfm.mamba_stack_apply(blocks, h, cfg.ssm, h.shape[-1],
                                       cfg.norm_eps, use_kernel=use_kernel)
@@ -150,7 +178,7 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
             h = tfm.dense_stack_apply(blocks, h, _tower_dims(cfg),
                                       causal=True, positions=positions,
                                       use_kernel=use_kernel)
-        cuts.append(layers.matmul(h, towers["proj_out"][k]))
+        cuts.append(layers.matmul(h, w_out))
     return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
                                    live_mask=live_mask)
 
@@ -159,9 +187,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
             use_kernel: bool = True):
     """Returns (logits ``(B, S, V)``, aux loss ``()``) for
     ``batch = {"tokens": (B, S)}``: embedding, the towers and their merge
-    (with ``live_mask`` dropping clients), the server trunk, the final norm
-    and the unembedding.  ``use_kernel=False`` keeps every layer on the
-    plain path (the model's ``ssd_chunked``; chunked attention past 2048
+    (with ``live_mask`` dropping clients; none when centralized), the
+    server trunk, the final norm and the unembedding.
+    ``use_kernel=False`` keeps every layer on the plain path (the model's
+    ``ssd_chunked``; chunked attention past 2048
     tokens), on any device."""
     _check_family(cfg)
     dims = BlockDims.from_arch(cfg)
@@ -169,8 +198,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
     S = tokens.shape[1]
     x = layers.embed(params["embed"], tokens)
     positions = torch.arange(S, device=x.device)
-    x = _towers_forward(params, x, cfg, positions=positions,
-                        live_mask=live_mask, use_kernel=use_kernel)
+    if cfg.vertical is not None:
+        x = _towers_forward(params, x, cfg, positions=positions,
+                            live_mask=live_mask, use_kernel=use_kernel)
     x = _server_trunk_apply(params, x, cfg, dims, positions=positions,
                             use_kernel=use_kernel)
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
@@ -239,6 +269,8 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
       ``tower.v`` ``(K, Lt, B, cache_len, Kv_t, hd)``;
     - ssm: the server's ``ssm``/``conv`` stacks and the towers'.
 
+    A centralized config (``cfg.vertical`` None) has no ``tower``.
+
     ``cache_len`` is the longest sequence, or the window of a ``ring``
     cache (which changes no shape: the ring is the decode step's slot
     arithmetic)."""
@@ -251,14 +283,13 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                                    device=dev),
     }
     if cfg.family == "ssm":
-        return {
-            **cache,
-            **_ssm_cache(cfg, (_server_layers(cfg),), batch, cfg.d_model,
-                         dtype, dev),
-            "tower": _ssm_cache(cfg, (v.num_clients, v.tower_layers), batch,
-                                _tower_ssm_d(cfg), dtype, dev),
-        }
-    dims, dims_t = BlockDims.from_arch(cfg), _tower_dims(cfg)
+        cache.update(_ssm_cache(cfg, (_server_layers(cfg),), batch,
+                                cfg.d_model, dtype, dev))
+        if v is not None:
+            cache["tower"] = _ssm_cache(cfg, (v.num_clients, v.tower_layers),
+                                        batch, _tower_ssm_d(cfg), dtype, dev)
+        return cache
+    dims = BlockDims.from_arch(cfg)
     kv = (_server_layers(cfg), batch, cache_len, dims.n_kv_heads,
           dims.head_dim)
     kv_dtype = torch.int8 if kv_quant else dtype
@@ -269,10 +300,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                                        device=dev)
         cache["v_scale"] = torch.zeros(kv[:-1] + (1,), dtype=torch.float32,
                                        device=dev)
-    tkv = (v.num_clients, v.tower_layers, batch, cache_len, dims_t.n_kv_heads,
-           dims_t.head_dim)
-    cache["tower"] = {"k": torch.zeros(tkv, dtype=dtype, device=dev),
-                      "v": torch.zeros(tkv, dtype=dtype, device=dev)}
+    if v is not None:
+        dims_t = _tower_dims(cfg)
+        tkv = (v.num_clients, v.tower_layers, batch, cache_len,
+               dims_t.n_kv_heads, dims_t.head_dim)
+        cache["tower"] = {"k": torch.zeros(tkv, dtype=dtype, device=dev),
+                          "v": torch.zeros(tkv, dtype=dtype, device=dev)}
     return cache
 
 
@@ -327,18 +360,21 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
     B = x.shape[0]
     new_cache = dict(cache)
+    towers = cfg.vertical is not None
     if cfg.family == "ssm":
-        x = _towers_decode(params, x, cache["tower"], None, None, cfg,
-                           live_mask=live_mask)
+        if towers:
+            x = _towers_decode(params, x, cache["tower"], None, None, cfg,
+                               live_mask=live_mask)
         x, _, _ = tfm.mamba_stack_decode(params["server"], x, cache["ssm"],
                                          cache["conv"], cfg.ssm, cfg.d_model,
                                          cfg.norm_eps)
     else:
         index = cache["index"].long().expand(B)
         kv_positions = cache["kv_positions"].expand(B, -1)
-        x = _towers_decode(params, x, cache["tower"], index, kv_positions,
-                           cfg, window=window, ring=ring,
-                           live_mask=live_mask)
+        if towers:
+            x = _towers_decode(params, x, cache["tower"], index,
+                               kv_positions, cfg, window=window, ring=ring,
+                               live_mask=live_mask)
         kv_scales = None
         if "k_scale" in cache:
             kv_scales = (cache["k_scale"], cache["v_scale"])
@@ -356,7 +392,8 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
 def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
                    cfg: ArchConfig, *, use_kernel: bool = True):
     """Dense family: the teacher-forced pass over a prompt ``(B, S)`` that
-    fills the cache (towers, the plain merge, the server).  Returns
+    fills the cache (towers and the plain merge when vertical, the
+    server).  Returns
     (logits of the last position ``(B, V)``, cache): slots ``[0, S)`` of
     the K/V tensors and ``kv_positions`` are written in place, ``index``
     becomes S.  The prompt is attended in full (no window), as in the
@@ -391,17 +428,18 @@ def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
     positions = torch.arange(S, device=tokens.device)
     x = layers.embed(params["embed"], tokens)
     v = cfg.vertical
-    towers, tcache = params["towers"], cache["tower"]
-    cuts = []
-    for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
-        h = layers.matmul(xk, towers["proj_in"][k])
-        h, ks, vs = tfm.dense_stack_prefill(
-            tfm.layer_params(towers["blocks"], k), h, _tower_dims(cfg),
-            positions=positions, use_kernel=use_kernel)
-        tcache["k"][k, :, :, :S] = ks.to(tcache["k"].dtype)
-        tcache["v"][k, :, :, :S] = vs.to(tcache["v"].dtype)
-        cuts.append(layers.matmul(h, towers["proj_out"][k]))
-    x = merge_lib.merge_stacked(torch.stack(cuts), v.merge)
+    if v is not None:
+        towers, tcache = params["towers"], cache["tower"]
+        cuts = []
+        for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
+            h = layers.matmul(xk, towers["proj_in"][k])
+            h, ks, vs = tfm.dense_stack_prefill(
+                tfm.layer_params(towers["blocks"], k), h, _tower_dims(cfg),
+                positions=positions, use_kernel=use_kernel)
+            tcache["k"][k, :, :, :S] = ks.to(tcache["k"].dtype)
+            tcache["v"][k, :, :, :S] = vs.to(tcache["v"].dtype)
+            cuts.append(layers.matmul(h, towers["proj_out"][k]))
+        x = merge_lib.merge_stacked(torch.stack(cuts), v.merge)
     x, ks, vs = tfm.dense_stack_prefill(params["server"], x, dims,
                                         positions=positions,
                                         use_kernel=use_kernel)
@@ -433,6 +471,36 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     logp = F.log_softmax(logits.to(torch.float32), dim=-1)
     ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
     return -torch.mean(ll)
+
+
+def train_loss(params: dict, batch: dict, cfg: ArchConfig, *,
+               live_mask=None, use_kernel: bool = True) -> torch.Tensor:
+    """The LM loss of :func:`forward` on ``batch = {"tokens", "labels"}``
+    plus its aux loss."""
+    logits, aux = forward(params, batch, cfg, live_mask=live_mask,
+                          use_kernel=use_kernel)
+    return lm_loss(logits, batch["labels"]) + aux
+
+
+def make_train_step(cfg: ArchConfig, optimizer, *, use_kernel: bool = True):
+    """``step(params, opt_state, batch) -> (params, opt_state, loss)``: the
+    loss and its gradient with respect to every leaf (a leaf the forward
+    does not read, such as an untied input table's rows, gets zeros, as
+    ``jax.value_and_grad`` gives), then the optimizer's out-of-place
+    update.  Eager: the JAX package jits this step."""
+    def step(params: dict, opt_state, batch: dict):
+        leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+        with torch.enable_grad():
+            loss = train_loss(tree_unflatten(params, leaves), batch, cfg,
+                              use_kernel=use_kernel)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        params, opt_state = optimizer.update(
+            params, tree_unflatten(params, grads), opt_state)
+        return params, opt_state, loss.detach()
+
+    return step
 
 
 # ---------------------------------------------------------------------------

@@ -1,23 +1,27 @@
-"""Training loop of the port: split execution through the Executor.
+"""Training loop of the port: the monolithic step and split execution.
 
-:func:`train_split` trains the token-LM families (dense and ssm) split for
-real:
-per-role workers behind an :class:`~repro_torch.transport.InprocTransport`
-(one thread per feature holder), the
-:class:`~repro_torch.runtime.executor.Executor` driving ``step_schedule``
-at role 0, tower params updating locally at the clients, the server
-params at role 0 — the JAX package's ``repro.train.loop.train_split`` with
-``--transport inproc``.  Step 0 is verified against the serial
-``protocol_step``, which merges with the plain version, so every run
-checks the kernel merge (forward and backward) against it.
+Two drivers, as in the JAX package's ``repro.train.loop``:
 
-``runtime="nowait"`` runs the no-wait schedule: adaptive wall-clock
-deadlines and EMA imputation of the cuts that miss them, through the merge
-kernels on the card.
+* :func:`train` — the monolithic eager step (centralized, or vertical
+  with the towers and their plain merge in one autograd graph; the
+  protocol is arithmetic-identical, paper §3), AdamW under the warmup
+  cosine schedule, with msgpack checkpoints in the JAX package's format.
+* :func:`train_split` — the token-LM families (dense and ssm) split for
+  real: per-role workers behind a transport (threads,
+  :class:`~repro_torch.transport.InprocTransport`, or one spawned process
+  per feature holder,
+  :class:`~repro_torch.transport.MultiprocTransport`), the
+  :class:`~repro_torch.runtime.executor.Executor` driving
+  ``step_schedule`` at role 0, tower params updating locally at the
+  clients, the server params at role 0.  Step 0 is verified against the
+  serial ``protocol_step``, which merges with the plain version, so every
+  run checks the kernel merge (forward and backward) against it.
+  ``runtime="nowait"`` runs the no-wait schedule: adaptive wall-clock
+  deadlines and EMA imputation of the cuts that miss them, through the
+  merge kernels on the card.
 
-Not ported yet, and refused before any worker is built: the multiproc
-transport, secure aggregation, cut compression, aggregation trees; the
-monolithic ``train`` and checkpoints.
+Not ported yet, and refused before any worker is built: secure
+aggregation, cut compression, aggregation trees.
 """
 from __future__ import annotations
 
@@ -46,6 +50,11 @@ class TrainMetrics:
     step0_max_dgrad: Optional[float] = None
     # per step, each client's missed microbatches (runtime="nowait")
     misses_per_client: list[list[int]] = field(default_factory=list)
+    # per step, the split step's audited wire traffic (train_split)
+    ledgers: list = field(default_factory=list)
+    # seconds to build the transport's workers (multiproc: spawn each
+    # process, build its worker there, connect)
+    setup_s: Optional[float] = None
 
     def log(self, step: int, loss: float, dt: float) -> None:
         self.steps.append(step)
@@ -67,24 +76,96 @@ class TrainMetrics:
         }
 
 
+def train(
+    cfg: ArchConfig,
+    loader,
+    *,
+    steps: int = 100,
+    learning_rate: float = 3e-4,
+    warmup: int = 20,
+    grad_clip: float = 1.0,
+    log_every: int = 10,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    seed: int = 0,
+    param_dtype=torch.float32,
+    print_fn: Callable = print,
+    device: DeviceLike = None,
+    params: Optional[dict] = None,
+) -> tuple[dict, TrainMetrics]:
+    """The monolithic driver: ``backbone.make_train_step`` under AdamW
+    (the warmup cosine schedule, weight decay 0.1, ``grad_clip``), eager,
+    on ``device`` (``cuda`` unless ``"cpu"`` is asked for).  Centralized
+    (``cfg.vertical`` None) or vertical: the towers and their plain merge
+    run inside the one graph, as in the JAX package.
+
+    ``params`` is the initial tree on that device; None runs the port's
+    seeded init in ``param_dtype`` (tests hand the JAX package's init in
+    here).  With ``checkpoint_path`` the params are saved every
+    ``checkpoint_every`` steps (0: never) with the step just taken, and
+    at the end with ``steps``."""
+    from repro_torch.checkpoint.msgpack_ckpt import save_checkpoint
+
+    dev = resolve_device(device)
+    opt = AdamW(
+        learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
+        weight_decay=0.1, grad_clip_norm=grad_clip)
+    if params is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = backbone.init_params(cfg, gen, device=dev,
+                                      dtype=param_dtype)
+    opt_state = opt.init(params)
+    step_fn = backbone.make_train_step(cfg, opt)
+
+    metrics = TrainMetrics()
+    it = iter(loader)
+    for step in range(steps):
+        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
+                 for k, v in next(it).items()}  # token ids and labels
+        t0 = time.time()
+        params, opt_state, loss = step_fn(params, opt_state, batch)
+        loss = float(loss)  # waits for the step
+        dt = time.time() - t0
+        metrics.log(step, loss, dt)
+        if step % log_every == 0 or step == steps - 1:
+            print_fn(f"step {step:5d}  loss {loss:8.4f}  {dt * 1e3:8.1f} ms")
+        if checkpoint_path and checkpoint_every and \
+                (step + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint_path, params, step=step)
+    if checkpoint_path:
+        save_checkpoint(checkpoint_path, params, step=steps)
+    return params, metrics
+
+
 def _make_transport(cfg: ArchConfig, transport: str, *, seed, batch, seq,
                     microbatches, learning_rate, warmup, steps, grad_clip,
                     straggler: Optional[int], straggler_delay_s: float,
                     params: Optional[dict], device: torch.device):
-    from repro_torch.transport import InprocTransport, build_split_worker
+    """One worker per feature holder, each with its own spec: threads
+    built here, or spawned processes that build their own (from ``seed``,
+    or from ``params`` copied across when given)."""
+    from repro_torch.transport import (InprocTransport, MultiprocTransport,
+                                       WorkerSpec, build_split_worker)
 
-    if transport != "inproc":
-        raise NotImplementedError(
-            f"split transport {transport!r} is not ported to repro_torch yet "
-            "(inproc only; see ROADMAP.md, Queue 1)")
-    workers = [build_split_worker(
-        k, cfg=cfg, seed=seed, batch=batch, seq=seq,
-        microbatches=microbatches, learning_rate=learning_rate,
-        warmup=warmup, steps=steps, grad_clip=grad_clip,
-        forward_delay_s=straggler_delay_s if k == straggler else 0.0,
-        params=params, device=device)
-        for k in range(cfg.vertical.num_clients)]
-    return InprocTransport(workers)
+    kwargs = dict(cfg=cfg, seed=seed, batch=batch, seq=seq,
+                  microbatches=microbatches, learning_rate=learning_rate,
+                  warmup=warmup, steps=steps, grad_clip=grad_clip,
+                  params=params, device=device)
+
+    def delay(k: int) -> float:
+        return straggler_delay_s if k == straggler else 0.0
+
+    K = cfg.vertical.num_clients
+    if transport == "inproc":
+        return InprocTransport([
+            build_split_worker(k, forward_delay_s=delay(k), **kwargs)
+            for k in range(K)])
+    if transport == "multiproc":
+        return MultiprocTransport(
+            [WorkerSpec(build_split_worker,
+                        dict(kwargs, forward_delay_s=delay(k)))
+             for k in range(K)], device=device)
+    raise ValueError(f"unknown split transport {transport!r}")
 
 
 def _verify_step0(res, program, tower_params, server_params, features, ctx,
@@ -147,7 +228,9 @@ def train_split(
 ):
     """Train ``cfg``'s split program through the Executor over a real
     transport.  Returns ({"towers": [...], "server": ...}, metrics,
-    report).
+    report).  ``transport`` is ``"inproc"`` (a thread per feature holder)
+    or ``"multiproc"`` (a spawned process each, computing on ``device``
+    too).
 
     ``loader`` yields the role-0 batches (an ``LMBatchLoader`` with
     ``seed``); each feature holder regenerates the same token stream from
@@ -191,9 +274,14 @@ def train_split(
         nowait=runtime == "nowait", merge_fn=program.merge_fn,
         merge=program.merge, context=f"train_split({cfg.name})")
     _reject_unported(secure=secure, compress=compress, tree=agg_tree_fanout)
+    injected = params is not None
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = backbone.init_params(cfg, gen, device=dev)
+    # threads partition role 0's tree in place; a spawned process builds
+    # its own tower from the seed unless the caller injected a tree (a
+    # shipped tree crosses the spawn pipe whole, once per process)
+    worker_params = params if injected or transport == "inproc" else None
     tower_params, server_params = program.partition(params)
 
     opt = AdamW(
@@ -201,13 +289,16 @@ def train_split(
         weight_decay=0.1, grad_clip_norm=grad_clip)
     opt_state = opt.init(server_params)
 
+    metrics = TrainMetrics()
+    t_setup = time.time()
     tr = _make_transport(
         cfg, transport, seed=seed, batch=batch, seq=seq, microbatches=M,
         learning_rate=learning_rate, warmup=warmup, steps=steps,
         grad_clip=grad_clip, straggler=straggler,
-        straggler_delay_s=straggler_delay_s, params=params, device=dev)
+        straggler_delay_s=straggler_delay_s, params=worker_params,
+        device=dev)
+    metrics.setup_s = time.time() - t_setup
     del params  # role 0 keeps the server tree and the step-0 towers only
-    metrics = TrainMetrics()
     report = None
     max_staleness = 0
     ema_state = None
@@ -238,6 +329,7 @@ def train_split(
                                               res.server_grads, opt_state)
         ema_state = res.ema_state
         report = res.report
+        metrics.ledgers.append(res.ledger)
         if mode == "nowait":
             metrics.misses_per_client.append(
                 list(res.report.misses_per_client))

@@ -1,5 +1,6 @@
-"""Transport layer: the feature-holder worker, the inline backend and the
-threaded one.
+"""Transport layer: the feature-holder worker, the inline backend, the
+threaded one and the process one (one spawned process per feature holder,
+TCP loopback; :mod:`repro_torch.transport.multiproc`).
 
 Transport contract (star topology, role 0 is the caller): ``submit(client,
 request)`` — FIFO per client, non-blocking; ``next_response(timeout)`` —
@@ -25,6 +26,10 @@ from repro_torch.transport.base import SimTransport, TowerWorker, Transport
 from repro_torch.transport.builders import (build_mlp_worker,
                                              build_split_worker)
 from repro_torch.transport.inproc import InprocTransport
+from repro_torch.transport.multiproc import MultiprocTransport, WorkerSpec
 
-__all__ = ["InprocTransport", "SimTransport", "TowerWorker", "Transport",
+TRANSPORTS = ("sim", "inproc", "multiproc")
+
+__all__ = ["TRANSPORTS", "InprocTransport", "MultiprocTransport",
+           "SimTransport", "TowerWorker", "Transport", "WorkerSpec",
            "build_mlp_worker", "build_split_worker"]

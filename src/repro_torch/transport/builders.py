@@ -9,7 +9,7 @@ handed in (for example the JAX package's weights carried across by
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
@@ -41,7 +41,7 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
                      forward_delay_s: float = 0.0,
                      compress: Optional[str] = None,
                      params: Optional[dict] = None,
-                     features: Optional[Callable[[int], torch.Tensor]] = None,
+                     features=None,
                      device: DeviceLike = None) -> TowerWorker:
     """Paper-MLP feature holder: keeps only its own tower of the shared
     seeded init and serves its own feature columns of a per-step stream.
@@ -52,7 +52,9 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
     JAX package's, carried across by ``repro_torch.interop``), already on
     ``device``.  ``features(step) -> (batch, input_dim)`` is the full
     feature matrix of ``step``, of which the worker serves microbatch
-    ``mb``'s rows and its client's columns; None means the stream
+    ``mb``'s rows and its client's columns; a ``(steps, batch,
+    input_dim)`` tensor is such a table (picklable, so a spawned worker
+    can be handed one); None means the stream
     ``x_step ~ N(0, 1)`` drawn from a generator seeded with ``data_seed +
     step``.  With ``learning_rate`` set the tower trains locally under
     plain SGD.  Cut compression is not ported yet and is refused."""
@@ -71,7 +73,9 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
     columns = split_model.feature_slices(cfg)[client_id]
     mbsz = batch // microbatches
 
-    if features is None:
+    if isinstance(features, torch.Tensor):
+        features = features.__getitem__
+    elif features is None:
         def features(step: int) -> torch.Tensor:
             gen = torch.Generator(device=dev).manual_seed(data_seed + step)
             return torch.randn((batch, cfg.input_dim), generator=gen,

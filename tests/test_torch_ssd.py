@@ -471,8 +471,14 @@ def test_unported_paths_raise_by_name(setup):
     hybrid = dataclasses.replace(cfg, family="hybrid")
     with pytest.raises(NotImplementedError, match="'hybrid' family"):
         backbone.init_params(hybrid, device="cpu")
-    with pytest.raises(NotImplementedError, match="centralized baseline"):
-        backbone.init_params(cfg.with_vertical(None), device="cpu")
+    with pytest.raises(NotImplementedError, match="'moe' family"):
+        backbone.init_params(dataclasses.replace(cfg, family="moe"),
+                             device="cpu")
+    # the centralized baseline is ported (tests/test_torch_train_mono.py)
+    central = backbone.init_params(cfg.with_vertical(None), device="cpu")
+    assert "towers" not in central
+    assert sum(t.numel() for t in jax.tree_util.tree_leaves(central)) == \
+        backbone.param_count(cfg.with_vertical(None))
 
 
 # ---------------------------------------------------------------------------

@@ -281,10 +281,16 @@ def test_unported_features_raise(setup):
     with pytest.raises(NotImplementedError, match="not ported"):
         protocol.step_schedule(2, compress="int8")
     loader = LMBatchLoader(cfg, BATCH, SEQ)
-    with pytest.raises(NotImplementedError, match="multiproc"):
+    # the three transports are ported; the training overlays are refused
+    # before any worker is built, and an unknown transport by name
+    with pytest.raises(NotImplementedError, match="tree aggregation is not "
+                       "ported"):
         train_split(cfg, loader, steps=1, batch=BATCH, seq=SEQ,
-                    transport="multiproc", device="cpu",
+                    agg_tree_fanout=2, transport="multiproc", device="cpu",
                     params=setup["params"])
+    with pytest.raises(ValueError, match="unknown split transport 'tcp'"):
+        train_split(cfg, loader, steps=1, batch=BATCH, seq=SEQ,
+                    transport="tcp", device="cpu", params=setup["params"])
     with pytest.raises(compat.CompatError, match="barrier execution"):
         train_split(cfg, loader, steps=1, runtime="nowait",
                     agg_tree_fanout=2, device="cpu")
