@@ -18,7 +18,9 @@ flash kernel, decode over linear, ring and int8 caches, the
 decode-throughput probe), and the training launcher end to end: one
 spawned process per feature holder over TCP loopback, monolithic and
 centralized training with msgpack checkpoints, and
-``python -m repro_torch.launch.train``.
+``python -m repro_torch.launch.train``, and the protocol's three wire
+overlays (cut compression, secure aggregation, aggregation trees) over
+the inline, threaded and process transports and through the launcher.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -35,7 +37,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    version on CUDA tensors: every strategy, f32 and bf16, a dropped
    client, all dropped, a ragged shape, and the serving and training
    paths' shapes, the MLP path's cut stacks (phase 10) and the no-wait
-   smollm stack (4, 512, 960) (phase 11), forward and backward (plus mul at an exact zero and max with exact ties at the
+   smollm stack (4, 512, 960) (phase 11) and the aggregation tree's
+   top-level stack (2, 2048, 960) (phase 15), forward and backward (plus mul at an exact zero and max with exact ties at the
    training and MLP shapes).  Both concat kernels, and the reductions' backward
    for sum, avg and max, must be bit-identical to their plain versions
    (mul within the backward tolerance) there and on their scalar and
@@ -44,7 +47,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    NaN or an Inf (the reductions' max and mul backward: no NaN at all).
    Per path shape (the MLP path's: max both ways at its three stacks,
    concat both ways at (4, 256, 64); no-wait's: avg both ways at
-   (4, 512, 960)), the kernel's time, the plain
+   (4, 512, 960); the tree's: sum both ways at (2, 2048, 960)), the
+   kernel's time, the plain
    version's, one PyTorch call's (``library_ms``) and the bound; for the
    concat forward also the one-copy library call ``x.transpose(0,
    1).reshape(B, K*D)``, for the avg backward the two-call form that PRs
@@ -258,6 +262,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``python -m repro_torch.launch.train --transport multiproc --steps 3
    --batch 8 --seq 256 --json ...`` as a subprocess: exit 0, the step-0
    verification line, the summary's keys.
+15. The wire overlays, counters reset just before each run and read just
+   after.  (a) Reduced smollm-360m at K = 4, seeded on the card: 3 steps
+   of ``train_split`` over the inline transport against 3 over threads,
+   for top-k (0.25), int8, secure aggregation, a fanout-2 tree and the
+   tree under secure aggregation: losses and params bit for bit (secure:
+   within 1e-3, each run draws its own DH keys), the per-step ledgers
+   equal and equal to ``costs`` byte for byte, one merge each way per
+   step at the stack the overlay implies (avg (4, 2048, 256); sum
+   (2, 2048, 256) along the tree).  (b) Full-width smollm-360m,
+   ``--compress topk`` over four spawned processes, 5 serial steps: step
+   0 verified at ``STEP0_VERIFY_ATOL``, 8,847,360 bytes up and down a
+   step, train tokens/s beside phase 14's plain multiproc run and the
+   host time ``payload_bytes`` spends in its syncs at role 0.  (c) The
+   same under ``--secure-agg --agg-tree-fanout 2``: the key exchange's
+   1,320 bytes once, role 0's masked step-0 sum within
+   ``cancellation_bound`` of the raw sum, step 0 verified at 1e-3,
+   ``merge_reduce_kernel`` at (2, 2048, 960) "sum" both ways, 15,728,640
+   bytes per tree level.  (d) ``python -m repro_torch.launch.train
+   --transport multiproc --compress int8 --steps 3 ...`` as a subprocess.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -468,7 +491,20 @@ LAUNCH_STEPS = 3
 LAUNCH_DIR = ROOT / "build" / "chip_smoke"
 LAUNCH_TIMEOUT_S = 420
 SAME_TOL = 1e-6
-# figures of earlier phases that phase 14 prints its own beside
+# the wire overlays (phase 15): K = 4 towers; the top-level stack of the
+# fanout-2 tree at 8 x 256 tokens (client 0 relays for clients 2 and 3)
+OVERLAY_K, OVERLAY_STEPS, TOPK_FRACTION = 4, 3, 0.25
+OVERLAYS = {
+    "topk": (dict(compression="topk", topk_fraction=TOPK_FRACTION), None),
+    "int8": (dict(compression="int8"), None),
+    "secure": (dict(secure_aggregation=True), None),
+    "tree": ({}, 2),
+    "secure+tree": (dict(secure_aggregation=True), 2),
+}
+TREE_SHAPE = (2, 2048, 960)
+TREE_TIME_SHAPES = [("sum", TREE_SHAPE)]
+MASKED_TOL = 1e-3  # the JAX package's masked-merge verification tolerance
+# figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
 
@@ -546,7 +582,7 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES + \
-        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE]
+        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE]
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -653,7 +689,7 @@ def check_backward_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
-        MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE]
+        MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE]
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -874,7 +910,7 @@ def time_backward_shapes(card: str) -> dict:
                             ("concat", CONCAT_TRAIN_SHAPE),
                             ("max", TRAIN_SHAPE),
                             ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES + \
-            NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES:
+            NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES:
         K, B, D = shape
         name = ("merge_concat_bwd_kernel" if strategy == "concat"
                 else "merge_reduce_bwd_kernel")
@@ -901,6 +937,8 @@ def time_backward_shapes(card: str) -> dict:
                 fns["library_"] = lambda x, o, g: w[:, None, None] * g
                 fns["library_two_call_"] = lambda x, o, g: (
                     live / float(K))[:, None, None] * g
+            if strategy == "sum":  # dx_k = g * l_k, one broadcast multiply
+                fns["library_"] = lambda x, o, g: live[:, None, None] * g
         row = {}
         for prefix, fn in fns.items():
             row[prefix + "ms"] = time_ms(fn, inputs)
@@ -1067,7 +1105,7 @@ def time_path_shapes(card: str) -> dict:
     rows = {}
     pairs = [("avg", s) for s in PATH_SHAPES] + \
         [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES + \
-        NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES
+        NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES
     for strategy, shape in pairs:
         concat = strategy == "concat"
         name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
@@ -3695,6 +3733,7 @@ def launch_multiproc_full(card: str) -> dict:
     steady = metrics.step_times[1:]
     rate = len(steady) * tokens / sum(steady)
     inproc = MEASURED.get("inproc_train_tokens_s")
+    MEASURED["multiproc_train_tokens_s"] = rate
     log(f"multiproc train: {cfg.name} full width, K="
         f"{cfg.vertical.num_clients} spawned processes on the card, "
         f"{TRAIN_STEPS} steps of {tokens} tokens, losses {metrics.losses}, "
@@ -3841,14 +3880,17 @@ def launch_mono(card: str) -> dict:
     return total
 
 
-def launch_cli(card: str) -> None:
+def launch_cli(card: str, extra: tuple = (),
+               verified: str = "step-0 verification vs protocol_step"
+               ) -> dict:
     """(e) ``python -m repro_torch.launch.train --transport multiproc`` as
-    a user runs it (full-width smollm-360m, the card by default): exit 0,
-    the step-0 verification line and the summary's keys."""
+    a user runs it (full-width smollm-360m, the card by default), with
+    ``extra`` flags: exit 0, the ``verified`` step-0 line and the
+    summary's keys."""
     out_json = LAUNCH_DIR / "launch.json"
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--transport",
            "multiproc", "--steps", str(LAUNCH_STEPS), "--batch",
-           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--json",
+           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), *extra, "--json",
            str(out_json)]
     path = os.environ.get("PYTHONPATH")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
@@ -3869,7 +3911,7 @@ def launch_cli(card: str) -> None:
     if proc.returncode != 0:
         raise AssertionError(f"launcher exited {proc.returncode}: "
                              f"{stderr[-3000:]}")
-    if "step-0 verification vs protocol_step" not in stdout:
+    if verified not in stdout:
         raise AssertionError(f"launcher: no step-0 line in {stdout[-2000:]}")
     with open(out_json) as f:
         run = json.load(f)
@@ -3882,10 +3924,10 @@ def launch_cli(card: str) -> None:
     if set(summary) != keys or summary["transport"] != "multiproc" or \
             len(run["losses"]) != LAUNCH_STEPS:
         raise AssertionError(f"launcher summary: {summary}")
-    step0 = next(line for line in stdout.splitlines()
-                 if "step-0 verification" in line)
+    step0 = next(line for line in stdout.splitlines() if verified in line)
     log(f"launcher: {' '.join(cmd[1:])}: exit 0 in {seconds:.1f} s; "
         f"{step0.strip()}; summary {json.dumps(summary)} | {card}")
+    return summary
 
 
 def launch_phase(card: str) -> dict:
@@ -3901,6 +3943,260 @@ def launch_phase(card: str) -> dict:
             total[name] = total.get(name, 0) + n
     launch_cli(card)
     log(f"launch: phase 14 took {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}")
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the wire overlays — cut compression, secure aggregation and
+# aggregation trees
+# ---------------------------------------------------------------------------
+
+def overlay_cfg(base, overlay: str):
+    """``base`` at K = 4 with the overlay's vertical settings; returns the
+    config and the tree's fanout (None: a star)."""
+    fields, fanout = OVERLAYS[overlay]
+    return base.with_vertical(dataclasses.replace(
+        base.vertical, num_clients=OVERLAY_K, **fields)), fanout
+
+
+@contextlib.contextmanager
+def merge_calls():
+    """Role 0's fused merges, as (strategy, (K, rows, D)) per call: the
+    Executor's ``fast_merge`` wrapped for the run (the serial verification
+    merges with the plain version and is not seen)."""
+    from repro_torch.runtime import executor as executor_mod
+
+    seen, plain = [], executor_mod.fast_merge
+
+    def spy(stacked, strategy, **kw):
+        K, D = stacked.shape[0], stacked.shape[-1]
+        seen.append((strategy, (K, stacked.numel() // (K * D), D)))
+        return plain(stacked, strategy, **kw)
+
+    executor_mod.fast_merge = spy
+    try:
+        yield seen
+    finally:
+        executor_mod.fast_merge = plain
+
+
+@contextlib.contextmanager
+def payload_sync_time():
+    """Role 0's host seconds and calls in ``compression.payload_bytes``
+    (its nonzero count is read back from the card: one sync a call)."""
+    from repro_torch.core import compression as comp_lib
+
+    spent, plain = {"s": 0.0, "calls": 0}, comp_lib.payload_bytes
+
+    def timed(*args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return plain(*args, **kw)
+        finally:
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+
+    comp_lib.payload_bytes = timed
+    try:
+        yield spent
+    finally:
+        comp_lib.payload_bytes = plain
+
+
+def overlay_wire_bytes(cfg, fanout, rows: int) -> dict:
+    """The byte models' figure for every cut and jacobian tag of one step
+    at ``rows`` rows a cut (serial: one microbatch)."""
+    v, D, K = cfg.vertical, cfg.d_model, cfg.vertical.num_clients
+    plain = costs.cut_bytes(rows, D)
+    if fanout is not None:
+        from repro_torch.runtime.topology import AggTree
+
+        per = costs.tree_cut_bytes(AggTree(K, fanout=fanout), plain)
+        return {**{f"tree_cut[{lvl}]": b
+                   for lvl, b in per["cut_bytes_per_level"].items()},
+                **{f"tree_jac[{lvl}]": b
+                   for lvl, b in per["jac_bytes_per_level"].items()}}
+    if v.compression is not None:
+        one = costs.wire_bytes((rows, D), 4, v.compression, v.topk_fraction)
+        return {**{f"compressed_cut[{k}]": one for k in range(K)},
+                **{f"compressed_jac[{k}]": one for k in range(K)}}
+    return {**{f"masked_cut[{k}]": costs.masked_cut_bytes(rows, D)
+               for k in range(K)}, **{f"jac[{k}]": plain for k in range(K)}}
+
+
+def expect_wire_bytes(label: str, ledgers: list, want: dict) -> None:
+    for step, ledger in enumerate(ledgers):
+        got = {tag: ledger.bytes_with_tag(tag) for tag in want}
+        if got != want:
+            raise AssertionError(f"{label} step {step}: ledger {got} != "
+                                 f"costs {want}")
+
+
+def overlay_run(cfg, fanout, steps: int, transport: str, **kw) -> tuple:
+    """One ``train_split`` run with the merges it made; returns (out,
+    metrics, seconds, launches, merges)."""
+    with merge_calls() as merges:
+        out, metrics, seconds, launches, _ = train(
+            cfg, steps, "cuda", transport=transport,
+            agg_tree_fanout=fanout, **kw)
+    return out, metrics, seconds, launches, merges
+
+
+def expect_overlay_merges(label, merges, launches, steps, strategy,
+                          shape) -> None:
+    expect_launches(launches, {"merge_reduce_kernel": steps,
+                               "merge_reduce_bwd_kernel": steps})
+    if merges != [(strategy, shape)] * steps:
+        raise AssertionError(f"{label}: role 0 merged {merges}, expected "
+                             f"{steps} x {(strategy, shape)}")
+
+
+def overlay_small_card_vs_card() -> dict:
+    """(a) Reduced smollm-360m at K = 4 on the card, every overlay, 3 steps
+    over the inline transport against 3 over threads.  Returns the
+    launches."""
+    base = get_arch("smollm-360m").reduced()
+    total: dict = {}
+    for overlay in OVERLAYS:
+        cfg, fanout = overlay_cfg(base, overlay)
+        strategy, K = ("sum", 2) if fanout else ("avg", OVERLAY_K)
+        shape = (K, TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)
+        runs = {}
+        for transport in ("sim", "inproc"):
+            out, metrics, _, launches, merges = overlay_run(
+                cfg, fanout, OVERLAY_STEPS, transport,
+                print_fn=lambda *a: None)
+            expect_overlay_merges(f"overlay {overlay} {transport}", merges,
+                                  launches, OVERLAY_STEPS, strategy, shape)
+            expect_wire_bytes(f"overlay {overlay} {transport}",
+                              metrics.ledgers, overlay_wire_bytes(
+                                  cfg, fanout, TRAIN_BATCH * TRAIN_SEQ))
+            if cfg.vertical.secure_aggregation and \
+                    metrics.keyx_ledger.total() != \
+                    costs.key_exchange_bytes(OVERLAY_K)["total"]:
+                raise AssertionError(f"overlay {overlay}: key exchange "
+                                     f"{metrics.keyx_ledger.total()} bytes")
+            runs[transport] = (out, metrics)
+            for name, n in launches.items():
+                total[name] = total.get(name, 0) + n
+        (out, metrics), (iout, imetrics) = runs["sim"], runs["inproc"]
+        tol = MASKED_TOL if cfg.vertical.secure_aggregation else 0.0
+        loss_diff = max(abs(a - b) for a, b in zip(metrics.losses,
+                                                   imetrics.losses))
+        worst = max(float((a - b).abs().max()) for a, b in zip(
+            _leaves(out), _leaves(iout)))
+        if loss_diff > tol or worst > tol:
+            raise AssertionError(f"overlay {overlay}: sim vs inproc losses "
+                                 f"{loss_diff:.3e}, params {worst:.3e} > "
+                                 f"{tol}")
+        if [by_route(x) for x in metrics.ledgers] != \
+                [by_route(x) for x in imetrics.ledgers]:
+            raise AssertionError(f"overlay {overlay}: sim and inproc "
+                                 "ledgers differ")
+        log(f"overlay small {overlay}: reduced smollm-360m K={OVERLAY_K} "
+            f"on the card, {OVERLAY_STEPS} steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ}: sim vs inproc losses max |diff| {loss_diff:.3e}, "
+            f"params {worst:.3e} (<= {tol}); step-0 max |dgrad| "
+            f"{metrics.step0_max_dgrad:.3e}; ledgers equal and equal to "
+            f"costs ({metrics.ledgers[0].total()} bytes a step); merges "
+            f"{strategy} {shape} one each way a step")
+    return total
+
+
+def overlay_full(card: str, overlay: str, atol: float) -> tuple:
+    """Full-width smollm-360m under ``overlay`` over four spawned
+    processes on the card, 5 serial steps: step 0 verified at ``atol``,
+    the byte models' figures every step, one merge each way a step.
+    Returns (cfg, metrics, launches)."""
+    cfg, fanout = overlay_cfg(get_arch("smollm-360m"), overlay)
+    strategy, K = ("sum", 2) if fanout else ("avg", OVERLAY_K)
+    torch.cuda.empty_cache()
+    with payload_sync_time() as spent:
+        _, metrics, seconds, launches, merges = overlay_run(
+            cfg, fanout, TRAIN_STEPS, "multiproc")
+    expect_overlay_merges(f"overlay {overlay} full", merges, launches,
+                          TRAIN_STEPS, strategy,
+                          (K, TRAIN_BATCH * TRAIN_SEQ, cfg.d_model))
+    want = overlay_wire_bytes(cfg, fanout, TRAIN_BATCH * TRAIN_SEQ)
+    expect_wire_bytes(f"overlay {overlay} full", metrics.ledgers, want)
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > atol:
+        raise AssertionError(f"overlay {overlay} full: step 0 not verified "
+                             f"at {atol} ({metrics.step0_max_dgrad})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = metrics.step_times[1:]
+    rate = len(steady) * tokens / sum(steady)
+    log(f"overlay {overlay} full: {cfg.name} full width, K={OVERLAY_K} "
+        f"spawned processes on the card, {TRAIN_STEPS} steps of {tokens} "
+        f"tokens, losses {metrics.losses}, step-0 max |dgrad| vs "
+        f"protocol_step {metrics.step0_max_dgrad:.3e} (<= {atol:g}); bytes "
+        f"a step {want} (= costs); launches {launches}; merges "
+        f"{merges[0]} x {len(merges)} | {card}")
+    log(f"overlay {overlay} full: {rate:.1f} train tokens/s over steps 1-"
+        f"{TRAIN_STEPS - 1} (step times {metrics.step_times} s) vs "
+        f"{MEASURED.get('multiproc_train_tokens_s', 0.0):.1f} plain over "
+        f"processes (phase 14, this run); spawn and connect "
+        f"{metrics.setup_s:.2f} s; wall {seconds:.4f} s; role 0 spent "
+        f"{spent['s']:.4f} s in {spent['calls']} payload_bytes calls (a "
+        f"device sync each, which also waits for the work queued before "
+        f"it) | {card}")
+    return cfg, metrics, launches
+
+
+def overlay_phase(card: str) -> dict:
+    """Phase 15; returns the launches of its in-process runs, and under
+    "tree" those at the full-width tree's stack, ``TREE_SHAPE``."""
+    t0 = time.perf_counter()
+    LAUNCH_DIR.mkdir(parents=True, exist_ok=True)
+    total = overlay_small_card_vs_card()
+    from repro_torch.core.compression import STEP0_VERIFY_ATOL
+
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    cfg, topk, launches = overlay_full(card, "topk", STEP0_VERIFY_ATOL)
+    up = sum(topk.ledgers[0].bytes_with_tag(f"compressed_cut[{k}]")
+             for k in range(OVERLAY_K))
+    down = sum(topk.ledgers[0].bytes_with_tag(f"compressed_jac[{k}]")
+               for k in range(OVERLAY_K))
+    want = OVERLAY_K * costs.wire_bytes((rows, cfg.d_model), 4, "topk",
+                                        TOPK_FRACTION)
+    if (up, down) != (want, want):
+        raise AssertionError(f"overlay topk full: {up} up, {down} down, "
+                             f"costs {want}")
+    log(f"overlay topk full: {up} bytes up and {down} down a step "
+        f"(costs.wire_bytes x {OVERLAY_K}; plain "
+        f"{OVERLAY_K * costs.cut_bytes(rows, cfg.d_model)})")
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    cfg, secure, launches = overlay_full(card, "secure+tree", MASKED_TOL)
+    keyx = secure.keyx_ledger.total()
+    if keyx != costs.key_exchange_bytes(OVERLAY_K)["total"] or keyx != 1320:
+        raise AssertionError(f"overlay secure+tree full: key exchange "
+                             f"{keyx} bytes")
+    if any(ledger.bytes_with_tag(f"keyx_pub[{k}]")
+           for ledger in secure.ledgers for k in range(OVERLAY_K)):
+        raise AssertionError("overlay secure+tree full: a step re-ran the "
+                             "key exchange")
+    if secure.step0_mask_residue is None or \
+            secure.step0_mask_residue > secure.step0_mask_bound:
+        raise AssertionError(f"overlay secure+tree full: mask residue "
+                             f"{secure.step0_mask_residue} > bound "
+                             f"{secure.step0_mask_bound}")
+    role0 = secure.ledgers[0].bytes_with_tag("tree_cut[0]")
+    star = OVERLAY_K * costs.masked_cut_bytes(rows, cfg.d_model)
+    log(f"overlay secure+tree full: key exchange {keyx} bytes, once; "
+        f"step-0 masked sum at role 0 vs the raw sum max |residue| "
+        f"{secure.step0_mask_residue:.3e} <= cancellation_bound "
+        f"{secure.step0_mask_bound:.3e}; role 0 receives {role0} cut "
+        f"bytes a step where the star's receives {star}")
+    for name, n in launches.items():
+        total[name] = total.get(name, 0) + n
+    total["tree"] = launches["merge_reduce_kernel"]
+    summary = launch_cli(
+        card, ("--compress", "int8"),
+        "step-0 compressed-wire verification vs protocol_step")
+    if summary["compress"] != "int8":
+        raise AssertionError(f"launcher --compress int8: summary {summary}")
+    log(f"overlay: phase 15 took {time.perf_counter() - t0:.1f} s; "
         f"launches {total}")
     return total
 
@@ -3960,6 +4256,7 @@ def main() -> None:
     ssm_train = ssm_train_phase(card)
     flash_launches[64] += mono_phase(card)
     launch_launches = launch_phase(card)
+    overlay_launches = overlay_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -3978,7 +4275,8 @@ def main() -> None:
             "replaces": replaces,
             "launches": (launches[name] + mlp_launches[name]
                          + nowait_launches[name] + ssm_train.get(name, 0)
-                         + launch_launches.get(name, 0)),
+                         + launch_launches.get(name, 0)
+                         + overlay_launches.get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -3993,18 +4291,23 @@ def main() -> None:
             if key in row:
                 entry[key] = row[key]
         # the MLP path's shapes (phases 10 and 11), the no-wait LM stack
-        # (phase 11) and the ssm training stack (phase 12), whose launches
-        # are in the count
+        # (phase 11), the ssm training stack (phase 12) and the tree's
+        # top-level stack (phase 15), whose launches are in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
             for s, sh in MLP_TIME_SHAPES + NOWAIT_TIME_SHAPES
-            + SSM_TRAIN_TIME_SHAPES if (name, s, sh) in rows]
+            + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES
+            if (name, s, sh) in rows]
         for sub in entry["shapes"]:
             if tuple(sub["shape"]) == NOWAIT_SHAPE:
                 sub["launches"] = nowait_shape_launches
             if tuple(sub["shape"]) == SSM_TRAIN_SHAPE:
                 sub["launches"] = ssm_train["full"][name]
+            if tuple(sub["shape"]) == TREE_SHAPE:
+                # role 0's launches at the tree's stacks (full width at
+                # this shape, reduced width at (2, 2048, 256))
+                sub["launches"] = overlay_launches["tree"]
         kernels.append(entry)
     def flash_entry(shape, launched=None):
         """The kernel's row at a timed shape; ``launched`` is its count on

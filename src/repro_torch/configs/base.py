@@ -56,6 +56,11 @@ class VerticalConfig:
         if self.merge not in MERGE_STRATEGIES:
             raise ValueError(f"merge must be one of {MERGE_STRATEGIES}, "
                              f"got {self.merge!r}")
+        from repro_torch.core import compat
+
+        compat.check("config", secure=self.secure_aggregation,
+                     merge=self.merge,
+                     context=f"VerticalConfig(merge={self.merge!r})")
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,8 @@
 """The feature-interaction compatibility matrix — the port's own copy.
 
 Carries the rules of the JAX package's matrix that the port enforces:
-those whose enforcement layers include ``schedule`` (``step_schedule`` /
+those whose enforcement layers include ``config`` (``VerticalConfig``
+validation), ``schedule`` (``step_schedule`` /
 ``serve_schedule`` construction), ``engine`` (the simulators' step
 plans), ``executor`` (``Executor`` construction), ``worker``
 (``TowerWorker``, the privacy principal's own guard), ``train``
@@ -12,9 +13,7 @@ only.
 Each layer rejects through :func:`check`; a rule's key, features and
 ``reason`` are the JAX package's, so both packages reject a composition
 with the same words (``tests/test_torch_train.py`` holds the two tables
-together).  A composition the matrix accepts may still be one the port
-has not ported yet (secure aggregation, compression, tree execution);
-those raise ``NotImplementedError`` at the same layers.
+together).
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ from dataclasses import dataclass
 
 #: enforcement-layer name -> the port module whose source calls check()
 LAYER_MODULES = {
+    "config": "src/repro_torch/configs/base.py",
     "schedule": "src/repro_torch/core/protocol.py",
     "engine": "src/repro_torch/runtime/engine.py",
     "executor": "src/repro_torch/runtime/executor.py",
@@ -73,7 +73,7 @@ RULES: tuple[CompatRule, ...] = (
     CompatRule(
         key="secure-nonadditive",
         features=("secure", "nonadditive"),
-        layers=("executor",),
+        layers=("config", "executor"),
         reason=(
             "secure aggregation needs an additively homomorphic merge "
             "(sum/avg) for the pairwise masks to cancel — max/mul/concat "

@@ -9,11 +9,13 @@ whose byte counts must match the analytic models in
 training step is exactly end-to-end backprop through the merged graph
 (paper §3): the protocol is a schedule, not a different algorithm.
 
-The port carries the plain star of the JAX package's schedule: the
-training kinds ``cut``/``jac``/``head_out``/``head_jac``/``aux`` and the
-four serving kinds.  The masked, compressed and tree-routed variants are
-not ported yet: :func:`step_schedule` rejects them (through the compat
-matrix where the composition is unsound, else as not ported).
+The port carries the JAX package's whole wire-kind registry: the plain
+star (``cut``/``jac``/``head_out``/``head_jac``/``aux``), the three
+overlays' variants (``masked_cut`` under secure aggregation,
+``compressed_cut``/``compressed_jac`` under a codec,
+``tree_cut``/``tree_jac`` along an aggregation tree), the one-time key
+exchange (``keyx_pub``/``keyx_bcast``) and the four serving kinds.
+Unsound overlay compositions reject through the compat matrix.
 """
 from __future__ import annotations
 
@@ -79,14 +81,22 @@ class WireKind:
 
     kind: str
     direction: str  # "up" (toward role 0) | "down" (from role 0)
-    phase: str      # "train" | "serve"
+    phase: str      # "train" | "keyx" | "serve"
     cost_model: str  # function name in repro_torch.core.costs
 
 
-#: the wire kinds the port schedules (the plain star of the JAX registry)
+#: the wire-kind registry (the JAX package's, kind for kind): every
+#: ``MessageSpec.kind`` must be one of these, each priced by a function of
+#: :mod:`repro_torch.core.costs`
 WIRE_KINDS: dict[str, WireKind] = {spec.kind: spec for spec in (
     WireKind(kind="cut", direction="up", phase="train",
              cost_model="cut_bytes"),
+    WireKind(kind="masked_cut", direction="up", phase="train",
+             cost_model="masked_cut_bytes"),
+    WireKind(kind="compressed_cut", direction="up", phase="train",
+             cost_model="wire_bytes"),
+    WireKind(kind="tree_cut", direction="up", phase="train",
+             cost_model="tree_cut_bytes"),
     WireKind(kind="head_out", direction="down", phase="train",
              cost_model="head_exchange_bytes"),
     WireKind(kind="aux", direction="down", phase="train",
@@ -95,6 +105,14 @@ WIRE_KINDS: dict[str, WireKind] = {spec.kind: spec for spec in (
              cost_model="head_exchange_bytes"),
     WireKind(kind="jac", direction="down", phase="train",
              cost_model="cut_bytes"),
+    WireKind(kind="compressed_jac", direction="down", phase="train",
+             cost_model="wire_bytes"),
+    WireKind(kind="tree_jac", direction="down", phase="train",
+             cost_model="tree_cut_bytes"),
+    WireKind(kind="keyx_pub", direction="up", phase="keyx",
+             cost_model="key_exchange_bytes"),
+    WireKind(kind="keyx_bcast", direction="down", phase="keyx",
+             cost_model="key_exchange_bytes"),
     WireKind(kind="serve_prompt", direction="down", phase="serve",
              cost_model="serve_prefill_bytes"),
     WireKind(kind="serve_prefill_cut", direction="up", phase="serve",
@@ -127,51 +145,91 @@ class MessageSpec:
 
 @dataclass(frozen=True)
 class StepSchedule:
-    """The training message schedule of the plain star, per step (or
-    microbatch): K cut uplinks (tag ``cut[k]``), the role-0 <-> role-3
-    head exchange (``head_output`` down, ``head_jacobian`` up) with its
-    auxiliary-loss slot (``aux_loss``, recorded only for families whose
-    server computes a loss term of its own), and K jacobian downlinks
-    (``jac[k]``)."""
+    """The training message schedule, per step (or microbatch): the
+    one-time pairwise key exchange (``keyx_pub[k]`` up, ``keyx_bcast[k]``
+    down; recorded only under secure aggregation), K cut uplinks, the
+    role-0 <-> role-3 head exchange (``head_output`` down,
+    ``head_jacobian`` up) with its auxiliary-loss slot (``aux_loss``,
+    recorded only for families whose server computes a loss term of its
+    own), and K jacobian downlinks.
+
+    The cut uplinks are tagged ``cut[k]``, ``masked_cut[k]`` under secure
+    aggregation (role 0 observes mask-blinded activations; only their sum
+    is meaningful) or ``compressed_cut[k]`` under a codec, and the
+    jacobian downlinks ``jac[k]`` or ``compressed_jac[k]``: a compressed
+    message's bytes are the codec's wire frame (``costs.wire_bytes``).
+    Under a ``tree`` (an ``AggTree``) client k's cut goes to its relay
+    parent (role 0 for the top level) as ``tree_cut[level]`` and its
+    jacobian comes back down the same edge as ``tree_jac[level]``, so
+    role 0 receives only the ``min(F, K)`` top-level frames
+    (``costs.tree_cut_bytes`` prices each level).  A tree composes with
+    secure aggregation; compression composes with neither."""
 
     cuts: tuple[MessageSpec, ...]
     head_out: MessageSpec
     aux: MessageSpec
     head_jac: MessageSpec
     jacs: tuple[MessageSpec, ...]
+    key_pubs: tuple[MessageSpec, ...] = ()
+    key_bcasts: tuple[MessageSpec, ...] = ()
+    secure: bool = False
+    compress: Optional[str] = None
+    # duck-typed AggTree (parent/edge_level/top_level/subtree), so core
+    # does not import runtime.topology
+    tree: Optional[object] = None
 
 
 def step_schedule(num_clients: int, label_holder: int = 0, *,
                   secure: bool = False, compress: Optional[str] = None,
                   tree=None) -> StepSchedule:
     """The training schedule for ``num_clients`` feature holders.  Unsound
-    overlay compositions reject through the compat matrix; the masked,
-    compressed and tree-routed wires are not ported yet and raise."""
+    overlay compositions reject through the compat matrix."""
     compat.check("schedule", secure=secure, compress=compress, tree=tree)
-    _reject_unported(secure=secure, compress=compress, tree=tree)
-    cuts = tuple(MessageSpec(_role_of(k, label_holder), "role0", f"cut[{k}]",
-                             "cut", k) for k in range(num_clients))
-    jacs = tuple(MessageSpec("role0", _role_of(k, label_holder), f"jac[{k}]",
-                             "jac", k) for k in range(num_clients))
+    cut_kind = ("masked_cut" if secure
+                else "compressed_cut" if compress is not None else "cut")
+    jac_kind = "compressed_jac" if compress is not None else "jac"
+    if tree is not None:
+        if getattr(tree, "num_clients", None) != num_clients:
+            raise ValueError(
+                f"tree covers {getattr(tree, 'num_clients', None)} clients, "
+                f"schedule has {num_clients}")
+
+        def hop(k):
+            # client k's relay parent (role 0 at the top level), and the
+            # tree level of the edge between them
+            p = tree.parent(k)
+            return ("role0" if p is None else _role_of(p, label_holder),
+                    tree.edge_level(k))
+
+        cuts = tuple(MessageSpec(_role_of(k, label_holder), hop(k)[0],
+                                 f"tree_cut[{hop(k)[1]}]", "tree_cut", k)
+                     for k in range(num_clients))
+        jacs = tuple(MessageSpec(hop(k)[0], _role_of(k, label_holder),
+                                 f"tree_jac[{hop(k)[1]}]", "tree_jac", k)
+                     for k in range(num_clients))
+    else:
+        cuts = tuple(MessageSpec(_role_of(k, label_holder), "role0",
+                                 f"{cut_kind}[{k}]", cut_kind, k)
+                     for k in range(num_clients))
+        jacs = tuple(MessageSpec("role0", _role_of(k, label_holder),
+                                 f"{jac_kind}[{k}]", jac_kind, k)
+                     for k in range(num_clients))
     return StepSchedule(
         cuts=cuts,
         head_out=MessageSpec("role0", "role3", "head_output", "head_out"),
         aux=MessageSpec("role0", "role3", "aux_loss", "aux"),
         head_jac=MessageSpec("role3", "role0", "head_jacobian", "head_jac"),
         jacs=jacs,
+        key_pubs=tuple(MessageSpec(_role_of(k, label_holder), "role0",
+                                   f"keyx_pub[{k}]", "keyx_pub", k)
+                       for k in range(num_clients)),
+        key_bcasts=tuple(MessageSpec("role0", _role_of(k, label_holder),
+                                     f"keyx_bcast[{k}]", "keyx_bcast", k)
+                         for k in range(num_clients)),
+        secure=secure,
+        compress=compress,
+        tree=tree,
     )
-
-
-def _reject_unported(*, secure=False, compress=None, tree=None) -> None:
-    """The training overlays the port does not carry yet raise here, by
-    name, rather than run silently without them."""
-    for name, on in (("secure aggregation", secure),
-                     ("cut compression", compress is not None),
-                     ("tree aggregation", tree is not None)):
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported to repro_torch yet (see ROADMAP.md, "
-                "Queue 1)")
 
 
 @dataclass(frozen=True)
@@ -235,6 +293,7 @@ def protocol_step(
     live_mask: Optional[torch.Tensor] = None,
     ledger: Optional[Ledger] = None,
     compress: Optional[str] = None,
+    topk_fraction: float = 0.25,
     **executor_kwargs,
 ):
     """One paper-protocol training step; returns (loss, tower_grads,
@@ -242,7 +301,9 @@ def protocol_step(
 
     Feature holders send cut activations to role 0; role 0 sends the head
     output to role 3; role 3 returns the head jacobian; role 0 returns the
-    per-client cut jacobians.  A thin wrapper: the numerics live in the
+    per-client cut jacobians.  With ``compress`` the workers compress
+    their cuts and the executor its jacobians, from the zero residual.
+    A thin wrapper: the numerics live in the
     :class:`~repro_torch.runtime.executor.Executor` (serial mode, one
     microbatch, the ``"neutral"`` drop policy, which merges with the plain
     version) over the inline :class:`~repro_torch.transport.SimTransport`.
@@ -256,11 +317,12 @@ def protocol_step(
     tower_fwds = (list(tower_fwd) if isinstance(tower_fwd, (list, tuple))
                   else [tower_fwd] * K)
     workers = [TowerWorker(k, tower_fwds[k], tower_params[k],
-                           compress=compress) for k in range(K)]
+                           compress=compress, topk_fraction=topk_fraction)
+               for k in range(K)]
     executor = Executor(
         SimTransport(workers), server_fwd, loss_fn, merge, mode="serial",
         microbatches=1, label_holder=label_holder, drop_policy="neutral",
-        compress=compress, **executor_kwargs)
+        compress=compress, topk_fraction=topk_fraction, **executor_kwargs)
     res = executor.run_step(server_params, labels, features=list(features),
                             merge_mask=live_mask, ledger=ledger,
                             collect_grads=True)

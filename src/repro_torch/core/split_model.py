@@ -1,9 +1,10 @@
 """VerticalSplitMLP — the paper's experimental model, end to end.
 
 K client towers over vertical feature slices + merge + server MLP, with
-client dropping.  The transformer-scale version lives in
-:mod:`repro_torch.models`; this one drives the paper's experiments
-(Tables 2-4).
+client dropping and (beyond the paper) cut compression, straight-through
+(:mod:`repro_torch.core.compression`).  The transformer-scale version
+lives in :mod:`repro_torch.models`; this one drives the paper's
+experiments (Tables 2-4).
 
 The merge is the plain :func:`repro_torch.core.merge.merge_stacked`, as
 the JAX package's one-program step merges: that step reaches no kernel.
@@ -12,8 +13,7 @@ feeding an :class:`~repro_torch.runtime.executor.Executor` — merges
 through the merge kernels.
 
 The train steps are eager PyTorch: ``torch.autograd.grad`` over the param
-leaves, then the optimizer's out-of-place update.  Cut compression is not
-ported yet and is refused by name.
+leaves, then the optimizer's out-of-place update.
 """
 from __future__ import annotations
 
@@ -23,11 +23,11 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.vertical_mlp import MLPSplitConfig
+from repro_torch.core import compression as comp_lib
 from repro_torch.core import merge as merge_lib
 from repro_torch.core import partition as part_lib
 from repro_torch.core import towers
 from repro_torch.core.dropping import sample_live_mask
-from repro_torch.core.protocol import _reject_unported
 from repro_torch.tree_util import tree_leaves, tree_unflatten
 
 
@@ -95,13 +95,16 @@ def centralized_forward(params: dict, x: torch.Tensor) -> torch.Tensor:
 
 def split_forward(params: dict, x: torch.Tensor, cfg: MLPSplitConfig, *,
                   live_mask: Optional[torch.Tensor] = None,
-                  compression: Optional[str] = None) -> torch.Tensor:
+                  compression: Optional[str] = None,
+                  topk_fraction: float = 0.25) -> torch.Tensor:
     """``x (B, input_dim)``, the full feature matrix: each tower reads its
-    client's columns, the plain merge joins the (K, B, cut_dim) stack, the
-    server maps it to logits."""
-    _reject_unported(compress=compression)
+    client's columns (its cut compressed by ``compression``, straight
+    through), the plain merge joins the (K, B, cut_dim) stack, the server
+    maps it to logits."""
     stacked = torch.stack([
-        towers.mlp_tower_apply(params["towers"][k], client_columns(x, s))
+        comp_lib.apply_compression(
+            towers.mlp_tower_apply(params["towers"][k], client_columns(x, s)),
+            compression, topk_fraction)
         for k, s in enumerate(feature_slices(cfg))])
     merged = merge_lib.merge_stacked(stacked, cfg.merge, live_mask=live_mask)
     return towers.mlp_tower_apply(params["server"], merged)
@@ -136,11 +139,12 @@ def make_split_train_step(cfg: MLPSplitConfig, optimizer, *,
     With ``num_drop`` > 0 each step drops that many clients: the live mask
     is drawn from ``gen`` (the JAX step's key), unless ``live_mask`` (K,)
     is handed in — tests inject the JAX package's masks that way.  The
-    loss comes back as a 0-d tensor on the params' device."""
-    _reject_unported(compress=compression)
+    loss comes back as a 0-d tensor on the params' device.  ``compression``
+    runs the codec on every cut at the JAX step's fraction, 0.25."""
 
     def loss_fn(params, x, y, live):
-        logits = split_forward(params, x, cfg, live_mask=live)
+        logits = split_forward(params, x, cfg, live_mask=live,
+                               compression=compression, topk_fraction=0.25)
         return softmax_xent(logits, y, cfg.num_classes)
 
     def step(params, opt_state, gen: Optional[torch.Generator], x, y, *,

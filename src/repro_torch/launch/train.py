@@ -24,6 +24,13 @@ Examples:
       --steps 20 --transport inproc --runtime nowait --microbatches 4 \\
       --straggler 1
 
+  # the wire overlays over processes: top-k cut compression, and secure
+  # aggregation along a fanout-2 aggregation tree:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --steps 5 --transport multiproc --compress topk --topk-fraction 0.25
+  PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
+      --steps 5 --transport multiproc --secure-agg --agg-tree-fanout 2
+
   # any of these on the CPU (the plain PyTorch path, no kernel), reduced:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --reduced --steps 3 --batch 4 --seq 64 --device cpu
@@ -31,11 +38,9 @@ Examples:
 The flags, their checks and their messages are the JAX package's
 ``repro.launch.train``'s, plus ``--device {cuda,cpu}``.  A rejected
 composition of flags reads as there (the compat matrix, through
-:func:`repro_torch.core.compat.cli_reject`).  What the port does not carry
-yet (``--secure-agg``, ``--compress``, ``--agg-tree-fanout``, and the
-configs of the hybrid, moe, audio and vlm families and the other dense
-ones) exits naming its ROADMAP.md Queue 1 item, and never runs without
-the feature.
+:func:`repro_torch.core.compat.cli_reject`).  The configs the port does
+not carry yet (the hybrid, moe, audio and vlm families and the other
+dense ones) exit naming their ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -58,12 +63,6 @@ UNPORTED_ARCHS = {
     "arctic-480b": "the moe family (ROADMAP.md Queue 1, item 13)",
     "whisper-tiny": "the audio family (ROADMAP.md Queue 1, item 13)",
     "internvl2-26b": "the vlm family (ROADMAP.md Queue 1, item 13)",
-}
-#: protocol features the port does not carry yet -> their ROADMAP item
-UNPORTED_FLAGS = {
-    "--compress": "cut compression (ROADMAP.md Queue 1, item 6)",
-    "--secure-agg": "secure aggregation (ROADMAP.md Queue 1, item 7)",
-    "--agg-tree-fanout": "aggregation trees (ROADMAP.md Queue 1, item 8)",
 }
 
 
@@ -187,16 +186,31 @@ def _parser() -> argparse.ArgumentParser:
                          "the Executor over per-role threads/processes "
                          "(repro_torch.transport)")
     ap.add_argument("--secure-agg", action="store_true",
-                    help="secure aggregation (not ported yet: exits)")
+                    help="Bonawitz-style secure aggregation: in-protocol "
+                         "pairwise key exchange, cut uplinks masked at the "
+                         "source, role 0 merges masked cuts and never "
+                         "observes a raw activation (sum/avg merges, "
+                         "barrier runtimes, split execution only)")
     ap.add_argument("--compress", default=None, choices=["topk", "int8"],
-                    help="compress cut traffic on the wire (not ported "
-                         "yet: exits)")
+                    help="compress cut traffic on the wire "
+                         "(repro_torch.core.compression): workers compress "
+                         "cut uplinks at the source with error feedback, "
+                         "the executor compresses jacobian downlinks "
+                         "symmetrically; step 0 verifies against the serial "
+                         "protocol_step running the same codec.  Mutually "
+                         "exclusive with --secure-agg")
     ap.add_argument("--topk-fraction", type=float, default=0.25,
                     help="fraction of cut entries kept per vector under "
                          "--compress topk")
     ap.add_argument("--agg-tree-fanout", type=int, default=None,
                     help="overlay a fanout-F aggregation tree on split "
-                         "execution (not ported yet: exits)")
+                         "execution (repro_torch.runtime.topology): relay "
+                         "workers partial-sum their subtree's cut uplinks "
+                         "so role 0 merges/fans-out min(F, K) frames per "
+                         "microbatch instead of K.  Additive merges "
+                         "(sum/avg) only; composes with --secure-agg, "
+                         "mutually exclusive with --compress and --runtime "
+                         "nowait")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="where role 0 and every feature holder compute "
                          "(cuda: the kernels; cpu: their plain versions)")
@@ -243,13 +257,35 @@ def main(argv=None):
             merge=cfg.vertical.merge if cfg.vertical is not None else None)
     except compat.CompatError as e:
         raise compat.cli_reject(e) from None
-    # then what the port does not carry yet: refused, never run without
-    for flag, given in (("--compress", args.compress),
-                        ("--secure-agg", args.secure_agg),
-                        ("--agg-tree-fanout", args.agg_tree_fanout)):
-        if given not in (None, False):
-            raise SystemExit(f"{flag}: {UNPORTED_FLAGS[flag]} is not ported "
-                             "to repro_torch yet")
+    if args.compress:
+        if not (0.0 < args.topk_fraction <= 1.0):
+            raise SystemExit(
+                f"--topk-fraction must be in (0, 1], got {args.topk_fraction}")
+        cfg = cfg.with_vertical(dataclasses.replace(
+            cfg.vertical, compression=args.compress,
+            topk_fraction=args.topk_fraction))
+    if args.secure_agg:
+        if args.transport == "sim":
+            raise SystemExit(
+                "--secure-agg needs split execution (--transport "
+                "inproc/multiproc): the sim path runs the monolithic "
+                "jitted step, there is no uplink to mask")
+        try:
+            cfg = cfg.with_vertical(dataclasses.replace(
+                cfg.vertical, secure_aggregation=True))
+        except ValueError as e:  # non-additive merge rejected by the config
+            raise SystemExit(f"--secure-agg: {e}")
+    if args.agg_tree_fanout is not None:
+        if args.transport == "sim":
+            raise SystemExit(
+                "--agg-tree-fanout needs split execution (--transport "
+                "inproc/multiproc): the sim path runs the monolithic jitted "
+                "step, there are no relay workers to aggregate at")
+        if args.agg_tree_fanout < 2:
+            raise SystemExit(
+                f"--agg-tree-fanout must be >= 2, got {args.agg_tree_fanout} "
+                "(fanout 1 is a chain — every hop still serializes and role "
+                "0 gains nothing)")
     if args.transport != "sim":
         # every ported family has a registered SplitProgram — this only
         # rejects a config with no vertical section (checked above)

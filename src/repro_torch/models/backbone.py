@@ -12,8 +12,11 @@ server layer and the tree has no ``towers``.  The tree has the JAX
 package's layout, so weights carry across by a straight copy
 (``repro_torch.interop``).
 
-The other families (moe, hybrid, audio, vlm) and cut compression raise
-``NotImplementedError`` naming the slice of the port that brings them.
+A compressed config (``cfg.vertical.compression``) runs its codec on the
+stacked cuts before the merge, straight through, as the JAX package's
+monolithic path does.  The other families (moe, hybrid, audio, vlm)
+raise ``NotImplementedError`` naming the slice of the port that brings
+them.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import compression as comp_lib
 from repro_torch.core import merge as merge_lib
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
@@ -56,16 +60,20 @@ def _server_layers(cfg: ArchConfig) -> int:
 
 
 def _check_family(cfg: ArchConfig) -> None:
-    """The families and options the port runs so far; the rest raise by
-    name."""
+    """The families the port runs so far; the rest raise by name."""
     if cfg.family not in ("dense", "ssm"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
             "of the port (it runs the dense and ssm families so far)")
-    if cfg.vertical is not None and cfg.vertical.compression is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: cut compression ({cfg.vertical.compression!r}) "
-            "comes with the protocol-features slice of the port")
+
+
+def _merge_cuts(cuts: list, cfg: ArchConfig, live_mask=None) -> torch.Tensor:
+    """The monolithic path's cut layer: the config's codec on the (K, ...)
+    stack (straight through), then the plain merge."""
+    v = cfg.vertical
+    stacked = comp_lib.apply_compression(torch.stack(cuts), v.compression,
+                                         v.topk_fraction)
+    return merge_lib.merge_stacked(stacked, v.merge, live_mask=live_mask)
 
 
 def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
@@ -158,8 +166,9 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, live_mask=None,
                     use_kernel: bool = True) -> torch.Tensor:
     """x ``(B, S, d_model)`` -> the merged cut activation: K towers over
-    the feature slices, then ``merge_stacked`` with ``live_mask``, as the
-    JAX package's monolithic path merges (no merge kernel here)."""
+    the feature slices, the codec, then ``merge_stacked`` with
+    ``live_mask``, as the JAX package's monolithic path merges (no merge
+    kernel here)."""
     v = cfg.vertical
     towers = params["towers"]
     # one unbind per stacked leaf: under autograd, indexing client by
@@ -179,8 +188,7 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                       causal=True, positions=positions,
                                       use_kernel=use_kernel)
         cuts.append(layers.matmul(h, w_out))
-    return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
-                                   live_mask=live_mask)
+    return _merge_cuts(cuts, cfg, live_mask)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
@@ -335,8 +343,7 @@ def _towers_decode(params: dict, x: torch.Tensor, tower_cache: dict,
                 kv_positions, _tower_dims(cfg), window=window, ring=ring,
                 position=index)
         cuts.append(layers.matmul(h, towers["proj_out"][k]))
-    return merge_lib.merge_stacked(torch.stack(cuts), v.merge,
-                                   live_mask=live_mask)
+    return _merge_cuts(cuts, cfg, live_mask)
 
 
 def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -439,7 +446,7 @@ def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
             tcache["k"][k, :, :, :S] = ks.to(tcache["k"].dtype)
             tcache["v"][k, :, :, :S] = vs.to(tcache["v"].dtype)
             cuts.append(layers.matmul(h, towers["proj_out"][k]))
-        x = merge_lib.merge_stacked(torch.stack(cuts), v.merge)
+        x = _merge_cuts(cuts, cfg)
     x, ks, vs = tfm.dense_stack_prefill(params["server"], x, dims,
                                         positions=positions,
                                         use_kernel=use_kernel)

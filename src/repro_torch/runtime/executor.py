@@ -45,11 +45,26 @@ decides who made the merge) or, in ``"nowait"`` mode over a real
 transport, from wall-clock deadlines driven by the
 :class:`~repro_torch.runtime.deadline.AdaptiveDeadline` arrival EWMAs.
 
-Not ported yet, and refused loudly: secure aggregation, cut compression
-and aggregation trees (unsound compositions reject through the compat
-matrix first, the same words as the JAX package), and the program shapes
-that no ported family uses (``server_takes_batch``, ``server_aux``,
-``merge_fn``: the JAX package's moe, audio and vlm programs).
+The three wire overlays, as in the JAX package (unsound compositions
+reject through the compat matrix, with its words):
+
+* secure aggregation (``secure_agg=True``): :meth:`Executor.setup_secure`
+  runs the one-time key exchange, after which the workers mask every cut
+  at the source and role 0 merges MASKED cuts — the pairwise masks cancel
+  in the sum/avg merge;
+* cut compression (``compress="topk"|"int8"``): the workers compress
+  their uplinks at the source and this side compresses the K jacobian
+  downlinks, each stream with its own error-feedback residual; the Ledger
+  records the codec's wire bytes for both directions;
+* aggregation trees (``agg_tree=AggTree(K, fanout=F)``): the transport is
+  wrapped in a :class:`~repro_torch.transport.tree.TreeRouter`, relays
+  partial-sum their subtrees, and role 0 merges the ``min(F, K)``
+  top-level frames with ``fast_merge(..., "sum")`` (avg divides the
+  full-tree sum by K) and fans ONE jacobian to each top-level client.
+
+Refused by name: the program shapes that no ported family uses
+(``server_takes_batch``, ``server_aux``, ``merge_fn``: the JAX package's
+moe, audio and vlm programs).
 """
 from __future__ import annotations
 
@@ -60,12 +75,15 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import compat
+from repro_torch.core import compression as comp_lib
 from repro_torch.core import merge as merge_lib
 from repro_torch.core import straggler as straggler_lib
 from repro_torch.core.merge import collective_bytes_per_merge
-from repro_torch.core.protocol import Ledger, _reject_unported, step_schedule
+from repro_torch.core.protocol import Ledger, step_schedule
+from repro_torch.core.secure_agg import KEYX_GROUP_BYTES
 from repro_torch.kernels import ops
 from repro_torch.runtime.deadline import AdaptiveDeadline
+from repro_torch.transport.tree import TreeRouter
 from repro_torch.tree_util import tree_leaves, tree_map, tree_unflatten
 
 DROP_POLICIES = ("neutral", "fused", "impute")
@@ -167,7 +185,13 @@ class Executor:
     :class:`~repro_torch.runtime.deadline.AdaptiveDeadline` from the first
     full barrier, a float is a static grace window after a microbatch's
     first cut, and a controller is used as given.  ``ema_decay`` is the
-    imputation EMA's decay."""
+    imputation EMA's decay.
+
+    ``secure_agg``/``secure_scale`` (the masks' standard deviation),
+    ``compress``/``topk_fraction`` and ``agg_tree`` are the wire overlays
+    of the module docstring.  Under a tree ``self.transport`` is the
+    :class:`~repro_torch.transport.tree.TreeRouter`; callers that close
+    the transport close THAT (it stops its pump before the base)."""
 
     def __init__(self, transport, server_fwd: Callable, loss_fn: Callable,
                  merge: str, *, mode: str = "pipelined", microbatches: int = 1,
@@ -175,7 +199,8 @@ class Executor:
                  ema_decay: float = 0.95, deadline=None,
                  server_takes_batch: bool = False, server_aux: bool = False,
                  merge_fn: Optional[Callable] = None,
-                 secure_agg: bool = False, compress: Optional[str] = None,
+                 secure_agg: bool = False, secure_scale: float = 1.0,
+                 compress: Optional[str] = None, topk_fraction: float = 0.25,
                  agg_tree=None):
         if mode not in ("serial", "pipelined", "nowait"):
             raise ValueError(f"mode must be serial|pipelined|nowait, got {mode!r}")
@@ -183,13 +208,16 @@ class Executor:
             drop_policy = "impute" if mode == "nowait" else "fused"
         if drop_policy not in DROP_POLICIES:
             raise ValueError(f"drop_policy must be one of {DROP_POLICIES}")
+        if compress is not None and compress not in comp_lib.SCHEMES:
+            raise ValueError(
+                f"unknown compression scheme {compress!r} (choose from "
+                f"{comp_lib.SCHEMES})")
         compat.check(
             "executor", secure=secure_agg, compress=compress, tree=agg_tree,
             merge=merge, merge_fn=merge_fn,
             nowait=mode == "nowait" or drop_policy != "fused",
             impute=drop_policy == "impute",
             context=f"Executor(mode={mode!r}, drop_policy={drop_policy!r})")
-        _reject_unported(secure=secure_agg, compress=compress, tree=agg_tree)
         for name, on in (("server_takes_batch", server_takes_batch),
                          ("server_aux", server_aux),
                          ("merge_fn", merge_fn is not None)):
@@ -198,6 +226,15 @@ class Executor:
                     f"Executor: {name} programs are not ported to repro_torch "
                     "yet (the ported token-LM and MLP programs use none; the "
                     "moe, audio and vlm families come with a later slice)")
+        if agg_tree is not None:
+            if agg_tree.num_clients != transport.num_clients:
+                raise ValueError(
+                    f"tree covers {agg_tree.num_clients} clients, transport "
+                    f"has {transport.num_clients}")
+            if not isinstance(transport, TreeRouter):
+                transport = TreeRouter(transport, agg_tree)
+        self.agg_tree = agg_tree
+        self._tree_ready = agg_tree is None or not agg_tree.relays
         self.transport = transport
         self.server_fwd = server_fwd
         self.loss_fn = loss_fn
@@ -207,6 +244,18 @@ class Executor:
         self.label_holder = label_holder
         self.drop_policy = drop_policy
         self.ema_decay = ema_decay
+        self.secure_agg = secure_agg
+        self.secure_scale = secure_scale
+        self.compress = compress
+        self.topk_fraction = topk_fraction
+        # error-feedback residuals of the jacobian downlinks, keyed by
+        # (client, mb): steps are collected oldest first, so each stream
+        # position's carry advances one step at a time at any window W
+        self._jac_residuals: dict = {}
+        self._secure_ready = False
+        self._max_secure_step = -1  # highest masked step id (freshness)
+        # the one-time key exchange's audit (keyx_pub / keyx_bcast tags)
+        self.keyx_ledger = Ledger()
         # deadline: None -> bootstrap an AdaptiveDeadline from the first
         # full barrier; float -> static window; AdaptiveDeadline -> as given
         if deadline is None:
@@ -218,7 +267,9 @@ class Executor:
         else:
             self.deadline = None
             self.static_deadline_s = float(deadline)
-        self._schedule = step_schedule(transport.num_clients, label_holder)
+        self._schedule = step_schedule(transport.num_clients, label_holder,
+                                       secure=secure_agg, compress=compress,
+                                       tree=agg_tree)
         self._inflight: dict[int, _InflightStep] = {}  # insertion-ordered
         self._retired_first_t: dict[tuple[int, int], float] = {}
 
@@ -229,6 +280,93 @@ class Executor:
         if self._inflight:
             msg += f" [steps in flight: {list(self._inflight)}]"
         return RuntimeError(msg)
+
+    def _await(self, op: str, count: int, phase: str, timeout_s: float):
+        """Yield the next ``count`` responses of a one-time setup round,
+        each of op ``op``."""
+        for got_n in range(count):
+            got = self.transport.next_response(timeout_s)
+            if got is None:
+                raise self._idle_error(phase, f"{got_n}/{count} in")
+            k, resp = got
+            if resp["op"] != op:
+                raise RuntimeError(
+                    f"unexpected {resp['op']!r} from client {k} {phase}")
+            yield k, resp
+
+    # -- secure-aggregation setup (one-time key-exchange round) ---------------
+
+    def setup_secure(self, *, timeout_s: float = 120.0) -> Ledger:
+        """Run the in-protocol pairwise key agreement: gather each client's
+        public value, relay the full directory back down, and barrier on
+        every ``keys_ready``.  Role 0 only handles public group elements;
+        each pair's mask seed is derived at the two clients.  Recorded in
+        :attr:`keyx_ledger` (``keyx_pub[k]`` / ``keyx_bcast[k]``).  Refuses a
+        federation whose workers draw their masks on different device types
+        (CPU and CUDA generators differ, and the masks would not cancel).
+        Idempotent; runs on the first :meth:`submit_step` if not called."""
+        if not self.secure_agg:
+            raise RuntimeError("setup_secure on a non-secure Executor "
+                               "(construct with secure_agg=True)")
+        if self._secure_ready:
+            return self.keyx_ledger
+        if self._inflight:
+            raise RuntimeError("key exchange must precede the first step")
+        transport, K = self.transport, self.transport.num_clients
+        schedule = self._schedule
+        for spec in schedule.key_pubs:
+            transport.submit(spec.client, {"op": "key_exchange",
+                                           "phase": "pub"})
+        pubs: dict[int, int] = {}
+        devices: dict[int, str] = {}
+        for _, resp in self._await("pub", K, "during key exchange",
+                                   timeout_s):
+            client = int(resp["client"])
+            pubs[client] = resp["pub"]
+            devices[client] = resp["device"]
+            self.keyx_ledger.record_spec_bytes(schedule.key_pubs[client],
+                                               KEYX_GROUP_BYTES)
+        if len(set(devices.values())) > 1:
+            raise RuntimeError(
+                "secure aggregation needs every client to draw its masks on "
+                f"one device type, got {devices}: CPU and CUDA generators "
+                "give different noise from one seed, so the pairwise masks "
+                "would not cancel")
+        for spec in schedule.key_bcasts:
+            transport.submit(spec.client, {
+                "op": "key_exchange", "phase": "finish", "pubs": pubs,
+                "microbatches": self.microbatches,
+                "scale": self.secure_scale})
+            self.keyx_ledger.record_spec_bytes(spec, K * KEYX_GROUP_BYTES)
+        for _ in self._await("keys_ready", K, "awaiting keys_ready",
+                             timeout_s):
+            pass
+        self._secure_ready = True
+        return self.keyx_ledger
+
+    # -- tree setup (one-time relay configuration round) ----------------------
+
+    def setup_tree(self, *, timeout_s: float = 120.0) -> None:
+        """Ship each relay its child ids (one-time ``configure_relay``) and
+        barrier on every ``relay_ready``.  Idempotent; runs on the first
+        :meth:`submit_step`.  A tree with no relays is a no-op."""
+        if self.agg_tree is None:
+            raise RuntimeError("setup_tree on a non-tree Executor "
+                               "(construct with agg_tree=AggTree(...))")
+        if self._tree_ready:
+            return
+        if self._inflight:
+            raise RuntimeError("relay configuration must precede the first "
+                               "step")
+        relays = self.agg_tree.relays
+        for r in relays:
+            self.transport.submit(r, {
+                "op": "configure_relay",
+                "children": list(self.agg_tree.children(r))})
+        for _ in self._await("relay_ready", len(relays),
+                             "during relay configuration", timeout_s):
+            pass
+        self._tree_ready = True
 
     # -- step halves ----------------------------------------------------------
 
@@ -248,6 +386,22 @@ class Executor:
                            self.microbatches)
         if step in self._inflight:
             raise ValueError(f"step {step} already in flight")
+        if not self._tree_ready:
+            self.setup_tree()
+        if self.secure_agg:
+            if not self._secure_ready:
+                self.setup_secure()
+            # mask freshness: the round derives from the step id, so a
+            # recycled id would reuse masks.  The workers enforce it too;
+            # this is the early error naming the API misuse
+            if step <= self._max_secure_step:
+                raise ValueError(
+                    f"secure aggregation needs strictly increasing step ids "
+                    f"(got {step} after {self._max_secure_step}): the mask "
+                    "round index derives from the step, and a reused round "
+                    "leaks the raw activation delta — pass step= explicitly "
+                    "when looping run_step")
+            self._max_secure_step = step
         B = labels.shape[0]
         if B % M:
             raise ValueError(f"batch {B} not divisible by microbatches={M}")
@@ -283,6 +437,13 @@ class Executor:
         if not self._inflight:
             raise RuntimeError("no in-flight step to collect "
                                "(call submit_step first)")
+        tree = self.agg_tree
+        if tree is not None and (liveness is not None
+                                 or merge_mask is not None):
+            raise ValueError(
+                "tree aggregation is barrier-only: per-client liveness / "
+                "merge_mask cannot be applied to a relay's combined frame "
+                "(the partial sum already folded every subtree member in)")
         st = next(iter(self._inflight.values()))
         transport, K, M = (self.transport, self.transport.num_clients,
                            self.microbatches)
@@ -306,10 +467,14 @@ class Executor:
             st.merged.add(m)
 
             arrived = st.cuts.pop(m, {})
-            proto = next(iter(arrived.values()))
-            cuts_in = torch.stack([arrived[k] if k in arrived
-                                   else torch.zeros_like(proto)
-                                   for k in range(K)])
+            if tree is not None:
+                # one frame per top-level client: its subtree's partial sum
+                cuts_in = torch.stack([arrived[t] for t in tree.top_level])
+            else:
+                proto = next(iter(arrived.values()))
+                cuts_in = torch.stack([arrived[k] if k in arrived
+                                       else torch.zeros_like(proto)
+                                       for k in range(K)])
             if self.drop_policy == "impute" and ema_state is None:
                 ema_state = {
                     "ema": torch.zeros((K, cuts_in.shape[-1]),
@@ -323,7 +488,13 @@ class Executor:
             leaves = [t.detach().requires_grad_(True) for t in server_leaves]
             cuts = cuts_in.requires_grad_(True)
             with torch.enable_grad():
-                if self.drop_policy == "impute":
+                if tree is not None:
+                    # the final merge over the top-level partial sums; avg
+                    # is the full-tree sum over K, not over len(top_level)
+                    merged = fast_merge(cuts, "sum")
+                    if self.merge == "avg":
+                        merged = merged / K
+                elif self.drop_policy == "impute":
                     # inside the differentiated graph: a filled seat gets
                     # zero gradient, a live seat the merge's backward
                     live_vec = torch.tensor(live_row, dtype=torch.float32,
@@ -353,16 +524,45 @@ class Executor:
             st.ledger.record_spec_bytes(schedule.head_out, head_bytes)
             st.ledger.record_spec_bytes(schedule.head_jac, head_bytes)
             cut_grads = grads[-1]
-            for spec in schedule.jacs:
-                k = spec.client
-                # serial/neutral semantics: jacobians flow to every client;
-                # no-wait: a missed deadline skips this microbatch's update
-                if self.drop_policy == "neutral" or live_row[k] > 0:
-                    jac_out = cut_grads[k]
-                    st.ledger.record_spec(spec, jac_out)
-                    st.sent_jacs[k] += 1
-                    transport.submit(k, {"op": "backward", "step": st.step,
+            if tree is not None:
+                # ONE backward per top-level client; relays forward the same
+                # jacobian down (avg's 1/K is already inside cut_grads).  The
+                # ledger records every logical tree edge, and sent_jacs
+                # counts the backward each member gets through the router
+                for i, t in enumerate(tree.top_level):
+                    jac_out = cut_grads[i]
+                    for member in tree.subtree(t):
+                        st.ledger.record_spec(schedule.jacs[member], jac_out)
+                        st.sent_jacs[member] += 1
+                    transport.submit(t, {"op": "backward", "step": st.step,
                                          "mb": m, "jac": jac_out})
+            else:
+                for spec in schedule.jacs:
+                    k = spec.client
+                    # serial/neutral semantics: jacobians flow to every
+                    # client; no-wait: a missed deadline skips this
+                    # microbatch's update
+                    if self.drop_policy == "neutral" or live_row[k] > 0:
+                        jac_out = cut_grads[k]
+                        if self.compress is not None:
+                            # the downlink's codec with error feedback: what
+                            # this encode drops rides into the next step's
+                            # jacobian for the same (client, mb) stream
+                            res_key = (k, m)
+                            jac_out, self._jac_residuals[res_key] = \
+                                comp_lib.compress_with_feedback(
+                                    jac_out, self._jac_residuals.get(res_key),
+                                    self.compress, self.topk_fraction)
+                            st.ledger.record_spec_bytes(
+                                spec, comp_lib.payload_bytes(
+                                    jac_out, self.compress,
+                                    self.topk_fraction))
+                        else:
+                            st.ledger.record_spec(spec, jac_out)
+                        st.sent_jacs[k] += 1
+                        transport.submit(k, {"op": "backward",
+                                             "step": st.step, "mb": m,
+                                             "jac": jac_out})
             losses.append(loss_m.detach())
             server_grad_acc.append(tree_unflatten(server_params,
                                                   list(grads[:-1])))
@@ -451,7 +651,20 @@ class Executor:
             # spread — that is how a recovered straggler earns its way back
             self.deadline.observe(k, spread)
         cut = resp["cut"].detach()  # the wire carries values, no history
-        st.ledger.record_spec(self._schedule.cuts[k], cut)
+        if self.agg_tree is not None:
+            # a top-level client's combined subtree frame: every edge under
+            # it carried one frame of the same shape (tree_cut[l] tags)
+            for member in self.agg_tree.subtree(k):
+                st.ledger.record_spec(self._schedule.cuts[member], cut)
+        elif self.compress is not None:
+            # the payload is the worker's lossy encode: record the codec's
+            # wire bytes, not the dense carrier that crosses the transport
+            st.ledger.record_spec_bytes(
+                self._schedule.cuts[k],
+                comp_lib.payload_bytes(cut, self.compress,
+                                       self.topk_fraction))
+        else:
+            st.ledger.record_spec(self._schedule.cuts[k], cut)
         if m in st.merged:
             return  # missed the merge: payload discarded at role 0
         st.cuts.setdefault(m, {})[k] = cut
@@ -472,13 +685,18 @@ class Executor:
         def have() -> int:
             return len(st.cuts.get(m, {}))
 
-        def barrier() -> None:
-            while have() < K:
+        def barrier(need: int = K, what: str = "cuts") -> None:
+            while have() < need:
                 if not self._pump(None):
                     raise self._idle_error(
-                        "awaiting cuts", f"step {st.step} mb {m}: "
-                        f"{have()}/{K} in")
+                        f"awaiting {what}", f"step {st.step} mb {m}: "
+                        f"{have()}/{need} in")
 
+        if self.agg_tree is not None:
+            # barrier on the min(F, K) top-level combined frames: the
+            # O(K) -> O(F) role-0 win
+            barrier(len(self.agg_tree.top_level), "tree frames")
+            return [1.0] * K, None
         if liveness is not None:
             # simulated clock: the transport delivers every cut; the given
             # matrix decides who made the merge
@@ -526,8 +744,14 @@ class Executor:
 
     def _build_report(self, elapsed_s, live_matrix, misses, ledger, cuts,
                       deadline_s, staleness) -> ExecReport:
-        """``cuts`` is the last microbatch's (K, ...) cut stack."""
+        """``cuts`` is the last microbatch's cut stack."""
         K = self.transport.num_clients
+        # the uplink tag is masked_cut[0] under secure aggregation
+        cut_bytes = ledger.bytes_with_tag(self._schedule.cuts[0].tag)
+        if self.agg_tree is not None:
+            # tree_cut[0] is shared by every top-level edge: divide out for
+            # the same per-client figure the star reports
+            cut_bytes //= len(self.agg_tree.top_level)
         return ExecReport(
             mode=self.mode,
             transport=type(self.transport).__name__,
@@ -535,8 +759,7 @@ class Executor:
             microbatches=self.microbatches,
             live=live_matrix,
             misses_per_client=misses,
-            cut_bytes_per_client=ledger.bytes_with_tag(
-                self._schedule.cuts[0].tag),
+            cut_bytes_per_client=cut_bytes,
             collective_bytes_per_client=self.microbatches
             * collective_bytes_per_merge(self.merge, cuts[0].numel(), K,
                                          cuts.element_size()),

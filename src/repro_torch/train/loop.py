@@ -18,10 +18,11 @@ Two drivers, as in the JAX package's ``repro.train.loop``:
   run checks the kernel merge (forward and backward) against it.
   ``runtime="nowait"`` runs the no-wait schedule: adaptive wall-clock
   deadlines and EMA imputation of the cuts that miss them, through the
-  merge kernels on the card.
-
-Not ported yet, and refused before any worker is built: secure
-aggregation, cut compression, aggregation trees.
+  merge kernels on the card.  The three wire overlays run here too:
+  secure aggregation (``cfg.vertical.secure_aggregation``), cut
+  compression (``cfg.vertical.compression``) and aggregation trees
+  (``agg_tree_fanout``), each verified at step 0 against the serial
+  ``protocol_step`` at the JAX package's tolerance.
 """
 from __future__ import annotations
 
@@ -34,7 +35,8 @@ import torch
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compat
-from repro_torch.core.protocol import _reject_unported
+from repro_torch.core import compression as comp_lib
+from repro_torch.core import secure_agg
 from repro_torch.models import backbone
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedules import linear_warmup_cosine
@@ -55,6 +57,11 @@ class TrainMetrics:
     # seconds to build the transport's workers (multiproc: spawn each
     # process, build its worker there, connect)
     setup_s: Optional[float] = None
+    # secure aggregation: the one-time key exchange's audited traffic, and
+    # step 0's max |masked merge - raw sum| at role 0 beside its bound
+    keyx_ledger: object = None
+    step0_mask_residue: Optional[float] = None
+    step0_mask_bound: Optional[float] = None
 
     def log(self, step: int, loss: float, dt: float) -> None:
         self.steps.append(step)
@@ -141,11 +148,13 @@ def _make_transport(cfg: ArchConfig, transport: str, *, seed, batch, seq,
                     microbatches, learning_rate, warmup, steps, grad_clip,
                     straggler: Optional[int], straggler_delay_s: float,
                     params: Optional[dict], device: torch.device):
-    """One worker per feature holder, each with its own spec: threads
-    built here, or spawned processes that build their own (from ``seed``,
-    or from ``params`` copied across when given)."""
+    """One worker per feature holder, each with its own spec: built here
+    (inline on role 0's thread, or a thread each), or spawned processes
+    that build their own (from ``seed``, or from ``params`` copied across
+    when given)."""
     from repro_torch.transport import (InprocTransport, MultiprocTransport,
-                                       WorkerSpec, build_split_worker)
+                                       SimTransport, WorkerSpec,
+                                       build_split_worker)
 
     kwargs = dict(cfg=cfg, seed=seed, batch=batch, seq=seq,
                   microbatches=microbatches, learning_rate=learning_rate,
@@ -156,8 +165,8 @@ def _make_transport(cfg: ArchConfig, transport: str, *, seed, batch, seq,
         return straggler_delay_s if k == straggler else 0.0
 
     K = cfg.vertical.num_clients
-    if transport == "inproc":
-        return InprocTransport([
+    if transport in ("sim", "inproc"):
+        return (SimTransport if transport == "sim" else InprocTransport)([
             build_split_worker(k, forward_delay_s=delay(k), **kwargs)
             for k in range(K)])
     if transport == "multiproc":
@@ -168,12 +177,67 @@ def _make_transport(cfg: ArchConfig, transport: str, *, seed, batch, seq,
     raise ValueError(f"unknown split transport {transport!r}")
 
 
+class _Step0Tap:
+    """Role 0's view of step 0 under secure aggregation: the cut frames
+    the executor receives (masked; under a tree, the top-level partial
+    sums), kept per microbatch for the in-run cancellation check.  Passes
+    everything through."""
+
+    def __init__(self, base):
+        self.base = base
+        self.num_clients = base.num_clients
+        self.frames: dict = {}  # mb -> [frame, ...]
+
+    def submit(self, client: int, request: dict) -> None:
+        self.base.submit(client, request)
+
+    def next_response(self, timeout=None):
+        got = self.base.next_response(timeout)
+        if got is not None and got[1]["op"] == "cut" and \
+                got[1]["step"] == 0:
+            self.frames.setdefault(got[1]["mb"], []).append(got[1]["cut"])
+        return got
+
+    def close(self) -> None:
+        self.base.close()
+
+
+def _mask_residue(frames: dict, program, tower_params, features,
+                  microbatches: int, scale: float) -> tuple[float, float]:
+    """Largest |sum of role 0's masked frames - sum of the raw cuts| over
+    step 0's microbatches, and ``cancellation_bound`` at the raw cuts'
+    magnitude: the masks cancelled iff the first is within the second."""
+    K = len(tower_params)
+    mbsz = features[0].shape[0] // microbatches
+    residue, bound = 0.0, 0.0
+    with torch.no_grad():
+        for m in range(microbatches):
+            sl = slice(m * mbsz, (m + 1) * mbsz)
+            raw = [program.tower_fwds[k](tower_params[k], features[k][sl])
+                   .float() for k in range(K)]
+            masked = torch.stack(frames[m]).sum(0)
+            residue = max(residue, float(torch.max(torch.abs(
+                masked - torch.stack(raw).sum(0)))))
+            bound = max(bound, secure_agg.cancellation_bound(
+                K, scale, max(max(float(torch.max(torch.abs(r)))
+                                  for r in raw), 1.0)))
+    return residue, bound
+
+
 def _verify_step0(res, program, tower_params, server_params, features, ctx,
-                  microbatches: int, atol: float, print_fn: Callable) -> float:
+                  microbatches: int, atol: float, print_fn: Callable,
+                  what: str = "") -> float:
     """The acceptance identity: the transport's step-0 gradients must match
     the serial ``protocol_step`` on the same decomposition (the mean of M
     per-microbatch serial steps — what the Executor computes).  Returns
-    the largest |difference| over every gradient leaf."""
+    the largest |difference| over every gradient leaf.
+
+    ``what`` names the overlay: ``"masked-merge "`` (the executor merged
+    MASKED cuts, the reference is unmasked: the match proves the masks
+    cancelled), ``"compressed-wire "`` (the reference runs the same codec
+    from the zero residual every stream starts from) or ``"tree-merge "``
+    (relays reassociated the f32 sum, so the match is to a rounding
+    tolerance, not bit for bit)."""
     M = microbatches
     mbsz = ctx.shape[0] // M
     losses, tgs, sgs = [], [], []
@@ -194,9 +258,9 @@ def _verify_step0(res, program, tower_params, server_params, features, ctx,
     loss_dev = abs(float(res.loss) - float(loss_ref))
     if max_dev > atol or loss_dev > atol:
         raise RuntimeError(
-            f"step-0 gradients diverge from the serial protocol_step: "
+            f"step-0 {what}gradients diverge from the serial protocol_step: "
             f"max |dgrad| {max_dev:.3e}, |dloss| {loss_dev:.3e} > {atol:g}")
-    print_fn(f"step-0 verification vs protocol_step: max |dgrad| "
+    print_fn(f"step-0 {what}verification vs protocol_step: max |dgrad| "
              f"{max_dev:.2e}, |dloss| {loss_dev:.2e} (<= {atol:g}) OK")
     return max_dev
 
@@ -228,9 +292,10 @@ def train_split(
 ):
     """Train ``cfg``'s split program through the Executor over a real
     transport.  Returns ({"towers": [...], "server": ...}, metrics,
-    report).  ``transport`` is ``"inproc"`` (a thread per feature holder)
-    or ``"multiproc"`` (a spawned process each, computing on ``device``
-    too).
+    report).  ``transport`` is ``"inproc"`` (a thread per feature holder),
+    ``"multiproc"`` (a spawned process each, computing on ``device`` too)
+    or ``"sim"`` (every worker inline on role 0's thread: deterministic,
+    the reference a threaded run is held to).
 
     ``loader`` yields the role-0 batches (an ``LMBatchLoader`` with
     ``seed``); each feature holder regenerates the same token stream from
@@ -247,6 +312,28 @@ def train_split(
     initial param tree on that device; None runs the port's seeded init
     (torch cannot reproduce the JAX package's ``jax.random`` init, so
     tests hand the JAX package's params in here).
+
+    The wire overlays, as in the JAX package:
+
+    * ``cfg.vertical.secure_aggregation``: the one-time key exchange runs
+      over the transport (``metrics.keyx_ledger``), the workers mask every
+      cut at the source, role 0 merges masked cuts; step 0 is verified
+      against the unmasked serial step at ``max(verify_atol, 1e-3)``, and
+      role 0's masked step-0 sum against the raw one within
+      ``secure_agg.cancellation_bound`` (``metrics.step0_mask_residue`` /
+      ``step0_mask_bound``);
+    * ``cfg.vertical.compression``: the workers compress their uplinks and
+      the executor its downlinks, with error feedback; step 0 is verified
+      against the serial step running the same codec at
+      ``compression.STEP0_VERIFY_ATOL``;
+    * ``agg_tree_fanout=F``: an ``AggTree(K, fanout=F)`` over the
+      transport; role 0 merges ``min(F, K)`` relay frames per microbatch;
+      step 0 is verified against the flat serial merge at
+      ``topology.TREE_VERIFY_ATOL``.
+
+    Unsound compositions (compression with either of the others, secure or
+    tree with no-wait or a non-additive merge) reject through the compat
+    matrix before any worker is built.
     """
     from repro_torch.models.split_program import get_program
     from repro_torch.runtime.executor import Executor
@@ -268,12 +355,17 @@ def train_split(
     secure = cfg.vertical.secure_aggregation
     compress = cfg.vertical.compression
     # fail BEFORE any worker is built: unsound compositions through the
-    # compat matrix, then what the port does not carry yet
+    # compat matrix
     compat.check(
         "train", secure=secure, compress=compress, tree=agg_tree_fanout,
         nowait=runtime == "nowait", merge_fn=program.merge_fn,
         merge=program.merge, context=f"train_split({cfg.name})")
-    _reject_unported(secure=secure, compress=compress, tree=agg_tree_fanout)
+    agg_tree = None
+    if agg_tree_fanout is not None:
+        from repro_torch.runtime.topology import AggTree
+
+        agg_tree = AggTree(num_clients=cfg.vertical.num_clients,
+                           fanout=agg_tree_fanout)
     injected = params is not None
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -281,7 +373,7 @@ def train_split(
     # threads partition role 0's tree in place; a spawned process builds
     # its own tower from the seed unless the caller injected a tree (a
     # shipped tree crosses the spawn pipe whole, once per process)
-    worker_params = params if injected or transport == "inproc" else None
+    worker_params = params if injected or transport != "multiproc" else None
     tower_params, server_params = program.partition(params)
 
     opt = AdamW(
@@ -321,10 +413,50 @@ def train_split(
                          "miss(es) — gradients are intentionally imputed, "
                          "not serial")
             else:
+                feats0 = program.features(b0, dev)
+                # masked merges carry the f32 mask-cancellation residue;
+                # compressed wires verify against a reference running the
+                # same codec; relay partial sums reassociate the f32 merge
+                if secure:
+                    atol, what = max(verify_atol, 1e-3), "masked-merge "
+                elif compress is not None:
+                    atol = max(verify_atol, comp_lib.STEP0_VERIFY_ATOL)
+                    what = "compressed-wire "
+                elif agg_tree is not None:
+                    from repro_torch.runtime.topology import TREE_VERIFY_ATOL
+
+                    atol, what = max(verify_atol, TREE_VERIFY_ATOL), \
+                        "tree-merge "
+                else:
+                    atol, what = verify_atol, ""
                 metrics.step0_max_dgrad = _verify_step0(
-                    res, program, tower_params, server_params,
-                    program.features(b0, dev), program.batch_ctx(b0, dev),
-                    M, verify_atol, print_fn)
+                    res, program, tower_params, server_params, feats0,
+                    program.batch_ctx(b0, dev), M, atol, print_fn, what)
+                if secure:
+                    residue, bound = _mask_residue(
+                        tap.frames, program, tower_params, feats0, M,
+                        executor.secure_scale)
+                    tap.frames.clear()
+                    if residue > bound:
+                        raise RuntimeError(
+                            f"step-0 mask cancellation residue "
+                            f"{residue:.3e} exceeds its bound {bound:.3e}")
+                    metrics.step0_mask_residue = residue
+                    metrics.step0_mask_bound = bound
+                    print_fn(f"step-0 masked sum at role 0 vs the raw sum: "
+                             f"max |residue| {residue:.2e} (<= bound "
+                             f"{bound:.2e}) OK")
+                if compress is not None:
+                    comp_bytes = res.ledger.bytes_with_tag(
+                        executor._schedule.cuts[0].tag)
+                    with torch.no_grad():
+                        cut0 = program.tower_fwds[0](
+                            tower_params[0], feats0[0][:batch // M])
+                    raw_bytes = M * comp_lib.payload_bytes(cut0, None)
+                    print_fn(
+                        f"compressed cut uplink ({compress}): {comp_bytes} B"
+                        f"/client/step vs {raw_bytes} B raw "
+                        f"({comp_bytes / raw_bytes:.2f}x)")
         server_params, opt_state = opt.update(server_params,
                                               res.server_grads, opt_state)
         ema_state = res.ema_state
@@ -344,10 +476,29 @@ def train_split(
                      + (f" misses={res.report.total_misses}"
                         if mode == "nowait" else "") + "]")
 
+    tap = None
     try:
         executor = Executor(tr, program.server_fwd, program.loss_fn,
                             program.merge, mode=mode, microbatches=M,
-                            **program.executor_kwargs)
+                            secure_agg=secure, compress=compress,
+                            topk_fraction=cfg.vertical.topk_fraction,
+                            agg_tree=agg_tree, **program.executor_kwargs)
+        # under a tree the Executor wrapped the transport in a TreeRouter:
+        # close THAT (it stops its pump before the base)
+        tr = executor.transport
+        if agg_tree is not None:
+            print_fn(f"aggregation tree: fanout {agg_tree.fanout}, depth "
+                     f"{agg_tree.depth}, {len(agg_tree.relays)} relay(s) — "
+                     f"role 0 merges {len(agg_tree.top_level)} frames/mb "
+                     f"instead of {cfg.vertical.num_clients}")
+        if secure:
+            metrics.keyx_ledger = executor.setup_secure()
+            print_fn(f"secure aggregation: pairwise key exchange complete "
+                     f"({metrics.keyx_ledger.total()} B over {transport}; "
+                     "cut uplinks are masked at the source, role 0 "
+                     "observes no raw activation)")
+            if verify_step0:
+                executor.transport = tap = _Step0Tap(tr)
         pipeline = StepPipeline(executor, window=W)
 
         def collect_one():

@@ -16,7 +16,10 @@ from typing import Callable, Optional
 
 import torch
 
+from repro_torch import tree_device
 from repro_torch.core import compat
+from repro_torch.core import compression as comp_lib
+from repro_torch.core import secure_agg
 from repro_torch.transport import ops as ops_registry
 from repro_torch.tree_util import tree_leaves, tree_map, tree_unflatten
 
@@ -74,17 +77,56 @@ class TowerWorker:
     and pulls the jacobian through it with ``torch.autograd.grad`` — the
     vjp the JAX worker takes as ``grad(vdot(tower_fwd(tp, feats), jac))``.
 
+    Secure aggregation (:mod:`repro_torch.core.secure_agg`): the one-time
+    ``key_exchange`` op runs in two phases — ``"pub"`` draws an ephemeral
+    DH keypair and returns the public value (and the device type the
+    worker's masks will be drawn on); ``"finish"`` delivers the full
+    public directory (plus ``microbatches``/``scale``) and derives one
+    mask seed per peer, locally, then drops the secret: role 0 relays
+    public values but never holds a pair's seed.  From then on every
+    forward masks its cut AT THE SOURCE with fresh noise of round
+    ``step * microbatches + mb``; the worker itself refuses a round that
+    does not increase (a replayed or recycled step id would reuse a mask
+    and let role 0 difference two uplinks to the raw activation delta).
+
+    Cut compression (``compress`` = ``"topk"`` | ``"int8"``,
+    :mod:`repro_torch.core.compression`): every forward compresses its cut
+    AT THE SOURCE with error feedback — the residual a step's encode drops
+    is kept per microbatch and folded into the next step's payload for the
+    same stream position.  Requests arrive FIFO in (step, mb) order on
+    every backend, so the carry is step-sequential at any window W; step
+    0's residual is zero, which is what lets ``train_split`` verify the
+    compressed step 0 against a serial ``protocol_step`` running the same
+    codec.  A compressing worker refuses key exchange and relaying (the
+    compat matrix: masks do not cancel through codec values, codec frames
+    cannot be partial-summed).
+
+    Tree aggregation: ``configure_relay`` makes this worker a RELAY for the
+    given child ids.  Instead of uplinking its own cut it accumulates its
+    subtree's partial sum: its own forward plus one ``aggregate`` frame per
+    child, buffered per (step, mb) in any arrival order across adjacent
+    steps, summed in a FIXED order (own cut, then children by configured
+    id) once every part landed, and uplinked as one ``tree_cut``.  Masked
+    cuts partial-sum the same way (the masks cancel only in role 0's
+    full-tree sum).  A relay's backward response carries a ``relay_jac``
+    directive: for the additive merges every subtree member's cut gradient
+    is the relay's (role 0 pre-applies avg's 1/K), so the router sends the
+    same jacobian down to each child.
+
     ``serve_fns`` is the program's tower serving bundle
     (:class:`~repro_torch.models.split_program.TowerServeFns`); one tower KV
-    session per in-flight request, keyed by request id.  ``compress`` is
-    the config's cut codec, carried so the worker's own guards can refuse
-    what the port does not run under it."""
+    session per in-flight request, keyed by request id."""
 
     def __init__(self, client_id: int, tower_fwd: Optional[Callable],
                  tower_params, *, feature_fn: Optional[Callable] = None,
                  optimizer=None, forward_delay_s: float = 0.0,
-                 compress: Optional[str] = None, serve_fns=None,
+                 compress: Optional[str] = None,
+                 topk_fraction: float = 0.25, serve_fns=None,
                  device: Optional[torch.device] = None):
+        if compress is not None and compress not in comp_lib.SCHEMES:
+            raise ValueError(
+                f"client {client_id}: unknown compression scheme "
+                f"{compress!r} (choose from {comp_lib.SCHEMES})")
         self.client_id = client_id
         self.tower_fwd = tower_fwd
         self.params = tower_params
@@ -92,6 +134,7 @@ class TowerWorker:
         self.optimizer = optimizer
         self.forward_delay_s = forward_delay_s
         self.compress = compress
+        self.topk_fraction = topk_fraction
         self.serve_fns = serve_fns
         self.device = device
         self.opt_state = optimizer.init(tower_params) if optimizer else None
@@ -100,6 +143,11 @@ class TowerWorker:
         self._grad_sums: dict = {}  # step -> accumulated tower grads
         self._jacs_seen: dict = {}  # step -> backwards processed
         self._pending_finish: dict = {}  # step -> deferred finish request
+        self._ef_residual: dict = {}  # mb -> error-feedback residual carry
+        self._dh_secret: Optional[int] = None  # ephemeral, key exchange only
+        self._secure: Optional[dict] = None  # pair seeds + round derivation
+        self._relay_children: tuple = ()  # child ids when acting as a relay
+        self._relay_parts: dict = {}  # (step, mb) -> {"self"|child_id: cut}
         self._serve_sessions: dict = {}  # request id -> tower KV session
 
     def handle(self, request: dict) -> Optional[dict]:
@@ -109,6 +157,10 @@ class TowerWorker:
         if spec is None:
             raise ValueError(f"unknown op {op!r}")
         return getattr(self, spec.handler)(request)
+
+    def _aggregate(self, request: dict) -> Optional[dict]:
+        return self._relay_accumulate(request["step"], request["mb"],
+                                      request["child"], request["frame"])
 
     def _serve_end(self, request: dict) -> None:
         # fire-and-forget session teardown: nothing to reply
@@ -124,13 +176,7 @@ class TowerWorker:
 
     # -- training ops -------------------------------------------------------
 
-    def _forward(self, request: dict) -> dict:
-        if self.compress is not None:
-            # the worker's own guard: a compressing worker must not ship
-            # raw frames whatever the driver says
-            raise NotImplementedError(
-                f"client {self.client_id}: cut compression is not ported to "
-                "repro_torch yet (see ROADMAP.md, Queue 1)")
+    def _forward(self, request: dict) -> Optional[dict]:
         if self.forward_delay_s > 0.0:
             time.sleep(self.forward_delay_s)
         step, mb = request["step"], request["mb"]
@@ -145,8 +191,101 @@ class TowerWorker:
         params = self._step_params.setdefault(step, self.params)
         with torch.no_grad():
             cut = self.tower_fwd(params, feats)
+            if self._secure is not None:
+                cut = self._mask(cut, step, mb)
+            if self.compress is not None:
+                # fold in what the previous step's encode dropped for this
+                # stream position, ship the lossy payload, carry the rest
+                cut, self._ef_residual[mb] = comp_lib.compress_with_feedback(
+                    cut, self._ef_residual.get(mb), self.compress,
+                    self.topk_fraction)
+        if self._relay_children:
+            # this cut is one part of the subtree's partial sum
+            return self._relay_accumulate(step, mb, "self", cut)
         return {"op": "cut", "client": self.client_id, "step": step,
                 "mb": mb, "cut": cut}
+
+    def _mask(self, cut: torch.Tensor, step: int, mb: int) -> torch.Tensor:
+        """Mask at the source: role 0 only ever observes the blinded cut.
+        Requests arrive FIFO in (step, mb) order, so a round that does not
+        increase is a replayed or recycled step id, and its mask would be
+        a reused one."""
+        sec = self._secure
+        round_idx = step * sec["microbatches"] + mb
+        if round_idx <= sec["last_round"]:
+            raise ValueError(
+                f"client {self.client_id}: mask round {round_idx} "
+                f"(step {step}, mb {mb}) already used (last "
+                f"{sec['last_round']}) — reusing a mask round leaks the "
+                "raw activation delta; drive secure steps with strictly "
+                "increasing step ids")
+        sec["last_round"] = round_idx
+        return secure_agg.mask_payload_with_keys(
+            cut, sec["pair_keys"], self.client_id, round_idx, sec["scale"])
+
+    def _configure_relay(self, request: dict) -> dict:
+        # the worker's own guard, mirroring the Executor's tree+compress
+        # rejection
+        compat.check("worker", tree=True, compress=self.compress,
+                     context=f"client {self.client_id}")
+        self._relay_children = tuple(int(c) for c in request["children"])
+        return {"op": "relay_ready", "client": self.client_id}
+
+    def _relay_accumulate(self, step: int, mb: int, part_key,
+                          frame: torch.Tensor) -> Optional[dict]:
+        parts = self._relay_parts.setdefault((step, mb), {})
+        if part_key in parts:
+            raise ValueError(
+                f"client {self.client_id}: duplicate aggregation part "
+                f"{part_key!r} for (step {step}, mb {mb})")
+        parts[part_key] = frame
+        if len(parts) < 1 + len(self._relay_children):
+            return None  # subtree incomplete: parts arrive in any order
+        del self._relay_parts[(step, mb)]
+        # fixed accumulation order, own cut first, then children by
+        # configured id: the same rounding run to run
+        total = parts["self"]
+        for child in self._relay_children:
+            total = total + parts[child]
+        return {"op": "tree_cut", "client": self.client_id, "step": step,
+                "mb": mb, "cut": total}
+
+    def _mask_device_type(self) -> str:
+        dev = self.device or tree_device(self.params)
+        return "cpu" if dev is None else torch.device(dev).type
+
+    def _key_exchange(self, request: dict) -> dict:
+        # the privacy principal's own guard: a compressing worker must not
+        # join a key exchange, whatever the driver says (checked before the
+        # phase is read, so a malformed request still rejects loudly)
+        compat.check("worker", secure=True, compress=self.compress,
+                     context=f"client {self.client_id}")
+        phase = request["phase"]
+        if phase == "pub":
+            self._dh_secret, pub = secure_agg.dh_keypair()
+            return {"op": "pub", "client": self.client_id, "pub": pub,
+                    "device": self._mask_device_type()}
+        if phase == "finish":
+            if self._dh_secret is None:
+                raise ValueError(
+                    f"client {self.client_id}: key_exchange finish before "
+                    "pub phase")
+            pair_keys = {}
+            for other, peer_pub in request["pubs"].items():
+                other = int(other)
+                if other == self.client_id:
+                    continue
+                shared = secure_agg.dh_shared(self._dh_secret, peer_pub)
+                pair_keys[other] = secure_agg.seed_from_shared(shared)
+            self._dh_secret = None  # ephemeral: drop it once keys exist
+            self._secure = {
+                "pair_keys": pair_keys,
+                "microbatches": int(request.get("microbatches", 1)),
+                "scale": float(request.get("scale", 1.0)),
+                "last_round": -1,  # freshness floor: rounds must increase
+            }
+            return {"op": "keys_ready", "client": self.client_id}
+        raise ValueError(f"unknown key_exchange phase {phase!r}")
 
     def _backward(self, request: dict) -> dict:
         step, mb = request["step"], request["mb"]
@@ -160,8 +299,12 @@ class TowerWorker:
         with torch.enable_grad():
             cut = self.tower_fwd(tree_unflatten(base, leaves), feats)
             grads = torch.autograd.grad(cut.to(torch.float32), leaves,
-                                        grad_outputs=jac.to(torch.float32))
-        grad = tree_unflatten(base, list(grads))
+                                        grad_outputs=jac.to(torch.float32),
+                                        allow_unused=True)
+        # a param the tower does not read gets a zero gradient, as
+        # jax.grad gives it
+        grad = tree_unflatten(base, [torch.zeros_like(t) if g is None else g
+                                     for t, g in zip(leaves, grads)])
         prev = self._grad_sums.get(step)
         self._grad_sums[step] = grad if prev is None else \
             tree_map(torch.add, prev, grad)
@@ -170,9 +313,16 @@ class TowerWorker:
         if pending is not None and \
                 self._jacs_seen[step] >= pending.get("expected_jacs", 0):
             del self._pending_finish[step]
-            return self._complete_finish(pending)
-        return {"op": "grad", "client": self.client_id, "step": step,
-                "mb": mb}
+            resp = self._complete_finish(pending)
+        else:
+            resp = {"op": "grad", "client": self.client_id, "step": step,
+                    "mb": mb}
+        if self._relay_children:
+            # fan the SAME jacobian down the tree; the router turns this
+            # directive into one backward per child
+            resp["relay_jac"] = {"step": step, "mb": mb, "jac": jac,
+                                 "children": list(self._relay_children)}
+        return resp
 
     def _finish_step(self, request: dict) -> Optional[dict]:
         step = request["step"]
@@ -210,8 +360,10 @@ class TowerWorker:
                 f"client {self.client_id}: no serve_fns configured — split "
                 "serving needs the program's tower serving bundle "
                 "(SplitProgram.tower_serve_fns; dense family only)")
-        # the worker's own guard (it must not trust the driver)
-        compat.check("worker", serve=True, compress=self.compress,
+        # the worker's own guard (it must not trust the driver): serving
+        # frames are raw cut tensors
+        compat.check("worker", serve=True, secure=self._secure is not None,
+                     compress=self.compress,
                      context=f"client {self.client_id}")
 
     def _tokens(self, tokens) -> torch.Tensor:

@@ -40,6 +40,7 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
                      learning_rate: Optional[float] = None,
                      forward_delay_s: float = 0.0,
                      compress: Optional[str] = None,
+                     topk_fraction: float = 0.25,
                      params: Optional[dict] = None,
                      features=None,
                      device: DeviceLike = None) -> TowerWorker:
@@ -57,11 +58,10 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
     can be handed one); None means the stream
     ``x_step ~ N(0, 1)`` drawn from a generator seeded with ``data_seed +
     step``.  With ``learning_rate`` set the tower trains locally under
-    plain SGD.  Cut compression is not ported yet and is refused."""
+    plain SGD.  ``compress`` ("topk" | "int8") compresses the worker's cut
+    uplinks at the source with error feedback."""
     from repro_torch.core import split_model, towers
-    from repro_torch.core.protocol import _reject_unported
 
-    _reject_unported(compress=compress)
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(param_seed)
@@ -88,7 +88,8 @@ def build_mlp_worker(client_id: int, *, cfg, param_seed: int = 0,
     return TowerWorker(
         client_id, towers.mlp_tower_apply, tower, feature_fn=feature_fn,
         optimizer=_sgd(learning_rate) if learning_rate else None,
-        forward_delay_s=forward_delay_s, device=dev)
+        forward_delay_s=forward_delay_s, compress=compress,
+        topk_fraction=topk_fraction, device=dev)
 
 
 def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
@@ -109,7 +110,9 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     already live on ``device``.  The worker regenerates its token stream
     from ``seed`` (``batch`` x ``seq`` per step, in ``microbatches``
     slices).  With ``learning_rate`` set, the tower trains locally under
-    the same AdamW schedule as the server.  ``use_kernel=False`` keeps the
+    the same AdamW schedule as the server.  ``cfg.vertical.compression``
+    (and its ``topk_fraction``) makes the worker compress its cut uplinks
+    at the source, with error feedback.  ``use_kernel=False`` keeps the
     serving prefill's long attention on the plain chunked path, as
     ``SplitLMServer(use_kernel=False)`` does at role 0 (comparison
     runs)."""
@@ -146,5 +149,6 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
                                       device=dev),
         optimizer=optimizer, forward_delay_s=forward_delay_s,
         compress=cfg.vertical.compression,
+        topk_fraction=cfg.vertical.topk_fraction,
         serve_fns=serve_fns,
         device=dev)

@@ -1,11 +1,10 @@
 """The worker op table — the wire verbs a port worker serves.
 
 :class:`~repro_torch.transport.base.TowerWorker.handle` dispatches requests
-from this table.  The port carries the training verbs of the plain star,
-the serving verbs and the two housekeeping verbs; the secure-aggregation
-and tree verbs
-(``key_exchange``, ``configure_relay``, ``aggregate``) come with their
-slices.
+from this table: the JAX package's verbs, one for one — the training
+verbs, secure aggregation's one-time ``key_exchange``, the aggregation
+tree's ``configure_relay`` and ``aggregate``, the serving verbs and the
+two housekeeping verbs.
 """
 from __future__ import annotations
 
@@ -25,14 +24,24 @@ class OpSpec:
 
 
 WORKER_OPS: dict[str, OpSpec] = {spec.op: spec for spec in (
-    OpSpec("forward", "_forward", ("cut",),
-           "run one microbatch's tower forward; uplink the cut frame"),
+    OpSpec("forward", "_forward", ("cut", "tree_cut"),
+           "run one microbatch's tower forward; uplink the (possibly "
+           "masked/compressed/relay-accumulated) cut frame"),
     OpSpec("backward", "_backward", ("grad", "step_done"),
            "apply the cut jacobian through the tower backward; ack (or "
            "finish a deferred step)"),
     OpSpec("finish_step", "_finish_step", ("step_done",),
            "average the step's tower grads over M, apply the local "
            "optimizer update when configured, return grads iff collect"),
+    OpSpec("key_exchange", "_key_exchange", ("pub", "keys_ready"),
+           "secure aggregation's one-time DH round: phase 'pub' emits the "
+           "public value, phase 'finish' derives pairwise mask seeds"),
+    OpSpec("configure_relay", "_configure_relay", ("relay_ready",),
+           "one-time: become an aggregation-tree relay for the given "
+           "child ids"),
+    OpSpec("aggregate", "_aggregate", ("tree_cut",),
+           "fold a child's subtree frame into the relay's partial sum; "
+           "the combined tree_cut is emitted once all parts landed"),
     OpSpec("serve_prefill", "_serve_prefill", ("serve_prefill_cut",),
            "run the tower's feature slice over the whole prompt once and "
            "open (or reset) the request's tower KV session"),

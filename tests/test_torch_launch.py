@@ -9,8 +9,10 @@ against the JAX package's ``repro.launch.train``.
   exactly, schedule by schedule.
 - Bad argvs (the compat pairs, the ranges, ``--checkpoint`` with split
   execution, a centralized run with split flags) exit with the
-  reference's own ``SystemExit`` text; the flags and configs the port does
-  not carry yet exit naming their ROADMAP.md Queue 1 item.
+  reference's own ``SystemExit`` text; the configs the port does not
+  carry yet exit naming their ROADMAP.md Queue 1 item.
+- The wire-overlay flags (``--compress``, ``--secure-agg``,
+  ``--agg-tree-fanout``) each train a reduced step to exit 0.
 - ``compat.CLI_NAMES`` and ``cli_reject`` equal the reference's.
 - The new modules import with jax, the JAX package and ``msgpack``
   blocked.
@@ -139,6 +141,15 @@ BAD_ARGVS = [
     ["--agg-tree-fanout", "2", "--merge", "max"],
     ["--agg-tree-fanout", "2", "--runtime", "nowait"],
     ["--agg-tree-fanout", "2", "--compress", "int8"],
+    # the overlays' own checks
+    ["--compress", "topk", "--topk-fraction", "0"],
+    ["--compress", "int8", "--topk-fraction", "1.5"],
+    ["--secure-agg"],
+    ["--secure-agg", "--transport", "inproc", "--merge", "max"],
+    ["--agg-tree-fanout", "2"],
+    ["--agg-tree-fanout", "1", "--transport", "inproc"],
+    ["--vertical", "off", "--secure-agg"],
+    ["--vertical", "off", "--compress", "int8"],
     # centralized runs with split-execution flags
     ["--vertical", "off", "--transport", "inproc"],
     ["--vertical", "off", "--runtime", "pipelined"],
@@ -167,10 +178,27 @@ def test_bad_argv_exits_with_the_reference_text(argv):
     assert mine.value.code == theirs.value.code
 
 
+@pytest.mark.parametrize("argv", [
+    ["--compress", "topk", "--transport", "inproc"],
+    ["--secure-agg", "--transport", "multiproc"],
+    ["--agg-tree-fanout", "2", "--transport", "inproc"]],
+    ids=["compress", "secure-agg", "agg-tree-fanout"])
+def test_overlay_flags_run(tmp_path, capsys, argv):
+    """Each wire overlay's flag trains one reduced step to exit 0, verified
+    at step 0 in-run, with the reference's summary keys."""
+    out = str(tmp_path / "run.json")
+    assert launch.main(argv + ["--reduced", "--steps", "1", "--batch", "4",
+                               "--seq", "16", "--device", "cpu", "--json",
+                               out]) == 0
+    printed = capsys.readouterr().out
+    assert "verification vs protocol_step" in printed
+    with open(out) as f:
+        summary = json.load(f)["summary"]
+    assert set(summary) == SPLIT_KEYS
+    assert summary["transport"] == argv[-1]
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--compress", "topk", "--transport", "inproc"], "item 6"),
-    (["--secure-agg", "--transport", "multiproc"], "item 7"),
-    (["--agg-tree-fanout", "2", "--transport", "inproc"], "item 8"),
     (["--arch", "zamba2-7b", "--reduced"], "item 11"),
     (["--arch", "stablelm-3b"], "item 12"),
     (["--arch", "deepseek-moe-16b", "--transport", "inproc"], "item 13"),
@@ -179,7 +207,7 @@ def test_bad_argv_exits_with_the_reference_text(argv):
 ])
 def test_unported_exits_naming_its_item(argv, item):
     """What the port does not carry yet never runs without it: the exit
-    names the flag or config and its ROADMAP.md Queue 1 item."""
+    names the config and its ROADMAP.md Queue 1 item."""
     with pytest.raises(SystemExit) as e:
         launch.main(argv + ["--device", "cpu"])
     text = e.value.code

@@ -342,5 +342,9 @@ def test_mlp_worker_refusals():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_mlp_worker(0, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="cut compression"):
-        build_mlp_worker(0, cfg=cfg, compress="int8", device="cpu")
+    # cut compression is ported: the worker compresses at the source, and
+    # an unknown scheme is refused by name, as the JAX package's worker
+    worker = build_mlp_worker(0, cfg=cfg, compress="int8", device="cpu")
+    assert worker.compress == "int8"
+    with pytest.raises(ValueError, match="unknown compression scheme"):
+        build_mlp_worker(0, cfg=cfg, compress="fp8", device="cpu")

@@ -355,9 +355,9 @@ def test_pipelined_step_default_plan_and_device():
 
 
 def test_executor_accepts_nowait_and_refuses_the_rest():
-    """The Executor takes ``mode="nowait"`` and ``drop_policy="impute"``;
-    secure aggregation, compression and trees stay refused (by the compat
-    matrix where unsound, else by name)."""
+    """The Executor takes ``mode="nowait"`` and ``drop_policy="impute"``,
+    with cut compression too, as the JAX package's does; secure
+    aggregation and trees are refused there by the compat matrix."""
     cfg, jcfg = _configs(TINY3)
     s = _setup(cfg, jcfg)
     loss, _ = _loss_fns(cfg.num_classes)
@@ -367,17 +367,15 @@ def test_executor_accepts_nowait_and_refuses_the_rest():
     args = (tr, towers.mlp_tower_apply, loss, "avg")
     for kw in (dict(mode="nowait"), dict(drop_policy="impute"),
                dict(mode="nowait", deadline=0.2),
-               dict(mode="nowait", deadline=AdaptiveDeadline(3, 0.1))):
+               dict(mode="nowait", deadline=AdaptiveDeadline(3, 0.1)),
+               dict(mode="nowait", compress="topk"),
+               dict(drop_policy="impute", compress="int8")):
         Executor(*args, **kw)
     for kw, err, match in (
             (dict(mode="nowait", secure_agg=True), compat.CompatError,
              "barrier execution"),
             (dict(mode="nowait", agg_tree=object()), compat.CompatError,
-             "barrier execution"),
-            (dict(mode="nowait", compress="topk"), NotImplementedError,
-             "not ported"),
-            (dict(drop_policy="impute", compress="int8"),
-             NotImplementedError, "not ported")):
+             "barrier execution")):
         with pytest.raises(err, match=match):
             Executor(*args, **kw)
     ex = Executor(*args, mode="nowait", microbatches=2)

@@ -465,14 +465,31 @@ def test_centralized_train_step_matches_jax():
 
 
 def test_compression_is_refused_by_name():
+    """Cut compression is ported: ``split_forward`` and the split train
+    step run the codec on every cut (straight through) as the JAX
+    package's do, and an unknown scheme is refused by name as there."""
     cfg = FINANCIAL_PHRASEBANK
-    _, params = _jax_params(cfg)
-    x, _ = _features(cfg)
-    with pytest.raises(NotImplementedError, match="cut compression"):
+    jparams, params = _jax_params(cfg)
+    x, y = _features(cfg)
+    for scheme in ("int8", "topk"):
+        want = jax_split_model.split_forward(jparams, jnp.asarray(x), cfg,
+                                             compression=scheme)
+        got = split_model.split_forward(params, torch.from_numpy(x), cfg,
+                                        compression=scheme)
+        _close(got, want, STEP_TOL)
+    jopt, opt = JaxAdamW(), AdamW()
+    jstep = jax_split_model.make_split_train_step(cfg, jopt,
+                                                  compression="topk")
+    step = split_model.make_split_train_step(cfg, opt, compression="topk")
+    jp, _, jloss = jstep(jparams, jopt.init(jparams), jax.random.PRNGKey(0),
+                         jnp.asarray(x), jnp.asarray(y))
+    p, _, loss = step(params, opt.init(params), None, torch.from_numpy(x),
+                      torch.from_numpy(y))
+    _close(loss, jloss, STEP_TOL)
+    _close(p, jp, STEP_TOL)
+    with pytest.raises(ValueError, match="unknown compression scheme"):
         split_model.split_forward(params, torch.from_numpy(x), cfg,
-                                  compression="int8")
-    with pytest.raises(NotImplementedError, match="cut compression"):
-        split_model.make_split_train_step(cfg, AdamW(), compression="topk")
+                                  compression="fp8")
 
 
 def test_entry_points_default_to_cuda():

@@ -361,7 +361,11 @@ def test_admission_control_and_guards(setup):
         worker.handle({"op": "serve_decode", "request": 7, "token": 4,
                        "pos": 5})
     with pytest.raises(ValueError, match="unknown op"):
-        worker.handle({"op": "key_exchange"})  # secure aggregation: unported
+        worker.handle({"op": "serve_rewind"})
+    # secure aggregation's key exchange is a worker op now; a request
+    # without its phase fails loudly, as the JAX package's worker does
+    with pytest.raises(KeyError, match="phase"):
+        worker.handle({"op": "key_exchange"})
 
 
 def test_training_overlays_rejected(setup):

@@ -451,11 +451,12 @@ def test_generate_greedy_matches_jax(setup):
 
 def test_unported_paths_raise_by_name(setup):
     """The ssm family has no fused prompt prefill (its generate replays
-    the prompt, as the JAX package's does); the other families and
-    compression are later slices.  (Split execution of the ssm family is
+    the prompt, as the JAX package's does); the other families are later
+    slices.  A compressed config runs (the straight-through codec before
+    the merge, as in the JAX package's forward).  (Split execution of the ssm family is
     ported: ``tests/test_torch_ssd_train.py``; dense monolithic serving:
     ``tests/test_torch_dense_decode.py``.)"""
-    _, cfg, _, params = setup
+    jcfg, cfg, jparams, params = setup
     with pytest.raises(NotImplementedError, match="prompt prefill"):
         backbone.prefill_tokens(params,
                                 backbone.init_cache(cfg, 1, 4, device="cpu"),
@@ -465,9 +466,14 @@ def test_unported_paths_raise_by_name(setup):
             cfg, family="hybrid"), np.zeros((1, 2)))
     compressed = cfg.with_vertical(dataclasses.replace(
         cfg.vertical, compression="int8"))
-    with pytest.raises(NotImplementedError, match="compression"):
-        backbone.forward(params, {"tokens": torch.zeros((1, 4), dtype=int)},
-                         compressed)
+    jcompressed = jcfg.with_vertical(dataclasses.replace(
+        jcfg.vertical, compression="int8"))
+    tokens = _tokens(cfg, (1, 8), seed=3)
+    want, _ = jax_backbone.forward(jparams, {"tokens": jnp.asarray(tokens)},
+                                   jcompressed)
+    got, _ = backbone.forward(params, {"tokens": torch.from_numpy(tokens)},
+                              compressed)
+    _close(got, want, LOGIT_TOL)
     hybrid = dataclasses.replace(cfg, family="hybrid")
     with pytest.raises(NotImplementedError, match="'hybrid' family"):
         backbone.init_params(hybrid, device="cpu")

@@ -262,8 +262,14 @@ def test_compat_rules_are_the_jax_rules():
 
 
 def test_unported_features_raise(setup):
-    """What the port does not carry yet is refused by name, and unsound
-    compositions by the compat matrix first — never silently ignored."""
+    """The wire overlays are ported and construct as the JAX package's do;
+    unsound compositions reject through the compat matrix with its words,
+    and what the port does not carry yet (a program ``merge_fn``) is
+    refused by name — never silently ignored."""
+    from repro.core.protocol import step_schedule as jax_step_schedule
+    from repro.runtime.topology import AggTree as JaxAggTree
+    from repro_torch.runtime.topology import AggTree
+
     prog, cfg = setup["prog"], setup["cfg"]
     towers, _ = setup["parts"]
     tr = SimTransport([TowerWorker(k, prog.tower_fwd(k), towers[k])
@@ -273,21 +279,31 @@ def test_unported_features_raise(setup):
         Executor(*args, "max", agg_tree=object())
     with pytest.raises(compat.CompatError, match="cannot compose"):
         Executor(*args, "avg", secure_agg=True, compress="int8")
-    # no-wait and the impute policy are ported (tests/test_torch_nowait.py)
     for kw in (dict(secure_agg=True), dict(compress="topk"),
-               dict(agg_tree=object()), dict(merge_fn=lambda c, m: c)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            Executor(*args, "avg", **kw)
+               dict(agg_tree=AggTree(prog.num_clients, fanout=2))):
+        ex = Executor(*args, "avg", **kw)
+        assert ex._schedule.cuts[0].kind == {
+            "secure_agg": "masked_cut", "compress": "compressed_cut",
+            "agg_tree": "tree_cut"}[next(iter(kw))]
     with pytest.raises(NotImplementedError, match="not ported"):
-        protocol.step_schedule(2, compress="int8")
+        Executor(*args, "avg", merge_fn=lambda c, m: c)
+    # the schedules tag the overlays' wires as the JAX package's do
+    sched = protocol.step_schedule(2, compress="int8")
+    jsched = jax_step_schedule(2, compress="int8")
+    assert [(m.tag, m.kind) for m in sched.cuts + sched.jacs] == \
+        [(m.tag, m.kind) for m in jsched.cuts + jsched.jacs]
+    jtree = jax_step_schedule(2, tree=JaxAggTree(2, fanout=2))
+    mtree = protocol.step_schedule(2, tree=AggTree(2, fanout=2))
+    assert [(m.sender, m.receiver, m.tag) for m in mtree.cuts] == \
+        [(m.sender, m.receiver, m.tag) for m in jtree.cuts]
     loader = LMBatchLoader(cfg, BATCH, SEQ)
-    # the three transports are ported; the training overlays are refused
-    # before any worker is built, and an unknown transport by name
-    with pytest.raises(NotImplementedError, match="tree aggregation is not "
-                       "ported"):
-        train_split(cfg, loader, steps=1, batch=BATCH, seq=SEQ,
-                    agg_tree_fanout=2, transport="multiproc", device="cpu",
-                    params=setup["params"])
+    # the tree runs over processes (one step, verified at step 0); an
+    # unknown transport is refused by name
+    _, metrics, _ = train_split(
+        cfg, loader, steps=1, batch=BATCH, seq=SEQ, agg_tree_fanout=2,
+        transport="multiproc", device="cpu", params=setup["params"],
+        print_fn=lambda *a: None)
+    assert metrics.step0_max_dgrad is not None and len(metrics.losses) == 1
     with pytest.raises(ValueError, match="unknown split transport 'tcp'"):
         train_split(cfg, loader, steps=1, batch=BATCH, seq=SEQ,
                     transport="tcp", device="cpu", params=setup["params"])
