@@ -20,7 +20,11 @@ spawned process per feature holder over TCP loopback, monolithic and
 centralized training with msgpack checkpoints, and
 ``python -m repro_torch.launch.train``, and the protocol's three wire
 overlays (cut compression, secure aggregation, aggregation trees) over
-the inline, threaded and process transports and through the launcher.
+the inline, threaded and process transports and through the launcher,
+and the other dense configs and the hybrid family: long-prompt split
+serving of full-width stablelm-3b (f32, head dim 80) and qwen3-32b (bf16,
+qk-norm), and full-width zamba2-7b's forward, generate and split
+training (Mamba2 super-blocks with a weight-shared attention block).
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -281,6 +285,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``merge_reduce_kernel`` at (2, 2048, 960) "sum" both ways, 15,728,640
    bytes per tree level.  (d) ``python -m repro_torch.launch.train
    --transport multiproc --compress int8 --steps 3 ...`` as a subprocess.
+16. The other dense configs and the hybrid family, counters reset just
+   before each run and read just after.  (a) Reduced stablelm-3b,
+   qwen3-32b (qk-norm) and zamba2-7b at ``shared_attn_every`` 2 over 6
+   layers (2 super-blocks and a tail; head dim 112), same weights, card
+   against CPU: ``forward`` logits within 1e-4 (zamba2 over 2304 tokens:
+   7 SSD and 2 flash launches at D 112) and greedy ``generate`` tokens
+   identical; stablelm at head dim 80 and qwen3 at 128 served split on a
+   2304-token prompt, as phase 6 serves smollm.  (b) Full-width
+   stablelm-3b (f32, seeded weights; 32 / 32 heads of 80), K = 4, two
+   slots: 4 short requests and prompts of 2500 and 8192 tokens, each long
+   prefill timed alone; 38 flash launches at D = 80 per long prompt (30
+   server + 4 x 2 tower layers), one merge launch per merge, the ledger =
+   the cost model; a plain run (merge and attention) gives identical
+   tokens and prefill logits within 1e-3.  (c) Full-width qwen3-32b in
+   bf16 (32.2 B params, 64.5 GB; every stacked weight drawn layer by
+   layer, so no f32 copy of a stack is held), K = 4: one 4096-token
+   prompt and 3 short ones, 8 new tokens each: 70 flash launches at
+   D = 128, every one in bf16 (62 server + 4 x 2 tower layers), the
+   ledger = the cost model at 2 bytes a cut element, peak memory.  (d)
+   Full-width zamba2-7b (f32, seeded; 13 super-blocks of 6 Mamba2 layers
+   and a tail of 1, K = 4 Mamba2 towers of width 896): ``make_prefill``
+   at 8192 and 32768 tokens, 87 SSD launches (79 server + 4 x 2 tower
+   layers) and 13 flash launches at D = 112 each; at 8192 the plain
+   forward launches nothing and its logits agree within 1e-3; greedy
+   ``generate`` of 2 x 64 prompt tokens and 16 new, the first tokens the
+   forward's argmax.  (e) zamba2-7b at full width cut to 15 layers (2
+   super-blocks and a tail of 1), ``train_split`` over inproc, 3 serial
+   steps of 8 x 256, step 0 verified at 1e-5: per step 13 server and
+   2 x 8 tower SSD forward launches, 21 backward, one avg merge each way
+   at (4, 2048, 3584) (held and timed in phase 2), the ledger = the byte
+   models; train tokens/s and peak memory.  Phase 5 also holds and
+   times flash at qwen3-32b's (64 / 8) and (16 / 2) heads of 128 at 4096
+   tokens in bf16, phase 7 both SSD kernels at zamba2-7b's (1, 8192) and
+   (8, 256) tokens with 112 and 28 heads and d_state 64.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -317,6 +355,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, mamba, split_program  # noqa: E402
+from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.transformer import BlockDims  # noqa: E402
 from repro_torch.optim import SGD, AdamW  # noqa: E402
 from repro_torch.runtime import engine  # noqa: E402
@@ -367,7 +406,14 @@ NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
 LONG_PROMPTS = [2500, 4096, 8192, 16384, 32768, 1024]
 LONG_NEW = [16, 16, 8, 8, 4, 16]
 LONG_CUT_CACHE_BYTES = 256 * 2 ** 20
-FLASH_TOL = {torch.float32: 5e-4, torch.bfloat16: 3e-2}
+# the flash kernel against the plain version, as (rtol, atol): in f32
+# against the plain f32 output; in bf16 against the plain version's f32
+# output from the same bf16 inputs.  Both compute in f32 and the kernel
+# rounds its output to bf16, so a bf16 element may be off by half a bf16
+# ulp (2^-9 to 2^-8 of its size) beside the f32 path's own error (worst
+# 3.2e-05 at the shapes below); a kernel off by a percent of an output
+# fails it at every shape.  The S = 4096 outputs are ~0.026 in size.
+FLASH_TOL = {torch.float32: (5e-4, 5e-4), torch.bfloat16: (2 ** -7, 1e-4)}
 # (B, H, Hkv, S, D): the serving path's server and tower attentions
 FLASH_PATH_SHAPES = [(1, h, hkv, s, 64) for s in (2500, 4096, 8192)
                      for h, hkv in ((15, 5), (3, 1))]
@@ -385,6 +431,11 @@ FLASH_SMALL_SHAPES = [(2, 4, 2, 37, 64), (1, 2, 2, 600, 32),
 FLASH_WIDE_SHAPES = [(1, 24, 2, 8192, 128), (1, 6, 1, 8192, 128),
                      (1, 32, 32, 8192, 80), (1, 32, 32, 8192, 112),
                      (1, 24, 2, 32768, 128)]
+# qwen3-32b's server (64 q / 8 kv heads) and towers (16 / 2) at D 128 at
+# its 4096-token prompt, checked in f32 and bf16 and timed in bf16, as
+# phase 16 serves it
+FLASH_QWEN_SHAPES = [(1, 64, 8, 4096, 128), (1, 16, 2, 4096, 128)]
+H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, H100 SXM
 # timed, causal f32: the smollm-360m server (D 64) as PR 15 timed it, then
 # every wide shape
 FLASH_TIME_SHAPES = [(1, 15, 5, 8192, 64), (1, 15, 5, 32768, 64)] + \
@@ -401,6 +452,13 @@ SSD_SHAPES = [(1, 2048, 64, 64, 128, 128), (1, 8192, 64, 64, 128, 128),
               (2, 256, 4, 64, 16, 32), (1, 96, 64, 64, 128, 128),
               (8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
               (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32)]
+# zamba2-7b's Mamba2 layers (d_state 64): the server's 112 heads and the
+# towers' 28 (d_model 3584 / 4 = 896, d_inner 1792) at phase 16's 8192-token
+# forward and its 8 x 256 training steps; head counts that are not powers
+# of two, checked and timed both ways
+ZAMBA_SSD_SHAPES = [(1, 8192, 112, 64, 64, 128), (1, 8192, 28, 64, 64, 128),
+                    (8, 256, 112, 64, 64, 128), (8, 256, 28, 64, 64, 128)]
+SSD_SHAPES += ZAMBA_SSD_SHAPES
 # the SSD backward kernel (phase 7) at phase 12's training shapes: 8 x 256
 # tokens through the server (64 heads) and the towers (16), the reduced
 # config's server and towers (Q 32, N 16; phase 12 (a)), one chunk per
@@ -410,7 +468,7 @@ SSD_SHAPES = [(1, 2048, 64, 64, 128, 128), (1, 8192, 64, 64, 128, 128),
 SSD_BWD_SHAPES = [(8, 256, 64, 64, 128, 128), (8, 256, 16, 64, 128, 128),
                   (8, 256, 8, 64, 16, 32), (8, 256, 4, 64, 16, 32),
                   (8, 128, 64, 64, 128, 128), (1, 128, 201, 32, 128, 128),
-                  (2, 256, 24, 32, 128, 128)]
+                  (2, 256, 24, 32, 128, 128)] + ZAMBA_SSD_SHAPES
 SSD_BWD_REL = 1e-4
 SSD_BWD_NEG_A = -80.0  # a per step: exp above the diagonal would overflow
 # the ssm training slice (phase 12): mamba2-1.3b's cut stack at 8 x 256
@@ -419,7 +477,9 @@ SSM_TRAIN_SHAPE = (4, 2048, 2048)
 SSM_TRAIN_TIME_SHAPES = [("avg", SSM_TRAIN_SHAPE)]
 # timed: the server shape at 8192 and 32768 tokens, the tower's at 32768
 SSD_TIME_SHAPES = [(1, 8192, 64, 64, 128, 128), (1, 32768, 64, 64, 128, 128),
-                   (1, 32768, 16, 64, 128, 128)]
+                   (1, 32768, 16, 64, 128, 128)] + ZAMBA_SSD_SHAPES
+# the backward, timed: phase 12's server and tower shapes, then zamba2-7b's
+SSD_BWD_TIME_SHAPES = SSD_BWD_SHAPES[:2] + ZAMBA_SSD_SHAPES
 # the ssm slice: (batch, tokens) per forward; the repo's prefill_32k shape
 # at batch 1 (its batch of 32 would need 211 GB of f32 logits)
 SSM_FORWARDS = [(1, 2048), (1, 8192), (1, 32768), (4, 2048)]
@@ -504,6 +564,30 @@ OVERLAYS = {
 TREE_SHAPE = (2, 2048, 960)
 TREE_TIME_SHAPES = [("sum", TREE_SHAPE)]
 MASKED_TOL = 1e-3  # the JAX package's masked-merge verification tolerance
+# the other dense configs and the hybrid family (phase 16): stablelm-3b
+# (f32, head dim 80) serves 4 short requests beside prompts of 2500 and
+# 8192 tokens, qwen3-32b (bf16: 129 GB in f32) one prompt of 4096 beside 3
+# short ones; zamba2-7b's forward at 8192 and 32768 tokens, generate of 2
+# x 64 prompt tokens, and split training at 15 of its 81 layers (AdamW
+# over all 81 in f32 would need 106 GB), whose cut stack (4, 2048, 3584)
+# the reduce kernels merge both ways
+SL_ARCH, QW_ARCH, HY_ARCH = "stablelm-3b", "qwen3-32b", "zamba2-7b"
+SL_PROMPTS, SL_NEW = [2500, 64, 8192, 200, 512, 96], [8, 16, 8, 12, 8, 10]
+QW_PROMPTS, QW_NEW = [4096, 64, 200, 512], [8, 8, 8, 8]
+HY_FORWARDS = [(1, 8192), (1, 32768)]
+HY_GEN = (2, 64), 16
+HY_TRAIN_LAYERS, HY_TRAIN_STEPS = 15, 3
+HYBRID_TRAIN_SHAPE = (4, 2048, 3584)
+HYBRID_TRAIN_TIME_SHAPES = [("avg", HYBRID_TRAIN_SHAPE)]
+# phase 16 (c)'s bf16 kernel run against its plain one: logits within
+# 2^-4 of the step's largest.  The two runs' attentions agree to f32 and
+# round to bf16; from the first output that rounds the other way their
+# roundings part, and each of 64 bf16 layers adds its own (2^-9 of an
+# element, ~1% after 64 layers): 2.0e-2 of the largest logit at the
+# 4096-token prefill on an NVIDIA H100 80GB HBM3.  A kernel off by a
+# percent of its outputs is held by phase 5 (rtol 2^-7 at these shapes);
+# one that is wrong moves the logits by their spread
+PLAIN_BF16_TOL = 2 ** -4
 # figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
@@ -519,15 +603,25 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every kernel's count, and the flash kernel's again by head dim (one
-    instantiation each), as ``flash_attention_kernel[D=d]``."""
+    """Every kernel's count, and the flash kernel's again by head dim
+    (both dtypes), as ``flash_attention_kernel[D=d]``, and by bf16
+    instantiation, as ``flash_attention_kernel[D=d,bf16]``."""
+    by_dim = dict.fromkeys(fa.HEAD_DIMS, 0)
+    for (d, _), n in fa.launches_by_instance.items():
+        by_dim[d] += n
     return {**mp.launches, **fa.launches,
-            **{flash_name(d): n for d, n in fa.launches_by_head_dim.items()},
+            **{flash_name(d): n for d, n in by_dim.items()},
+            **{flash_name(d, torch.bfloat16): n
+               for (d, dtype), n in fa.launches_by_instance.items()
+               if dtype == torch.bfloat16},
             **ssd.launches}
 
 
-def flash_name(head_dim: int) -> str:
-    return f"flash_attention_kernel[D={head_dim}]"
+def flash_name(head_dim: int, dtype=None) -> str:
+    """The flash count at ``head_dim``: of both dtypes, or of ``dtype``
+    bf16 alone."""
+    tag = ",bf16" if dtype == torch.bfloat16 else ""
+    return f"flash_attention_kernel[D={head_dim}{tag}]"
 
 
 def card_line() -> str:
@@ -582,7 +676,7 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES + \
-        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE]
+        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE, HYBRID_TRAIN_SHAPE]
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -689,7 +783,8 @@ def check_backward_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
-        MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE]
+        MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE,
+                      HYBRID_TRAIN_SHAPE]
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -910,7 +1005,8 @@ def time_backward_shapes(card: str) -> dict:
                             ("concat", CONCAT_TRAIN_SHAPE),
                             ("max", TRAIN_SHAPE),
                             ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES + \
-            NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES:
+            NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES + \
+            HYBRID_TRAIN_TIME_SHAPES:
         K, B, D = shape
         name = ("merge_concat_bwd_kernel" if strategy == "concat"
                 else "merge_reduce_bwd_kernel")
@@ -1105,7 +1201,8 @@ def time_path_shapes(card: str) -> dict:
     rows = {}
     pairs = [("avg", s) for s in PATH_SHAPES] + \
         [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES + \
-        NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES
+        NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES \
+        + HYBRID_TRAIN_TIME_SHAPES
     for strategy, shape in pairs:
         concat = strategy == "concat"
         name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
@@ -1428,7 +1525,8 @@ def _flash_inputs(shape, dtype, gen, model_layout: bool):
 
 def check_flash_kernel() -> dict:
     """Path and ragged shapes x causal/full x f32/bf16: kernel vs plain.
-    Returns the largest f32 |error| per head dim."""
+    Returns the largest f32 |error| per head dim, and the largest bf16
+    one keyed ``(D, "bfloat16")``."""
     log(f"flash: ptxas: {ptxas_report('flash_attention_kernel')}")
     spills = {inst: spill for inst, (_, spill) in
               _ptxas_counts("flash_attention_kernel").items() if spill}
@@ -1445,35 +1543,44 @@ def check_flash_kernel() -> dict:
             raise AssertionError(f"flash kernel without tensor-core "
                                  f"instructions: {counts}")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    worst, n = dict.fromkeys(fa.HEAD_DIMS, 0.0), 0
-    model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES
+    worst = {**dict.fromkeys(fa.HEAD_DIMS, 0.0),
+             **{(d, "bfloat16"): 0.0 for d in fa.HEAD_DIMS}}
+    n = 0
+    model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES + FLASH_QWEN_SHAPES
     for shape in FLASH_SMALL_SHAPES + model_layout:
         for causal in (True, False) if shape[3] <= 8192 else (True,):
             for dtype in (torch.float32, torch.bfloat16):
                 q, k, v = _flash_inputs(shape, dtype, gen,
                                         shape in model_layout)
                 got = fa.flash_attention(q, k, v, causal=causal)
-                want = ref.flash_attention(q, k, v, causal=causal)
+                want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                           causal=causal)
                 torch.cuda.synchronize()
                 if got.shape != want.shape or got.dtype != dtype:
                     raise AssertionError(f"flash {shape}: {tuple(got.shape)} "
                                          f"{got.dtype}")
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"flash {shape}: non-finite output")
-                torch.testing.assert_close(got.float(), want.float(),
-                                           rtol=FLASH_TOL[dtype],
-                                           atol=FLASH_TOL[dtype])
-                if dtype == torch.float32:
-                    worst[shape[4]] = max(worst[shape[4]],
-                                          float((got - want).abs().max()))
+                rtol, atol = FLASH_TOL[dtype]
+                torch.testing.assert_close(got.float(), want, rtol=rtol,
+                                           atol=atol)
+                key = shape[4] if dtype == torch.float32 else (
+                    shape[4], "bfloat16")
+                worst[key] = max(worst[key], float(
+                    (got.float() - want.float()).abs().max()))
                 n += 1
                 del q, k, v, got, want
     torch.cuda.empty_cache()
-    log(f"flash kernel: {n} cases match the plain version (f32 tol 5e-4, "
-        f"bf16 tol 3e-2; (B, H, Hkv, S, D) in {FLASH_SMALL_SHAPES}, "
-        f"{FLASH_PATH_SHAPES} and {FLASH_WIDE_SHAPES}, causal and full up "
+    log(f"flash kernel: {n} cases match the plain version (f32: rtol and "
+        f"atol 5e-4; bf16: against the plain f32 output from the same "
+        f"inputs, rtol 2^-7, atol 1e-4; (B, H, Hkv, S, D) in "
+        f"{FLASH_SMALL_SHAPES}, "
+        f"{FLASH_PATH_SHAPES}, {FLASH_WIDE_SHAPES} and {FLASH_QWEN_SHAPES}, "
+        f"causal and full up "
         f"to 8192 tokens); worst f32 |err| by head dim "
-        + ", ".join(f"D {d}: {e:.3e}" for d, e in worst.items()))
+        + ", ".join(f"D {d}: {worst[d]:.3e}" for d in fa.HEAD_DIMS)
+        + "; bf16 " + ", ".join(f"D {d}: {worst[(d, 'bfloat16')]:.3e}"
+                                for d in fa.HEAD_DIMS))
     return worst
 
 
@@ -1515,42 +1622,51 @@ def tensor_core_instructions(kernel: str) -> dict | None:
     return counts
 
 
-def flash_bound(B, H, Hkv, S, D, itemsize=4, causal=True) -> tuple:
-    """Least time on an H100 SXM for the kernel's f32-accurate work: two
-    D-deep products per attended (q, kv) pair, each as three TF32 products
-    (3xTF32) at the tensor cores' dense TF32 rate, vs q, k, v read once and
-    o written once.  Also returns the f32-FMA figure (the same products at
-    the f32 rate outside the tensor cores) and the f32 flops."""
+def flash_bound(B, H, Hkv, S, D, dtype=torch.float32, causal=True) -> tuple:
+    """Least time on an H100 SXM for the kernel's work: two D-deep
+    products per attended (q, kv) pair, in f32 each as three TF32 products
+    (3xTF32) at the tensor cores' dense TF32 rate, in bf16 once at their
+    dense bf16 rate; vs q, k, v read once and o written once.  Also
+    returns the f32-FMA figure (the same products at the f32 rate outside
+    the tensor cores) and the flops."""
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 4 * D * B * H * pairs
+    itemsize = torch.finfo(dtype).bits // 8
     nbytes = (2 * B * H * S * D + 2 * B * Hkv * S * D) * itemsize
-    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    t_ops = (3 * flops / H100_TF32_FLOPS if dtype == torch.float32
+             else flops / H100_BF16_FLOPS)
+    t_bytes = nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
             max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
 
 
 def time_flash(card: str) -> dict:
-    """Every shape of FLASH_TIME_SHAPES, causal f32, in the model's layout:
-    the kernel, the plain version, one library call and the bound, by
-    shape.  The library call is scaled_dot_product_attention's
-    memory-efficient backend on kv heads repeated before the call: this
-    PyTorch's fused f32 backends refuse enable_gqa=True, and its math
-    backend would hold the 64 GB score matrix at 32768.  At the 8192-token
-    smollm-360m shape the enable_gqa=True call (the math backend) is timed
-    too, for the record."""
+    """Every shape of FLASH_TIME_SHAPES, causal f32, and of
+    FLASH_QWEN_SHAPES, causal bf16, in the model's layout: the kernel, the
+    plain version, one library call and the bound, by shape (the bf16 rows
+    keyed ``(shape, torch.bfloat16)``).  The library call is
+    scaled_dot_product_attention's memory-efficient backend (in bf16 its
+    flash backend) on kv heads repeated before the call: this PyTorch's
+    fused f32 backends refuse enable_gqa=True, and its math backend would
+    hold the 64 GB score matrix at 32768.  At the 8192-token smollm-360m
+    shape the enable_gqa=True call (the math backend) is timed too, for
+    the record."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     from torch.nn.functional import scaled_dot_product_attention
 
     rows = {}
-    for shape in FLASH_TIME_SHAPES:
+    for shape, dtype in [(s, torch.float32) for s in FLASH_TIME_SHAPES] + \
+            [(s, torch.bfloat16) for s in FLASH_QWEN_SHAPES]:
         B, H, Hkv, S, D = shape
         gen = torch.Generator(device="cuda").manual_seed(S + D)
-        q, k, v = _flash_inputs(shape, torch.float32, gen, True)
+        q, k, v = _flash_inputs(shape, dtype, gen, True)
         kr, vr = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+        backends = [SDPBackend.EFFICIENT_ATTENTION] if \
+            dtype == torch.float32 else [SDPBackend.FLASH_ATTENTION]
 
         def library():
-            with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            with sdpa_kernel(backends):
                 return scaled_dot_product_attention(q, kr, vr, is_causal=True)
 
         fns = {"": lambda: fa.flash_attention(q, k, v, causal=True),
@@ -1570,16 +1686,19 @@ def time_flash(card: str) -> dict:
                 lambda _: fn(), [(None,)], iters=1 if slow else
                 (3 if big else 10), reps=2 if slow else 3)
         row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops = \
-            flash_bound(*shape)
+            flash_bound(*shape, dtype=dtype)
         got, want = fns[""](), fns["library_"]()
         torch.cuda.synchronize()
-        row["library_max_abs_diff"] = float((got - want).abs().max())
-        rows[shape] = row
-        log(f"time flash causal f32 ({B}, {H}/{Hkv}, {S}, {D}): per call "
+        row["library_max_abs_diff"] = float((got.float() - want.float()
+                                             ).abs().max())
+        f32 = dtype == torch.float32
+        rows[shape if f32 else (shape, dtype)] = row
+        name = str(dtype).removeprefix("torch.")
+        log(f"time flash causal {name} ({B}, {H}/{Hkv}, {S}, {D}): per call "
             f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
-            f"{flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s "
+            f"{flops / row['device_ms'] / 1e9:.2f} TFLOP/s "
             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the "
-            f"3xTF32 tensor-core bound, "
+            f"{'3xTF32' if f32 else 'bf16'} tensor-core bound, "
             f"{100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of the "
             f"f32-FMA bound), plain "
             f"{row['plain_ms']:.6f} ({row['plain_device_ms']:.6f}) ms, "
@@ -1588,9 +1707,10 @@ def time_flash(card: str) -> dict:
             + (f" library enable_gqa=True {row['library_gqa_ms']:.6f} "
                f"({row['library_gqa_device_ms']:.6f}) ms,"
                if "library_gqa_ms" in row else "")
-            + f" bound {row['bound_ms']:.6f} ms ({row['bound_by']}, 3xTF32 at "
-            f"495 TFLOP/s), fma_bound {row['fma_bound_ms']:.6f} ms (f32 at "
-            f"67 TFLOP/s) | {card}")
+            + f" bound {row['bound_ms']:.6f} ms ({row['bound_by']}, "
+            f"{'3xTF32 at 495' if f32 else 'bf16 at 989'} TFLOP/s), "
+            f"fma_bound {row['fma_bound_ms']:.6f} ms (f32 at 67 TFLOP/s) | "
+            f"{card}")
         del q, k, v, kr, vr, got, want
         torch.cuda.empty_cache()
     return rows
@@ -1601,9 +1721,11 @@ def time_flash(card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def serve_recording(cfg, params, prompts, new_tokens, *, use_kernel=True,
-                    **kw):
+                    sampled: dict | None = None, **kw):
     """``serve`` that also keeps each request's prefill logits (requests
-    are admitted in submission order) and the server's wire report."""
+    are admitted in submission order) and the server's wire report; with
+    ``sampled``, the f32 logits each token was drawn from, by request
+    id."""
     srv = make_server(cfg, params, "cuda", use_kernel=use_kernel, **kw)
     logits = []
     prefill = srv._fns.prefill
@@ -1614,12 +1736,25 @@ def serve_recording(cfg, params, prompts, new_tokens, *, use_kernel=True,
         return out, cache
 
     srv._fns.prefill = recording_prefill
+    if sampled is not None:
+        sample = srv._sample
+
+        def recording_sample(rid, pos, row):
+            sampled.setdefault(rid, []).append(row.detach().float().clone())
+            return sample(rid, pos, row)
+
+        srv._sample = recording_sample
     for p, n in zip(prompts, new_tokens):
         srv.submit(p, max_new_tokens=n)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
-    results = srv.run()
+    try:
+        results = srv.run()
+    finally:
+        # the recorder refers to the server: without this cycle broken,
+        # the server's tree and caches would outlive the call
+        srv.__dict__.pop("_sample", None)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches()
@@ -2081,13 +2216,14 @@ def check_ssd_bwd_kernel() -> float:
 
 
 def time_ssd_bwd(card: str) -> dict:
-    """The backward kernel at phase 12's server and tower shapes: per call
-    and on the device, the plain backward likewise, and the bound (3xTF32
-    vs bytes, with the f32-FMA figure beside it).  No single PyTorch call
-    computes this gradient (autograd of the plain forward is a dozen
-    calls), so there is no library time."""
+    """The backward kernel at SSD_BWD_TIME_SHAPES (phase 12's server and
+    tower shapes, zamba2-7b's): per call and on the device, the plain
+    backward likewise, and the bound (3xTF32 vs bytes, with the f32-FMA
+    figure beside it).  No single PyTorch call computes this gradient
+    (autograd of the plain forward is a dozen calls), so there is no
+    library time."""
     rows = {}
-    for shape in SSD_BWD_SHAPES[:2]:
+    for shape in SSD_BWD_TIME_SHAPES:
         gen = torch.Generator(device="cuda").manual_seed(shape[2])
         args = _ssd_bwd_inputs(shape, gen)
         fns = {"": lambda: ssd.ssd_chunk_bwd(*args),
@@ -2101,8 +2237,11 @@ def time_ssd_bwd(card: str) -> dict:
         row["bound_ms"], row["bound_by"], row["fma_ms"], flops = \
             ssd_bwd_bound(*shape)
         rows[shape] = row
-        B, S, H = shape[:3]
-        log(f"time ssd bwd f32 ({B}, {S}, {H} heads, P 64, N 128, Q 128): "
+        B, S, H, P, N, Q = shape
+        plan = ssd.bwd_plan(*shape, torch.device("cuda", 0))
+        log(f"time ssd bwd f32 ({B}, {S}, {H} heads, P {P}, N {N}, Q {Q}; HG "
+            f"{plan['heads']}, {plan['groups']} groups, {plan['blocks']} "
+            f"blocks): "
             f"kernel vs plain max |err| {row['max_abs_err']:.3e}; per call "
             f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms "
             f"= {flops / row['device_ms'] / 1e9:.2f} f32 TFLOP/s of the "
@@ -2149,14 +2288,14 @@ def time_ssd(card: str) -> tuple:
     Returns the rows by shape and the largest |error|."""
     rows, worst = {}, 0.0
     for shape in SSD_TIME_SHAPES:
-        S, H = shape[1], shape[2]
+        B, S, H, P, N, Q = shape
         gen = torch.Generator(device="cuda").manual_seed(S + 1)
         x, dt, A, Bm, Cm = _ssd_inputs(shape, gen)
         a, xdt = dt * A, x * dt[..., None]
         b, c = Bm[:, :, 0], Cm[:, :, 0]
         big = S > 8192
-        fns = {"": lambda: ssd.ssd_chunk(xdt, a, b, c, 128),
-               "plain_": lambda: ref.ssd_chunks(xdt, a, b, c, 128)}
+        fns = {"": lambda: ssd.ssd_chunk(xdt, a, b, c, Q),
+               "plain_": lambda: ref.ssd_chunks(xdt, a, b, c, Q)}
         err = 0.0
         for name, g, w in zip(("y_intra", "state", "decay", "cum"),
                               fns[""](), fns["plain_"]()):
@@ -2176,7 +2315,7 @@ def time_ssd(card: str) -> tuple:
             ssd_bound(*shape)
         row["plan"] = ssd.plan(*shape, torch.device("cuda", 0))
         rows[shape] = row
-        log(f"time ssd f32 (1, {S}, {H} heads, P 64, N 128, Q 128; HG "
+        log(f"time ssd f32 ({B}, {S}, {H} heads, P {P}, N {N}, Q {Q}; HG "
             f"{row['plan']['heads']}, {row['plan']['blocks']} blocks): "
             f"kernel vs plain max |err| {err:.3e} (tol 3e-4); per call "
             f"(device): kernel {row['ms']:.6f} ({row['device_ms']:.6f}) ms = "
@@ -2580,12 +2719,12 @@ def mlp_metrics(logits_fn, x, y, num_classes, batch=2048) -> tuple:
 
 
 def mlp_train(cfg, ds, params, *, centralized=False, num_drop=0, gen=None,
-              masks=None) -> tuple:
+              masks=None, steps: int = MLP_STEPS) -> tuple:
     """The paper tables' loop (``paper_tables.train_split`` /
-    ``train_centralized``): AdamW(3e-3), batch 256, 400 steps over
-    ``minibatches(seed=0)`` of a device-resident split, on the params'
-    device.  Drops draw their masks from ``gen``, or take ``masks[i]``.
-    Returns (params, losses, seconds)."""
+    ``train_centralized``): AdamW(3e-3), batch 256, 400 steps (or the first
+    ``steps``) over ``minibatches(seed=0)`` of a device-resident split, on
+    the params' device.  Drops draw their masks from ``gen``, or take
+    ``masks[i]``.  Returns (params, losses, seconds)."""
     device = ds.x_train.device
     opt = AdamW(learning_rate=MLP_LR)
     state = opt.init(params)
@@ -2600,7 +2739,7 @@ def mlp_train(cfg, ds, params, *, centralized=False, num_drop=0, gen=None,
     it = synthetic.minibatches(ds.x_train, ds.y_train, MLP_BATCH, seed=SEED,
                                epochs=1000)
     for i, (xb, yb) in enumerate(it):
-        if i >= MLP_STEPS:
+        if i >= steps:
             break
         if centralized:
             params, state, loss = step(params, state, xb, yb)
@@ -2627,33 +2766,32 @@ def mlp_eval(cfg, ds, params, centralized=False, live_mask=None) -> tuple:
 
 def mlp_card_and_cpu(label, cfg, dsets, init, card, *, centralized=False,
                      num_drop=0, gen=None, cpu_masks=None):
-    """One run on the card and the same run on the card's CPU from the same
-    weights: the first MLP_CHECK_STEPS losses must agree within 1e-5.
-    Prints both runs' test accuracy and F1 and the card's samples/s.  The
-    card's run draws its drop masks from ``gen``; the CPU's takes
+    """One run on the card and its first MLP_CHECK_STEPS steps on the
+    card's CPU from the same weights: their losses must agree within 1e-5
+    (the CPU twin stops there: its whole run took most of the phase's
+    time on the host).  Prints the card's test accuracy, F1 and samples/s.
+    The card's run draws its drop masks from ``gen``; the CPU's takes
     ``cpu_masks``, the same masks.  Returns the card's params."""
     out = {
         "card": mlp_train(cfg, dsets["card"], _to(init, "cuda"),
                           centralized=centralized, num_drop=num_drop,
                           gen=gen),
         "cpu": mlp_train(cfg, dsets["cpu"], init, centralized=centralized,
-                         num_drop=num_drop, masks=cpu_masks)}
+                         num_drop=num_drop, masks=cpu_masks,
+                         steps=MLP_CHECK_STEPS)}
     diff = max(abs(a - b) for a, b in zip(out["card"][1][:MLP_CHECK_STEPS],
                                           out["cpu"][1][:MLP_CHECK_STEPS]))
     if diff > 1e-5:
         raise AssertionError(f"{label}: the first {MLP_CHECK_STEPS} losses "
                              f"on the card {out['card'][1][:5]} and the CPU "
                              f"{out['cpu'][1][:5]} differ by {diff:.3e}")
-    metrics = {d: mlp_eval(cfg, dsets[d], out[d][0], centralized)
-               for d in out}
+    acc, f1 = mlp_eval(cfg, dsets["card"], out["card"][0], centralized)
     seconds = out["card"][2]
     log(f"mlp {label}: {MLP_STEPS} steps, {MLP_STEPS * MLP_BATCH / seconds:.1f}"
-        f" train samples/s on the card ({seconds:.4f} s; CPU "
-        f"{MLP_STEPS * MLP_BATCH / out['cpu'][2]:.1f}), loss "
+        f" train samples/s on the card ({seconds:.4f} s), loss "
         f"{out['card'][1][0]:.6f} -> {out['card'][1][-1]:.6f}, first "
         f"{MLP_CHECK_STEPS} losses within {diff:.3e} of the CPU's; test acc "
-        f"/ F1 card {metrics['card'][0]:.4f} / {metrics['card'][1]:.4f}, CPU "
-        f"{metrics['cpu'][0]:.4f} / {metrics['cpu'][1]:.4f} | {card}")
+        f"/ F1 {acc:.4f} / {f1:.4f} | {card}")
     return out["card"][0]
 
 
@@ -4201,6 +4339,435 @@ def overlay_phase(card: str) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the other dense configs and the hybrid family — stablelm-3b
+# and qwen3-32b (qk-norm) long-prompt split serving, zamba2-7b forward,
+# generate and split training
+# ---------------------------------------------------------------------------
+
+def hybrid_cfg(every: int, num_layers: int, base=None):
+    """``base`` (reduced zamba2-7b by default) at ``num_layers`` layers and
+    one shared attention block after every ``every`` Mamba2 layers."""
+    cfg = base or get_arch(HY_ARCH).reduced()
+    return dataclasses.replace(
+        cfg, num_layers=num_layers,
+        hybrid=dataclasses.replace(cfg.hybrid, shared_attn_every=every))
+
+
+def hybrid_counts(cfg) -> dict:
+    """Per forward of the hybrid: every Mamba2 layer of the server and the
+    towers runs the SSD kernel once, every super-block's shared
+    attention once (the flash kernel past 2048 tokens)."""
+    v = cfg.vertical
+    n_server = cfg.num_layers - v.tower_layers
+    n_super, _ = tfm.hybrid_layout(n_server, cfg.hybrid.shared_attn_every)
+    return {"ssd": n_server + v.num_clients * v.tower_layers,
+            "super": n_super}
+
+
+def other_small_against_cpu() -> None:
+    """(a) Reduced stablelm-3b, qwen3-32b (qk-norm) and zamba2-7b at
+    ``every`` 2 over 6 layers (2 super-blocks and a tail), same weights,
+    the card against the CPU: ``forward`` logits within 1e-4 and greedy
+    ``generate`` tokens identical (the zamba2 forward over 2304 tokens, so
+    that its shared attention runs the flash kernel at its head dim 112);
+    then stablelm at head dim 80 and qwen3 at 128 served split on a
+    2304-token prompt, as phase 6 serves smollm."""
+    rng = np.random.default_rng(SEED)
+    cases = [(SL_ARCH, get_arch(SL_ARCH).reduced(), 64),
+             (QW_ARCH, get_arch(QW_ARCH).reduced(), 64),
+             (HY_ARCH, dataclasses.replace(hybrid_cfg(2, 6), head_dim=112),
+              2304)]
+    for name, cfg, S in cases:
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        cpu_params = backbone.init_params(cfg, gen, device="cpu")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, S)))
+        out = {}
+        for device, params in (("cpu", cpu_params),
+                               ("cuda", _to(cpu_params, "cuda"))):
+            reset_launches()
+            logits, _ = backbone.forward(params,
+                                         {"tokens": tokens.to(device)}, cfg)
+            launches = read_launches()
+            toks = generate(params, cfg, tokens[:, :16].to(device),
+                            max_new_tokens=8)
+            out[device] = (logits.cpu(), toks.cpu(), launches)
+        want = {}
+        if cfg.family == "hybrid":
+            n = hybrid_counts(cfg)
+            want = {"ssd_chunk_kernel": n["ssd"],
+                    "flash_attention_kernel": n["super"],
+                    flash_name(cfg.resolved_head_dim()): n["super"]}
+        expect_launches(out["cuda"][2], want)
+        if any(out["cpu"][2].values()):
+            raise AssertionError(f"{name} on the CPU launched kernels: "
+                                 f"{out['cpu'][2]}")
+        diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        if not torch.isfinite(out["cuda"][0]).all() or diff > 1e-4:
+            raise AssertionError(f"reduced {name}: card logits differ from "
+                                 f"the CPU's by {diff:.3e} > 1e-4")
+        if not torch.equal(out["cuda"][1], out["cpu"][1]):
+            raise AssertionError(f"reduced {name}: card tokens differ from "
+                                 f"the CPU's")
+        log(f"small {name}: reduced ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, head dim {cfg.resolved_head_dim()}"
+            + (f", qk-norm" if cfg.qk_norm else "")
+            + (f", every {cfg.hybrid.shared_attn_every}"
+               if cfg.hybrid else "")
+            + f") on the card matches the CPU path: forward over 2 x {S} "
+            f"tokens, logits max |diff| {diff:.3e} <= 1e-4, launches "
+            f"{ {k: v for k, v in out['cuda'][2].items() if v} }; greedy "
+            f"generate of 2 x 8 tokens identical")
+    check_small_long_against_cpu(SL_ARCH, head_dim=80)
+    check_small_long_against_cpu(QW_ARCH, head_dim=128)
+
+
+def plain_bf16(arch: str, sampled: dict, psampled: dict, tokens: list,
+               ptokens: list) -> str:
+    """The bf16 kernel run against the plain one, request by request (in
+    submission order) and step by step while their tokens agree (the
+    first step's logits are the prefill's): the logits each token was
+    drawn from within ``PLAIN_BF16_TOL`` of the plain run's largest at that
+    step.  A token may differ only where the plain run's top-2 gap is no
+    more than twice that step's largest difference; the request is then
+    held no further.  Returns the summary."""
+    held, parted, worst = 0, 0, []
+    for i, rid in enumerate(sorted(psampled)):
+        worst.append(0.0)
+        for t, (got, want) in enumerate(zip(sampled[rid], psampled[rid])):
+            scale = float(want.abs().max())
+            diff = float((got - want).abs().max())
+            worst[i] = max(worst[i], diff / scale)
+            if diff > PLAIN_BF16_TOL * scale:
+                raise AssertionError(
+                    f"{arch} request {i} step {t}: kernel vs plain logits "
+                    f"max |diff| {diff:.4e} > {PLAIN_BF16_TOL} x {scale:.4e}")
+            held += 1
+            if tokens[i][t] != ptokens[i][t]:
+                top = torch.topk(want, 2).values
+                gap = float(top[0] - top[1])
+                if gap > 2 * diff:
+                    raise AssertionError(
+                        f"{arch} request {i} step {t}: kernel token "
+                        f"{tokens[i][t]} != plain {ptokens[i][t]} at top-2 "
+                        f"gap {gap:.4e} > 2 x max |diff| {diff:.4e}")
+                parted += 1
+                break
+    return (f"gives {'identical' if tokens == ptokens else 'other'} tokens "
+            f"({parted} of {len(tokens)} requests part at a near-tie); over "
+            f"the {held} steps whose contexts agree, the logits each token "
+            f"was drawn from (the first, the prefill's) are within "
+            f"{', '.join(f'{w:.3e}' for w in worst)} of the step's largest, "
+            f"request by request (tol {PLAIN_BF16_TOL})")
+
+
+def serve_other(card: str, arch: str, prompts_len: list, new: list, *,
+                dtype=torch.float32) -> dict:
+    """Full-width ``arch`` (random weights from a seed, in ``dtype``),
+    K = 4, two slots, greedy: each long prompt's prefill timed alone, then
+    the whole traffic with the counters reset just before the run and read
+    just after — per prompt past 2048 tokens one flash launch per server
+    and tower layer, all at the config's head dim and in ``dtype``, one
+    merge launch per merge, the ledger equal to the cost model; then a
+    run with the plain merge and attention: in f32 identical tokens and
+    prefill logits within 1e-3, in bf16 ``plain_bf16``'s gates.  Returns
+    the launches."""
+    cfg = get_arch(arch)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, gen, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if n_params != backbone.param_count(cfg):
+        raise AssertionError(f"{arch} has {n_params} params, expected "
+                             f"{backbone.param_count(cfg)}")
+    rng = np.random.default_rng(SEED)
+    prompts = [rng.integers(0, cfg.vocab_size, s) for s in prompts_len]
+    K = cfg.vertical.num_clients
+    per_prompt = (cfg.num_layers - cfg.vertical.tower_layers
+                  + K * cfg.vertical.tower_layers)
+    long = [s for s in prompts_len if s * s > attn_lib.FLASH_THRESHOLD ** 2]
+    head_dim = cfg.resolved_head_dim()
+    kw = dict(cache_len=max(s + n for s, n in zip(prompts_len, new)),
+              max_batch=2, cut_cache_bytes=2 * max(prompts_len) * cfg.d_model
+              * 4)
+    log(f"{arch}: full width, {n_params} params ({param_bytes} bytes "
+        f"{str(dtype).removeprefix('torch.')}; init {t_init:.2f} s, "
+        f"max_memory_allocated during init {init_peak} bytes), K={K}, head "
+        f"dim {head_dim} (server {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"towers {cfg.num_heads // K}/{max(1, cfg.num_kv_heads // K)}), "
+        f"qk-norm {cfg.qk_norm}, prompts {prompts_len}, new tokens {new}, 2 "
+        f"slots, cache_len {kw['cache_len']}")
+    serve(cfg, params, [prompts[0][:64]], [2], **kw)  # warm-up
+
+    srv = make_server(cfg, params, "cuda", **kw)
+    prefill_s = []
+    for p in (p for p in prompts if len(p) in long):
+        srv.submit(p, max_new_tokens=1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        srv.run()
+        torch.cuda.synchronize()
+        prefill_s.append(time.perf_counter() - t0)
+    del srv
+    log(f"{arch} prefill (max_new_tokens=1, one request at a time): "
+        + ", ".join(f"{s} tokens {s / t:.1f} tok/s ({t:.4f} s)"
+                    for s, t in zip(long, prefill_s)) + f" | {card}")
+
+    torch.cuda.reset_peak_memory_stats()
+    sampled = {}
+    tokens, stats, t_main, launches, logits, wire, _ = serve_recording(
+        cfg, params, prompts, new, sampled=sampled, **kw)
+    peak = torch.cuda.max_memory_allocated()
+    if stats["reprefills"]:
+        raise AssertionError(f"{arch} serving re-prefilled: {stats}")
+    merges = stats["prefills"] + sum(n - 1 for n in new)
+    flash = per_prompt * len(long)
+    expect_launches(launches, {"flash_attention_kernel": flash,
+                               flash_name(head_dim): flash,
+                               flash_name(head_dim, torch.bfloat16):
+                               flash if dtype == torch.bfloat16 else 0,
+                               "merge_reduce_kernel": merges})
+    size = torch.finfo(dtype).bits // 8  # the towers' cuts are in dtype
+    pf = [costs.serve_prefill_bytes(s, cfg.d_model, K, itemsize=size)["total"]
+          for s in prompts_len]
+    dc = costs.serve_decode_bytes(cfg.d_model, K, rounds=sum(new) - len(new),
+                                  itemsize=size)["total"]
+    if wire["total"] != sum(pf) + dc:
+        raise AssertionError(f"{arch}: ledger {wire['total']} bytes != cost "
+                             f"model {sum(pf) + dc}")
+    if len(logits) != len(prompts) or not all(
+            torch.isfinite(x).all() for x in logits):
+        raise AssertionError(f"{arch}: missing or non-finite prefill logits")
+    line = (f"{arch} serving continuous: {len(prompts)} requests, "
+            f"{stats['tokens']} tokens, {stats['decode_rounds']} decode "
+            f"rounds, {launches['flash_attention_kernel']} "
+            f"flash_attention_kernel launches, all at D = {head_dim} in "
+            f"{str(dtype).removeprefix('torch.')} ({per_prompt} per prompt "
+            f"past 2048 tokens x {len(long)}), "
+            f"{launches['merge_reduce_kernel']} merge_reduce_kernel launches "
+            f"({merges} merges); ledger {wire['total']} bytes = cost model; "
+            f"wall {t_main:.4f} s; max_memory_allocated {peak} bytes")
+    psampled = {}
+    ptokens, _, t_plain, plaunch, plogits, _, _ = serve_recording(
+        cfg, params, prompts, new, use_kernel=False, sampled=psampled, **kw)
+    if any(plaunch.values()):
+        raise AssertionError(f"the plain run launched kernels: {plaunch}")
+    line += (f"; the plain run (merge and attention; {t_plain:.4f} s, no "
+             f"launch) ")
+    if dtype == torch.bfloat16:
+        line += plain_bf16(arch, sampled, psampled, tokens, ptokens)
+    else:
+        diffs = [float((a - b).abs().max()) for a, b in zip(logits, plogits)]
+        if max(diffs) > 1e-3 or ptokens != tokens:
+            raise AssertionError(f"{arch}: kernel vs plain prefill logits "
+                                 f"{diffs}, tokens equal {ptokens == tokens}")
+        line += (f"gives identical tokens, prefill logits max |diff| "
+                 f"{max(diffs):.3e} (tol 1e-3)")
+    log(line + f" | {card}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def hybrid_forward(card: str) -> dict:
+    """(d) Full-width zamba2-7b (f32, random weights from a seed; 13
+    super-blocks of 6 Mamba2 layers and a tail of 1 on the server, K = 4
+    Mamba2 towers of 2 layers at width 896): ``make_prefill`` over one
+    request of each HY_FORWARDS length, with the counters reset just
+    before each run and read just after (87 SSD launches: 79 server + 4 x
+    2 tower layers; 13 flash launches at D = 112, one per super-block);
+    at 8192 the plain forward (``use_kernel=False``) launches nothing and
+    its logits agree within 1e-3.  Then greedy ``generate`` of HY_GEN: the
+    prompt replayed through ``decode_step`` (no launch), its first tokens
+    the forward's argmax.  Returns the launches."""
+    cfg = get_arch(HY_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    if n_params != backbone.param_count(cfg):
+        raise AssertionError(f"{HY_ARCH} has {n_params} params, expected "
+                             f"{backbone.param_count(cfg)}")
+    n = hybrid_counts(cfg)
+    d = cfg.resolved_head_dim()
+    want = {"ssd_chunk_kernel": n["ssd"], "flash_attention_kernel": n["super"],
+            flash_name(d): n["super"]}
+    log(f"hybrid model: {HY_ARCH} full width ({cfg.num_layers} layers, "
+        f"d_model {cfg.d_model}, d_state {cfg.ssm.d_state}, "
+        f"{cfg.ssm.n_heads(cfg.d_model)} SSD heads of {cfg.ssm.head_dim}, "
+        f"shared attention every {cfg.hybrid.shared_attn_every}: "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {d}, d_ff {cfg.d_ff}), "
+        f"{n_params} params f32 (max_memory_allocated during init "
+        f"{init_peak} bytes), K={cfg.vertical.num_clients} towers of "
+        f"{cfg.vertical.tower_layers} Mamba2 layers (width "
+        f"{cfg.d_model // cfg.vertical.num_clients}, "
+        f"{cfg.ssm.n_heads(cfg.d_model // cfg.vertical.num_clients)} SSD "
+        f"heads); per forward {n['ssd']} SSD and {n['super']} flash launches")
+    prefill = {True: backbone.make_prefill(cfg),
+               False: backbone.make_prefill(cfg, use_kernel=False)}
+    rng = np.random.default_rng(SEED)
+
+    def run(tokens, use_kernel: bool):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = prefill[use_kernel](params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return (logits, time.perf_counter() - t0, read_launches(),
+                torch.cuda.max_memory_allocated())
+
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                           device="cuda")
+    for use_kernel in (True, False):
+        run(warm, use_kernel)
+    total = dict.fromkeys(want, 0)
+    for B, S in HY_FORWARDS:
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                                 device="cuda")
+        logits, t_kernel, launches, peak = run(tokens, True)
+        expect_launches(launches, want)
+        for k in total:
+            total[k] += launches[k]
+        kept = logits[:, -SSM_TAIL:].clone()
+        del logits
+        if not torch.isfinite(kept).all():
+            raise AssertionError(f"hybrid forward ({B}, {S}): non-finite "
+                                 "logits")
+        line = (f"hybrid forward ({B}, {S}): kernel {B * S / t_kernel:.1f} "
+                f"tok/s ({t_kernel:.4f} s, launches "
+                f"{ {k: v for k, v in launches.items() if v} }, "
+                f"max_memory_allocated {peak} bytes)")
+        if S <= 8192:
+            plain, t_plain, plaunch, ppeak = run(tokens, False)
+            if any(plaunch.values()):
+                raise AssertionError(f"the plain forward launched kernels: "
+                                     f"{plaunch}")
+            pkept = plain[:, -SSM_TAIL:]
+            diff = float((kept - pkept).abs().max())
+            top = torch.topk(pkept[:, -1], 2, dim=-1).values
+            held = (top[:, 0] - top[:, 1]) > 2 * SSM_LOGIT_TOL
+            same = torch.equal(kept[:, -1].argmax(-1)[held],
+                               pkept[:, -1].argmax(-1)[held])
+            line += (f"; plain {B * S / t_plain:.1f} tok/s ({t_plain:.4f} s, "
+                     f"0 launches, max_memory_allocated {ppeak} bytes); "
+                     f"logits max |kernel - plain| over the last {SSM_TAIL} "
+                     f"positions {diff:.3e} (tol 1e-3), last-position argmax "
+                     f"identical {same} (held where the plain top-2 gap "
+                     f"exceeds 2e-3: {held.tolist()})")
+            if diff > SSM_LOGIT_TOL or not same:
+                raise AssertionError(f"hybrid forward ({B}, {S}): kernel vs "
+                                     f"plain logits {diff:.3e}, argmax same "
+                                     f"{same}")
+            del plain, pkept
+        log(line + f" | {card}")
+        del kept
+        torch.cuda.empty_cache()
+
+    (B, S), new = HY_GEN
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+    first_logits, _, _, _ = run(prompts, True)
+    first = first_logits[:, -1].argmax(-1)
+    generate(params, cfg, prompts[:, :4], max_new_tokens=2)  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, prompts, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    glaunch = read_launches()
+    if any(glaunch.values()):
+        raise AssertionError(f"hybrid generate launched kernels: {glaunch}")
+    if out.shape != (B, new) or not torch.equal(out[:, 0], first):
+        raise AssertionError(f"hybrid generate: first tokens "
+                             f"{out[:, 0].tolist()} != the forward's argmax "
+                             f"{first.tolist()}")
+    log(f"hybrid generate: {B} prompts of {S} tokens, {new} new tokens each, "
+        f"greedy, the prompt replayed through decode_step, no launch, wall "
+        f"{t_gen:.4f} s ({B * (S + new) / t_gen:.1f} replayed and generated "
+        f"tokens/s); first tokens {first.tolist()} = the kernel forward's "
+        f"argmax (top-2 gap {top2_gap(first_logits[:, -1]):.4f}) | {card}")
+    del params, first_logits
+    torch.cuda.empty_cache()
+    return total
+
+
+def hybrid_train(card: str) -> dict:
+    """(e) zamba2-7b at full width cut to HY_TRAIN_LAYERS layers (2
+    super-blocks and a tail of 1 on the server; AdamW over the full 81
+    layers' 6.65 B f32 params would need 106 GB), K = 4, avg,
+    ``train_split`` over inproc, serial, 8 x 256 tokens, HY_TRAIN_STEPS
+    steps, step 0 verified against ``protocol_step`` at 1e-5.  Counters
+    reset just before the run and read just after: per step each server
+    Mamba2 layer runs ``ssd_chunk_kernel`` once and each tower layer twice
+    (the worker re-runs its forward for the vjp), every Mamba2 layer
+    ``ssd_chunk_bwd_kernel`` once, one avg merge each way at (4, 2048,
+    3584); step 0's verification once more of each SSD count.  Every
+    step's ledger equals the byte models.  Returns the launches."""
+    cfg = dataclasses.replace(get_arch(HY_ARCH), num_layers=HY_TRAIN_LAYERS)
+    v = cfg.vertical
+    torch.cuda.empty_cache()
+    with merge_calls() as merges:
+        _, metrics, seconds, launches, peak = train(cfg, HY_TRAIN_STEPS,
+                                                    "cuda")
+    expect_launches(launches, ssm_train_launches(cfg, HY_TRAIN_STEPS, True))
+    if merges != [("avg", HYBRID_TRAIN_SHAPE)] * HY_TRAIN_STEPS:
+        raise AssertionError(f"hybrid train: role 0 merged {merges}")
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"hybrid train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    cut = costs.cut_bytes(rows, cfg.d_model)
+    head = costs.head_exchange_bytes(rows, cfg.vocab_size)
+    want = 2 * v.num_clients * cut + 2 * head
+    if [ledger.total() for ledger in metrics.ledgers] != \
+            [want] * HY_TRAIN_STEPS:
+        raise AssertionError(f"hybrid train: ledgers "
+                             f"{[ledger.total() for ledger in metrics.ledgers]}"
+                             f" != costs {want}")
+    steady = metrics.step_times[1:]
+    n_super, n_tail = tfm.hybrid_layout(cfg.num_layers - v.tower_layers,
+                                        cfg.hybrid.shared_attn_every)
+    log(f"hybrid train: {HY_ARCH} full width at {cfg.num_layers} layers "
+        f"({n_super} super-blocks of {cfg.hybrid.shared_attn_every} Mamba2 "
+        f"layers and their shared attention, a tail of {n_tail}; K="
+        f"{v.num_clients} towers of {v.tower_layers}, avg), f32, serial, "
+        f"{HY_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {metrics.losses}, step-0 max |dgrad| vs protocol_step "
+        f"{metrics.step0_max_dgrad:.3e} (<= 1e-5); merges avg "
+        f"{HYBRID_TRAIN_SHAPE} one each way a step; ledger {want} bytes a "
+        f"step = costs; launches {launches}; "
+        f"{len(steady) * rows / sum(steady):.1f} train tokens/s over steps "
+        f"1-{HY_TRAIN_STEPS - 1} (step times {metrics.step_times} s; step 0 "
+        f"includes the verification), wall {seconds:.4f} s with set-up, "
+        f"max_memory_allocated {peak} bytes | {card}")
+    return launches
+
+
+def other_phase(card: str) -> dict:
+    """Phase 16; returns the launches by sub-phase: ``"stablelm"``,
+    ``"qwen3"``, ``"hybrid_forward"``, ``"hybrid_train"``."""
+    t0 = time.perf_counter()
+    other_small_against_cpu()
+    out = {"stablelm": serve_other(card, SL_ARCH, SL_PROMPTS, SL_NEW),
+           "qwen3": serve_other(card, QW_ARCH, QW_PROMPTS, QW_NEW,
+                                dtype=torch.bfloat16),
+           "hybrid_forward": hybrid_forward(card),
+           "hybrid_train": hybrid_train(card)}
+    log(f"other: phase 16 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -4257,6 +4824,11 @@ def main() -> None:
     flash_launches[64] += mono_phase(card)
     launch_launches = launch_phase(card)
     overlay_launches = overlay_phase(card)
+    other = other_phase(card)
+    other_total: dict = {}
+    for sub in other.values():
+        for k, n in sub.items():
+            other_total[k] = other_total.get(k, 0) + n
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -4276,7 +4848,8 @@ def main() -> None:
             "launches": (launches[name] + mlp_launches[name]
                          + nowait_launches[name] + ssm_train.get(name, 0)
                          + launch_launches.get(name, 0)
-                         + overlay_launches.get(name, 0)),
+                         + overlay_launches.get(name, 0)
+                         + other_total.get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4291,13 +4864,15 @@ def main() -> None:
             if key in row:
                 entry[key] = row[key]
         # the MLP path's shapes (phases 10 and 11), the no-wait LM stack
-        # (phase 11), the ssm training stack (phase 12) and the tree's
-        # top-level stack (phase 15), whose launches are in the count
+        # (phase 11), the ssm training stack (phase 12), the tree's
+        # top-level stack (phase 15) and the hybrid training stack (phase
+        # 16), whose launches are in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
             for s, sh in MLP_TIME_SHAPES + NOWAIT_TIME_SHAPES
             + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES
+            + HYBRID_TRAIN_TIME_SHAPES
             if (name, s, sh) in rows]
         for sub in entry["shapes"]:
             if tuple(sub["shape"]) == NOWAIT_SHAPE:
@@ -4308,17 +4883,21 @@ def main() -> None:
                 # role 0's launches at the tree's stacks (full width at
                 # this shape, reduced width at (2, 2048, 256))
                 sub["launches"] = overlay_launches["tree"]
+            if tuple(sub["shape"]) == HYBRID_TRAIN_SHAPE:
+                sub["launches"] = other["hybrid_train"].get(name, 0)
         kernels.append(entry)
-    def flash_entry(shape, launched=None):
+    def flash_entry(shape, launched=None, dtype=torch.float32):
         """The kernel's row at a timed shape; ``launched`` is its count on
-        a main path (a head dim on no path has none)."""
-        row = flash_rows[shape]
+        a main path (a shape timed beside another has none)."""
+        f32 = dtype == torch.float32
+        row = flash_rows[shape if f32 else (shape, dtype)]
         B, H, Hkv, S, D = shape
         entry = {
-            "name": flash_name(D), "route": "cuda",
+            "name": flash_name(D, dtype), "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:27",
-            "launches": launched, "max_abs_err": flash_worst[D],
+            "launches": launched,
+            "max_abs_err": flash_worst[D if f32 else (D, "bfloat16")],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "fma_bound_ms": row["fma_bound_ms"],
@@ -4326,19 +4905,26 @@ def main() -> None:
             "plain_device_ms": row["plain_device_ms"],
             "library_device_ms": row["library_device_ms"],
             "shape": [B, H, S, D], "kv_heads": Hkv, "causal": True,
-            "dtype": "float32"}
+            "dtype": str(dtype).removeprefix("torch.")}
         if launched is None:
             del entry["launches"]
         return entry
 
-    # the flash kernel by head dim: 64 on phase 6's path, 128 on phase 9's;
-    # 80 and 112 are on no path yet, so they ride in the D = 128 entry
+    # the flash kernel by head dim and dtype: 64 on phases 6 and 13, 128
+    # (f32) on phase 9's, 80 on phase 16's stablelm-3b, 112 on its
+    # zamba2-7b, 128 in bf16 on its qwen3-32b (the reduced checks of
+    # phase 16 (a) at D 80, 112 and 128 in f32 are not counted)
     kernels.append(flash_entry((1, 15, 5, 32768, 64), flash_launches[64]))
-    wide = flash_entry((1, 24, 2, 32768, 128), flash_launches[128])
-    wide["off_path_head_dims"] = [flash_entry(shape)
-                                  for shape in FLASH_WIDE_SHAPES
-                                  if shape[4] in (80, 112)]
-    kernels.append(wide)
+    kernels.append(flash_entry((1, 24, 2, 32768, 128), flash_launches[128]))
+    kernels.append(flash_entry((1, 32, 32, 8192, 80),
+                               other["stablelm"][flash_name(80)]))
+    kernels.append(flash_entry((1, 32, 32, 8192, 112),
+                               other["hybrid_forward"][flash_name(112)]))
+    qwen = flash_entry(FLASH_QWEN_SHAPES[0], other["qwen3"][flash_name(
+        128, torch.bfloat16)], dtype=torch.bfloat16)
+    qwen["other_shapes"] = [flash_entry(FLASH_QWEN_SHAPES[1],
+                                        dtype=torch.bfloat16)]
+    kernels.append(qwen)
     def ssd_entry(shape):
         row = ssd_rows[shape]
         return {
@@ -4347,7 +4933,9 @@ def main() -> None:
             "replaces": "src/repro/kernels/ssd_scan.py:23",
             "launches": launches["ssd_chunk_kernel"]
             + ssm_train["ssd_chunk_kernel"]
-            + launch_launches.get("ssd_chunk_kernel", 0),
+            + launch_launches.get("ssd_chunk_kernel", 0)
+            + other["hybrid_forward"]["ssd_chunk_kernel"]
+            + other["hybrid_train"]["ssd_chunk_kernel"],
             "max_abs_err": ssd_worst, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
@@ -4375,7 +4963,8 @@ def main() -> None:
             # no backward kernel (jax.grad of its plain chunked scan)
             "replaces": "src/repro/kernels/ssd_scan.py:23",
             "launches": ssm_train["ssd_chunk_bwd_kernel"]
-            + launch_launches.get("ssd_chunk_bwd_kernel", 0),
+            + launch_launches.get("ssd_chunk_bwd_kernel", 0)
+            + other["hybrid_train"]["ssd_chunk_bwd_kernel"],
             "max_abs_err": row["max_abs_err"],
             "max_err_over_largest_entry": ssd_bwd_worst,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4389,11 +4978,13 @@ def main() -> None:
             "shape": list(shape[:4]), "d_state": shape[4],
             "chunk": shape[5], "dtype": "float32"}
 
-    # the server shape of phase 12; the towers' rides in it (its launches
-    # are in the count)
+    # the server shape of phase 12; the towers' and zamba2-7b's ride in it
+    # (their launches are in the count)
     bwd_row = ssd_bwd_entry(SSD_BWD_SHAPES[0])
-    bwd_row["other_shapes"] = [ssd_bwd_entry(SSD_BWD_SHAPES[1])]
-    del bwd_row["other_shapes"][0]["launches"]
+    bwd_row["other_shapes"] = [ssd_bwd_entry(shape)
+                               for shape in SSD_BWD_TIME_SHAPES[1:]]
+    for entry in bwd_row["other_shapes"]:
+        del entry["launches"]
     kernels.append(bwd_row)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,10 @@
 """Configuration system: the port's own copy of the JAX package's configs.
 
 The port keeps its own copy (it imports nothing of the JAX package) of the
-configs it runs: smollm-360m, starcoder2-3b and mamba2-1.3b.  Only the
-fields the dense and ssm token-LM families read are carried; the
-sub-configs of the other families (moe, hybrid, audio, vlm) come with their
-slices.
+configs it runs: smollm-360m, starcoder2-3b, stablelm-3b and qwen3-32b
+(dense), mamba2-1.3b (ssm) and zamba2-7b (hybrid).  Only the fields the
+dense, ssm and hybrid token-LM families read are carried; the sub-configs
+of the other families (moe, audio, vlm) come with their slices.
 ``tests/test_torch_model.py`` checks the shared fields against the JAX
 package's ``ArchConfig`` so the two copies cannot drift.
 """
@@ -33,6 +33,13 @@ class SSMConfig:
 
     def n_heads(self, d_model: int) -> int:
         return self.d_inner(d_model) // self.head_dim
+
+
+@dataclass(frozen=True)
+class HybridConfig:
+    """Zamba2-style hybrid: shared attention block every N Mamba layers."""
+
+    shared_attn_every: int = 6  # one shared-weight attn block per 6 mamba layers
 
 
 @dataclass(frozen=True)
@@ -65,10 +72,10 @@ class VerticalConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (the dense and ssm token-LM fields)."""
+    """One architecture (the dense, ssm and hybrid token-LM fields)."""
 
     name: str
-    family: str  # dense | ssm (the families the port runs so far)
+    family: str  # dense | ssm | hybrid (the families the port runs so far)
     num_layers: int
     d_model: int
     num_heads: int
@@ -82,6 +89,7 @@ class ArchConfig:
     tie_embeddings: bool = False
     sliding_window: int = 8192
     ssm: Optional[SSMConfig] = None
+    hybrid: Optional[HybridConfig] = None
     vertical: Optional[VerticalConfig] = None
     source: str = ""  # provenance citation
 
@@ -99,7 +107,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """Smoke-test variant: 2 layers, d_model <= 256, 2 clients; an ssm
-        keeps d_state <= 16 and chunks of 32."""
+        keeps d_state <= 16 and chunks of 32, a hybrid a shared attention
+        block after every Mamba layer."""
         d_model = min(self.d_model, 256)
         heads = min(self.num_heads, 4) or 4
         kv = min(self.num_kv_heads, heads) or heads
@@ -110,6 +119,9 @@ class ArchConfig:
             ssm = dataclasses.replace(self.ssm,
                                       d_state=min(self.ssm.d_state, 16),
                                       chunk_size=32)
+        hybrid = None
+        if self.hybrid is not None:
+            hybrid = dataclasses.replace(self.hybrid, shared_attn_every=1)
         vertical = self.vertical
         if vertical is not None:
             vertical = dataclasses.replace(vertical, tower_layers=1,
@@ -125,6 +137,7 @@ class ArchConfig:
             head_dim=0,
             sliding_window=64,
             ssm=ssm,
+            hybrid=hybrid,
             vertical=vertical,
         )
 
@@ -152,5 +165,6 @@ def get_arch(name: str) -> ArchConfig:
 
 def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
-    from repro_torch.configs import (mamba2_1_3b, smollm_360m,  # noqa: F401
-                                     starcoder2_3b)
+    from repro_torch.configs import (mamba2_1_3b, qwen3_32b,  # noqa: F401
+                                     smollm_360m, stablelm_3b,
+                                     starcoder2_3b, zamba2_7b)

@@ -3,7 +3,9 @@
 ``params_from_numpy`` turns a param tree of numpy arrays (the JAX
 package's tree after ``np.asarray`` on every leaf) into the port's tensors
 on ``device``.  The layout is kept as it is — stacked ``(L, ...)`` layers,
-``(K, ...)`` towers — so the copy is straight.  bfloat16 arrays (numpy's
+``(K, ...)`` towers, a hybrid's ``(n_super, every, ...)`` super-blocks —
+so the copy is straight; a ``None`` subtree (a hybrid without super-blocks
+or without a tail) stays ``None``.  bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type, which ``torch.from_numpy`` rejects) go
 through float32.
 """
@@ -27,6 +29,8 @@ def tensor_from_numpy(array, device: DeviceLike = None) -> torch.Tensor:
 
 def params_from_numpy(tree, device: DeviceLike = None):
     """Nested dict/list/tuple of arrays -> the same nesting of tensors."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -36,13 +36,14 @@ ALIGN_ELEMS = 4
 
 #: kernel launches since the last :func:`reset_launches` — one per launch,
 #: counted where the wrapper launches the kernel and nowhere else; the same
-#: launches by head dim (each an instantiation of its own)
+#: launches by (head dim, dtype), each an instantiation of its own
 launches = {"flash_attention_kernel": 0}
-launches_by_head_dim = dict.fromkeys(HEAD_DIMS, 0)
+launches_by_instance = {(D, dtype): 0 for D in HEAD_DIMS
+                        for dtype in DTYPE_CODES}
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_by_head_dim):
+    for counts in (launches, launches_by_instance):
         for key in counts:
             counts[key] = 0
 
@@ -107,5 +108,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         D, int(bool(causal)), q.device.index, stream)
     build.check(code, "flash_attention_kernel")
     launches["flash_attention_kernel"] += 1
-    launches_by_head_dim[D] += 1
+    launches_by_instance[(D, q.dtype)] += 1
     return out

@@ -34,13 +34,15 @@ Examples:
   # any of these on the CPU (the plain PyTorch path, no kernel), reduced:
   PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \\
       --reduced --steps 3 --batch 4 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
+      --reduced --steps 3 --batch 4 --seq 64 --device cpu
 
 The flags, their checks and their messages are the JAX package's
 ``repro.launch.train``'s, plus ``--device {cuda,cpu}``.  A rejected
 composition of flags reads as there (the compat matrix, through
 :func:`repro_torch.core.compat.cli_reject`).  The configs the port does
-not carry yet (the hybrid, moe, audio and vlm families and the other
-dense ones) exit naming their ROADMAP.md Queue 1 item.
+not carry yet (the moe, audio and vlm families) exit naming their
+ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -56,9 +58,6 @@ from repro_torch.data.loader import LMBatchLoader
 #: configs of the JAX package that the port does not carry yet -> the
 #: ROADMAP.md Queue 1 item that brings them
 UNPORTED_ARCHS = {
-    "zamba2-7b": "the hybrid family (ROADMAP.md Queue 1, item 11)",
-    "stablelm-3b": "the other dense configs (ROADMAP.md Queue 1, item 12)",
-    "qwen3-32b": "the other dense configs (ROADMAP.md Queue 1, item 12)",
     "deepseek-moe-16b": "the moe family (ROADMAP.md Queue 1, item 13)",
     "arctic-480b": "the moe family (ROADMAP.md Queue 1, item 13)",
     "whisper-tiny": "the audio family (ROADMAP.md Queue 1, item 13)",
@@ -86,6 +85,11 @@ def scale_config(cfg, scale: str):
         # pure Mamba: no attention heads, and the FFN lives inside the SSD
         # block, so the preset d_ff is meaningless too
         for f in ("num_heads", "num_kv_heads", "d_ff"):
+            fields.pop(f)
+    elif cfg.family == "hybrid":
+        # zamba2-style: the shared attention block derives its head layout
+        # from the arch config, but its FFN width IS the preset d_ff
+        for f in ("num_heads", "num_kv_heads"):
             fields.pop(f)
     return dataclasses.replace(cfg, **fields)
 

@@ -30,6 +30,11 @@ from repro_torch.models import layers
 
 NEG_INF = -1e30
 FLASH_THRESHOLD = 2048
+# qk-norm's eps: the JAX package normalises q and k at 1e-6 in the
+# full-sequence attention and at ``rmsnorm``'s default 1e-5 in the
+# one-token decode.  Both are kept as they are.
+QK_NORM_PREFILL_EPS = 1e-6
+QK_NORM_DECODE_EPS = 1e-5
 
 
 # ---------------------------------------------------------------------------
@@ -37,9 +42,11 @@ FLASH_THRESHOLD = 2048
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
-                   n_kv_heads: int, head_dim: int, *, lead: tuple = (),
-                   dtype=torch.float32) -> dict:
-    return {
+                   n_kv_heads: int, head_dim: int, *, qk_norm: bool = False,
+                   lead: tuple = (), dtype=torch.float32) -> dict:
+    """The four projections; ``qk_norm`` adds an RMSNorm over ``head_dim``
+    for q and for k (``q_norm``, ``k_norm``), as in the JAX package."""
+    p = {
         "wq": layers.dense_init(gen, d_model, n_heads * head_dim, lead=lead,
                                 dtype=dtype),
         "wk": layers.dense_init(gen, d_model, n_kv_heads * head_dim,
@@ -49,6 +56,12 @@ def init_attention(gen: torch.Generator, d_model: int, n_heads: int,
         "wo": layers.dense_init(gen, n_heads * head_dim, d_model, lead=lead,
                                 dtype=dtype),
     }
+    if qk_norm:
+        p["q_norm"] = layers.init_rmsnorm(head_dim, lead=lead,
+                                          device=gen.device, dtype=dtype)
+        p["k_norm"] = layers.init_rmsnorm(head_dim, lead=lead,
+                                          device=gen.device, dtype=dtype)
+    return p
 
 
 # ---------------------------------------------------------------------------
@@ -187,8 +200,9 @@ def attention_apply(
     use_kernel: bool = True,
 ):
     """Full-sequence attention (prefill).  Returns (out, (k, v)).
-    ``use_kernel=False`` takes the plain chunked path past the threshold
-    on any device (comparison runs)."""
+    With qk-norm params, q and k are normalised per head before RoPE at
+    ``QK_NORM_PREFILL_EPS``.  ``use_kernel=False`` takes the plain chunked
+    path past the threshold on any device (comparison runs)."""
     B, S, _ = x.shape
     long = S * S > FLASH_THRESHOLD * FLASH_THRESHOLD
     on_kernel = long and use_kernel and x.is_cuda
@@ -199,6 +213,9 @@ def attention_apply(
     q = layers.matmul(x, params["wq"]).reshape(B, S, n_heads, head_dim)
     k = layers.matmul(x, params["wk"]).reshape(B, S, n_kv_heads, head_dim)
     v = layers.matmul(x, params["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    if "q_norm" in params:
+        q = layers.rmsnorm(params["q_norm"], q, QK_NORM_PREFILL_EPS)
+        k = layers.rmsnorm(params["k_norm"], k, QK_NORM_PREFILL_EPS)
     if rope_theta is not None:
         q = layers.apply_rope(q, positions, rope_theta)
         k = layers.apply_rope(k, positions, rope_theta)
@@ -283,6 +300,9 @@ def decode_attention_apply(
                                                    head_dim)
     v_new = layers.matmul(x, params["wv"]).reshape(B, 1, n_kv_heads,
                                                    head_dim)
+    if "q_norm" in params:
+        q = layers.rmsnorm(params["q_norm"], q, QK_NORM_DECODE_EPS)
+        k_new = layers.rmsnorm(params["k_norm"], k_new, QK_NORM_DECODE_EPS)
     if rope_theta is not None:
         q = layers.apply_rope(q, pos, rope_theta)
         k_new = layers.apply_rope(k_new, pos, rope_theta)

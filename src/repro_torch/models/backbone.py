@@ -1,7 +1,7 @@
-"""Architecture assembly for the dense and ssm families: params with the
-vertical split or without it (the centralized baseline), the monolithic
-forward, the decode caches, the dense prompt prefill (``prefill_tokens``)
-and the decode step, the server trunk, the LM loss and the monolithic
+"""Architecture assembly for the dense, ssm and hybrid families: params
+with the vertical split or without it (the centralized baseline), the
+monolithic forward, the decode caches, the dense prompt prefill
+(``prefill_tokens``) and the decode step, the server trunk, the LM loss and the monolithic
 training step, the parameter count, and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
@@ -14,9 +14,12 @@ package's layout, so weights carry across by a straight copy
 
 A compressed config (``cfg.vertical.compression``) runs its codec on the
 stacked cuts before the merge, straight through, as the JAX package's
-monolithic path does.  The other families (moe, hybrid, audio, vlm)
-raise ``NotImplementedError`` naming the slice of the port that brings
-them.
+monolithic path does.  The hybrid (zamba2) server is super-blocks of
+``shared_attn_every`` Mamba2 layers, each followed by ONE weight-shared
+dense block, then the trailing Mamba2 layers; its towers are Mamba2
+blocks of width d_model/K, as the ssm family's.  The other families (moe,
+audio, vlm) raise ``NotImplementedError`` naming the slice of the port
+that brings them.
 """
 from __future__ import annotations
 
@@ -61,10 +64,15 @@ def _server_layers(cfg: ArchConfig) -> int:
 
 def _check_family(cfg: ArchConfig) -> None:
     """The families the port runs so far; the rest raise by name."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
-            "of the port (it runs the dense and ssm families so far)")
+            "of the port (it runs the dense, ssm and hybrid families so far)")
+
+
+def _ssm_towers(cfg: ArchConfig) -> bool:
+    """The ssm and hybrid families' towers are Mamba2 blocks."""
+    return cfg.family in ("ssm", "hybrid")
 
 
 def _merge_cuts(cuts: list, cfg: ArchConfig, live_mask=None) -> torch.Tensor:
@@ -80,12 +88,11 @@ def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
     """Feature-slice towers, stacked over clients: (K, L_t, ...) params."""
     v = cfg.vertical
     K, Lt = v.num_clients, v.tower_layers
-    d_t = _tower_ssm_d(cfg) if cfg.family == "ssm" else \
-        _tower_dims(cfg).d_model
+    d_t = _tower_ssm_d(cfg) if _ssm_towers(cfg) else _tower_dims(cfg).d_model
     # draws in the order proj_in, blocks, proj_out
     proj_in = layers.dense_init(gen, cfg.d_model // K, d_t, lead=(K,),
                                 dtype=dtype)
-    if cfg.family == "ssm":
+    if _ssm_towers(cfg):
         blocks = tfm.init_mamba_block(gen, d_t, cfg.ssm, lead=(K, Lt),
                                       dtype=dtype)
     else:
@@ -101,7 +108,8 @@ def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, dtype=torch.float32) -> dict:
-    """Seeded init of the dense or ssm family, with its vertical section
+    """Seeded init of the dense, ssm or hybrid family, with its vertical
+    section
     or centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
     for).  ``generator`` must live on that device; None means a fresh one
     seeded with 0.
@@ -124,18 +132,31 @@ def _init_tree(cfg: ArchConfig, generator, dev: torch.device, dtype) -> dict:
     # draws in the order embedding, server, towers
     embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                   dtype=dtype, tie=cfg.tie_embeddings)
-    if cfg.family == "ssm":
-        server = tfm.init_mamba_block(generator, cfg.d_model, cfg.ssm,
-                                      lead=(n_server,), dtype=dtype)
-    else:
-        server = tfm.init_dense_block(generator, BlockDims.from_arch(cfg),
-                                      lead=(n_server,), dtype=dtype)
     params = {
         "embed": embed,
         "final_norm": layers.init_rmsnorm(cfg.d_model, device=dev,
                                           dtype=dtype),
-        "server": server,
     }
+    if cfg.family == "ssm":
+        params["server"] = tfm.init_mamba_block(
+            generator, cfg.d_model, cfg.ssm, lead=(n_server,), dtype=dtype)
+    elif cfg.family == "hybrid":
+        # (n_super, every, ...) Mamba2 super-blocks and the (n_tail, ...)
+        # trailing layers, each None when empty, as in the JAX package
+        every = cfg.hybrid.shared_attn_every
+        n_super, n_tail = tfm.hybrid_layout(n_server, every)
+        params["server_super"] = tfm.init_mamba_block(
+            generator, cfg.d_model, cfg.ssm, lead=(n_super, every),
+            dtype=dtype) if n_super else None
+        params["server_tail"] = tfm.init_mamba_block(
+            generator, cfg.d_model, cfg.ssm, lead=(n_tail,),
+            dtype=dtype) if n_tail else None
+        params["shared_attn"] = tfm.init_dense_block(
+            generator, BlockDims.from_arch(cfg), dtype=dtype)
+    else:
+        params["server"] = tfm.init_dense_block(
+            generator, BlockDims.from_arch(cfg), lead=(n_server,),
+            dtype=dtype)
     if cfg.vertical is not None:
         params["towers"] = _init_towers(cfg, generator, dtype)
     return params
@@ -180,7 +201,7 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
     for xk, (w_in, blocks, w_out) in zip(
             torch.chunk(x, v.num_clients, dim=-1), per_client):
         h = layers.matmul(xk, w_in)
-        if cfg.family == "ssm":
+        if _ssm_towers(cfg):
             h = tfm.mamba_stack_apply(blocks, h, cfg.ssm, h.shape[-1],
                                       cfg.norm_eps, use_kernel=use_kernel)
         else:
@@ -229,16 +250,22 @@ def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
 def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                         dims: BlockDims, *, positions,
                         use_kernel: bool = True) -> torch.Tensor:
-    """Post-merge server layers (the dense and ssm branches of the JAX
-    package's ``_server_trunk_apply``; neither has an auxiliary loss)."""
+    """Post-merge server layers (the dense, ssm and hybrid branches of
+    the JAX package's ``_server_trunk_apply``; none has an auxiliary
+    loss)."""
     if cfg.family == "ssm":
         return tfm.mamba_stack_apply(params["server"], x, cfg.ssm,
                                      cfg.d_model, cfg.norm_eps,
                                      use_kernel=use_kernel)
+    if cfg.family == "hybrid":
+        return tfm.hybrid_stack_apply(
+            params["server_super"], params["server_tail"],
+            params["shared_attn"], x, cfg.ssm, dims, positions=positions,
+            use_kernel=use_kernel)
     if cfg.family != "dense":
         raise NotImplementedError(
-            f"{cfg.name}: the port's server trunk covers the dense and ssm "
-            f"families only (got {cfg.family!r})")
+            f"{cfg.name}: the port's server trunk covers the dense, ssm and "
+            f"hybrid families only (got {cfg.family!r})")
     return tfm.dense_stack_apply(params["server"], x, dims, causal=True,
                                  positions=positions, use_kernel=use_kernel)
 
@@ -275,7 +302,12 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
       (int8 with ``kv_quant``, plus ``k_scale``/``v_scale``
       ``(L, B, cache_len, Kv, 1)`` f32) and the towers' ``tower.k``/
       ``tower.v`` ``(K, Lt, B, cache_len, Kv_t, hd)``;
-    - ssm: the server's ``ssm``/``conv`` stacks and the towers'.
+    - ssm: the server's ``ssm``/``conv`` stacks and the towers';
+    - hybrid: ``ssm_super``/``conv_super`` ``(n_super, every, B, ...)``
+      and the shared block's ``attn_k``/``attn_v`` ``(n_super, B,
+      cache_len, Kv, hd)`` when there are super-blocks, ``ssm_tail``/
+      ``conv_tail`` ``(n_tail, B, ...)`` when there is a tail, and the
+      ssm towers'.
 
     A centralized config (``cfg.vertical`` None) has no ``tower``.
 
@@ -290,14 +322,28 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
         "kv_positions": torch.full((cache_len,), -1, dtype=torch.int32,
                                    device=dev),
     }
+    if v is not None and _ssm_towers(cfg):
+        cache["tower"] = _ssm_cache(cfg, (v.num_clients, v.tower_layers),
+                                    batch, _tower_ssm_d(cfg), dtype, dev)
     if cfg.family == "ssm":
         cache.update(_ssm_cache(cfg, (_server_layers(cfg),), batch,
                                 cfg.d_model, dtype, dev))
-        if v is not None:
-            cache["tower"] = _ssm_cache(cfg, (v.num_clients, v.tower_layers),
-                                        batch, _tower_ssm_d(cfg), dtype, dev)
         return cache
     dims = BlockDims.from_arch(cfg)
+    if cfg.family == "hybrid":
+        every = cfg.hybrid.shared_attn_every
+        n_super, n_tail = tfm.hybrid_layout(_server_layers(cfg), every)
+        if n_super:
+            sc = _ssm_cache(cfg, (n_super, every), batch, cfg.d_model, dtype,
+                            dev)
+            kv = (n_super, batch, cache_len, dims.n_kv_heads, dims.head_dim)
+            cache.update(ssm_super=sc["ssm"], conv_super=sc["conv"],
+                         attn_k=torch.zeros(kv, dtype=dtype, device=dev),
+                         attn_v=torch.zeros(kv, dtype=dtype, device=dev))
+        if n_tail:
+            sc = _ssm_cache(cfg, (n_tail,), batch, cfg.d_model, dtype, dev)
+            cache.update(ssm_tail=sc["ssm"], conv_tail=sc["conv"])
+        return cache
     kv = (_server_layers(cfg), batch, cache_len, dims.n_kv_heads,
           dims.head_dim)
     kv_dtype = torch.int8 if kv_quant else dtype
@@ -333,7 +379,7 @@ def _towers_decode(params: dict, x: torch.Tensor, tower_cache: dict,
     for k, xk in enumerate(torch.chunk(x, v.num_clients, dim=-1)):
         h = layers.matmul(xk, towers["proj_in"][k])
         blocks = tfm.layer_params(towers["blocks"], k)
-        if cfg.family == "ssm":
+        if _ssm_towers(cfg):
             h, _, _ = tfm.mamba_stack_decode(
                 blocks, h, tower_cache["ssm"][k], tower_cache["conv"][k],
                 cfg.ssm, h.shape[-1], cfg.norm_eps)
@@ -361,7 +407,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     ``ring`` and ``live_mask`` reach the towers and the server,
     ``decode_chunks`` and an int8 cache's scales the server only
     (``chunk_sharding``, an XLA sharding constraint, is refused there).
-    The ssm family ignores the attention knobs, as the JAX package does."""
+    The ssm family ignores the attention knobs, as the JAX package does;
+    the hybrid family's shared attention blocks take ``window`` and
+    ``ring`` (its towers and Mamba2 layers ignore them), and store their
+    new positions when there is a super-block."""
     _check_family(cfg)
     dims = BlockDims.from_arch(cfg)
     x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
@@ -375,6 +424,21 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
         x, _, _ = tfm.mamba_stack_decode(params["server"], x, cache["ssm"],
                                          cache["conv"], cfg.ssm, cfg.d_model,
                                          cfg.norm_eps)
+    elif cfg.family == "hybrid":
+        if towers:
+            x = _towers_decode(params, x, cache["tower"], None, None, cfg,
+                               live_mask=live_mask)
+        index = cache["index"].long().expand(B)
+        x, nss, _, _, _, _, _, npos = tfm.hybrid_stack_decode(
+            params["server_super"], params["server_tail"],
+            params["shared_attn"], x, cache.get("ssm_super"),
+            cache.get("conv_super"), cache.get("attn_k"),
+            cache.get("attn_v"), cache.get("ssm_tail"),
+            cache.get("conv_tail"), index,
+            cache["kv_positions"].expand(B, -1), cfg.ssm, dims,
+            window=window, ring=ring, position=index)
+        if nss is not None:
+            new_cache["kv_positions"] = npos[0]
     else:
         index = cache["index"].long().expand(B)
         kv_positions = cache["kv_positions"].expand(B, -1)
@@ -516,8 +580,8 @@ def make_train_step(cfg: ArchConfig, optimizer, *, use_kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 def split_lm_params(cfg: ArchConfig, params: dict) -> tuple[list, dict]:
-    """Per-client tower trees (each with its own copy of its embedding
-    columns) and the role-0 server tree."""
+    """Per-client tower trees (views into ``params``, each with its
+    columns of the embedding table) and the role-0 server tree."""
     from repro_torch.models.split_program import get_program
 
     return get_program(cfg).partition(params)

@@ -23,20 +23,31 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                lead: tuple = (), dtype=torch.float32,
                scale: Optional[float] = None) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun-style): a standard normal cut at
-    +-2, times 1/sqrt(d_in) — the JAX package's ``dense_init``."""
+    +-2, times 1/sqrt(d_in) — the JAX package's ``dense_init``.  Drawn in
+    f32; a stack in another dtype is drawn layer by layer, so that no f32
+    copy of the whole stack is ever held (qwen3-32b's bf16 MLP stacks are
+    16 GB each, 32 GB in f32)."""
     if scale is None:
         scale = 1.0 / math.sqrt(d_in)
-    w = torch.empty(lead + (d_in, d_out), dtype=torch.float32,
-                    device=gen.device)
-    torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
-                                generator=gen)
-    return (w * scale).to(dtype)
+
+    def draw(shape):
+        w = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(w, mean=0.0, std=1.0, a=-2.0, b=2.0,
+                                    generator=gen)
+        return w.mul_(scale)
+
+    if dtype == torch.float32 or not lead:
+        return draw(lead + (d_in, d_out)).to(dtype)
+    out = torch.empty(lead + (d_in, d_out), dtype=dtype, device=gen.device)
+    for layer in out.view(-1, d_in, d_out):
+        layer.copy_(draw((d_in, d_out)))
+    return out
 
 
 def embed_init(gen: torch.Generator, vocab: int, d: int,
                dtype=torch.float32) -> torch.Tensor:
     w = torch.randn((vocab, d), generator=gen, device=gen.device)
-    return (w * 0.02).to(dtype)
+    return w.mul_(0.02).to(dtype)
 
 
 # ---------------------------------------------------------------------------

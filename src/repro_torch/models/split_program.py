@@ -14,8 +14,8 @@ role-0 server:
   seed, so only protocol messages cross a transport);
 * the tower / server serving bundles.
 
-The port registers the token-LM program for the dense and ssm families;
-the other families come with later slices.
+The port registers the token-LM program for the dense, ssm and hybrid
+families; the other families come with later slices.
 """
 from __future__ import annotations
 
@@ -28,7 +28,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
 from repro_torch.models.backbone import (_server_layers, _server_trunk_apply,
-                                         _tower_dims, lm_loss)
+                                         _ssm_towers, _tower_dims, lm_loss)
 from repro_torch.models.transformer import BlockDims
 from repro_torch.tree_util import tree_map
 
@@ -174,8 +174,9 @@ class TokenLMSplitProgram(SplitProgram):
     for the unembed head.
 
     The towers are dense blocks for the dense family and Mamba2 blocks of
-    width ``proj_in.shape[1]`` (d_model / K) for the ssm family, whose
-    server trunk is the Mamba2 stack (``backbone._server_trunk_apply``).
+    width ``proj_in.shape[1]`` (d_model / K) for the ssm and hybrid
+    families, whose server trunks are the Mamba2 stack and the hybrid
+    stack (``backbone._server_trunk_apply``).
 
     Serving (dense only, as in the JAX package) is the split of the
     monolithic prefill / decode along the cut: the tower half
@@ -185,31 +186,32 @@ class TokenLMSplitProgram(SplitProgram):
     from the MERGED cut.  Training runs the same split through
     full-sequence forwards with no cache."""
 
+    def tower_params(self, params, client: int) -> dict:
+        """Client ``client``'s tower tree: views into ``params`` (its layer
+        of the tower stacks and its columns of the embedding table), so
+        nothing is copied.  The port's optimizers write no tensor in place,
+        so the client's columns still train apart from the server's table,
+        as in the JAX package."""
+        ds = self.cfg.d_model // self.num_clients
+        tp = tfm.layer_params(params["towers"], client)
+        tp["embed_slice"] = params["embed"]["table"][
+            :, client * ds:(client + 1) * ds]
+        return tp
+
     def partition(self, params):
-        K = self.num_clients
-        ds = self.cfg.d_model // K
-        table = params["embed"]["table"]
-        towers = []
-        for k in range(K):
-            # copies, not views: a view of the (K, ...) stack would keep
-            # every client's towers alive in each worker, and a view of the
-            # table would tie the client's embedding columns to the
-            # server's (the two train independently, as in the JAX package)
-            tp = tfm.layer_params(params["towers"], k)
-            tp = tree_map(torch.clone, tp)
-            tp["embed_slice"] = table[:, k * ds:(k + 1) * ds].clone()
-            towers.append(tp)
+        towers = [self.tower_params(params, k)
+                  for k in range(self.num_clients)]
         server = {key: val for key, val in params.items() if key != "towers"}
         return towers, server
 
     def tower_fwd(self, client: int) -> Callable:
         cfg = self.cfg
-        dims_t = None if cfg.family == "ssm" else _tower_dims(cfg)
+        dims_t = None if _ssm_towers(cfg) else _tower_dims(cfg)
 
         def tower_fwd(tp, tokens):
             x = tp["embed_slice"][tokens.long()]  # (B, S, d/K)
             h = layers.matmul(x, tp["proj_in"])
-            if cfg.family == "ssm":
+            if dims_t is None:
                 h = tfm.mamba_stack_apply(tp["blocks"], h, cfg.ssm,
                                           tp["proj_in"].shape[1],
                                           cfg.norm_eps)
@@ -248,7 +250,9 @@ class TokenLMSplitProgram(SplitProgram):
         if self.cfg.family != "dense":
             raise NotImplementedError(
                 f"{self.cfg.name}: split serving is implemented for the "
-                f"dense token-LM family only (got {self.cfg.family!r})")
+                f"dense token-LM family only (got {self.cfg.family!r}) — "
+                "stateful ssm/hybrid tower sessions and slot-aware moe "
+                "expert caches are open items")
 
     def tower_serve_fns(self, client: int, *,
                         use_kernel: bool = True) -> TowerServeFns:
@@ -339,7 +343,8 @@ class TokenLMSplitProgram(SplitProgram):
 
 
 _PROGRAMS: dict[str, type] = {"dense": TokenLMSplitProgram,
-                               "ssm": TokenLMSplitProgram}
+                               "ssm": TokenLMSplitProgram,
+                               "hybrid": TokenLMSplitProgram}
 
 SPLIT_EXEC_FAMILIES = tuple(_PROGRAMS)
 

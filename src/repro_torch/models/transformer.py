@@ -1,4 +1,6 @@
-"""Transformer and Mamba2 blocks and stacks.
+"""Transformer and Mamba2 blocks and stacks, and the hybrid (zamba2)
+stack: super-blocks of Mamba2 layers, each followed by one weight-shared
+attention block, then the trailing Mamba2 layers.
 
 Params for L homogeneous layers are stacked on a leading axis, as in the
 JAX package; a Python loop over the layers takes the place of
@@ -24,24 +26,27 @@ class BlockDims:
     n_kv_heads: int
     head_dim: int
     d_ff: int
+    qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
     norm_eps: float = 1e-5
 
     @staticmethod
     def from_arch(cfg: ArchConfig) -> "BlockDims":
-        """The attention dims; an ssm (attention-free, ``num_heads`` 0)
-        gets the JAX package's degenerate values, of which it reads only
-        the norm fields."""
-        if cfg.family not in ("dense", "ssm") or cfg.qk_norm:
+        """The attention dims: a hybrid's are its shared block's (real
+        heads and ``d_ff``); an ssm (attention-free, ``num_heads`` 0) gets
+        the JAX package's degenerate values, of which it reads only the
+        norm fields."""
+        if cfg.family not in ("dense", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: the port's blocks cover the dense family "
-                "without qk-norm and the ssm family so far")
+                f"{cfg.name}: the port's blocks cover the dense, ssm and "
+                "hybrid families so far")
         return BlockDims(
             d_model=cfg.d_model,
             n_heads=cfg.num_heads,
             n_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim(),
             d_ff=cfg.d_ff,
+            qk_norm=cfg.qk_norm,
             rope_theta=cfg.rope_theta,
             norm_eps=cfg.norm_eps,
         )
@@ -58,6 +63,7 @@ class BlockDims:
             n_kv_heads=kv,
             head_dim=self.head_dim,
             d_ff=max(self.head_dim, self.d_ff // k),
+            qk_norm=self.qk_norm,
             rope_theta=self.rope_theta,
             norm_eps=self.norm_eps,
         )
@@ -102,7 +108,7 @@ def init_dense_block(gen: torch.Generator, dims: BlockDims, *,
                                    device=gen.device, dtype=dtype),
         "attn": attn_lib.init_attention(
             gen, dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim,
-            lead=lead, dtype=dtype),
+            qk_norm=dims.qk_norm, lead=lead, dtype=dtype),
         "ln2": layers.init_rmsnorm(dims.d_model, lead=lead,
                                    device=gen.device, dtype=dtype),
         "mlp": layers.init_gated_mlp(gen, dims.d_model, dims.d_ff,
@@ -258,3 +264,64 @@ def mamba_stack_decode(stacked: dict, x: torch.Tensor,
         ssm_states[i].copy_(ns)
         conv_states[i].copy_(nc)
     return x, ssm_states, conv_states
+
+
+# ---------------------------------------------------------------------------
+# hybrid (zamba2): super-blocks of N Mamba layers + one SHARED attn block
+# ---------------------------------------------------------------------------
+
+def hybrid_layout(n_layers: int, every: int) -> tuple[int, int]:
+    """Returns (n_super_blocks, n_trailing_mamba_layers)."""
+    return n_layers // every, n_layers % every
+
+
+def hybrid_stack_apply(mamba_super: Optional[dict],
+                       mamba_tail: Optional[dict], shared_attn: dict,
+                       x: torch.Tensor, ssm_cfg: SSMConfig, dims: BlockDims,
+                       *, positions: Optional[torch.Tensor] = None,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """mamba_super ``(n_super, every, ...)`` stacked, or None when there
+    are fewer layers than ``every``; mamba_tail ``(n_tail, ...)`` or None;
+    shared_attn one dense block, run after every super-block."""
+    if mamba_super is not None:
+        for group in unstack_layers(mamba_super):
+            x = mamba_stack_apply(group, x, ssm_cfg, dims.d_model,
+                                  dims.norm_eps, use_kernel=use_kernel)
+            x = dense_block_apply(shared_attn, x, dims, causal=True,
+                                  positions=positions, use_kernel=use_kernel)
+    if mamba_tail is not None:
+        x = mamba_stack_apply(mamba_tail, x, ssm_cfg, dims.d_model,
+                              dims.norm_eps, use_kernel=use_kernel)
+    return x
+
+
+def hybrid_stack_decode(mamba_super, mamba_tail, shared_attn: dict,
+                        x: torch.Tensor, ssm_super, conv_super, attn_k,
+                        attn_v, ssm_tail, conv_tail, index: torch.Tensor,
+                        kv_positions: torch.Tensor, ssm_cfg: SSMConfig,
+                        dims: BlockDims, *, window: Optional[int] = None,
+                        ring: bool = False,
+                        position: Optional[torch.Tensor] = None):
+    """ssm_super ``(n_super, every, B, H, P, N)``, conv_super ``(n_super,
+    every, B, W-1, ch)``, attn_k/v ``(n_super, B, S, Kv, hd)``, the tail's
+    ``(n_tail, ...)``: all written in place.  index ``(B,)`` and
+    kv_positions ``(B, S)`` as in :func:`dense_stack_decode`.  Returns
+    (x, ssm_super, conv_super, attn_k, attn_v, ssm_tail, conv_tail,
+    kv_positions): the super-block caches are None without super-blocks,
+    and then the positions come back unchanged, as in the JAX package."""
+    npos = kv_positions
+    for g in range(0 if mamba_super is None else num_layers(mamba_super)):
+        x, _, _ = mamba_stack_decode(layer_params(mamba_super, g), x,
+                                     ssm_super[g], conv_super[g], ssm_cfg,
+                                     dims.d_model, dims.norm_eps)
+        x, _, _, pos_g, _ = dense_block_decode(
+            shared_attn, x, attn_k[g], attn_v[g], index, kv_positions, dims,
+            window=window, ring=ring, position=position)
+        if g == 0:  # the same for every block: block 0's are kept
+            npos = pos_g
+    if mamba_tail is not None:
+        x, ssm_tail, conv_tail = mamba_stack_decode(
+            mamba_tail, x, ssm_tail, conv_tail, ssm_cfg, dims.d_model,
+            dims.norm_eps)
+    return (x, ssm_super, conv_super, attn_k, attn_v, ssm_tail, conv_tail,
+            npos)

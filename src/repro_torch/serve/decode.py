@@ -1,6 +1,6 @@
 """Serving without a split: sampling, autoregressive generation (the dense
-family's fused prompt prefill, the ssm family's prompt replayed through
-the decode step) and the decode-throughput probe."""
+family's fused prompt prefill, the ssm and hybrid families' prompt
+replayed through the decode step) and the decode-throughput probe."""
 from __future__ import annotations
 
 import statistics
@@ -50,15 +50,15 @@ def generate(params: dict, cfg: ArchConfig, prompts, *,
 
     prompts ``(B, S_prompt)`` integer tokens (a tensor or an array).  The
     dense family fills the cache with :func:`backbone.prefill_tokens`
-    (the prompt attended in full); the ssm family replays the prompt
-    through :func:`backbone.decode_step`, one token at a time, as the
-    JAX package does.  Decoding runs with ``window`` and, where ``ring``
+    (the prompt attended in full); the ssm and hybrid families replay
+    the prompt through :func:`backbone.decode_step`, one token at a
+    time, as the JAX package does.  Decoding runs with ``window`` and, where ``ring``
     is set, over a ring cache of ``cache_len`` slots, which wraps by
     design; a linear cache that cannot hold the prompt and the new
     tokens is refused.  Greedy decoding gives the JAX package's tokens;
     sampling draws from a generator seeded with ``seed`` on the params'
     device."""
-    if cfg.family not in ("dense", "ssm"):
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
             "of the port")

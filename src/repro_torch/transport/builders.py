@@ -104,10 +104,11 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     tower and, for the dense family, serves it.
 
     With ``params`` None, runs the seeded init (``torch.Generator`` seeded
-    with ``seed`` on ``device``) and keeps only client ``client_id``'s
-    tower partition — a copy; the rest of the init is dropped when this
-    returns.  Otherwise partitions the given full param tree, which must
-    already live on ``device``.  The worker regenerates its token stream
+    with ``seed`` on ``device``) and keeps a copy of client ``client_id``'s
+    tower only; the rest of the init is dropped when this returns.
+    Otherwise the tower is a view into the given full param tree, which
+    must already live on ``device`` (nothing is copied: an in-process
+    server and its workers share one tree).  The worker regenerates its token stream
     from ``seed`` (``batch`` x ``seq`` per step, in ``microbatches``
     slices).  With ``learning_rate`` set, the tower trains locally under
     the same AdamW schedule as the server.  ``cfg.vertical.compression``
@@ -124,19 +125,20 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     program = split_program.get_program(cfg)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        params = backbone.init_params(cfg, gen, device=dev)
+        tower = tree_map(torch.clone, program.tower_params(
+            backbone.init_params(cfg, gen, device=dev), client_id))
     elif tree_device(params).type != dev.type:
         raise ValueError(f"params are on {tree_device(params)}, the worker "
                          f"runs on {dev}")
-    tower = program.partition(params)[0][client_id]
-    del params  # a seeded init is freed here; only the copied tower stays
+    else:
+        tower = program.tower_params(params, client_id)
 
     optimizer = None
     if learning_rate:
         optimizer = AdamW(
             learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
             weight_decay=0.1, grad_clip_norm=grad_clip)
-    # a family without a serving decomposition (ssm) gets a worker that
+    # a family without a serving decomposition (ssm, hybrid) gets a worker that
     # trains and refuses serving ops by name, as in the JAX package
     try:
         serve_fns = program.tower_serve_fns(client_id, use_kernel=use_kernel)

@@ -2,7 +2,8 @@
 
 Leaves come out in the JAX package's order (dict keys sorted), so a
 reduction over leaves (the global gradient norm) sums in the same order
-in both packages.
+in both packages.  ``None`` is an empty subtree, as in ``jax.tree_util``
+(a hybrid model without trailing Mamba layers has ``server_tail`` None).
 """
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import Callable, Iterator
 
 
 def tree_leaves(tree) -> list:
+    if tree is None:
+        return []
     if isinstance(tree, dict):
         return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
     if isinstance(tree, (list, tuple)):
@@ -19,6 +22,8 @@ def tree_leaves(tree) -> list:
 
 def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and of the same-shaped ``rest``."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {key: tree_map(fn, tree[key], *(r[key] for r in rest))
                 for key in tree}
@@ -38,6 +43,8 @@ def tree_unflatten(tree, leaves: list):
 
 
 def _rebuild(tree, it: Iterator):
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         built = {key: _rebuild(tree[key], it) for key in sorted(tree)}
         return {key: built[key] for key in tree}

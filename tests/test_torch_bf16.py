@@ -36,9 +36,18 @@ from repro_torch.runtime.executor import Executor
 from repro_torch.serve import generate
 from repro_torch.transport import (SimTransport, TowerWorker,
                                    build_mlp_worker)
+from jax_compiled import compiled_reference
 
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 GAP = 6e-2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_reference():
+    """The JAX package's init, towers and server compiled
+    (``tests/jax_compiled.py``)."""
+    with compiled_reference():
+        yield
 
 
 @pytest.fixture(scope="module", autouse=True)

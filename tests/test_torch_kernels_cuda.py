@@ -481,10 +481,11 @@ def test_flash_kernel_matches_plain_version_on_card(shape, causal, dtype):
     for layout in ("bhsd", "bshd"):
         q, k, v = _qkv(shape, dtype, gen, layout)
         before = flash_module.launches["flash_attention_kernel"]
-        before_d = flash_module.launches_by_head_dim[shape[4]]
+        before_d = flash_module.launches_by_instance[(shape[4], dtype)]
         got = ops.flash_attention(q, k, v, causal=causal)
         assert flash_module.launches["flash_attention_kernel"] == before + 1
-        assert flash_module.launches_by_head_dim[shape[4]] == before_d + 1
+        assert flash_module.launches_by_instance[(shape[4], dtype)] == \
+            before_d + 1
         want = ref.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
         assert got.shape == q.shape and got.dtype == dtype

@@ -12,7 +12,8 @@ against the JAX package's ``repro.launch.train``.
   reference's own ``SystemExit`` text; the configs the port does not
   carry yet exit naming their ROADMAP.md Queue 1 item.
 - The wire-overlay flags (``--compress``, ``--secure-agg``,
-  ``--agg-tree-fanout``) each train a reduced step to exit 0.
+  ``--agg-tree-fanout``) each train a reduced step to exit 0, and so do
+  ``--arch stablelm-3b``, ``qwen3-32b`` and ``zamba2-7b``.
 - ``compat.CLI_NAMES`` and ``cli_reject`` equal the reference's.
 - The new modules import with jax, the JAX package and ``msgpack``
   blocked.
@@ -110,7 +111,8 @@ def _args(**kw) -> Namespace:
     return Namespace(**{**base, **kw})
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["smollm-360m", "mamba2-1.3b", "qwen3-32b",
+                                  "zamba2-7b"])
 def test_runtime_report_equals_jax(capsys, arch):
     """Pure simulation on the host: every schedule's report and its
     printed line are the reference's, key for key and float for float."""
@@ -198,9 +200,27 @@ def test_overlay_flags_run(tmp_path, capsys, argv):
     assert summary["transport"] == argv[-1]
 
 
+@pytest.mark.parametrize("arch", ["stablelm-3b", "qwen3-32b", "zamba2-7b"])
+def test_other_configs_run(tmp_path, capsys, arch):
+    """The other dense configs and the hybrid family train 2 reduced
+    monolithic steps to exit 0 with the reference's summary keys; the
+    parameter count printed is the reference's."""
+    out = str(tmp_path / "run.json")
+    assert launch.main(["--arch", arch, "--reduced", "--steps", "2",
+                        "--batch", "2", "--seq", "32", "--device", "cpu",
+                        "--json", out]) == 0
+    with open(out) as f:
+        summary = json.load(f)["summary"]
+    assert set(summary) == MONO_KEYS | {"runtime"}
+    assert summary["arch"] == arch
+    assert summary["params"] == backbone.param_count(
+        get_arch(arch).reduced())
+    assert f"family={get_arch(arch).family}" in capsys.readouterr().out
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "zamba2-7b", "--reduced"], "item 11"),
-    (["--arch", "stablelm-3b"], "item 12"),
+    (["--arch", "arctic-480b", "--reduced"], "item 13"),
+    (["--arch", "deepseek-moe-16b"], "item 13"),
     (["--arch", "deepseek-moe-16b", "--transport", "inproc"], "item 13"),
     (["--arch", "whisper-tiny"], "item 13"),
     (["--arch", "internvl2-26b", "--vertical", "off"], "item 13"),

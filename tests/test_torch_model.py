@@ -59,9 +59,11 @@ def _rand(shape, seed):
 
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_jax(reduced):
-    """Every field of the port's configs of smollm-360m, starcoder2-3b and
-    mamba2-1.3b (sub-configs field by field) equals the JAX package's."""
-    for arch in (ARCH, "starcoder2-3b", "mamba2-1.3b"):
+    """Every field of the port's configs of smollm-360m, starcoder2-3b,
+    stablelm-3b, qwen3-32b, mamba2-1.3b and zamba2-7b (sub-configs field
+    by field) equals the JAX package's."""
+    for arch in (ARCH, "starcoder2-3b", "stablelm-3b", "qwen3-32b",
+                 "mamba2-1.3b", "zamba2-7b"):
         jcfg, cfg = jax_get_arch(arch), get_arch(arch)
         if reduced:
             jcfg, cfg = jcfg.reduced(), cfg.reduced()
@@ -81,7 +83,7 @@ def test_config_matches_jax(reduced):
                     jcfg.ssm.d_inner(d), jcfg.ssm.n_heads(d))
         assert tfm.BlockDims.from_arch(cfg).scaled(4).__dict__ == {
             k: v for k, v in jax_tfm.BlockDims.from_arch(jcfg).scaled(4)
-            .__dict__.items() if k not in ("qk_norm", "mlp", "norm")}
+            .__dict__.items() if k not in ("mlp", "norm")}
 
 
 @pytest.mark.parametrize("merge", ["avg", "concat"])

@@ -54,6 +54,7 @@ from repro_torch.train.loop import train_split
 from repro_torch.transport import (InprocTransport, MultiprocTransport,
                                    WorkerSpec, build_mlp_worker,
                                    build_split_worker)
+from jax_compiled import compiled_reference
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 RUN_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -156,6 +157,14 @@ def test_mlp_loopback_matches_protocol_and_costs():
     assert ledger.received_by("role3") == want["role3"].received_bytes
     assert ledger.sent_by("role1") == want["role1"].sent_bytes * (
         cfg.num_clients - 1)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_reference():
+    """The JAX package's init, towers and server compiled
+    (``tests/jax_compiled.py``)."""
+    with compiled_reference():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,14 @@ LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 BF16_TOL = dict(rtol=3e-2, atol=3e-2)
 # bf16 logits of the reduced model (|logit| < 4): 4 bf16 ulps at [2, 4)
 BF16_LOGIT_TOL = dict(rtol=3e-2, atol=4 * 2.0 ** -6)
+# the JAX package's Pallas chunk kernel in interpret mode, its scan and
+# its model's chunked SSD, compiled once per shape (eagerly, every grid
+# and scan step is dispatched, and compiled, op by op)
+_jax_ssd_chunk_batch = jax.jit(jax_ssd.ssd_chunk_batch,
+                               static_argnames="interpret")
+_jax_ssd_scan = jax.jit(jax_ops.ssd_scan,
+                        static_argnames=("chunk", "interpret"))
+_jax_ssd_chunked = jax.jit(jax_mamba.ssd_chunked, static_argnames="chunk")
 # the shapes of the JAX package's own SSD kernel tests: (S, P, N, chunk)
 SSD_SHAPES = [(64, 16, 16, 16), (128, 32, 32, 32)]
 
@@ -118,7 +126,7 @@ def test_ssd_chunk_matches_jax_kernel_and_oracle(G, Q, P, N):
     Cm = (rng.standard_normal((G, Q, N)) * 0.3).astype(np.float32)
     jin, tin = _both([x, a, Bm, Cm])
     got = ref.ssd_chunk(*tin)
-    pallas = jax_ssd.ssd_chunk_batch(*jin, interpret=True)
+    pallas = _jax_ssd_chunk_batch(*jin, interpret=True)
     oracle = jax.vmap(jax_ref.ssd_chunk)(*jin)
     for want in (pallas, oracle):
         for g, w in zip(got, want):
@@ -139,9 +147,9 @@ def test_ssd_scan_matches_jax(S, P, N, chunk, with_state):
                                  if state is None else torch.as_tensor(state))
     jstate = None if state is None else jnp.asarray(state)
     for want_y, want_st in (
-            jax_ops.ssd_scan(*jin, chunk=chunk, interpret=True,
-                             initial_state=jstate),
-            jax_mamba.ssd_chunked(*jin, chunk=chunk, initial_state=jstate)):
+            _jax_ssd_scan(*jin, chunk=chunk, interpret=True,
+                          initial_state=jstate),
+            _jax_ssd_chunked(*jin, chunk=chunk, initial_state=jstate)):
         _close(got_y, want_y, KERNEL_TOL)
         _close(got_st, want_st, KERNEL_TOL)
 
@@ -150,7 +158,7 @@ def test_ssd_scan_prompt_shorter_than_a_chunk():
     """S < chunk: one chunk of S rows, as in the JAX package."""
     jin, tin = _both(_ssd_inputs(1, 24, 3, 16, 16, seed=5))
     got_y, got_st = ops.ssd_scan(*tin, chunk=32)
-    want_y, want_st = jax_ops.ssd_scan(*jin, chunk=32, interpret=True)
+    want_y, want_st = _jax_ssd_scan(*jin, chunk=32, interpret=True)
     _close(got_y, want_y, KERNEL_TOL)
     _close(got_st, want_st, KERNEL_TOL)
     y, st = mamba.ssd_chunked(*tin, chunk=32)
@@ -173,7 +181,7 @@ def test_ssd_chunks_layout_matches_the_jax_grid():
     ag = a.reshape(B, nc, Q, H).transpose(0, 3, 1, 2).reshape(-1, Q)
     bc = [np.broadcast_to(m.reshape(B, nc, Q, 1, N), (B, nc, Q, H, N))
           .transpose(0, 3, 1, 2, 4).reshape(-1, Q, N) for m in (Bm, Cm)]
-    wy, wst, wdec, wcum = map(np.asarray, jax_ssd.ssd_chunk_batch(
+    wy, wst, wdec, wcum = map(np.asarray, _jax_ssd_chunk_batch(
         *map(jnp.asarray, (xg, ag, *bc)), interpret=True))
     _close(y, wy.reshape(B, H, nc, Q, P).transpose(0, 2, 3, 1, 4).reshape(
         B, S, H, P), KERNEL_TOL)
@@ -192,8 +200,8 @@ def test_ssd_chunked_matches_jax(groups):
         np.float32)
     got_y, got_st = mamba.ssd_chunked(*tin, chunk=16,
                                       initial_state=torch.as_tensor(state))
-    want_y, want_st = jax_mamba.ssd_chunked(*jin, chunk=16,
-                                            initial_state=jnp.asarray(state))
+    want_y, want_st = _jax_ssd_chunked(*jin, chunk=16,
+                                       initial_state=jnp.asarray(state))
     _close(got_y, want_y, SCAN_TOL)
     _close(got_st, want_st, SCAN_TOL)
 
@@ -306,9 +314,9 @@ def test_forward_matches_jax(setup, dropped):
     jcfg, cfg, jparams, params = setup
     toks = _tokens(cfg, (2, 64))
     live = np.array([1.0, 0.0], np.float32) if dropped else None
-    want, _ = jax_backbone.forward(
-        jparams, {"tokens": jnp.asarray(toks)}, jcfg,
-        live_mask=None if live is None else jnp.asarray(live))
+    want, _ = jax.jit(lambda p, t, lv: jax_backbone.forward(
+        p, {"tokens": t}, jcfg, live_mask=lv))(
+        jparams, jnp.asarray(toks), None if live is None else jnp.asarray(live))
     for use_kernel in (True, False):
         got, aux = backbone.forward(
             params, {"tokens": torch.as_tensor(toks)}, cfg,
@@ -451,8 +459,9 @@ def test_generate_greedy_matches_jax(setup):
 
 def test_unported_paths_raise_by_name(setup):
     """The ssm family has no fused prompt prefill (its generate replays
-    the prompt, as the JAX package's does); the other families are later
-    slices.  A compressed config runs (the straight-through codec before
+    the prompt, as the JAX package's does); the moe, audio and vlm
+    families are later slices (the hybrid family is ported:
+    ``tests/test_torch_hybrid.py``).  A compressed config runs (the straight-through codec before
     the merge, as in the JAX package's forward).  (Split execution of the ssm family is
     ported: ``tests/test_torch_ssd_train.py``; dense monolithic serving:
     ``tests/test_torch_dense_decode.py``.)"""
@@ -461,9 +470,9 @@ def test_unported_paths_raise_by_name(setup):
         backbone.prefill_tokens(params,
                                 backbone.init_cache(cfg, 1, 4, device="cpu"),
                                 torch.zeros((1, 2), dtype=int), cfg)
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
+    with pytest.raises(NotImplementedError, match="'moe' family"):
         generate({"x": torch.zeros(1)}, dataclasses.replace(
-            cfg, family="hybrid"), np.zeros((1, 2)))
+            cfg, family="moe"), np.zeros((1, 2)))
     compressed = cfg.with_vertical(dataclasses.replace(
         cfg.vertical, compression="int8"))
     jcompressed = jcfg.with_vertical(dataclasses.replace(
@@ -474,9 +483,9 @@ def test_unported_paths_raise_by_name(setup):
     got, _ = backbone.forward(params, {"tokens": torch.from_numpy(tokens)},
                               compressed)
     _close(got, want, LOGIT_TOL)
-    hybrid = dataclasses.replace(cfg, family="hybrid")
-    with pytest.raises(NotImplementedError, match="'hybrid' family"):
-        backbone.init_params(hybrid, device="cpu")
+    with pytest.raises(NotImplementedError, match="'audio' family"):
+        backbone.init_params(dataclasses.replace(cfg, family="audio"),
+                             device="cpu")
     with pytest.raises(NotImplementedError, match="'moe' family"):
         backbone.init_params(dataclasses.replace(cfg, family="moe"),
                              device="cpu")
@@ -565,7 +574,7 @@ def test_3xtf32_ssd_kernel_model_matches_pallas(Q, P, N):
              np.float32)
     Bm = (rng.standard_normal((Q, N)) * 0.3).astype(np.float32)
     Cm = (rng.standard_normal((Q, N)) * 0.3).astype(np.float32)
-    want = [np.asarray(w) for w in jax_ssd.ssd_chunk_batch(
+    want = [np.asarray(w) for w in _jax_ssd_chunk_batch(
         jnp.asarray(x), jnp.asarray(a), jnp.asarray(np.stack([Bm] * H)),
         jnp.asarray(np.stack([Cm] * H)), interpret=True)]
     err = {1: 0.0, 3: 0.0}

@@ -19,7 +19,9 @@ differentiates its plain chunked path, so the chunk terms are held to
 algorithm and differ only in summation order (the chunk terms, the scan,
 the block, one protocol step); 1e-4 for losses and params after three
 AdamW steps (slice 2's, ``tests/test_torch_train_split.py``), with the
-port's own step-0 verification at 1e-5.
+port's own step-0 verification at 1e-5.  The JAX package's init, towers
+and server run compiled (``tests/jax_compiled.py``), here and in the two
+files that import this one's fixtures.
 """
 import jax
 import jax.numpy as jnp
@@ -44,6 +46,7 @@ from repro_torch.models import split_program
 from repro_torch.models import transformer as tfm
 from repro_torch.train.loop import train_split
 from repro_torch.transport import build_split_worker
+from jax_compiled import compiled_reference
 
 ARCH = "mamba2-1.3b"
 GRAD_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -71,6 +74,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_reference():
+    """The JAX package's init, towers and server compiled
+    (``tests/jax_compiled.py``)."""
+    with compiled_reference():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -257,7 +268,7 @@ def test_ssd_scan_grads_match_jax(S, chunk, with_state):
     scan = lambda *a, **kw: jax_ops.ssd_scan(*a, use_pallas=False,  # noqa
                                              **kw)
     for fn in (scan, jax_mamba.ssd_chunked):
-        want = jax.grad(jax_loss(fn), argnums=tuple(range(n_in)))(
+        want = jax.jit(jax.grad(jax_loss(fn), argnums=tuple(range(n_in))))(
             *map(jnp.asarray, leaves))
         for i, (g, w) in enumerate(zip(got, want)):
             _close(g, w, A_GRAD_TOL if i == 2 else GRAD_TOL)
@@ -282,7 +293,8 @@ def test_mamba_block_grads_match_jax(setup):
                                               jcfg.norm_eps)
         return jnp.sum(out * g)
 
-    want_p, want_x = jax.grad(jloss, argnums=(0, 1))(jp, jnp.asarray(x))
+    want_p, want_x = jax.jit(jax.grad(jloss, argnums=(0, 1)))(
+        jp, jnp.asarray(x))
     runs = []
     for use_kernel in (True, False):
         p = jax.tree_util.tree_map(

@@ -4,8 +4,8 @@ tokens in four microbatches of one.  Set-up, tolerances and comparison are
 those of ``tests/test_torch_ssd_train.py``;
 ``tests/test_torch_ssd_train_serial.py`` holds the serial run.
 """
-from test_torch_ssd_train import (_one_torch_thread,  # noqa: F401
-                                  run_against_jax, setup)
+from test_torch_ssd_train import (_compiled_reference,  # noqa: F401
+                                  _one_torch_thread, run_against_jax, setup)
 
 
 def test_train_split_ssm_pipelined_matches_jax(setup):  # noqa: F811

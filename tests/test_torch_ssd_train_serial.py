@@ -3,8 +3,8 @@ reduced mamba2-1.3b: 4 sequences of 64 tokens a step, two chunks each.
 Set-up, tolerances and comparison are those of
 ``tests/test_torch_ssd_train.py``.
 """
-from test_torch_ssd_train import (_one_torch_thread,  # noqa: F401
-                                  run_against_jax, setup)
+from test_torch_ssd_train import (_compiled_reference,  # noqa: F401
+                                  _one_torch_thread, run_against_jax, setup)
 
 
 def test_train_split_ssm_serial_matches_jax(setup):  # noqa: F811

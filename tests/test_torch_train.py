@@ -30,10 +30,13 @@ from repro_torch.core import compat, costs, protocol
 from repro_torch.data.loader import LMBatchLoader
 from repro_torch.interop import params_from_numpy, to_numpy
 from repro_torch.models import backbone, split_program
+from repro_torch.optim import AdamW
 from repro_torch.runtime.executor import Executor
 from repro_torch.train.loop import train_split
 from repro_torch.transport import (InprocTransport, SimTransport, TowerWorker,
                                    build_split_worker)
+from repro_torch.tree_util import tree_map
+from jax_compiled import compiled_reference
 
 ARCH = "smollm-360m"
 BATCH, SEQ = 4, 16
@@ -48,6 +51,14 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _compiled_reference():
+    """The JAX package's init, towers and server compiled
+    (``tests/jax_compiled.py``)."""
+    with compiled_reference():
+        yield
 
 
 @pytest.fixture(scope="module")
@@ -126,15 +137,24 @@ def test_split_lm_helpers_wrap_the_program(setup):
 
 
 def test_partition_copies_the_embedding_columns(setup):
-    """Towers own copies: neither the table nor the (K, ...) stack is
-    shared with the server tree or between clients."""
+    """Towers are views, not copies: each client's embedding columns and
+    tower layer share storage with the full tree, and a tower's optimizer
+    update leaves the server's table as it was (the columns train apart
+    from it, as in the JAX package)."""
     towers, server = setup["parts"]
     table = server["embed"]["table"]
-    for tp in towers:
-        assert tp["embed_slice"].untyped_storage().data_ptr() != \
+    before = table.clone()
+    ds = setup["cfg"].d_model // len(towers)
+    opt = AdamW(learning_rate=1e-2)
+    for k, tp in enumerate(towers):
+        assert tp["embed_slice"].untyped_storage().data_ptr() == \
             table.untyped_storage().data_ptr()
-        assert tp["proj_in"].untyped_storage().data_ptr() != \
+        assert torch.equal(tp["embed_slice"], table[:, k * ds:(k + 1) * ds])
+        assert tp["proj_in"].untyped_storage().data_ptr() == \
             setup["params"]["towers"]["proj_in"].untyped_storage().data_ptr()
+        new, _ = opt.update(tp, tree_map(torch.ones_like, tp), opt.init(tp))
+        assert not torch.equal(new["embed_slice"], tp["embed_slice"])
+    assert torch.equal(table, before)
 
 
 def test_protocol_step_matches_jax(setup):

@@ -133,7 +133,8 @@ def test_centralized_forward_and_generate_match_jax(centralized):
 
 
 FULL_COUNTS = {"smollm-360m": 346_816_704, "mamba2-1.3b": 1_414_019_584,
-               "starcoder2-3b": 4_125_023_232}
+               "starcoder2-3b": 4_125_023_232, "stablelm-3b": 2_684_520_960,
+               "qwen3-32b": 32_229_460_480, "zamba2-7b": 6_650_983_376}
 
 
 @pytest.mark.parametrize("arch", sorted(FULL_COUNTS))
