@@ -24,7 +24,11 @@ the inline, threaded and process transports and through the launcher,
 and the other dense configs and the hybrid family: long-prompt split
 serving of full-width stablelm-3b (f32, head dim 80) and qwen3-32b (bf16,
 qk-norm), and full-width zamba2-7b's forward, generate and split
-training (Mamba2 super-blocks with a weight-shared attention block).
+training (Mamba2 super-blocks with a weight-shared attention block),
+and the moe family: full-width deepseek-moe-16b's forward, generate and
+split training with the router's aux loss on the protocol's slot,
+arctic-480b at published widths in bf16, and the compact bilinear
+merge.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -88,14 +92,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    (3e-2); at each of those timed shapes (causal f32), the kernel's time
    per call and on the device, the plain version's, one library call's,
    the tensor-core bound (3xTF32) and the f32-FMA bound.
-6. Long-prompt split serving: full-width smollm-360m, K = 4, 4 slots,
-   greedy, prompts of 2500-32768 tokens plus one of 1024 (dense branch)
-   in one batch.  Launch counters reset just before the run, read just
-   after: 38 flash launches per prompt past 2048 tokens (30 server + 4 x 2
-   tower layers) and one merge launch per merge.  A plain run (merge and
-   attention, role 0 and towers) gives identical tokens and prefill
-   logits within 1e-3, launching no kernel; the reduced model on the card
-   matches the CPU path on a 2304-token prompt (logits 1e-4, tokens).
+6. Long-prompt split serving: full-width smollm-360m cut to 16 of its 32
+   layers, K = 4, 4 slots, greedy, prompts of 2500-32768 tokens plus one
+   of 1024 (dense branch) in one batch.  Launch counters reset just
+   before the run, read just after: 22 flash launches per prompt past
+   2048 tokens (14 server + 4 x 2 tower layers) and one merge launch per
+   merge.  A plain run (merge and attention, role 0 and towers) gives
+   identical tokens and prefill logits within 1e-3, launching no kernel;
+   the reduced model on the card matches the CPU path on a 2304-token
+   prompt (logits 1e-4, tokens).
 7. The SSD chunk kernel (built with the flash kernel in phase 2): its
    ptxas report and the count of HGMMA instructions in the SASS of each
    instantiation (a spill, an instantiation without them or a ptxas note
@@ -319,6 +324,39 @@ Phases, in order; any failure raises and the script exits non-zero:
    times flash at qwen3-32b's (64 / 8) and (16 / 2) heads of 128 at 4096
    tokens in bf16, phase 7 both SSD kernels at zamba2-7b's (1, 8192) and
    (8, 256) tokens with 112 and 28 heads and d_state 64.
+17. The moe family, counters reset just before each run and read just
+   after.  Top-k routing is discontinuous (two runs' roundings may tip a
+   near-tie), so the run held against another replays its routes
+   (``models/moe.route`` wrapped: the same experts, gates from its own
+   probs) and every token is held; it prints the (token, layer) pairs
+   whose own expert set would have differed, and its router probs stay
+   within 5e-5 (f32; 4e-3 in bf16) of the other run's.  (a) Reduced
+   deepseek-moe-16b split and centralized (its dense first layer) and
+   reduced arctic-480b (a dense residual), same weights, card against
+   CPU: logits within 1e-4, aux within 1e-6, greedy ``generate`` tokens
+   identical.  (b)
+   Full-width deepseek-moe-16b (f32, seeded; 15.7 B params, 62.9 GB), K =
+   4: ``forward`` of 4096 tokens, 34 flash launches at D = 128 (26 server
+   at 16 / 16 heads, 4 x 2 tower at 4 / 4), against the plain path within
+   1e-3 (phase 13's prefill tolerance), the aux within the limit the
+   probs' difference sets, the peak printed; greedy ``generate`` of 2 x
+   32 prompt tokens and 8 new at the real capacity and at capacity factor
+   100, where nothing is dropped and the tokens equal the argmax of a
+   teacher-forced plain forward that replays decode's routes (at least
+   12 of 16 held).  (c)
+   deepseek-moe-16b at full width cut to 4 layers (2 tower, 2 MoE server
+   layers), ``train_split`` over inproc, 3 serial steps of 8 x 256, step
+   0 verified at 1e-5: avg (4, 2048, 2048) once each way a step on the
+   merge kernels, the ledger = the byte models with 4 bytes of aux a
+   step.  (d) arctic-480b at published widths cut to 4 layers, bf16
+   (27.9 B params, 55.7 GB; the init holds no f32 expert stack):
+   ``forward`` of 4096 tokens, 10 flash launches at D = 128 in bf16 (2
+   server at 56 / 8 heads, 4 x 2 tower at 14 / 2), against the plain
+   path as phase 16 (c) holds qwen3-32b's.  (e) ``merge_cbp`` of (4,
+   2048, 960) into 2048 features with a client dropped, card against CPU
+   within 1e-5 of the largest entry.  Phase 5 also holds and times flash
+   at deepseek's (16 / 16), (4 / 4) heads in f32 and arctic's (56 / 8),
+   (14 / 2) in bf16, at 4096 tokens.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -347,7 +385,7 @@ from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.configs.vertical_mlp import PAPER_DATASETS  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
 from repro_torch.data.loader import LMBatchLoader  # noqa: E402
-from repro_torch.core import costs, dropping, protocol  # noqa: E402
+from repro_torch.core import bilinear, costs, dropping, protocol  # noqa: E402
 from repro_torch.core import split_model, towers  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import merge_pool as mp  # noqa: E402
@@ -355,6 +393,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
 from repro_torch.models import backbone, mamba, split_program  # noqa: E402
+from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.transformer import BlockDims  # noqa: E402
 from repro_torch.optim import SGD, AdamW  # noqa: E402
@@ -405,6 +444,10 @@ NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
 # 126 MB cut of the 32768-token prompt beside the four pinned ones
 LONG_PROMPTS = [2500, 4096, 8192, 16384, 32768, 1024]
 LONG_NEW = [16, 16, 8, 8, 4, 16]
+# smollm-360m cut to 16 of its 32 layers (14 server + 2 tower): the plain
+# run's chunked attention over the 16384- and 32768-token prompts took
+# ~90% of the phase at full depth (82-94 s on an NVIDIA H100 80GB HBM3)
+LONG_LAYERS = 16
 LONG_CUT_CACHE_BYTES = 256 * 2 ** 20
 # the flash kernel against the plain version, as (rtol, atol): in f32
 # against the plain f32 output; in bf16 against the plain version's f32
@@ -435,6 +478,12 @@ FLASH_WIDE_SHAPES = [(1, 24, 2, 8192, 128), (1, 6, 1, 8192, 128),
 # its 4096-token prompt, checked in f32 and bf16 and timed in bf16, as
 # phase 16 serves it
 FLASH_QWEN_SHAPES = [(1, 64, 8, 4096, 128), (1, 16, 2, 4096, 128)]
+# phase 17's: deepseek-moe-16b's server (16 / 16) and towers (4 / 4) at
+# its 4096-token forward in f32, arctic-480b's server (56 / 8, a group of
+# 7) and towers (14 / 2) in bf16; checked in both dtypes, timed in the
+# dtype the path runs
+FLASH_MOE_F32 = [(1, 16, 16, 4096, 128), (1, 4, 4, 4096, 128)]
+FLASH_MOE_BF16 = [(1, 56, 8, 4096, 128), (1, 14, 2, 4096, 128)]
 H100_BF16_FLOPS = 989e12  # dense bf16 on the tensor cores, H100 SXM
 # timed, causal f32: the smollm-360m server (D 64) as PR 15 timed it, then
 # every wide shape
@@ -588,6 +637,38 @@ HYBRID_TRAIN_TIME_SHAPES = [("avg", HYBRID_TRAIN_SHAPE)]
 # percent of its outputs is held by phase 5 (rtol 2^-7 at these shapes);
 # one that is wrong moves the logits by their spread
 PLAIN_BF16_TOL = 2 ** -4
+# the moe family (phase 17): deepseek-moe-16b's and arctic-480b's forward at
+# 4096 tokens (kernel against plain), deepseek's generate of 2 x 32 prompt
+# tokens and 8 new, its split training cut to 4 layers (2 tower + 2 MoE
+# server layers, 1.61 B params: the port's AdamW updates out of place, so
+# at its update it holds the params, both moments and their new values,
+# the gradients and their clipped copy, 8x the param bytes: 51.6 GB here,
+# 70.4 GB at 5 layers, which ran out of the card's 80 GB there), whose
+# cut stack (4, 2048, 2048) the reduce kernels merge both ways
+# (phase 12's ssm stack, the same shape), arctic cut to 4 layers in
+# bf16 (55.7 GB: the deepest cut at published widths that fits), and the
+# compact bilinear merge of (4, 2048, 960) into 2048 features
+DS_ARCH, AR_ARCH = "deepseek-moe-16b", "arctic-480b"
+MOE_PREFILL = 4096
+MOE_GEN = (2, 32), 8
+MOE_NO_DROP = 100.0  # the capacity factor at which decode drops nothing
+# of its 2 x 8 generated tokens, at least this many are held against the
+# teacher-forced forward (those whose top-2 logit gap is above 2e-3)
+MOE_GEN_HELD = 12
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+MOE_TRAIN_SHAPE = SSM_TRAIN_SHAPE
+AR_LAYERS = 4
+CBP_SHAPE, CBP_OUT = (4, 2048, 960), 2048
+# below this share of its row's largest, an element's sketch product is
+# near the signed square root's singular point (see cbp_against_cpu)
+CBP_ROOT_FLOOR = 1e-3
+# phase 17's plain runs replay the kernel runs' routes; the router probs of
+# the two may differ by this much, the roundings of every layer before the
+# router.  Read on an NVIDIA H100 80GB HBM3: f32 1.369e-05 (deepseek-moe-16b
+# at 4096 tokens, attention kernel against plain; card against CPU at the
+# reduced widths <= 6.3e-07); bf16 1.722e-03 (arctic-480b, whose router
+# inputs are bf16: a rounding there is 2^-8 of the input)
+ROUTER_TOL = {torch.float32: 5e-5, torch.bfloat16: 4e-3}
 # figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
@@ -1546,7 +1627,8 @@ def check_flash_kernel() -> dict:
     worst = {**dict.fromkeys(fa.HEAD_DIMS, 0.0),
              **{(d, "bfloat16"): 0.0 for d in fa.HEAD_DIMS}}
     n = 0
-    model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES + FLASH_QWEN_SHAPES
+    model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES + \
+        FLASH_QWEN_SHAPES + FLASH_MOE_F32 + FLASH_MOE_BF16
     for shape in FLASH_SMALL_SHAPES + model_layout:
         for causal in (True, False) if shape[3] <= 8192 else (True,):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1575,7 +1657,8 @@ def check_flash_kernel() -> dict:
         f"atol 5e-4; bf16: against the plain f32 output from the same "
         f"inputs, rtol 2^-7, atol 1e-4; (B, H, Hkv, S, D) in "
         f"{FLASH_SMALL_SHAPES}, "
-        f"{FLASH_PATH_SHAPES}, {FLASH_WIDE_SHAPES} and {FLASH_QWEN_SHAPES}, "
+        f"{FLASH_PATH_SHAPES}, {FLASH_WIDE_SHAPES}, {FLASH_QWEN_SHAPES}, "
+        f"{FLASH_MOE_F32} and {FLASH_MOE_BF16}, "
         f"causal and full up "
         f"to 8192 tokens); worst f32 |err| by head dim "
         + ", ".join(f"D {d}: {worst[d]:.3e}" for d in fa.HEAD_DIMS)
@@ -1642,8 +1725,9 @@ def flash_bound(B, H, Hkv, S, D, dtype=torch.float32, causal=True) -> tuple:
 
 
 def time_flash(card: str) -> dict:
-    """Every shape of FLASH_TIME_SHAPES, causal f32, and of
-    FLASH_QWEN_SHAPES, causal bf16, in the model's layout: the kernel, the
+    """Every shape of FLASH_TIME_SHAPES and FLASH_MOE_F32, causal f32, and
+    of FLASH_QWEN_SHAPES and FLASH_MOE_BF16, causal bf16, in the model's
+    layout: the kernel, the
     plain version, one library call and the bound, by shape (the bf16 rows
     keyed ``(shape, torch.bfloat16)``).  The library call is
     scaled_dot_product_attention's memory-efficient backend (in bf16 its
@@ -1656,8 +1740,10 @@ def time_flash(card: str) -> dict:
     from torch.nn.functional import scaled_dot_product_attention
 
     rows = {}
-    for shape, dtype in [(s, torch.float32) for s in FLASH_TIME_SHAPES] + \
-            [(s, torch.bfloat16) for s in FLASH_QWEN_SHAPES]:
+    for shape, dtype in [(s, torch.float32) for s in FLASH_TIME_SHAPES
+                         + FLASH_MOE_F32] + \
+            [(s, torch.bfloat16) for s in FLASH_QWEN_SHAPES
+             + FLASH_MOE_BF16]:
         B, H, Hkv, S, D = shape
         gen = torch.Generator(device="cuda").manual_seed(S + D)
         q, k, v = _flash_inputs(shape, dtype, gen, True)
@@ -1765,7 +1851,7 @@ def serve_recording(cfg, params, prompts, new_tokens, *, use_kernel=True,
 
 
 def serve_long(card: str) -> int:
-    cfg = get_arch("smollm-360m")
+    cfg = dataclasses.replace(get_arch("smollm-360m"), num_layers=LONG_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = backbone.init_params(cfg, gen, device="cuda")
     rng = np.random.default_rng(SEED)
@@ -1777,7 +1863,8 @@ def serve_long(card: str) -> int:
     per_prompt = (cfg.num_layers - cfg.vertical.tower_layers
                   + K * cfg.vertical.tower_layers)
     n_long = sum(s * s > attn_lib.FLASH_THRESHOLD ** 2 for s in LONG_PROMPTS)
-    log(f"long serving: {cfg.name} full width, K={K}, prompts {LONG_PROMPTS}, "
+    log(f"long serving: {cfg.name} full width at {cfg.num_layers} layers, "
+        f"K={K}, prompts {LONG_PROMPTS}, "
         f"new tokens {LONG_NEW}, cache_len {cache_len}, cut cache "
         f"{LONG_CUT_CACHE_BYTES} bytes (largest cut "
         f"{max(LONG_PROMPTS) * cfg.d_model * 4} bytes)")
@@ -1854,7 +1941,7 @@ def serve_long(card: str) -> int:
         f"{decode_tokens / t_decode:.1f} tok/s ({decode_tokens} tokens in the "
         f"{t_decode:.4f} s the full run took beyond it); "
         f"max_memory_allocated {peak} bytes; tokens identical to the plain "
-        f"run | {card}")
+        f"run's | {card}")
     return launches["flash_attention_kernel"]
 
 
@@ -4768,6 +4855,477 @@ def other_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the moe family — deepseek-moe-16b and arctic-480b forward,
+# generate and split training with the router's aux-loss slot, and the
+# compact bilinear merge
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_routes(forced: list | None = None):
+    """Every ``moe_apply`` call's routing during the block, in call order
+    (``models/moe.route`` wrapped for the block): the router probs ``(G,
+    Sg, E)`` and the top-k experts ``(G, Sg, K)`` in slot order.  With
+    ``forced``, another run's record over the same tokens, each call takes
+    that run's experts (their gates from its own probs, renormalized as
+    ``route`` does), so both runs route and drop alike and every token can
+    be held; each call then also records the tokens whose own top-k set
+    differs (``flips``: a near-tie that the two runs' roundings tipped)
+    and its largest router-prob difference from the other run
+    (``dprob``) and that of the probs' means over its tokens (``dmean``:
+    an expert's mean prob, which the aux loss weighs)."""
+    calls = []
+    route = moe_lib.route
+
+    def wrapped(router, xt, cfg):
+        probs, top_p, top_idx = route(router, xt, cfg)
+        rec = {"probs": probs.detach(), "idx": top_idx.detach()}
+        if forced is not None:
+            other = forced[len(calls)]
+            idx = other["idx"].to(top_idx.device)
+            rec["flips"] = int((torch.sort(idx, -1).values != torch.sort(
+                top_idx, -1).values).any(-1).sum())
+            delta = probs - other["probs"].to(probs.device)
+            rec["dprob"] = float(delta.abs().max())
+            rec["dmean"] = float(delta.mean((0, 1)).abs().max())
+            top_p = torch.gather(probs, -1, idx)
+            top_p = top_p / torch.clamp_min(top_p.sum(-1, keepdim=True), 1e-9)
+            rec["idx"] = top_idx = idx
+        calls.append(rec)
+        return probs, top_p, top_idx
+
+    moe_lib.route = wrapped
+    try:
+        yield calls
+    finally:
+        moe_lib.route = route
+    if forced is not None and len(calls) != len(forced):
+        raise AssertionError(f"{len(calls)} moe calls replayed {len(forced)}")
+
+
+def replayed(calls: list, cfg, dtype) -> tuple:
+    """The routes a replayed run took over from the recorded one: checks
+    that its router probs stayed within ``ROUTER_TOL`` of the recorded
+    run's; returns (the aux loss's limit, its line).  With the same top-1
+    experts the two runs' densities are equal (they sum to 1), so a
+    layer's aux moves by at most E * weight * the largest difference of
+    an expert's mean prob."""
+    flips = sum(c["flips"] for c in calls)
+    pairs = sum(c["idx"].shape[0] * c["idx"].shape[1] for c in calls)
+    dprob = max(c["dprob"] for c in calls)
+    aux_tol = 1e-6 + cfg.moe.num_experts * cfg.moe.router_aux_weight * sum(
+        c["dmean"] for c in calls)
+    line = (f"routes replayed in {len(calls)} moe calls: {flips} of {pairs} "
+            f"(token, layer) pairs would have taken another expert set, "
+            f"router probs within {dprob:.3e} (tol {ROUTER_TOL[dtype]:g})")
+    if dprob > ROUTER_TOL[dtype]:
+        raise AssertionError(f"router probs differ: {line}")
+    return aux_tol, line
+
+
+def moe_small_against_cpu() -> None:
+    """(a) Reduced deepseek-moe-16b split and centralized (the centralized
+    tree's dense first layer, ``server_dense``) and reduced arctic-480b
+    (a dense residual), same weights, the card against the CPU, the CPU
+    runs replaying the card runs' routes: the ``forward`` logits within
+    1e-4 and the aux loss within 1e-6, and greedy ``generate`` tokens
+    identical (the prompt replayed through ``decode_step``)."""
+    rng = np.random.default_rng(SEED)
+    ds = get_arch(DS_ARCH).reduced()
+    cases = [("deepseek-moe-16b", ds),
+             ("deepseek-moe-16b centralized", ds.with_vertical(None)),
+             ("arctic-480b", get_arch(AR_ARCH).reduced())]
+    for name, cfg in cases:
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        cpu_params = backbone.init_params(cfg, gen, device="cpu")
+        tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (2, 64)))
+        out, fwd, dec = {}, None, None
+        for device, params in (("cuda", _to(cpu_params, "cuda")),
+                               ("cpu", cpu_params)):
+            reset_launches()
+            with moe_routes(fwd) as fwd:
+                logits, aux = backbone.forward(
+                    params, {"tokens": tokens.to(device)}, cfg)
+            launches = read_launches()
+            with moe_routes(dec) as dec:
+                toks = generate(params, cfg, tokens[:, :16].to(device),
+                                max_new_tokens=8)
+            out[device] = (logits.cpu(), float(aux), toks.cpu(), launches)
+        if any(out["cpu"][3].values()) or any(out["cuda"][3].values()):
+            raise AssertionError(f"reduced {name}: the forward at 64 tokens "
+                                 f"launched kernels: {out['cuda'][3]}")
+        _, line = replayed(fwd, cfg, torch.float32)
+        _, dec_line = replayed(dec, cfg, torch.float32)
+        diff = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        aux_diff = abs(out["cuda"][1] - out["cpu"][1])
+        if not torch.isfinite(out["cuda"][0]).all() or diff > 1e-4 or \
+                aux_diff > 1e-6:
+            raise AssertionError(f"reduced {name}: card logits differ from "
+                                 f"the CPU's by {diff:.3e} (tol 1e-4), aux by "
+                                 f"{aux_diff:.3e} (tol 1e-6); {line}")
+        if not torch.equal(out["cuda"][2], out["cpu"][2]):
+            raise AssertionError(f"reduced {name}: card tokens differ from "
+                                 f"the CPU's; {dec_line}")
+        log(f"small moe {name}: reduced ({cfg.num_layers} layers, d_model "
+            f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+            f"{cfg.moe.top_k}, shared {cfg.moe.num_shared_experts}, dense "
+            f"residual {cfg.moe.d_ff_dense_residual}, server_dense "
+            f"{backbone.params_dense_layers(cfg)}) on the card matches the "
+            f"CPU path: forward over 2 x 64 tokens, {line}; logits max "
+            f"|diff| {diff:.3e} <= 1e-4, aux {out['cuda'][1]:.8f} vs "
+            f"{out['cpu'][1]:.8f} (|diff| {aux_diff:.3e} <= 1e-6); greedy "
+            f"generate of 2 x 8 tokens identical, {dec_line}")
+
+
+def moe_forward_runs(cfg, params, tokens, dtype) -> tuple:
+    """``forward`` of ``tokens`` on the kernels, then on the plain path
+    replaying the kernel run's routes, the counters reset just before each
+    and read just after: returns the kernel run's launches and the line
+    that holds the kernel run against the plain one over every token (f32
+    logits within 1e-3, phase 13's prefill tolerance; bf16 each position
+    within ``PLAIN_BF16_TOL`` of its largest plain logit, phase 16 (c)'s
+    rule), the aux within the limit ``replayed`` derives."""
+    runs, routes = {}, None
+    for use_kernel in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad(), moe_routes(routes) as routes:
+            logits, aux = backbone.forward(params, {"tokens": tokens}, cfg,
+                                           use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        runs[use_kernel] = (logits, float(aux), time.perf_counter() - t0,
+                            read_launches(), torch.cuda.max_memory_allocated())
+        del logits
+    if any(runs[False][3].values()):
+        raise AssertionError(f"the plain forward launched kernels: "
+                             f"{runs[False][3]}")
+    (got, aux, t_k, launches, peak), (want, paux, t_p, _, ppeak) = \
+        runs[True], runs[False]
+    aux_tol, route_line = replayed(routes, cfg, dtype)
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits")
+    V = want.shape[-1]
+    a, b = got.reshape(-1, V).float(), want.reshape(-1, V).float()
+    diff = float((a - b).abs().max())
+    if dtype == torch.float32:
+        bad = diff > 1e-3
+        rule = f"max |diff| {diff:.3e} (tol 1e-3)"
+    else:
+        rel = float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+        bad = rel > PLAIN_BF16_TOL
+        rule = (f"each within {rel:.3e} of its largest plain logit (tol "
+                f"{PLAIN_BF16_TOL}), max |diff| {diff:.3e}")
+    bad = bad or abs(aux - paux) > aux_tol
+    B, S = tokens.shape
+    line = (f"kernel {B * S / t_k:.1f} tok/s ({t_k:.4f} s, launches "
+            f"{ {k: v for k, v in launches.items() if v} }, "
+            f"max_memory_allocated {peak} bytes); plain {B * S / t_p:.1f} "
+            f"tok/s ({t_p:.4f} s, no launch, max_memory_allocated {ppeak} "
+            f"bytes); {route_line}; logits over all {B * S} tokens {rule}; "
+            f"aux {aux:.8f} vs plain {paux:.8f} (|diff| {abs(aux - paux):.3e},"
+            f" tol {aux_tol:.3e})")
+    if bad:
+        raise AssertionError(f"kernel vs plain forward: {line}")
+    del got, want
+    return launches, line
+
+
+def moe_init(cfg, dtype) -> tuple:
+    """The seeded init on the card, timed; returns (params, line)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    t0 = time.perf_counter()
+    params = backbone.init_params(cfg, gen, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    n_params = sum(t.numel() for t in _leaves(params))
+    param_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    if n_params != backbone.param_count(cfg):
+        raise AssertionError(f"{cfg.name} has {n_params} params, expected "
+                             f"{backbone.param_count(cfg)}")
+    # no f32 copy of an expert stack: what the init held beside the params
+    # stays below one layer's f32 stack (E, d, ff) (the f32 transients are
+    # single matrices: the embedding table's, one expert's)
+    transient = init_peak - base - param_bytes
+    limit = cfg.moe.num_experts * cfg.d_model * cfg.d_ff * 4
+    if dtype != torch.float32 and transient >= limit:
+        raise AssertionError(f"{cfg.name} init held {transient} bytes beside "
+                             f"the params (an f32 expert stack: {limit})")
+    return params, (f"{n_params} params ({param_bytes} bytes "
+                    f"{str(dtype).removeprefix('torch.')}; init {t_init:.2f} "
+                    f"s, max_memory_allocated during init {init_peak} bytes, "
+                    f"{transient} beside the params)")
+
+
+def moe_flash_counts(cfg) -> int:
+    """Flash launches a forward past 2048 tokens: one per attention layer
+    of the server and of each tower."""
+    v = cfg.vertical
+    return cfg.num_layers - v.tower_layers + v.num_clients * v.tower_layers
+
+
+def deepseek_full(card: str) -> dict:
+    """(b) Full-width deepseek-moe-16b (f32, seeded; 26 MoE server layers of
+    64 experts top-6 and 2 shared, K = 4 dense towers of 2 layers):
+    ``forward`` of one 4096-token prompt on the kernels and on the plain
+    path (34 flash launches at D = 128: 26 server at 16 / 16 heads and
+    4 x 2 tower at 4 / 4); then greedy ``generate`` of 2 x 32 prompt
+    tokens and 8 new at the real capacity (each decode step routes the 2
+    streams' tokens as one group: one slot an expert), and at capacity
+    factor 100, where nothing is dropped and decode equals the forward:
+    those tokens held against the argmax of the plain forward over the
+    prompt and the tokens generated (teacher-forced, replaying decode's
+    routes), wherever its top-2 gap exceeds 2e-3, at least
+    ``MOE_GEN_HELD`` of them.  Returns the forward's launches."""
+    cfg = get_arch(DS_ARCH)
+    params, init_line = moe_init(cfg, torch.float32)
+    n = moe_flash_counts(cfg)
+    K = cfg.vertical.num_clients
+    log(f"moe model: {DS_ARCH} full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts of d_ff {cfg.d_ff} "
+        f"top-{cfg.moe.top_k}, {cfg.moe.num_shared_experts} shared, capacity "
+        f"factor {cfg.moe.capacity_factor}; attention {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim()}, towers "
+        f"{cfg.num_heads // K}/{cfg.num_kv_heads // K}), K={K}, f32: "
+        f"{init_line}")
+    rng = np.random.default_rng(SEED)
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                           device="cuda")
+    with torch.no_grad():
+        backbone.forward(params, {"tokens": warm}, cfg)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, MOE_PREFILL)), device="cuda")
+    launches, line = moe_forward_runs(cfg, params, tokens, torch.float32)
+    expect_launches(launches, {"flash_attention_kernel": n,
+                               flash_name(128): n})
+    log(f"moe forward {DS_ARCH} (1, {MOE_PREFILL}): {line} | {card}")
+
+    (B, S), new = MOE_GEN
+    prompts = torch.as_tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                              device="cuda")
+    generate(params, cfg, prompts[:, :4], max_new_tokens=2)  # warm-up
+    nodrop = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=MOE_NO_DROP))
+    out = {}
+    for label, c in (("real", cfg), ("no-drop", nodrop)):
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        with moe_routes() as dec:
+            out[label] = generate(params, c, prompts, max_new_tokens=new)
+        torch.cuda.synchronize()
+        out[label + "_s"] = time.perf_counter() - t0
+        if any(read_launches().values()):
+            raise AssertionError(f"moe generate launched kernels")
+    # the teacher-forced plain forward over the prompt and the tokens
+    # generated replays decode's routes: decode step t routes the B
+    # streams' token t as one group, layer by layer; the forward routes
+    # all B * T tokens (stream-major) as one group; nothing is dropped at
+    # this capacity in either
+    T = S + new - 1
+    L = len(dec) // T
+    if L * T != len(dec):
+        raise AssertionError(f"{len(dec)} moe calls in {T} decode steps")
+    forced = [{key: torch.stack([dec[t * L + layer][key][0]
+                                 for t in range(T)], 1).reshape(
+                                     1, B * T, -1)
+               for key in ("probs", "idx")} for layer in range(L)]
+    seq = torch.cat([prompts, out["no-drop"][:, :-1]], dim=1)
+    with torch.no_grad(), moe_routes(forced) as fwd:
+        logits, _ = backbone.forward(params, {"tokens": seq}, nodrop,
+                                     use_kernel=False)
+    _, route_line = replayed(fwd, cfg, torch.float32)
+    want = logits[:, S - 1:].argmax(-1)
+    top = torch.topk(logits[:, S - 1:], 2, dim=-1).values
+    # each position is held on its own: the forward reads the tokens
+    # decode generated and routes as decode did
+    held = (top[..., 0] - top[..., 1]) > 2e-3
+    wrong = held & (out["no-drop"] != want)
+    if wrong.any() or int(held.sum()) < MOE_GEN_HELD:
+        raise AssertionError(
+            f"moe generate (no drop): {int(wrong.sum())} of "
+            f"{int(held.sum())} held tokens differ from the teacher-forced "
+            f"plain forward's argmax ({out['no-drop'].tolist()} vs "
+            f"{want.tolist()}; at least {MOE_GEN_HELD} held)")
+    parted = int((out["real"] != out["no-drop"]).sum())
+    log(f"moe generate {DS_ARCH}: {B} prompts of {S} tokens, {new} new each, "
+        f"greedy, the prompt replayed through decode_step, no launch; at "
+        f"the real capacity {out['real'].tolist()} ({out['real_s']:.4f} s, "
+        f"{B * (S + new) / out['real_s']:.1f} replayed and generated "
+        f"tokens/s); at capacity factor {MOE_NO_DROP} "
+        f"{out['no-drop'].tolist()} ({out['no-drop_s']:.4f} s), "
+        f"{int(held.sum())} of {B * new} tokens held (a top-2 gap above "
+        f"2e-3; at least {MOE_GEN_HELD}) equal to the argmax of the "
+        f"teacher-forced plain forward, which {route_line}; {parted} tokens "
+        f"differ between the two capacities (decode routes the batch as one "
+        f"group of capacity {moe_lib._capacity(B, cfg.moe)}) | {card}")
+    del params, logits
+    torch.cuda.empty_cache()
+    return launches
+
+
+def deepseek_train(card: str) -> dict:
+    """(c) deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS layers (2
+    dense tower layers, 2 MoE server layers; the out-of-place AdamW holds
+    8x the param bytes at its update), K = 4, avg, ``train_split`` over
+    inproc, serial, 8 x 256 tokens, MOE_TRAIN_STEPS steps, step 0 verified
+    against ``protocol_step`` at 1e-5.  Counters reset just before the run
+    and read just after: one avg merge each way a step at (4, 2048, 2048)
+    on the merge kernels, no flash (256 tokens).  Every step's ledger
+    equals the byte models, its ``aux_loss`` slot
+    ``costs.aux_exchange_bytes``.  Returns the launches."""
+    cfg = dataclasses.replace(get_arch(DS_ARCH), num_layers=MOE_TRAIN_LAYERS)
+    v = cfg.vertical
+    torch.cuda.empty_cache()
+    with merge_calls() as merges:
+        _, metrics, seconds, launches, peak = train(cfg, MOE_TRAIN_STEPS,
+                                                    "cuda")
+    expect_launches(launches, {"merge_reduce_kernel": MOE_TRAIN_STEPS,
+                               "merge_reduce_bwd_kernel": MOE_TRAIN_STEPS})
+    if merges != [("avg", MOE_TRAIN_SHAPE)] * MOE_TRAIN_STEPS:
+        raise AssertionError(f"moe train: role 0 merged {merges}")
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"moe train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    rows = TRAIN_BATCH * TRAIN_SEQ
+    aux = costs.aux_exchange_bytes(1)
+    want = (2 * v.num_clients * costs.cut_bytes(rows, cfg.d_model)
+            + 2 * costs.head_exchange_bytes(rows, cfg.vocab_size) + aux)
+    got = [(ledger.total(), ledger.bytes_with_tag("aux_loss"))
+           for ledger in metrics.ledgers]
+    if got != [(want, aux)] * MOE_TRAIN_STEPS:
+        raise AssertionError(f"moe train: ledgers {got} != costs "
+                             f"{(want, aux)}")
+    if len(metrics.aux_losses) != MOE_TRAIN_STEPS or not all(
+            math.isfinite(a) and a > 0 for a in metrics.aux_losses):
+        raise AssertionError(f"moe train: aux {metrics.aux_losses}")
+    steady = metrics.step_times[1:]
+    log(f"moe train: {DS_ARCH} full width at {cfg.num_layers} layers (K="
+        f"{v.num_clients} dense towers of {v.tower_layers}, "
+        f"{backbone.param_count(cfg)} params), f32, serial, "
+        f"{MOE_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens: "
+        f"losses {metrics.losses}, router aux {metrics.aux_losses}, step-0 "
+        f"max |dgrad| vs protocol_step {metrics.step0_max_dgrad:.3e} (<= "
+        f"1e-5); merges avg {MOE_TRAIN_SHAPE} one each way a step; ledger "
+        f"{want} bytes a step = costs, {aux} of them the aux_loss slot = "
+        f"costs.aux_exchange_bytes(1); launches "
+        f"{ {k: n for k, n in launches.items() if n} }; "
+        f"{len(steady) * rows / sum(steady):.1f} train tokens/s over steps "
+        f"1-{MOE_TRAIN_STEPS - 1} (step times {metrics.step_times} s; step "
+        f"0 includes the verification), wall {seconds:.4f} s with set-up, "
+        f"max_memory_allocated {peak} bytes | {card}")
+    return launches
+
+
+def arctic_forward(card: str) -> dict:
+    """(d) arctic-480b at published widths cut to AR_LAYERS layers (2 dense
+    tower layers, 2 MoE server layers of 128 experts top-2 beside a dense
+    residual), bf16 (every expert stack drawn matrix by matrix: the init
+    holds no f32 copy of a stack): ``forward`` of one 4096-token prompt
+    on the kernels and on the plain path, 10 flash launches at D = 128 in
+    bf16 (2 server at 56 / 8 heads, 4 x 2 tower at 14 / 2).  Returns the
+    launches."""
+    cfg = dataclasses.replace(get_arch(AR_ARCH), num_layers=AR_LAYERS)
+    params, init_line = moe_init(cfg, torch.bfloat16)
+    if params["server"]["moe"]["router"].dtype != torch.float32:
+        raise AssertionError("arctic router not f32")
+    K = cfg.vertical.num_clients
+    n = moe_flash_counts(cfg)
+    log(f"moe model: {AR_ARCH} at published widths cut to {cfg.num_layers} "
+        f"layers (d_model {cfg.d_model}, {cfg.moe.num_experts} experts of "
+        f"d_ff {cfg.d_ff} top-{cfg.moe.top_k}, dense residual "
+        f"{cfg.moe.d_ff_dense_residual}; attention {cfg.num_heads}/"
+        f"{cfg.num_kv_heads} heads of {cfg.resolved_head_dim()}, towers "
+        f"{cfg.num_heads // K}/{cfg.num_kv_heads // K}), K={K}, bf16 "
+        f"(router f32): {init_line}")
+    rng = np.random.default_rng(SEED)
+    warm = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, 256)),
+                           device="cuda")
+    with torch.no_grad():
+        backbone.forward(params, {"tokens": warm}, cfg)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (1, MOE_PREFILL)), device="cuda")
+    launches, line = moe_forward_runs(cfg, params, tokens, torch.bfloat16)
+    expect_launches(launches, {"flash_attention_kernel": n,
+                               flash_name(128): n,
+                               flash_name(128, torch.bfloat16): n})
+    log(f"moe forward {AR_ARCH} (1, {MOE_PREFILL}), bf16: {line} | {card}")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def cbp_against_cpu(card: str) -> None:
+    """(e) ``merge_cbp`` of K = 4 cuts ``CBP_SHAPE`` into ``CBP_OUT``
+    features, client 1 dropped, on the card against the CPU (same sketch
+    from a CPU generator), timed (plain PyTorch on both devices: the
+    reference has no kernel).  The output is the signed square root of
+    the sketches' spectral product, L2-normalised, so ``sign(out) *
+    out**2`` is that product over its row's L1 norm: held within 1e-5 of
+    its largest entry.  The output itself is held within 1e-5 of its
+    largest entry wherever that product is above ``CBP_ROOT_FLOOR`` of
+    its row's largest: below it the signed square root magnifies the
+    FFTs' roundings (by up to 5e3 at zero), and those elements are counted
+    and their worst difference printed."""
+    gen = torch.Generator(device="cpu").manual_seed(SEED)
+    K, rows, D = CBP_SHAPE
+    sketch = bilinear.CountSketch.create(gen, K, D, CBP_OUT)
+    cuts = torch.randn(CBP_SHAPE, generator=gen)
+    live = torch.ones(K)
+    live[1] = 0.0
+    sk_card = bilinear.CountSketch(sketch.signs.cuda(), sketch.buckets.cuda(),
+                                   CBP_OUT)
+    t0 = time.perf_counter()
+    want = bilinear.merge_cbp(cuts, sketch, live_mask=live)
+    cpu_s = time.perf_counter() - t0
+    args = (cuts.cuda(), live.cuda())
+    got = bilinear.merge_cbp(args[0], sk_card, live_mask=args[1]).cpu()
+    pre, pre_want = (torch.sign(x) * x * x for x in (got, want))
+    pre_diff = float((pre - pre_want).abs().max())
+    pre_scale = float(pre_want.abs().max())
+    held = pre_want.abs() >= CBP_ROOT_FLOOR * pre_want.abs().amax(
+        -1, keepdim=True)
+    err = (got - want).abs()
+    diff = float(err[held].max())
+    rest = float(err[~held].max()) if (~held).any() else 0.0
+    scale = float(want.abs().max())
+    if got.shape != (rows, CBP_OUT) or pre_diff > 1e-5 * pre_scale or \
+            diff > 1e-5 * scale:
+        raise AssertionError(
+            f"merge_cbp: card vs CPU product {pre_diff:.3e} (tol 1e-5 x "
+            f"{pre_scale:.3e}), output {diff:.3e} (tol 1e-5 x {scale:.3e})")
+    ms = time_ms(lambda c, lv: bilinear.merge_cbp(c, sk_card, live_mask=lv),
+                 [args], iters=20)
+    log(f"merge_cbp: K={K} cuts {CBP_SHAPE} -> ({rows}, {CBP_OUT}), client 1 "
+        f"dropped (the mean sketch of the live ones), card vs CPU: the "
+        f"spectral product over its row's L1 norm (sign(out) * out^2) "
+        f"within {pre_diff:.3e} (<= 1e-5 x its largest {pre_scale:.3e}); "
+        f"the output within {diff:.3e} (<= 1e-5 x its largest {scale:.3e}) "
+        f"at the {int(held.sum())} of {held.numel()} elements whose product "
+        f"is >= {CBP_ROOT_FLOOR:g} of its row's largest, {rest:.3e} at the "
+        f"other {int((~held).sum())} (the signed root near zero); per call "
+        f"{ms:.4f} ms on the card, {cpu_s * 1e3:.1f} ms once on the CPU | "
+        f"{card}")
+
+
+def moe_phase(card: str) -> dict:
+    """Phase 17; returns the launches by sub-phase: ``"deepseek_forward"``,
+    ``"deepseek_train"``, ``"arctic_forward"``."""
+    t0 = time.perf_counter()
+    moe_small_against_cpu()
+    out = {"deepseek_forward": deepseek_full(card),
+           "deepseek_train": deepseek_train(card),
+           "arctic_forward": arctic_forward(card)}
+    cbp_against_cpu(card)
+    log(f"moe: phase 17 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -4829,6 +5387,7 @@ def main() -> None:
     for sub in other.values():
         for k, n in sub.items():
             other_total[k] = other_total.get(k, 0) + n
+    moe = moe_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -4849,7 +5408,8 @@ def main() -> None:
                          + nowait_launches[name] + ssm_train.get(name, 0)
                          + launch_launches.get(name, 0)
                          + overlay_launches.get(name, 0)
-                         + other_total.get(name, 0)),
+                         + other_total.get(name, 0)
+                         + moe["deepseek_train"].get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -4864,9 +5424,10 @@ def main() -> None:
             if key in row:
                 entry[key] = row[key]
         # the MLP path's shapes (phases 10 and 11), the no-wait LM stack
-        # (phase 11), the ssm training stack (phase 12), the tree's
-        # top-level stack (phase 15) and the hybrid training stack (phase
-        # 16), whose launches are in the count
+        # (phase 11), the ssm training stack (phase 12, and phase 17's moe
+        # training at the same shape), the tree's top-level stack (phase
+        # 15) and the hybrid training stack (phase 16), whose launches are
+        # in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
@@ -4878,7 +5439,8 @@ def main() -> None:
             if tuple(sub["shape"]) == NOWAIT_SHAPE:
                 sub["launches"] = nowait_shape_launches
             if tuple(sub["shape"]) == SSM_TRAIN_SHAPE:
-                sub["launches"] = ssm_train["full"][name]
+                sub["launches"] = (ssm_train["full"][name]
+                                   + moe["deepseek_train"].get(name, 0))
             if tuple(sub["shape"]) == TREE_SHAPE:
                 # role 0's launches at the tree's stacks (full width at
                 # this shape, reduced width at (2, 2048, 256))
@@ -4911,19 +5473,29 @@ def main() -> None:
         return entry
 
     # the flash kernel by head dim and dtype: 64 on phases 6 and 13, 128
-    # (f32) on phase 9's, 80 on phase 16's stablelm-3b, 112 on its
-    # zamba2-7b, 128 in bf16 on its qwen3-32b (the reduced checks of
-    # phase 16 (a) at D 80, 112 and 128 in f32 are not counted)
+    # (f32) on phase 9's and phase 17's deepseek-moe-16b, 80 on phase 16's
+    # stablelm-3b, 112 on its zamba2-7b, 128 in bf16 on its qwen3-32b and
+    # phase 17's arctic-480b (the reduced checks of phase 16 (a) at D 80,
+    # 112 and 128 in f32 are not counted); phase 17's timed shapes ride in
+    # the D 128 rows, their launches beside them
     kernels.append(flash_entry((1, 15, 5, 32768, 64), flash_launches[64]))
-    kernels.append(flash_entry((1, 24, 2, 32768, 128), flash_launches[128]))
+    wide = flash_entry((1, 24, 2, 32768, 128), flash_launches[128]
+                       + moe["deepseek_forward"][flash_name(128)])
+    wide["other_shapes"] = [flash_entry(shape) for shape in FLASH_MOE_F32]
+    wide["deepseek_moe_16b_launches"] = \
+        moe["deepseek_forward"][flash_name(128)]
+    kernels.append(wide)
     kernels.append(flash_entry((1, 32, 32, 8192, 80),
                                other["stablelm"][flash_name(80)]))
     kernels.append(flash_entry((1, 32, 32, 8192, 112),
                                other["hybrid_forward"][flash_name(112)]))
+    arctic = moe["arctic_forward"][flash_name(128, torch.bfloat16)]
     qwen = flash_entry(FLASH_QWEN_SHAPES[0], other["qwen3"][flash_name(
-        128, torch.bfloat16)], dtype=torch.bfloat16)
-    qwen["other_shapes"] = [flash_entry(FLASH_QWEN_SHAPES[1],
-                                        dtype=torch.bfloat16)]
+        128, torch.bfloat16)] + arctic, dtype=torch.bfloat16)
+    qwen["other_shapes"] = [flash_entry(shape, dtype=torch.bfloat16)
+                            for shape in FLASH_QWEN_SHAPES[1:]
+                            + FLASH_MOE_BF16]
+    qwen["arctic_480b_launches"] = arctic
     kernels.append(qwen)
     def ssd_entry(shape):
         row = ssd_rows[shape]

@@ -2,9 +2,10 @@
 
 The port keeps its own copy (it imports nothing of the JAX package) of the
 configs it runs: smollm-360m, starcoder2-3b, stablelm-3b and qwen3-32b
-(dense), mamba2-1.3b (ssm) and zamba2-7b (hybrid).  Only the fields the
-dense, ssm and hybrid token-LM families read are carried; the sub-configs
-of the other families (moe, audio, vlm) come with their slices.
+(dense), mamba2-1.3b (ssm), zamba2-7b (hybrid), and deepseek-moe-16b and
+arctic-480b (moe).  Only the fields the dense, ssm, hybrid and moe
+token-LM families read are carried; the sub-configs of the other
+families (audio, vlm) come with their slice.
 ``tests/test_torch_model.py`` checks the shared fields against the JAX
 package's ``ArchConfig`` so the two copies cannot drift.
 """
@@ -15,6 +16,23 @@ from dataclasses import dataclass
 from typing import Optional
 
 MERGE_STRATEGIES = ("concat", "sum", "avg", "max", "mul")
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts layer configuration."""
+
+    num_experts: int
+    top_k: int
+    # deepseek-style always-on shared experts (0 = none)
+    num_shared_experts: int = 0
+    # arctic-style dense FFN residual in parallel with the MoE FFN
+    dense_residual: bool = False
+    d_ff_dense_residual: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01
+    # first `first_dense_layers` layers use a plain dense FFN (deepseek-moe)
+    first_dense_layers: int = 0
 
 
 @dataclass(frozen=True)
@@ -72,10 +90,10 @@ class VerticalConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (the dense, ssm and hybrid token-LM fields)."""
+    """One architecture (the dense, moe, ssm and hybrid token-LM fields)."""
 
     name: str
-    family: str  # dense | ssm | hybrid (the families the port runs so far)
+    family: str  # dense | moe | ssm | hybrid (the families the port runs)
     num_layers: int
     d_model: int
     num_heads: int
@@ -88,6 +106,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     sliding_window: int = 8192
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
     vertical: Optional[VerticalConfig] = None
@@ -106,14 +125,28 @@ class ArchConfig:
         return dataclasses.replace(self, vertical=vertical)
 
     def reduced(self) -> "ArchConfig":
-        """Smoke-test variant: 2 layers, d_model <= 256, 2 clients; an ssm
-        keeps d_state <= 16 and chunks of 32, a hybrid a shared attention
-        block after every Mamba layer."""
+        """Smoke-test variant: 2 layers, d_model <= 256, 2 clients; a moe
+        keeps <= 4 experts, top-2, <= 1 shared expert, a dense residual of
+        <= 512 and <= 1 first dense layer, an ssm d_state <= 16 and chunks
+        of 32, a hybrid a shared attention block after every Mamba
+        layer."""
         d_model = min(self.d_model, 256)
         heads = min(self.num_heads, 4) or 4
         kv = min(self.num_kv_heads, heads) or heads
         while heads % kv:  # at least 1 kv head, dividing heads
             kv -= 1
+        moe = None
+        if self.moe is not None:
+            moe = dataclasses.replace(
+                self.moe,
+                num_experts=min(self.moe.num_experts, 4),
+                top_k=min(self.moe.top_k, 2),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                d_ff_dense_residual=min(self.moe.d_ff_dense_residual, 512)
+                if self.moe.dense_residual
+                else 0,
+                first_dense_layers=min(self.moe.first_dense_layers, 1),
+            )
         ssm = None
         if self.ssm is not None:
             ssm = dataclasses.replace(self.ssm,
@@ -136,6 +169,7 @@ class ArchConfig:
             vocab_size=min(self.vocab_size, 512),
             head_dim=0,
             sliding_window=64,
+            moe=moe,
             ssm=ssm,
             hybrid=hybrid,
             vertical=vertical,
@@ -165,6 +199,7 @@ def get_arch(name: str) -> ArchConfig:
 
 def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
-    from repro_torch.configs import (mamba2_1_3b, qwen3_32b,  # noqa: F401
-                                     smollm_360m, stablelm_3b,
+    from repro_torch.configs import (arctic_480b,  # noqa: F401
+                                     deepseek_moe_16b, mamba2_1_3b,
+                                     qwen3_32b, smollm_360m, stablelm_3b,
                                      starcoder2_3b, zamba2_7b)

@@ -281,7 +281,7 @@ def serve_schedule(num_clients: int, label_holder: int = 0, *,
 
 def protocol_step(
     tower_fwd,  # (tower_params_k, x_k) -> cut; or a per-client list of K
-    server_fwd: Callable,  # (server_params, merged) -> logits
+    server_fwd: Callable,  # (server_params, merged) -> logits[, aux]
     loss_fn: Callable,  # (logits, labels) -> scalar
     tower_params: list,
     server_params,
@@ -300,8 +300,9 @@ def protocol_step(
     server_grads, ledger).
 
     Feature holders send cut activations to role 0; role 0 sends the head
-    output to role 3; role 3 returns the head jacobian; role 0 returns the
-    per-client cut jacobians.  With ``compress`` the workers compress
+    output (and, for families with a server-side auxiliary loss,
+    ``server_aux``, the ``aux_loss`` scalar) to role 3; role 3 returns the
+    head jacobian; role 0 returns the per-client cut jacobians.  With ``compress`` the workers compress
     their cuts and the executor its jacobians, from the zero residual.
     A thin wrapper: the numerics live in the
     :class:`~repro_torch.runtime.executor.Executor` (serial mode, one

@@ -36,13 +36,17 @@ Examples:
       --reduced --steps 3 --batch 4 --seq 64 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2-7b \\
       --reduced --steps 3 --batch 4 --seq 64 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train \\
+      --arch deepseek-moe-16b --reduced --transport inproc --steps 3 \\
+      --batch 4 --seq 32 --device cpu
 
 The flags, their checks and their messages are the JAX package's
 ``repro.launch.train``'s, plus ``--device {cuda,cpu}``.  A rejected
 composition of flags reads as there (the compat matrix, through
-:func:`repro_torch.core.compat.cli_reject`).  The configs the port does
-not carry yet (the moe, audio and vlm families) exit naming their
-ROADMAP.md Queue 1 item.
+:func:`repro_torch.core.compat.cli_reject`).  A moe config's split run
+prints its router aux loss and the bytes of the protocol's aux slot.
+The configs the port does not carry yet (the audio and vlm families)
+exit naming their ROADMAP.md Queue 1 item.
 """
 from __future__ import annotations
 
@@ -58,8 +62,6 @@ from repro_torch.data.loader import LMBatchLoader
 #: configs of the JAX package that the port does not carry yet -> the
 #: ROADMAP.md Queue 1 item that brings them
 UNPORTED_ARCHS = {
-    "deepseek-moe-16b": "the moe family (ROADMAP.md Queue 1, item 13)",
-    "arctic-480b": "the moe family (ROADMAP.md Queue 1, item 13)",
     "whisper-tiny": "the audio family (ROADMAP.md Queue 1, item 13)",
     "internvl2-26b": "the vlm family (ROADMAP.md Queue 1, item 13)",
 }

@@ -1,4 +1,4 @@
-"""Architecture assembly for the dense, ssm and hybrid families: params
+"""Architecture assembly for the dense, moe, ssm and hybrid families: params
 with the vertical split or without it (the centralized baseline), the
 monolithic forward, the decode caches, the dense prompt prefill
 (``prefill_tokens``) and the decode step, the server trunk, the LM loss and the monolithic
@@ -17,12 +17,16 @@ stacked cuts before the merge, straight through, as the JAX package's
 monolithic path does.  The hybrid (zamba2) server is super-blocks of
 ``shared_attn_every`` Mamba2 layers, each followed by ONE weight-shared
 dense block, then the trailing Mamba2 layers; its towers are Mamba2
-blocks of width d_model/K, as the ssm family's.  The other families (moe,
-audio, vlm) raise ``NotImplementedError`` naming the slice of the port
-that brings them.
+blocks of width d_model/K, as the ssm family's.  The moe server is its
+first dense layers left after the towers (``server_dense``, FFN width
+``d_ff * top_k``), then the MoE blocks, whose router aux loss the
+forward returns; its towers stay dense (the experts live at role 0).
+The other families (audio, vlm) raise ``NotImplementedError`` naming the
+slice of the port that brings them.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -62,12 +66,31 @@ def _server_layers(cfg: ArchConfig) -> int:
     return cfg.num_layers - cfg.vertical.tower_layers
 
 
+def params_dense_layers(cfg: ArchConfig) -> int:
+    """The moe family's dense server layers: ``first_dense_layers`` less
+    the tower layers (the towers come first and are dense anyway)."""
+    if cfg.family != "moe":
+        return 0
+    n = cfg.moe.first_dense_layers
+    if cfg.vertical is not None:
+        n = max(0, n - cfg.vertical.tower_layers)
+    return n
+
+
+def _dense_layer_dims(cfg: ArchConfig) -> BlockDims:
+    """The moe family's dense server layers: deepseek's dense layer has a
+    wider FFN (``d_ff * top_k``, about the routed experts' width)."""
+    dims = BlockDims.from_arch(cfg)
+    return dataclasses.replace(dims, d_ff=cfg.d_ff * max(cfg.moe.top_k, 1))
+
+
 def _check_family(cfg: ArchConfig) -> None:
     """The families the port runs so far; the rest raise by name."""
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
-            "of the port (it runs the dense, ssm and hybrid families so far)")
+            "of the port (it runs the dense, moe, ssm and hybrid families "
+            "so far)")
 
 
 def _ssm_towers(cfg: ArchConfig) -> bool:
@@ -108,9 +131,8 @@ def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, dtype=torch.float32) -> dict:
-    """Seeded init of the dense, ssm or hybrid family, with its vertical
-    section
-    or centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    """Seeded init of the dense, moe, ssm or hybrid family, with its
+    vertical section or centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
     for).  ``generator`` must live on that device; None means a fresh one
     seeded with 0.
 
@@ -153,6 +175,15 @@ def _init_tree(cfg: ArchConfig, generator, dev: torch.device, dtype) -> dict:
             dtype=dtype) if n_tail else None
         params["shared_attn"] = tfm.init_dense_block(
             generator, BlockDims.from_arch(cfg), dtype=dtype)
+    elif cfg.family == "moe":
+        n_dense = params_dense_layers(cfg)
+        if n_dense:
+            params["server_dense"] = tfm.init_dense_block(
+                generator, _dense_layer_dims(cfg), lead=(n_dense,),
+                dtype=dtype)
+        params["server"] = tfm.init_moe_block(
+            generator, BlockDims.from_arch(cfg), cfg.moe,
+            lead=(n_server - n_dense,), dtype=dtype)
     else:
         params["server"] = tfm.init_dense_block(
             generator, BlockDims.from_arch(cfg), lead=(n_server,),
@@ -220,7 +251,9 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
     server trunk, the final norm and the unembedding.
     ``use_kernel=False`` keeps every layer on the plain path (the model's
     ``ssd_chunked``; chunked attention past 2048
-    tokens), on any device."""
+    tokens), on any device.  The aux loss is the moe router's
+    load-balance term summed over the layers, zero for the other
+    families."""
     _check_family(cfg)
     dims = BlockDims.from_arch(cfg)
     tokens = batch["tokens"]
@@ -230,11 +263,10 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
     if cfg.vertical is not None:
         x = _towers_forward(params, x, cfg, positions=positions,
                             live_mask=live_mask, use_kernel=use_kernel)
-    x = _server_trunk_apply(params, x, cfg, dims, positions=positions,
-                            use_kernel=use_kernel)
+    x, aux = _server_trunk_apply(params, x, cfg, dims, positions=positions,
+                                 use_kernel=use_kernel)
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
-    return (layers.unembed(params["embed"], x),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+    return layers.unembed(params["embed"], x), aux
 
 
 def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
@@ -249,25 +281,38 @@ def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
 
 def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                         dims: BlockDims, *, positions,
-                        use_kernel: bool = True) -> torch.Tensor:
-    """Post-merge server layers (the dense, ssm and hybrid branches of
-    the JAX package's ``_server_trunk_apply``; none has an auxiliary
-    loss)."""
+                        use_kernel: bool = True):
+    """Post-merge server layers (the dense, moe, ssm and hybrid branches
+    of the JAX package's ``_server_trunk_apply``); returns (x, aux), the
+    aux loss ``()`` f32 being the moe router's, zero for the others.
+    Shared by the monolithic ``forward`` and the split program's
+    ``server_fwd``."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
-        return tfm.mamba_stack_apply(params["server"], x, cfg.ssm,
-                                     cfg.d_model, cfg.norm_eps,
-                                     use_kernel=use_kernel)
-    if cfg.family == "hybrid":
-        return tfm.hybrid_stack_apply(
+        x = tfm.mamba_stack_apply(params["server"], x, cfg.ssm, cfg.d_model,
+                                  cfg.norm_eps, use_kernel=use_kernel)
+    elif cfg.family == "hybrid":
+        x = tfm.hybrid_stack_apply(
             params["server_super"], params["server_tail"],
             params["shared_attn"], x, cfg.ssm, dims, positions=positions,
             use_kernel=use_kernel)
-    if cfg.family != "dense":
+    elif cfg.family == "moe":
+        if "server_dense" in params:
+            x = tfm.dense_stack_apply(params["server_dense"], x,
+                                      _dense_layer_dims(cfg), causal=True,
+                                      positions=positions,
+                                      use_kernel=use_kernel)
+        x, aux = tfm.moe_stack_apply(params["server"], x, dims, cfg.moe,
+                                     positions=positions,
+                                     use_kernel=use_kernel)
+    elif cfg.family == "dense":
+        x = tfm.dense_stack_apply(params["server"], x, dims, causal=True,
+                                  positions=positions, use_kernel=use_kernel)
+    else:
         raise NotImplementedError(
-            f"{cfg.name}: the port's server trunk covers the dense, ssm and "
-            f"hybrid families only (got {cfg.family!r})")
-    return tfm.dense_stack_apply(params["server"], x, dims, causal=True,
-                                 positions=positions, use_kernel=use_kernel)
+            f"{cfg.name}: the port's server trunk covers the dense, moe, "
+            f"ssm and hybrid families only (got {cfg.family!r})")
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -302,6 +347,9 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
       (int8 with ``kv_quant``, plus ``k_scale``/``v_scale``
       ``(L, B, cache_len, Kv, 1)`` f32) and the towers' ``tower.k``/
       ``tower.v`` ``(K, Lt, B, cache_len, Kv_t, hd)``;
+    - moe: the dense server layers' ``dense_k``/``dense_v`` when there
+      are any, the MoE layers' ``k``/``v`` and the dense towers' (no int8:
+      ``kv_quant`` is ignored, as in the JAX package);
     - ssm: the server's ``ssm``/``conv`` stacks and the towers';
     - hybrid: ``ssm_super``/``conv_super`` ``(n_super, every, B, ...)``
       and the shared block's ``attn_k``/``attn_v`` ``(n_super, B,
@@ -346,6 +394,15 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
         return cache
     kv = (_server_layers(cfg), batch, cache_len, dims.n_kv_heads,
           dims.head_dim)
+    if cfg.family == "moe":
+        kv_quant = False
+        n_dense = params_dense_layers(cfg)
+        if n_dense:
+            cache["dense_k"] = torch.zeros((n_dense,) + kv[1:], dtype=dtype,
+                                           device=dev)
+            cache["dense_v"] = torch.zeros((n_dense,) + kv[1:], dtype=dtype,
+                                           device=dev)
+        kv = (kv[0] - n_dense,) + kv[1:]
     kv_dtype = torch.int8 if kv_quant else dtype
     cache["k"] = torch.zeros(kv, dtype=kv_dtype, device=dev)
     cache["v"] = torch.zeros(kv, dtype=kv_dtype, device=dev)
@@ -410,7 +467,10 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     The ssm family ignores the attention knobs, as the JAX package does;
     the hybrid family's shared attention blocks take ``window`` and
     ``ring`` (its towers and Mamba2 layers ignore them), and store their
-    new positions when there is a super-block."""
+    new positions when there is a super-block.  The moe family decodes
+    its dense server layers with ``window`` and ``ring`` and its MoE
+    layers with ``decode_chunks`` too; each MoE layer routes the B tokens
+    as one group, at the reference's capacity for B tokens."""
     _check_family(cfg)
     dims = BlockDims.from_arch(cfg)
     x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
@@ -439,6 +499,24 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             window=window, ring=ring, position=index)
         if nss is not None:
             new_cache["kv_positions"] = npos[0]
+    elif cfg.family == "moe":
+        index = cache["index"].long().expand(B)
+        kv_positions = cache["kv_positions"].expand(B, -1)
+        if towers:
+            x = _towers_decode(params, x, cache["tower"], index,
+                               kv_positions, cfg, window=window, ring=ring,
+                               live_mask=live_mask)
+        if "dense_k" in cache:
+            x, _, _, _, _ = tfm.dense_stack_decode(
+                params["server_dense"], x, cache["dense_k"],
+                cache["dense_v"], index, kv_positions,
+                _dense_layer_dims(cfg), window=window, ring=ring,
+                position=index)
+        x, _, _, npos = tfm.moe_stack_decode(
+            params["server"], x, cache["k"], cache["v"], index, kv_positions,
+            dims, cfg.moe, window=window, ring=ring, position=index,
+            decode_chunks=decode_chunks, chunk_sharding=chunk_sharding)
+        new_cache["kv_positions"] = npos[0]
     else:
         index = cache["index"].long().expand(B)
         kv_positions = cache["kv_positions"].expand(B, -1)
@@ -588,8 +666,15 @@ def split_lm_params(cfg: ArchConfig, params: dict) -> tuple[list, dict]:
 
 
 def make_split_lm_fns(cfg: ArchConfig):
-    """(tower_fwd, server_fwd, loss_fn) callables for the Executor."""
+    """(tower_fwd, server_fwd, loss_fn) callables for the Executor.  A
+    program with an aux-loss slot (moe) needs the full SplitProgram
+    interface, as in the JAX package."""
     from repro_torch.models.split_program import get_program
 
     program = get_program(cfg)
+    if program.has_aux:
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) needs the full SplitProgram "
+            "interface (aux-loss slot); use "
+            "repro_torch.models.split_program.get_program")
     return program.tower_fwd(0), program.server_fwd, program.loss_fn

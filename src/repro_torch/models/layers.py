@@ -8,6 +8,7 @@ one ``(L, ...)`` tensor — the JAX package's stacked layout.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -111,6 +112,14 @@ def matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     runs in f32 against a bf16 tree, as in the JAX package."""
     dtype = torch.promote_types(x.dtype, w.dtype)
     return x.to(dtype) @ w.to(dtype)
+
+
+def einsum(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with the operands promoted as ``jnp.einsum``
+    promotes them (torch refuses mixed operands), as :func:`matmul`."""
+    dtype = functools.reduce(torch.promote_types,
+                             (op.dtype for op in operands))
+    return torch.einsum(equation, *(op.to(dtype) for op in operands))
 
 
 def gated_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:

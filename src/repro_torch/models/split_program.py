@@ -6,7 +6,9 @@ role-0 server:
 
 * ``tower_fwd(k)`` — client ``k``'s ``(tower_params, feats) -> cut``;
 * ``server_fwd`` — the role-0 forward ``(server_params, merged) ->
-  logits``;
+  logits``, or ``(logits, aux)`` when the family carries an auxiliary
+  loss (``has_aux``: the moe router's load-balance term, shipped role 0
+  -> role 3 through the protocol's aux slot);
 * ``loss_fn`` — the role-3 loss ``(logits, batch_ctx) -> scalar``;
 * ``partition(params)`` — the per-role split of a monolithic param tree;
 * ``features`` / ``feature_fn`` — the per-client feature source,
@@ -14,8 +16,8 @@ role-0 server:
   seed, so only protocol messages cross a transport);
 * the tower / server serving bundles.
 
-The port registers the token-LM program for the dense, ssm and hybrid
-families; the other families come with later slices.
+The port registers the token-LM program for the dense, moe, ssm and
+hybrid families; the audio and vlm families come with a later slice.
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ class SplitProgram:
     """Family-agnostic contract; subclasses register one family each.
 
     The class-level shape flags are the JAX package's (``executor_kwargs``
-    hands them to the Executor); the token-LM program sets none of them."""
+    hands them to the Executor); the token-LM program sets ``has_aux``
+    for the moe family."""
 
     server_takes_batch = False
     has_aux = False
@@ -173,10 +176,13 @@ class TokenLMSplitProgram(SplitProgram):
     The role-0 server keeps the trunk, the final norm, and the full table
     for the unembed head.
 
-    The towers are dense blocks for the dense family and Mamba2 blocks of
-    width ``proj_in.shape[1]`` (d_model / K) for the ssm and hybrid
-    families, whose server trunks are the Mamba2 stack and the hybrid
-    stack (``backbone._server_trunk_apply``).
+    The towers are dense blocks for the dense and moe families and Mamba2
+    blocks of width ``proj_in.shape[1]`` (d_model / K) for the ssm and
+    hybrid families, whose server trunks are the Mamba2 stack and the
+    hybrid stack (``backbone._server_trunk_apply``).  For moe the experts
+    live at role 0 and ``server_fwd`` returns ``(logits, aux)``: the
+    router's load-balance loss rides the protocol's role-0 -> role-3 aux
+    slot.
 
     Serving (dense only, as in the JAX package) is the split of the
     monolithic prefill / decode along the cut: the tower half
@@ -185,6 +191,10 @@ class TokenLMSplitProgram(SplitProgram):
     -> final norm -> unembed, with the server KV cache) runs at role 0
     from the MERGED cut.  Training runs the same split through
     full-sequence forwards with no cache."""
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        self.has_aux = cfg.family == "moe"
 
     def tower_params(self, params, client: int) -> dict:
         """Client ``client``'s tower tree: views into ``params`` (its layer
@@ -227,10 +237,13 @@ class TokenLMSplitProgram(SplitProgram):
     def server_fwd(self, sp, merged):
         dims = BlockDims.from_arch(self.cfg)
         positions = torch.arange(merged.shape[1], device=merged.device)
-        x = _server_trunk_apply(sp, merged, self.cfg, dims,
-                                positions=positions)
+        x, aux = _server_trunk_apply(sp, merged, self.cfg, dims,
+                                     positions=positions)
         x = layers.rmsnorm(sp["final_norm"], x, dims.norm_eps)
-        return layers.unembed(sp["embed"], x)
+        logits = layers.unembed(sp["embed"], x)
+        if self.has_aux:
+            return logits, aux
+        return logits
 
     def loss_fn(self, logits, labels):
         return lm_loss(logits, labels)
@@ -343,6 +356,7 @@ class TokenLMSplitProgram(SplitProgram):
 
 
 _PROGRAMS: dict[str, type] = {"dense": TokenLMSplitProgram,
+                               "moe": TokenLMSplitProgram,
                                "ssm": TokenLMSplitProgram,
                                "hybrid": TokenLMSplitProgram}
 

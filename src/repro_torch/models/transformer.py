@@ -1,4 +1,4 @@
-"""Transformer and Mamba2 blocks and stacks, and the hybrid (zamba2)
+"""Transformer, MoE and Mamba2 blocks and stacks, and the hybrid (zamba2)
 stack: super-blocks of Mamba2 layers, each followed by one weight-shared
 attention block, then the trailing Mamba2 layers.
 
@@ -14,9 +14,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, SSMConfig
+from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import layers, mamba
+from repro_torch.models import moe as moe_lib
 
 
 @dataclass(frozen=True)
@@ -36,10 +37,10 @@ class BlockDims:
         heads and ``d_ff``); an ssm (attention-free, ``num_heads`` 0) gets
         the JAX package's degenerate values, of which it reads only the
         norm fields."""
-        if cfg.family not in ("dense", "ssm", "hybrid"):
+        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
-                f"{cfg.name}: the port's blocks cover the dense, ssm and "
-                "hybrid families so far")
+                f"{cfg.name}: the port's blocks cover the dense, moe, ssm "
+                "and hybrid families so far")
         return BlockDims(
             d_model=cfg.d_model,
             n_heads=cfg.num_heads,
@@ -207,6 +208,98 @@ def dense_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
         if i == 0:
             npos = pos_i
     return x, cache_k, cache_v, npos, kv_scales
+
+
+# ---------------------------------------------------------------------------
+# MoE block
+# ---------------------------------------------------------------------------
+
+def init_moe_block(gen: torch.Generator, dims: BlockDims, moe_cfg: MoEConfig,
+                   *, lead: tuple = (), dtype=torch.float32) -> dict:
+    return {
+        "ln1": layers.init_rmsnorm(dims.d_model, lead=lead,
+                                   device=gen.device, dtype=dtype),
+        "attn": attn_lib.init_attention(
+            gen, dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim,
+            qk_norm=dims.qk_norm, lead=lead, dtype=dtype),
+        "ln2": layers.init_rmsnorm(dims.d_model, lead=lead,
+                                   device=gen.device, dtype=dtype),
+        "moe": moe_lib.init_moe(gen, dims.d_model, dims.d_ff, moe_cfg,
+                                lead=lead, dtype=dtype),
+    }
+
+
+def moe_block_apply(p: dict, x: torch.Tensor, dims: BlockDims,
+                    moe_cfg: MoEConfig, *, positions=None,
+                    use_kernel: bool = True):
+    """Full-sequence forward; returns (x, aux loss)."""
+    h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
+    attn_out, _ = attn_lib.attention_apply(
+        p["attn"], h, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
+        head_dim=dims.head_dim, causal=True, positions=positions,
+        rope_theta=dims.rope_theta, use_kernel=use_kernel)
+    x = x + attn_out
+    h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
+    moe_out, aux = moe_lib.moe_apply(p["moe"], h, moe_cfg)
+    return x + moe_out, aux
+
+
+def moe_block_decode(p: dict, x: torch.Tensor, cache_k, cache_v, index,
+                     kv_positions, dims: BlockDims, moe_cfg: MoEConfig, *,
+                     window=None, ring: bool = False, position=None,
+                     decode_chunks=None, chunk_sharding=None):
+    """One-token decode; the caches are written in place.  The MoE runs
+    on ``(B, 1, d)``: one group of B tokens, whose capacity is the
+    reference's at that group size.  Returns (x, cache_k, cache_v,
+    kv_positions)."""
+    h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
+    attn_out, nk, nv, npos, _ = attn_lib.decode_attention_apply(
+        p["attn"], h, cache_k, cache_v, index, n_heads=dims.n_heads,
+        n_kv_heads=dims.n_kv_heads, head_dim=dims.head_dim,
+        kv_positions=kv_positions, rope_theta=dims.rope_theta,
+        position=position, window=window, ring=ring,
+        decode_chunks=decode_chunks, chunk_sharding=chunk_sharding)
+    x = x + attn_out
+    h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
+    moe_out, _ = moe_lib.moe_apply(p["moe"], h, moe_cfg)
+    return x + moe_out, nk, nv, npos
+
+
+def moe_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims,
+                    moe_cfg: MoEConfig, *,
+                    positions: Optional[torch.Tensor] = None,
+                    use_kernel: bool = True):
+    """Full-sequence forward through L stacked MoE blocks; returns (x, the
+    aux losses summed over the layers in f32)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for params in unstack_layers(stacked):
+        x, a = moe_block_apply(params, x, dims, moe_cfg, positions=positions,
+                               use_kernel=use_kernel)
+        aux = aux + a
+    return x, aux
+
+
+def moe_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
+                     cache_v: torch.Tensor, index: torch.Tensor,
+                     kv_positions: torch.Tensor, dims: BlockDims,
+                     moe_cfg: MoEConfig, *, window: Optional[int] = None,
+                     ring: bool = False,
+                     position: Optional[torch.Tensor] = None,
+                     decode_chunks: Optional[int] = None,
+                     chunk_sharding=None):
+    """As :func:`dense_stack_decode` (no int8 scales): cache_k/v
+    ``(L, B, S, Kv, hd)`` written in place.  Returns (x, cache_k, cache_v,
+    kv_positions), layer 0's new positions."""
+    npos = kv_positions
+    for i in range(num_layers(stacked)):
+        x, _, _, pos_i = moe_block_decode(
+            layer_params(stacked, i), x, cache_k[i], cache_v[i], index,
+            kv_positions, dims, moe_cfg, window=window, ring=ring,
+            position=position, decode_chunks=decode_chunks,
+            chunk_sharding=chunk_sharding)
+        if i == 0:
+            npos = pos_i
+    return x, cache_k, cache_v, npos
 
 
 # ---------------------------------------------------------------------------

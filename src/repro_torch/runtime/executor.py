@@ -62,9 +62,15 @@ reject through the compat matrix, with its words):
   top-level frames with ``fast_merge(..., "sum")`` (avg divides the
   full-tree sum by K) and fans ONE jacobian to each top-level client.
 
+A program with an auxiliary loss (``server_aux``: the moe router's
+load-balance term) returns ``(logits, aux)`` from ``server_fwd``; each
+microbatch's loss is ``loss_fn(logits) + aux``, its aux scalar rides the
+schedule's role-0 -> role-3 ``aux_loss`` slot, and the result's ``aux``
+is the mean over the microbatches.
+
 Refused by name: the program shapes that no ported family uses
-(``server_takes_batch``, ``server_aux``, ``merge_fn``: the JAX package's
-moe, audio and vlm programs).
+(``server_takes_batch``, ``merge_fn``: the JAX package's audio and vlm
+programs).
 """
 from __future__ import annotations
 
@@ -148,6 +154,9 @@ class ExecutionResult:
     ledger: Ledger
     report: object  # SimReport (simulated liveness) or ExecReport (measured)
     ema_state: Optional[dict] = None  # the no-wait EMA, detached
+    # the mean server-side auxiliary loss shipped role 0 -> role 3
+    # (server_aux: the moe router's load-balance term); None otherwise
+    aux: Optional[torch.Tensor] = None
     step: int = 0  # which training step this result belongs to
 
 
@@ -175,8 +184,9 @@ class Executor:
     followed by :meth:`collect_step` (merge, server backward, jacobian
     fan-out, step barrier); :meth:`run_step` runs both back-to-back.
 
-    ``server_fwd(server_params, merged) -> logits`` and ``loss_fn(logits,
-    labels) -> scalar`` come from the program.  The server backward is
+    ``server_fwd(server_params, merged) -> logits`` (``(logits, aux)``
+    with ``server_aux``) and ``loss_fn(logits, labels) -> scalar`` come
+    from the program.  The server backward is
     ``torch.autograd.grad`` of the loss over the server param leaves and
     the stacked cuts, both fresh leaves made from detached tensors, so it
     never runs back into a tower's graph.
@@ -219,13 +229,14 @@ class Executor:
             impute=drop_policy == "impute",
             context=f"Executor(mode={mode!r}, drop_policy={drop_policy!r})")
         for name, on in (("server_takes_batch", server_takes_batch),
-                         ("server_aux", server_aux),
                          ("merge_fn", merge_fn is not None)):
             if on:
                 raise NotImplementedError(
                     f"Executor: {name} programs are not ported to repro_torch "
                     "yet (the ported token-LM and MLP programs use none; the "
-                    "moe, audio and vlm families come with a later slice)")
+                    "audio and vlm families come with ROADMAP.md Queue 1, "
+                    "item 13)")
+        self.server_aux = server_aux
         if agg_tree is not None:
             if agg_tree.num_clients != transport.num_clients:
                 raise ValueError(
@@ -452,7 +463,7 @@ class Executor:
         mbsz = st.mbsz
         server_leaves = tree_leaves(server_params)
 
-        losses, server_grad_acc, live_matrix = [], [], []
+        losses, aux_acc, server_grad_acc, live_matrix = [], [], [], []
         misses = [0] * K
         last_deadline: Optional[float] = self.static_deadline_s
         cuts_in = None
@@ -508,9 +519,14 @@ class Executor:
                                                      live_mask=merge_mask)
                 else:
                     merged = fast_merge(cuts, self.merge)
-                logits = self.server_fwd(
+                out = self.server_fwd(
                     tree_unflatten(server_params, leaves), merged)
-                loss_m = self.loss_fn(logits, labels_m)
+                if self.server_aux:
+                    logits, aux_m = out
+                    loss_m = self.loss_fn(logits, labels_m) + aux_m
+                else:
+                    logits = out
+                    loss_m = self.loss_fn(logits, labels_m)
             # a server leaf that the forward does not read (an untied
             # model's input table: the towers embed from their own
             # slices) gets a zero gradient, as jax.grad gives it
@@ -520,8 +536,12 @@ class Executor:
             # the ledger needs the head output's size only: the logits are
             # not kept past this microbatch
             head_bytes = logits.numel() * logits.element_size()
-            del logits, merged
+            del logits, merged, out
             st.ledger.record_spec_bytes(schedule.head_out, head_bytes)
+            if self.server_aux:
+                # the aux scalar rides the role-0 -> role-3 loss exchange
+                st.ledger.record_spec(schedule.aux, aux_m)
+                aux_acc.append(aux_m.detach())
             st.ledger.record_spec_bytes(schedule.head_jac, head_bytes)
             cut_grads = grads[-1]
             if tree is not None:
@@ -579,6 +599,7 @@ class Executor:
         self._retire(st)
 
         loss = sum(losses) / M
+        aux = sum(aux_acc) / M if aux_acc else None
         server_grads = tree_mean(server_grad_acc)
         tower_grads = list(st.grads) if collect_grads else None
         if report is None:
@@ -586,7 +607,7 @@ class Executor:
                 time.monotonic() - st.submit_t, live_matrix, misses,
                 st.ledger, cuts_in, last_deadline, staleness)
         return ExecutionResult(loss, tower_grads, server_grads, st.ledger,
-                               report, ema_state, step=st.step)
+                               report, ema_state, aux, step=st.step)
 
     def run_step(self, server_params, labels, *, step: int = 0,
                  features: Optional[list] = None, liveness=None,

@@ -6,8 +6,8 @@ Two drivers, as in the JAX package's ``repro.train.loop``:
   with the towers and their plain merge in one autograd graph; the
   protocol is arithmetic-identical, paper §3), AdamW under the warmup
   cosine schedule, with msgpack checkpoints in the JAX package's format.
-* :func:`train_split` — the token-LM families (dense and ssm) split for
-  real: per-role workers behind a transport (threads,
+* :func:`train_split` — the token-LM families (dense, moe, ssm and
+  hybrid) split for real: per-role workers behind a transport (threads,
   :class:`~repro_torch.transport.InprocTransport`, or one spawned process
   per feature holder,
   :class:`~repro_torch.transport.MultiprocTransport`), the
@@ -22,7 +22,9 @@ Two drivers, as in the JAX package's ``repro.train.loop``:
   secure aggregation (``cfg.vertical.secure_aggregation``), cut
   compression (``cfg.vertical.compression``) and aggregation trees
   (``agg_tree_fanout``), each verified at step 0 against the serial
-  ``protocol_step`` at the JAX package's tolerance.
+  ``protocol_step`` at the JAX package's tolerance.  A family with a
+  server-side auxiliary loss (moe) ships it role 0 -> role 3 through the
+  protocol's ``aux_loss`` slot, audited in the ledger.
 """
 from __future__ import annotations
 
@@ -62,6 +64,8 @@ class TrainMetrics:
     keyx_ledger: object = None
     step0_mask_residue: Optional[float] = None
     step0_mask_bound: Optional[float] = None
+    # per step, the mean router aux loss through the aux slot (moe)
+    aux_losses: list[float] = field(default_factory=list)
 
     def log(self, step: int, loss: float, dt: float) -> None:
         self.steps.append(step)
@@ -229,7 +233,9 @@ def _verify_step0(res, program, tower_params, server_params, features, ctx,
                   what: str = "") -> float:
     """The acceptance identity: the transport's step-0 gradients must match
     the serial ``protocol_step`` on the same decomposition (the mean of M
-    per-microbatch serial steps — what the Executor computes).  Returns
+    per-microbatch serial steps — what the Executor computes; the moe
+    router's density and capacity are per merge, so the reference must
+    slice at the same microbatch boundaries).  Returns
     the largest |difference| over every gradient leaf.
 
     ``what`` names the overlay: ``"masked-merge "`` (the executor merged
@@ -457,6 +463,13 @@ def train_split(
                         f"compressed cut uplink ({compress}): {comp_bytes} B"
                         f"/client/step vs {raw_bytes} B raw "
                         f"({comp_bytes / raw_bytes:.2f}x)")
+            if program.has_aux:
+                aux_bytes = res.ledger.bytes_with_tag("aux_loss")
+                print_fn(f"router aux loss {float(res.aux):.6f} "
+                         "transported role0 -> role3 through the "
+                         f"protocol aux slot ({aux_bytes} B in ledger)")
+        if res.aux is not None:
+            metrics.aux_losses.append(float(res.aux))
         server_params, opt_state = opt.update(server_params,
                                               res.server_grads, opt_state)
         ema_state = res.ema_state
@@ -473,6 +486,8 @@ def train_split(
             print_fn(f"step {res.step:5d}  loss {loss:8.4f}  "
                      f"{dt * 1e3:8.1f} ms  [{transport}/{mode}"
                      + (f" W={W}" if W > 1 else "")
+                     + (f" aux={float(res.aux):.4f}"
+                        if res.aux is not None else "")
                      + (f" misses={res.report.total_misses}"
                         if mode == "nowait" else "") + "]")
 

@@ -219,9 +219,9 @@ def test_other_configs_run(tmp_path, capsys, arch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--arch", "arctic-480b", "--reduced"], "item 13"),
-    (["--arch", "deepseek-moe-16b"], "item 13"),
-    (["--arch", "deepseek-moe-16b", "--transport", "inproc"], "item 13"),
+    (["--arch", "whisper-tiny", "--reduced"], "item 13"),
+    (["--arch", "internvl2-26b"], "item 13"),
+    (["--arch", "internvl2-26b", "--transport", "inproc"], "item 13"),
     (["--arch", "whisper-tiny"], "item 13"),
     (["--arch", "internvl2-26b", "--vertical", "off"], "item 13"),
 ])
@@ -269,8 +269,8 @@ def _imports(path: Path) -> list:
 
 
 def test_new_modules_import_neither_jax_repro_nor_msgpack():
-    """The launcher, the process transport and the checkpoint modules
-    import torch and numpy only: by AST over the whole port, and by
+    """The launcher, the process transport, the checkpoint modules, the
+    moe model and the bilinear merge import torch and numpy only: by AST over the whole port, and by
     importing them with jax, the JAX package and msgpack blocked."""
     for path in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         for name in _imports(path):
@@ -279,7 +279,8 @@ def test_new_modules_import_neither_jax_repro_nor_msgpack():
     code = ("import sys; sys.modules['jax'] = None; "
             "sys.modules['repro'] = None; sys.modules['msgpack'] = None; "
             "import repro_torch.launch.train, repro_torch.checkpoint, "
-            "repro_torch.transport.multiproc, repro_torch.train.loop; "
+            "repro_torch.transport.multiproc, repro_torch.train.loop, "
+            "repro_torch.models.moe, repro_torch.core.bilinear; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

@@ -60,10 +60,11 @@ def _rand(shape, seed):
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_jax(reduced):
     """Every field of the port's configs of smollm-360m, starcoder2-3b,
-    stablelm-3b, qwen3-32b, mamba2-1.3b and zamba2-7b (sub-configs field
-    by field) equals the JAX package's."""
+    stablelm-3b, qwen3-32b, mamba2-1.3b, zamba2-7b, deepseek-moe-16b and
+    arctic-480b (sub-configs field by field) equals the JAX package's."""
     for arch in (ARCH, "starcoder2-3b", "stablelm-3b", "qwen3-32b",
-                 "mamba2-1.3b", "zamba2-7b"):
+                 "mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b",
+                 "arctic-480b"):
         jcfg, cfg = jax_get_arch(arch), get_arch(arch)
         if reduced:
             jcfg, cfg = jcfg.reduced(), cfg.reduced()

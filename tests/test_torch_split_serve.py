@@ -414,8 +414,8 @@ def test_port_imports_neither_jax_nor_repro():
     nothing of the JAX package — checked by AST and by importing the
     serving, training, optimizer and data packages, the kernel build, the
     flash-attention and SSD modules, the ssm model, the paper MLP's
-    modules, the simulation layer and the no-wait modules with both
-    blocked."""
+    modules, the simulation layer, the no-wait modules, the moe model and
+    configs and the bilinear merge with both blocked."""
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files += [ROOT / "chip_smoke.py", ROOT / "chip_profile.py"]
     assert len(files) > 10
@@ -439,7 +439,10 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.runtime.clock, repro_torch.runtime.links, "
             "repro_torch.runtime.topology, repro_torch.runtime.deadline, "
             "repro_torch.core.straggler, repro_torch.core.costs, "
-            "repro_torch.core.secure_agg, repro_torch.core.compression; "
+            "repro_torch.core.secure_agg, repro_torch.core.compression, "
+            "repro_torch.core.bilinear, repro_torch.models.moe, "
+            "repro_torch.configs.deepseek_moe_16b, "
+            "repro_torch.configs.arctic_480b; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,

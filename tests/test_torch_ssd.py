@@ -459,9 +459,10 @@ def test_generate_greedy_matches_jax(setup):
 
 def test_unported_paths_raise_by_name(setup):
     """The ssm family has no fused prompt prefill (its generate replays
-    the prompt, as the JAX package's does); the moe, audio and vlm
-    families are later slices (the hybrid family is ported:
-    ``tests/test_torch_hybrid.py``).  A compressed config runs (the straight-through codec before
+    the prompt, as the JAX package's does); the audio and vlm families
+    are a later slice (the hybrid family is ported:
+    ``tests/test_torch_hybrid.py``, the moe family
+    ``tests/test_torch_moe.py``).  A compressed config runs (the straight-through codec before
     the merge, as in the JAX package's forward).  (Split execution of the ssm family is
     ported: ``tests/test_torch_ssd_train.py``; dense monolithic serving:
     ``tests/test_torch_dense_decode.py``.)"""
@@ -470,9 +471,9 @@ def test_unported_paths_raise_by_name(setup):
         backbone.prefill_tokens(params,
                                 backbone.init_cache(cfg, 1, 4, device="cpu"),
                                 torch.zeros((1, 2), dtype=int), cfg)
-    with pytest.raises(NotImplementedError, match="'moe' family"):
+    with pytest.raises(NotImplementedError, match="'vlm' family"):
         generate({"x": torch.zeros(1)}, dataclasses.replace(
-            cfg, family="moe"), np.zeros((1, 2)))
+            cfg, family="vlm"), np.zeros((1, 2)))
     compressed = cfg.with_vertical(dataclasses.replace(
         cfg.vertical, compression="int8"))
     jcompressed = jcfg.with_vertical(dataclasses.replace(
@@ -486,8 +487,8 @@ def test_unported_paths_raise_by_name(setup):
     with pytest.raises(NotImplementedError, match="'audio' family"):
         backbone.init_params(dataclasses.replace(cfg, family="audio"),
                              device="cpu")
-    with pytest.raises(NotImplementedError, match="'moe' family"):
-        backbone.init_params(dataclasses.replace(cfg, family="moe"),
+    with pytest.raises(NotImplementedError, match="'vlm' family"):
+        backbone.init_params(dataclasses.replace(cfg, family="vlm"),
                              device="cpu")
     # the centralized baseline is ported (tests/test_torch_train_mono.py)
     central = backbone.init_params(cfg.with_vertical(None), device="cpu")
