@@ -28,7 +28,10 @@ training (Mamba2 super-blocks with a weight-shared attention block),
 and the moe family: full-width deepseek-moe-16b's forward, generate and
 split training with the router's aux loss on the protocol's slot,
 arctic-480b at published widths in bf16, and the compact bilinear
-merge.
+merge, and the audio and vlm families: full-width whisper-tiny's
+forward, cross prefill and decode and its split training over mel-band
+towers, full-width internvl2-26b's forward in bf16, vision prefill and
+decode, and its split training through the sequence-concat merge.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -344,11 +347,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    100, where nothing is dropped and the tokens equal the argmax of a
    teacher-forced plain forward that replays decode's routes (at least
    12 of 16 held).  (c)
-   deepseek-moe-16b at full width cut to 4 layers (2 tower, 2 MoE server
-   layers), ``train_split`` over inproc, 3 serial steps of 8 x 256, step
-   0 verified at 1e-5: avg (4, 2048, 2048) once each way a step on the
-   merge kernels, the ledger = the byte models with 4 bytes of aux a
-   step.  (d) arctic-480b at published widths cut to 4 layers, bf16
+   deepseek-moe-16b at full width cut to 6 layers (2 tower, 4 MoE server
+   layers; 2.79 B params, AdamW in place), ``train_split`` over inproc, 3
+   serial steps of 8 x 256, step 0 verified at 1e-5: avg (4, 2048, 2048)
+   once each way a step on the merge kernels, the ledger = the byte
+   models with 4 bytes of aux a step, the peak printed.  (d)
+   arctic-480b at published widths cut to 4 layers, bf16
    (27.9 B params, 55.7 GB; the init holds no f32 expert stack):
    ``forward`` of 4096 tokens, 10 flash launches at D = 128 in bf16 (2
    server at 56 / 8 heads, 4 x 2 tower at 14 / 2), against the plain
@@ -357,6 +361,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    within 1e-5 of the largest entry.  Phase 5 also holds and times flash
    at deepseek's (16 / 16), (4 / 4) heads in f32 and arctic's (56 / 8),
    (14 / 2) in bf16, at 4096 tokens.
+18. The audio and vlm families, counters reset just before each run and
+   read just after.  (a) Reduced whisper-tiny and internvl2-26b, same
+   weights, card against CPU: ``forward`` logits and the modality
+   prefill (``prefill_cross_attention``, ``prefill_vision``) plus 4
+   ``decode_step``s within 1e-4, no launch; 2 ``train_split`` steps over
+   inproc on each, step 0 verified at 1e-5 in each, losses and final
+   params within 1e-4.  (b) Full-width whisper-tiny (f32, seeded; 55.7 M
+   params): ``forward`` of 8 x (1500 frames, 448 tokens), no launch (no
+   attention reaches 2048 x 2048); ``prefill_cross_attention`` and 448
+   teacher-forced ``decode_step``s, each within 2e-3 of the forward's
+   logits (the JAX package's decode-equivalence tolerance), then 32
+   greedy tokens; tokens/s and the peak printed.  (c) whisper-tiny split
+   training, K = 2 mel-band towers, avg, ``train_split`` over inproc, 5
+   serial steps of 8 x 448, role 0's server taking the batch's tokens,
+   step 0 verified at 1e-5: avg (2, 12000, 384) once each way a step on
+   the merge kernels, the ledger = the byte models.  (d) Full-width
+   internvl2-26b in bf16 (20.25 B params, 40.5 GB): ``forward`` of 1024
+   patches and 3072 text tokens, 48 flash launches at D = 128 in bf16 (47
+   server layers at 4096, 48 q / 8 kv heads, and the text tower at 3072
+   from position 1024), against the plain path as phase 16 (c) holds
+   qwen3-32b's; ``prefill_vision``, 64 text tokens replayed (each step
+   within 2^-4 of the forward's largest logit there) and 16 greedy.  (e)
+   internvl2-26b cut to 4 layers (3.09 B params, f32), ``train_split``
+   over inproc, 3 serial steps of 4 x (1024 patches + 256 text tokens),
+   the cuts merged by the program's sequence concatenation (no kernel),
+   step 0 verified at 1e-5, the ledger = the byte models.  Phase 2 also
+   holds and times the merge kernels at (2, 12000, 384), phase 5 flash
+   at (48 / 8, 4096) and (48 / 8, 3072), D = 128, in bf16.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -384,7 +416,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.configs.base import get_arch  # noqa: E402
 from repro_torch.configs.vertical_mlp import PAPER_DATASETS  # noqa: E402
 from repro_torch.data import synthetic  # noqa: E402
-from repro_torch.data.loader import LMBatchLoader  # noqa: E402
+from repro_torch.data.loader import LMBatchLoader, to_tensor  # noqa: E402
 from repro_torch.core import bilinear, costs, dropping, protocol  # noqa: E402
 from repro_torch.core import split_model, towers  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
@@ -392,7 +424,8 @@ from repro_torch.kernels import merge_pool as mp  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.models import attention as attn_lib  # noqa: E402
-from repro_torch.models import backbone, mamba, split_program  # noqa: E402
+from repro_torch.models import backbone, frontend, mamba  # noqa: E402
+from repro_torch.models import split_program  # noqa: E402
 from repro_torch.models import moe as moe_lib  # noqa: E402
 from repro_torch.models import transformer as tfm  # noqa: E402
 from repro_torch.models.transformer import BlockDims  # noqa: E402
@@ -639,11 +672,10 @@ HYBRID_TRAIN_TIME_SHAPES = [("avg", HYBRID_TRAIN_SHAPE)]
 PLAIN_BF16_TOL = 2 ** -4
 # the moe family (phase 17): deepseek-moe-16b's and arctic-480b's forward at
 # 4096 tokens (kernel against plain), deepseek's generate of 2 x 32 prompt
-# tokens and 8 new, its split training cut to 4 layers (2 tower + 2 MoE
-# server layers, 1.61 B params: the port's AdamW updates out of place, so
-# at its update it holds the params, both moments and their new values,
-# the gradients and their clipped copy, 8x the param bytes: 51.6 GB here,
-# 70.4 GB at 5 layers, which ran out of the card's 80 GB there), whose
+# tokens and 8 new, its split training cut to 6 layers (2 tower + 4 MoE
+# server layers, 2.79 B params; AdamW updates in place, about 4x the param
+# bytes at its update, where an out-of-place update holds 8x and ran out
+# of the card's 80 GB at 5 and 6 layers), whose
 # cut stack (4, 2048, 2048) the reduce kernels merge both ways
 # (phase 12's ssm stack, the same shape), arctic cut to 4 layers in
 # bf16 (55.7 GB: the deepest cut at published widths that fits), and the
@@ -655,7 +687,7 @@ MOE_NO_DROP = 100.0  # the capacity factor at which decode drops nothing
 # of its 2 x 8 generated tokens, at least this many are held against the
 # teacher-forced forward (those whose top-2 logit gap is above 2e-3)
 MOE_GEN_HELD = 12
-MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 4, 3
+MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 6, 3
 MOE_TRAIN_SHAPE = SSM_TRAIN_SHAPE
 AR_LAYERS = 4
 CBP_SHAPE, CBP_OUT = (4, 2048, 960), 2048
@@ -669,6 +701,31 @@ CBP_ROOT_FLOOR = 1e-3
 # reduced widths <= 6.3e-07); bf16 1.722e-03 (arctic-480b, whose router
 # inputs are bf16: a rounding there is 2^-8 of the input)
 ROUTER_TOL = {torch.float32: 5e-5, torch.bfloat16: 4e-3}
+# the audio and vlm families (phase 18): whisper-tiny (f32) forward over 8
+# x (1500 frames, 448 tokens: its 30 s window and its text context), its
+# cross prefill and 448 teacher-forced decode steps (within 2e-3 of the
+# forward's logits: the JAX package's tests/test_decode_equiv.py rule),
+# then 32 greedy tokens; its split training (K = 2 mel-band towers, avg)
+# at 8 x 448, 5 steps, whose cut stack (2, 12000, 384) the reduce kernels
+# merge both ways.  internvl2-26b at full width in bf16 (40.5 GB; 81 GB
+# in f32): one prompt of 1024 patches and 3072 text tokens, 48 flash
+# launches at D = 128 with 48 q / 8 kv heads (47 server layers at 4096,
+# the text tower at 3072 from position 1024), against its plain run at
+# phase 16 (c)'s bf16 rule; its vision prefill, 64 text tokens replayed
+# and 16 greedy; its split training cut to 4 layers (1 vision + 1 text
+# tower, 3 server layers: 3.09 B params, f32) at 4 x 1280 (256 text
+# tokens), 3 steps, merged by the sequence concatenation (no kernel)
+WH_ARCH, VL_ARCH = "whisper-tiny", "internvl2-26b"
+WH_BATCH, WH_TEXT, WH_GEN, WH_TRAIN_STEPS = 8, 448, 32, 5
+WHISPER_TRAIN_SHAPE = (2, 8 * 1500, 384)
+WHISPER_TRAIN_TIME_SHAPES = [("avg", WHISPER_TRAIN_SHAPE)]
+DECODE_EQUIV_TOL = 2e-3
+VL_TEXT, VL_REPLAY, VL_GEN = 3072, 64, 16
+VL_TRAIN_LAYERS, VL_TRAIN_STEPS = 4, 3
+VL_TRAIN_BATCH, VL_TRAIN_SEQ = 4, 1280
+# phase 18's flash shapes: internvl2-26b's server at 4096 and its text
+# tower at 3072, bf16 (a group of 6, no path ran before)
+FLASH_VLM_BF16 = [(1, 48, 8, 4096, 128), (1, 48, 8, 3072, 128)]
 # figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
@@ -757,7 +814,8 @@ def check_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     worst = {"merge_reduce_kernel": 0.0, "merge_concat_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384)] + PATH_SHAPES + MLP_SHAPES + \
-        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE, HYBRID_TRAIN_SHAPE]
+        [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE, HYBRID_TRAIN_SHAPE,
+         WHISPER_TRAIN_SHAPE]
     n = 0
     for strategy in STRATEGIES:
         name = ("merge_concat_kernel" if strategy == "concat"
@@ -865,7 +923,7 @@ def check_backward_kernels() -> dict:
     worst = {"merge_reduce_bwd_kernel": 0.0, "merge_concat_bwd_kernel": 0.0}
     shapes = [(3, 37, 100), (5, 100, 384), (4, 1, 960), TRAIN_SHAPE] + \
         MLP_SHAPES + [NOWAIT_SHAPE, SSM_TRAIN_SHAPE, TREE_SHAPE,
-                      HYBRID_TRAIN_SHAPE]
+                      HYBRID_TRAIN_SHAPE, WHISPER_TRAIN_SHAPE]
     n = 0
     mul_identical = [0, 0]  # identical, all
 
@@ -1087,7 +1145,7 @@ def time_backward_shapes(card: str) -> dict:
                             ("max", TRAIN_SHAPE),
                             ("mul", TRAIN_SHAPE)] + MLP_TIME_SHAPES + \
             NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES + \
-            HYBRID_TRAIN_TIME_SHAPES:
+            HYBRID_TRAIN_TIME_SHAPES + WHISPER_TRAIN_TIME_SHAPES:
         K, B, D = shape
         name = ("merge_concat_bwd_kernel" if strategy == "concat"
                 else "merge_reduce_bwd_kernel")
@@ -1283,7 +1341,7 @@ def time_path_shapes(card: str) -> dict:
     pairs = [("avg", s) for s in PATH_SHAPES] + \
         [("concat", s) for s in CONCAT_PATH_SHAPES] + MLP_TIME_SHAPES + \
         NOWAIT_TIME_SHAPES + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES \
-        + HYBRID_TRAIN_TIME_SHAPES
+        + HYBRID_TRAIN_TIME_SHAPES + WHISPER_TRAIN_TIME_SHAPES
     for strategy, shape in pairs:
         concat = strategy == "concat"
         name = "merge_concat_kernel" if concat else "merge_reduce_kernel"
@@ -1328,8 +1386,7 @@ def make_server(cfg, params, device, use_kernel: bool = True, **kw):
     """A server and its K tower workers; ``use_kernel=False`` sends the
     merge and the long-prompt attention of role 0 and of every tower to
     the plain versions."""
-    program = split_program.get_program(cfg)
-    _, server = program.partition(params)
+    server = split_program.get_program(cfg).server_params(params)
     workers = [build_split_worker(k, cfg=cfg, params=params, device=device,
                                   use_kernel=use_kernel)
                for k in range(cfg.vertical.num_clients)]
@@ -1495,10 +1552,11 @@ def serve_full(card: str) -> dict:
 # phase 4: the training slice
 # ---------------------------------------------------------------------------
 
-def train(cfg, steps: int, device: str, params=None, **kw):
-    """One ``train_split`` run; returns (out, metrics, seconds, launches
-    during the run, peak device memory)."""
-    loader = LMBatchLoader(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=SEED)
+def train(cfg, steps: int, device: str, params=None, *, batch=TRAIN_BATCH,
+          seq=TRAIN_SEQ, **kw):
+    """One ``train_split`` run of ``batch`` x ``seq``; returns (out,
+    metrics, seconds, launches during the run, peak device memory)."""
+    loader = LMBatchLoader(cfg, batch, seq, seed=SEED)
     if device == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1506,7 +1564,7 @@ def train(cfg, steps: int, device: str, params=None, **kw):
     t0 = time.perf_counter()
     kw.setdefault("print_fn", log)
     out, metrics, _ = train_split(
-        cfg, loader, steps=steps, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        cfg, loader, steps=steps, batch=batch, seq=seq,
         runtime="serial", learning_rate=3e-4, warmup=20, seed=SEED,
         log_every=1, device=device, params=params, **kw)
     if device == "cuda":
@@ -1628,7 +1686,7 @@ def check_flash_kernel() -> dict:
              **{(d, "bfloat16"): 0.0 for d in fa.HEAD_DIMS}}
     n = 0
     model_layout = FLASH_PATH_SHAPES + FLASH_WIDE_SHAPES + \
-        FLASH_QWEN_SHAPES + FLASH_MOE_F32 + FLASH_MOE_BF16
+        FLASH_QWEN_SHAPES + FLASH_MOE_F32 + FLASH_MOE_BF16 + FLASH_VLM_BF16
     for shape in FLASH_SMALL_SHAPES + model_layout:
         for causal in (True, False) if shape[3] <= 8192 else (True,):
             for dtype in (torch.float32, torch.bfloat16):
@@ -1658,7 +1716,7 @@ def check_flash_kernel() -> dict:
         f"inputs, rtol 2^-7, atol 1e-4; (B, H, Hkv, S, D) in "
         f"{FLASH_SMALL_SHAPES}, "
         f"{FLASH_PATH_SHAPES}, {FLASH_WIDE_SHAPES}, {FLASH_QWEN_SHAPES}, "
-        f"{FLASH_MOE_F32} and {FLASH_MOE_BF16}, "
+        f"{FLASH_MOE_F32}, {FLASH_MOE_BF16} and {FLASH_VLM_BF16}, "
         f"causal and full up "
         f"to 8192 tokens); worst f32 |err| by head dim "
         + ", ".join(f"D {d}: {worst[d]:.3e}" for d in fa.HEAD_DIMS)
@@ -1743,7 +1801,7 @@ def time_flash(card: str) -> dict:
     for shape, dtype in [(s, torch.float32) for s in FLASH_TIME_SHAPES
                          + FLASH_MOE_F32] + \
             [(s, torch.bfloat16) for s in FLASH_QWEN_SHAPES
-             + FLASH_MOE_BF16]:
+             + FLASH_MOE_BF16 + FLASH_VLM_BF16]:
         B, H, Hkv, S, D = shape
         gen = torch.Generator(device="cuda").manual_seed(S + D)
         q, k, v = _flash_inputs(shape, dtype, gen, True)
@@ -3985,7 +4043,7 @@ def launch_serve_multiproc(card: str) -> int:
     cfg = get_arch("smollm-360m")
     K = cfg.vertical.num_clients
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    _, server = split_program.get_program(cfg).partition(
+    server = split_program.get_program(cfg).server_params(
         backbone.init_params(cfg, gen, device="cuda"))
     rng = np.random.default_rng(SEED)
     prompts = [rng.integers(0, cfg.vocab_size, s) for s in PROMPT_LENS]
@@ -5032,8 +5090,12 @@ def moe_forward_runs(cfg, params, tokens, dtype) -> tuple:
     return launches, line
 
 
-def moe_init(cfg, dtype) -> tuple:
-    """The seeded init on the card, timed; returns (params, line)."""
+def init_on_card(cfg, dtype) -> tuple:
+    """The seeded init on the card, timed; returns (params, line).  In a
+    dtype other than f32 the init may hold beside the params less than the
+    largest f32 tensor it draws whole: one layer's expert stack (moe),
+    else a single matrix (one layer's MLP matrix or the embedding
+    table), since it draws every stack layer by layer."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -5048,14 +5110,16 @@ def moe_init(cfg, dtype) -> tuple:
     if n_params != backbone.param_count(cfg):
         raise AssertionError(f"{cfg.name} has {n_params} params, expected "
                              f"{backbone.param_count(cfg)}")
-    # no f32 copy of an expert stack: what the init held beside the params
-    # stays below one layer's f32 stack (E, d, ff) (the f32 transients are
-    # single matrices: the embedding table's, one expert's)
+    # no f32 copy of a stack: what the init held beside the params stays
+    # below one layer's f32 expert stack (E, d, ff) (moe), else within the
+    # largest single f32 matrix (d, ff) or (vocab, d)
     transient = init_peak - base - param_bytes
-    limit = cfg.moe.num_experts * cfg.d_model * cfg.d_ff * 4
+    d = cfg.d_model
+    limit = (cfg.moe.num_experts * d * cfg.d_ff if cfg.moe is not None
+             else max(d * cfg.d_ff, cfg.vocab_size * d)) * 4
     if dtype != torch.float32 and transient >= limit:
         raise AssertionError(f"{cfg.name} init held {transient} bytes beside "
-                             f"the params (an f32 expert stack: {limit})")
+                             f"the params (limit {limit})")
     return params, (f"{n_params} params ({param_bytes} bytes "
                     f"{str(dtype).removeprefix('torch.')}; init {t_init:.2f} "
                     f"s, max_memory_allocated during init {init_peak} bytes, "
@@ -5083,7 +5147,7 @@ def deepseek_full(card: str) -> dict:
     routes), wherever its top-2 gap exceeds 2e-3, at least
     ``MOE_GEN_HELD`` of them.  Returns the forward's launches."""
     cfg = get_arch(DS_ARCH)
-    params, init_line = moe_init(cfg, torch.float32)
+    params, init_line = init_on_card(cfg, torch.float32)
     n = moe_flash_counts(cfg)
     K = cfg.vertical.num_clients
     log(f"moe model: {DS_ARCH} full width ({cfg.num_layers} layers, d_model "
@@ -5171,8 +5235,8 @@ def deepseek_full(card: str) -> dict:
 
 def deepseek_train(card: str) -> dict:
     """(c) deepseek-moe-16b at full width cut to MOE_TRAIN_LAYERS layers (2
-    dense tower layers, 2 MoE server layers; the out-of-place AdamW holds
-    8x the param bytes at its update), K = 4, avg, ``train_split`` over
+    dense tower layers, 4 MoE server layers; AdamW updates in place), K =
+    4, avg, ``train_split`` over
     inproc, serial, 8 x 256 tokens, MOE_TRAIN_STEPS steps, step 0 verified
     against ``protocol_step`` at 1e-5.  Counters reset just before the run
     and read just after: one avg merge each way a step at (4, 2048, 2048)
@@ -5231,7 +5295,7 @@ def arctic_forward(card: str) -> dict:
     bf16 (2 server at 56 / 8 heads, 4 x 2 tower at 14 / 2).  Returns the
     launches."""
     cfg = dataclasses.replace(get_arch(AR_ARCH), num_layers=AR_LAYERS)
-    params, init_line = moe_init(cfg, torch.bfloat16)
+    params, init_line = init_on_card(cfg, torch.bfloat16)
     if params["server"]["moe"]["router"].dtype != torch.float32:
         raise AssertionError("arctic router not f32")
     K = cfg.vertical.num_clients
@@ -5326,6 +5390,403 @@ def moe_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the audio and vlm families
+# ---------------------------------------------------------------------------
+
+def _loader_batch(cfg, batch: int, seq: int, device) -> dict:
+    """One loader batch on ``device``."""
+    b = next(iter(LMBatchLoader(cfg, batch, seq, seed=SEED)))
+    return {k: to_tensor(v, device) for k, v in b.items()}
+
+
+def modality_prefill(cfg, params, cache, batch: dict) -> dict:
+    """The family's modality prefill: the encoder's cross K/V (audio) or
+    the vision prefix (vlm)."""
+    if cfg.family == "audio":
+        return backbone.prefill_cross_attention(params, cache,
+                                                batch["frames"], cfg)
+    return backbone.prefill_vision(params, cache, batch["patches"], cfg)
+
+
+def modality_small_against_cpu() -> dict:
+    """(a) Reduced whisper-tiny and internvl2-26b, same weights, the card
+    against the CPU: ``forward`` logits, the modality prefill plus 4
+    ``decode_step``s (logits within 1e-4, no launch at these lengths),
+    then 2 steps of ``train_split`` over inproc on each, step 0 verified
+    in each run at 1e-5, losses and final params within 1e-4 (whisper's
+    merges on the reduce kernels, one each way a step; vlm's sequence
+    concatenation launches none).  Returns the card runs' launches."""
+    total: dict = {}
+    for arch, seq in ((WH_ARCH, 16), (VL_ARCH, 24)):
+        cfg = get_arch(arch).reduced()
+        gen = torch.Generator(device="cpu").manual_seed(SEED)
+        cpu_params = backbone.init_params(cfg, gen, device="cpu")
+        out = {}
+        for device, params in (("cuda", _to(cpu_params, "cuda")),
+                               ("cpu", cpu_params)):
+            batch = _loader_batch(cfg, 2, seq, device)
+            reset_launches()
+            with torch.no_grad():
+                logits, _ = backbone.forward(params, batch, cfg)
+                cache = modality_prefill(cfg, params, backbone.init_cache(
+                    cfg, 2, seq + 4, device=device), batch)
+                steps = []
+                for t in range(4):
+                    step_logits, cache = backbone.decode_step(
+                        params, cache, batch["tokens"][:, t], cfg)
+                    steps.append(step_logits)
+            launches = read_launches()
+            if any(launches.values()):
+                raise AssertionError(f"reduced {arch}: the forward and decode "
+                                     f"launched kernels: {launches}")
+            out[device] = (logits.cpu(), torch.stack(steps, 1).cpu())
+        fwd = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        dec = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+        if not torch.isfinite(out["cuda"][0]).all() or fwd > 1e-4 or \
+                dec > 1e-4:
+            raise AssertionError(f"reduced {arch}: card logits differ from "
+                                 f"the CPU's by {fwd:.3e} (forward), {dec:.3e} "
+                                 "(prefill + decode); tol 1e-4")
+        runs = {}
+        for device, params in (("cpu", cpu_params),
+                               ("cuda", _to(cpu_params, "cuda"))):
+            run_out, metrics, _, launches, _ = train(
+                cfg, 2, device, params=params, batch=4, seq=seq,
+                print_fn=lambda *a: None)
+            if metrics.step0_max_dgrad is None or \
+                    metrics.step0_max_dgrad > 1e-5:
+                raise AssertionError(f"reduced {arch} on {device}: step 0 "
+                                     f"{metrics.step0_max_dgrad}")
+            runs[device] = (run_out, metrics)
+        merges = 2 if cfg.family == "audio" else 0
+        expect_launches(launches, {"merge_reduce_kernel": merges,
+                                   "merge_reduce_bwd_kernel": merges})
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        losses = [m.losses for _, m in (runs["cuda"], runs["cpu"])]
+        worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            _leaves(runs["cuda"][0]), _leaves(runs["cpu"][0])))
+        loss_diff = max(abs(a - b) for a, b in zip(*losses))
+        if loss_diff > 1e-4 or worst > 1e-4:
+            raise AssertionError(f"reduced {arch} training: card vs CPU "
+                                 f"losses {loss_diff:.3e}, params "
+                                 f"{worst:.3e} > 1e-4")
+        log(f"small modality {arch}: reduced ({cfg.num_layers} layers, "
+            f"d_model {cfg.d_model}) on the card matches the CPU path: "
+            f"forward of 2 x {seq} logits max |diff| {fwd:.3e}, modality "
+            f"prefill + 4 decode steps {dec:.3e} (<= 1e-4, no launch); 2 "
+            f"train_split steps over inproc: step-0 max |dgrad| vs "
+            f"protocol_step {runs['cuda'][1].step0_max_dgrad:.3e} (card), "
+            f"{runs['cpu'][1].step0_max_dgrad:.3e} (CPU) (<= 1e-5), losses "
+            f"{losses[0]} vs {losses[1]} (max |diff| {loss_diff:.3e}), final "
+            f"params max |diff| {worst:.3e} (<= 1e-4); launches "
+            f"{ {k: n for k, n in launches.items() if n} }")
+    return total
+
+
+def whisper_full(card: str) -> dict:
+    """(b) whisper-tiny at full width, f32: ``forward`` of 8 x (1500
+    frames, 448 tokens), no kernel (no attention reaches 2048 x 2048 and
+    the monolithic merge is plain); then ``init_cache`` ->
+    ``prefill_cross_attention`` -> 448 teacher-forced ``decode_step``s,
+    each step's logits within DECODE_EQUIV_TOL of the forward's; then 32
+    greedy tokens.  Counters reset just before and read just after each
+    run.  Returns the launches."""
+    cfg = get_arch(WH_ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    if sum(t.numel() for t in _leaves(params)) != backbone.param_count(cfg):
+        raise AssertionError("whisper-tiny: param count")
+    frames = frontend.synth_audio_frames(gen, WH_BATCH, cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (WH_BATCH, WH_TEXT),
+                           generator=gen, device="cuda")
+    batch = {"frames": frames, "tokens": tokens}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        full, _ = backbone.forward(params, batch, cfg)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    launches = read_launches()
+    if not torch.isfinite(full).all():
+        raise AssertionError("whisper-tiny: non-finite forward logits")
+    reset_launches()
+    t0 = time.perf_counter()
+    worst, scale = 0.0, 0.0
+    with torch.no_grad():
+        cache = backbone.prefill_cross_attention(
+            params, backbone.init_cache(cfg, WH_BATCH, WH_TEXT + WH_GEN,
+                                        device="cuda"), frames, cfg)
+        for t in range(WH_TEXT):
+            logits, cache = backbone.decode_step(params, cache,
+                                                 tokens[:, t], cfg)
+            want = full[:, t]
+            excess = (logits - want).abs() - DECODE_EQUIV_TOL * want.abs()
+            worst = max(worst, float((logits - want).abs().max()))
+            if float(excess.max()) > DECODE_EQUIV_TOL:
+                raise AssertionError(
+                    f"whisper-tiny decode step {t}: logits differ from the "
+                    f"forward's by {float((logits - want).abs().max()):.3e} "
+                    f"(rtol and atol {DECODE_EQUIV_TOL})")
+            scale = max(scale, float(want.abs().max()))
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new = []
+        for i in range(WH_GEN):
+            tok = torch.argmax(logits, dim=-1)
+            new.append(tok)
+            if i + 1 < WH_GEN:
+                logits, cache = backbone.decode_step(params, cache, tok, cfg)
+        torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    dec_launches = read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if any(launches.values()) or any(dec_launches.values()):
+        raise AssertionError(f"whisper-tiny launched kernels: {launches}, "
+                             f"{dec_launches}")
+    gen_tokens = torch.stack(new, 1).cpu()
+    log(f"whisper full: {WH_ARCH} full width ({backbone.param_count(cfg)} "
+        f"params, f32; K={cfg.vertical.num_clients} mel-band towers of "
+        f"{cfg.vertical.tower_layers}, avg): forward of {WH_BATCH} x "
+        f"({cfg.encdec.encoder_seq_len} frames, {WH_TEXT} tokens) "
+        f"{WH_BATCH * WH_TEXT / t_fwd:.1f} decoder tokens/s ({t_fwd:.4f} s, "
+        f"no launch: encoder 1500^2 and cross 448 x 1500 under 2048^2); "
+        f"cross prefill + {WH_TEXT} teacher-forced decode steps "
+        f"{WH_BATCH * WH_TEXT / t_replay:.1f} tokens/s ({t_replay:.4f} s), "
+        f"logits within {worst:.3e} of the forward's (largest "
+        f"{scale:.3e}; rtol and atol {DECODE_EQUIV_TOL}); {WH_GEN} greedy "
+        f"tokens {WH_BATCH * WH_GEN / t_gen:.1f} tokens/s ({t_gen:.4f} s; "
+        f"first stream {gen_tokens[0, :8].tolist()}...); "
+        f"max_memory_allocated {peak} bytes | {card}")
+    del params, cache, full
+    return {k: launches[k] + dec_launches[k] for k in launches}
+
+
+def whisper_train(card: str) -> dict:
+    """(c) whisper-tiny split training: K = 2 mel-band towers of one
+    encoder layer, avg, ``train_split`` over inproc, serial, 8 x (1500
+    frames, 448 tokens), WH_TRAIN_STEPS steps, step 0 verified against
+    ``protocol_step`` at 1e-5; role 0's server takes the batch's tokens
+    (``server_takes_batch``).  Counters reset just before the run and read
+    just after: one avg merge each way a step at (2, 12000, 384) on the
+    merge kernels, no flash.  Every step's ledger equals the byte models.
+    Returns the launches."""
+    cfg = get_arch(WH_ARCH)
+    v = cfg.vertical
+    torch.cuda.empty_cache()
+    with merge_calls() as merges:
+        _, metrics, seconds, launches, peak = train(
+            cfg, WH_TRAIN_STEPS, "cuda", batch=WH_BATCH, seq=WH_TEXT)
+    expect_launches(launches, {"merge_reduce_kernel": WH_TRAIN_STEPS,
+                               "merge_reduce_bwd_kernel": WH_TRAIN_STEPS})
+    if merges != [("avg", WHISPER_TRAIN_SHAPE)] * WH_TRAIN_STEPS:
+        raise AssertionError(f"whisper train: role 0 merged {merges}")
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"whisper train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    rows = WH_BATCH * WH_TEXT
+    want = (2 * v.num_clients * costs.cut_bytes(
+        WH_BATCH * cfg.encdec.encoder_seq_len, cfg.d_model)
+        + 2 * costs.head_exchange_bytes(rows, cfg.vocab_size))
+    got = [ledger.total() for ledger in metrics.ledgers]
+    if got != [want] * WH_TRAIN_STEPS:
+        raise AssertionError(f"whisper train: ledgers {got} != costs {want}")
+    steady = metrics.step_times[1:]
+    log(f"whisper train: {WH_ARCH} full width, f32, serial, "
+        f"{WH_TRAIN_STEPS} steps of {WH_BATCH} x ({cfg.encdec.encoder_seq_len}"
+        f" frames, {WH_TEXT} tokens): losses {metrics.losses}, step-0 max "
+        f"|dgrad| vs protocol_step {metrics.step0_max_dgrad:.3e} (<= 1e-5); "
+        f"merges avg {WHISPER_TRAIN_SHAPE} one each way a step; ledger "
+        f"{want} bytes a step = costs; launches "
+        f"{ {k: n for k, n in launches.items() if n} }; "
+        f"{len(steady) * rows / sum(steady):.1f} train decoder tokens/s "
+        f"over steps 1-{WH_TRAIN_STEPS - 1} (step times "
+        f"{metrics.step_times} s; step 0 includes the verification), wall "
+        f"{seconds:.4f} s with set-up, max_memory_allocated {peak} bytes | "
+        f"{card}")
+    return launches
+
+
+def internvl_full(card: str) -> dict:
+    """(d) internvl2-26b at full width in bf16: ``forward`` of 1024 patches
+    and VL_TEXT text tokens on the kernels and on the plain path, the
+    counters reset just before each and read just after: 48 flash
+    launches at D = 128 in bf16 (47 server layers at 4096 tokens, the text
+    tower at 3072 from position 1024; the 1024-patch vision tower stays
+    under the threshold), none on the plain path; every position's logits
+    within PLAIN_BF16_TOL of its largest plain logit.  Then ``init_cache``
+    -> ``prefill_vision`` -> VL_REPLAY text tokens replayed through
+    ``decode_step`` (each step within PLAIN_BF16_TOL of the forward's
+    largest logit at that position) and VL_GEN greedy tokens.  Returns the
+    kernel forward's launches."""
+    cfg = get_arch(VL_ARCH)
+    params, init_line = init_on_card(cfg, torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    patches = frontend.synth_vision_patches(gen, 1, cfg, torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, VL_TEXT), generator=gen,
+                           device="cuda")
+    batch = {"patches": patches, "tokens": tokens}
+    runs = {}
+    for use_kernel in (True, False):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = backbone.forward(params, batch, cfg,
+                                         use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        runs[use_kernel] = (logits, time.perf_counter() - t0,
+                            read_launches(), torch.cuda.max_memory_allocated())
+    (got, t_k, launches, peak), (want, t_p, plain_launches, ppeak) = \
+        runs[True], runs[False]
+    n_server = backbone._server_layers(cfg)
+    n_flash = n_server + cfg.vertical.tower_layers  # the text tower's too
+    expect_launches(launches, {"flash_attention_kernel": n_flash,
+                               flash_name(128): n_flash,
+                               flash_name(128, torch.bfloat16): n_flash})
+    if any(plain_launches.values()):
+        raise AssertionError(f"internvl plain forward launched "
+                             f"{plain_launches}")
+    if not torch.isfinite(got).all():
+        raise AssertionError("internvl: non-finite logits")
+    V = want.shape[-1]
+    a, b = got.reshape(-1, V).float(), want.reshape(-1, V).float()
+    rel = float(((a - b).abs().amax(-1) / b.abs().amax(-1)).max())
+    if rel > PLAIN_BF16_TOL:
+        raise AssertionError(f"internvl kernel vs plain: a position is "
+                             f"{rel:.3e} of its largest logit apart (tol "
+                             f"{PLAIN_BF16_TOL})")
+    del want, runs, a, b
+    Sv = cfg.vlm.num_vision_tokens
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    worst = 0.0
+    with torch.no_grad():
+        cache = backbone.prefill_vision(
+            params, backbone.init_cache(cfg, 1, Sv + VL_REPLAY + VL_GEN,
+                                        dtype=torch.bfloat16, device="cuda"),
+            patches, cfg)
+        for t in range(VL_REPLAY):
+            logits, cache = backbone.decode_step(params, cache,
+                                                 tokens[:, t], cfg)
+            ref_t = got[:, t].float()
+            worst = max(worst, float((logits.float() - ref_t).abs().max()
+                                     / ref_t.abs().max()))
+        torch.cuda.synchronize()
+        t_replay = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        new = []
+        for i in range(VL_GEN):
+            tok = torch.argmax(logits, dim=-1)
+            new.append(tok)
+            if i + 1 < VL_GEN:
+                logits, cache = backbone.decode_step(params, cache, tok, cfg)
+        torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    dec_launches = read_launches()
+    dec_peak = torch.cuda.max_memory_allocated()
+    if worst > PLAIN_BF16_TOL or any(dec_launches.values()):
+        raise AssertionError(f"internvl replay: logits {worst:.3e} of the "
+                             f"forward's largest apart (tol "
+                             f"{PLAIN_BF16_TOL}); launches {dec_launches}")
+    S = Sv + VL_TEXT
+    log(f"internvl full: {VL_ARCH} full width, bf16, {init_line}; forward "
+        f"of {Sv} patches + {VL_TEXT} text tokens: kernel "
+        f"{S / t_k:.1f} positions/s ({VL_TEXT / t_k:.1f} text tokens/s, "
+        f"{t_k:.4f} s, launches "
+        f"{ {k: n for k, n in launches.items() if n} }: {n_server} server "
+        f"layers at {S} and the text tower at {VL_TEXT} from position {Sv}, "
+        f"{cfg.num_heads} q / {cfg.num_kv_heads} kv heads, "
+        f"max_memory_allocated {peak} bytes); plain "
+        f"{S / t_p:.1f} positions/s ({t_p:.4f} s, no launch, "
+        f"max_memory_allocated {ppeak} bytes); every position within "
+        f"{rel:.3e} of its largest plain logit (tol {PLAIN_BF16_TOL}); "
+        f"prefill_vision + {VL_REPLAY} replayed text tokens "
+        f"{VL_REPLAY / t_replay:.1f} tokens/s ({t_replay:.4f} s; each step "
+        f"within {worst:.3e} of the forward's largest, tol "
+        f"{PLAIN_BF16_TOL}), {VL_GEN} greedy {VL_GEN / t_gen:.1f} tokens/s "
+        f"({t_gen:.4f} s; {torch.stack(new, 1)[0].tolist()}), "
+        f"max_memory_allocated {dec_peak} bytes | {card}")
+    del params, cache, got
+    torch.cuda.empty_cache()
+    return launches
+
+
+def internvl_train(card: str) -> dict:
+    """(e) internvl2-26b at full width cut to VL_TRAIN_LAYERS layers (the
+    vision and the text tower one layer each, 3 server layers), f32, K =
+    2 modalities, ``train_split`` over inproc, serial, VL_TRAIN_BATCH x
+    (1024 patches + 256 text tokens), VL_TRAIN_STEPS steps, step 0
+    verified against ``protocol_step`` at 1e-5.  The Executor merges the
+    two cuts with the program's ``merge_fn`` (a sequence concatenation:
+    no kernel) and hands each modality its segment's gradient; 1280
+    positions keep every attention under the flash threshold.  Counters
+    reset just before the run and read just after: no launch, no
+    ``fast_merge``.  Every step's ledger equals the byte models (each
+    modality's cut at its own length).  Returns the launches."""
+    cfg = dataclasses.replace(get_arch(VL_ARCH), num_layers=VL_TRAIN_LAYERS)
+    Sv = cfg.vlm.num_vision_tokens
+    torch.cuda.empty_cache()
+    with merge_calls() as merges:
+        _, metrics, seconds, launches, peak = train(
+            cfg, VL_TRAIN_STEPS, "cuda", batch=VL_TRAIN_BATCH,
+            seq=VL_TRAIN_SEQ)
+    expect_launches(launches, {})
+    if merges:
+        raise AssertionError(f"internvl train: role 0 fast-merged {merges}")
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"internvl train: step 0 not verified "
+                             f"({metrics.step0_max_dgrad})")
+    text = VL_TRAIN_SEQ - Sv
+    want = (2 * (costs.cut_bytes(VL_TRAIN_BATCH * Sv, cfg.d_model)
+                 + costs.cut_bytes(VL_TRAIN_BATCH * text, cfg.d_model))
+            + 2 * costs.head_exchange_bytes(VL_TRAIN_BATCH * text,
+                                            cfg.vocab_size))
+    got = [ledger.total() for ledger in metrics.ledgers]
+    if got != [want] * VL_TRAIN_STEPS:
+        raise AssertionError(f"internvl train: ledgers {got} != costs "
+                             f"{want}")
+    steady = metrics.step_times[1:]
+    rows = VL_TRAIN_BATCH * VL_TRAIN_SEQ
+    log(f"internvl train: {VL_ARCH} full width at {cfg.num_layers} layers "
+        f"({backbone.param_count(cfg)} params: vision and text towers of "
+        f"{cfg.vertical.tower_layers}, {backbone._server_layers(cfg)} server "
+        f"layers), "
+        f"f32, serial, {VL_TRAIN_STEPS} steps of {VL_TRAIN_BATCH} x ({Sv} "
+        f"patches + {text} text tokens): losses {metrics.losses}, step-0 "
+        f"max |dgrad| vs protocol_step {metrics.step0_max_dgrad:.3e} (<= "
+        f"1e-5); merge_fn sequence concat, no kernel; ledger {want} bytes a "
+        f"step = costs; {len(steady) * rows / sum(steady):.1f} train "
+        f"positions/s ({len(steady) * VL_TRAIN_BATCH * text / sum(steady):.1f}"
+        f" text tokens/s) over steps 1-{VL_TRAIN_STEPS - 1} (step times "
+        f"{metrics.step_times} s; step 0 includes the verification), wall "
+        f"{seconds:.4f} s with set-up, max_memory_allocated {peak} bytes | "
+        f"{card}")
+    return launches
+
+
+def modality_phase(card: str) -> dict:
+    """Phase 18; returns the launches by sub-phase: ``"small"``,
+    ``"whisper_forward"``, ``"whisper_train"``, ``"internvl_forward"``,
+    ``"internvl_train"``."""
+    t0 = time.perf_counter()
+    out = {"small": modality_small_against_cpu(),
+           "whisper_forward": whisper_full(card),
+           "whisper_train": whisper_train(card),
+           "internvl_forward": internvl_full(card),
+           "internvl_train": internvl_train(card)}
+    log(f"modality: phase 18 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -5388,6 +5849,7 @@ def main() -> None:
         for k, n in sub.items():
             other_total[k] = other_total.get(k, 0) + n
     moe = moe_phase(card)
+    modality = modality_phase(card)
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -5409,7 +5871,9 @@ def main() -> None:
                          + launch_launches.get(name, 0)
                          + overlay_launches.get(name, 0)
                          + other_total.get(name, 0)
-                         + moe["deepseek_train"].get(name, 0)),
+                         + moe["deepseek_train"].get(name, 0)
+                         + modality["small"].get(name, 0)
+                         + modality["whisper_train"].get(name, 0)),
             "max_abs_err": worst[name],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -5426,14 +5890,14 @@ def main() -> None:
         # the MLP path's shapes (phases 10 and 11), the no-wait LM stack
         # (phase 11), the ssm training stack (phase 12, and phase 17's moe
         # training at the same shape), the tree's top-level stack (phase
-        # 15) and the hybrid training stack (phase 16), whose launches are
-        # in the count
+        # 15), the hybrid training stack (phase 16) and whisper's training
+        # stack (phase 18), whose launches are in the count
         entry["shapes"] = [
             {"strategy": s, "shape": list(sh), "dtype": "float32",
              "library_ms": None, **rows[(name, s, sh)]}
             for s, sh in MLP_TIME_SHAPES + NOWAIT_TIME_SHAPES
             + SSM_TRAIN_TIME_SHAPES + TREE_TIME_SHAPES
-            + HYBRID_TRAIN_TIME_SHAPES
+            + HYBRID_TRAIN_TIME_SHAPES + WHISPER_TRAIN_TIME_SHAPES
             if (name, s, sh) in rows]
         for sub in entry["shapes"]:
             if tuple(sub["shape"]) == NOWAIT_SHAPE:
@@ -5447,6 +5911,8 @@ def main() -> None:
                 sub["launches"] = overlay_launches["tree"]
             if tuple(sub["shape"]) == HYBRID_TRAIN_SHAPE:
                 sub["launches"] = other["hybrid_train"].get(name, 0)
+            if tuple(sub["shape"]) == WHISPER_TRAIN_SHAPE:
+                sub["launches"] = modality["whisper_train"].get(name, 0)
         kernels.append(entry)
     def flash_entry(shape, launched=None, dtype=torch.float32):
         """The kernel's row at a timed shape; ``launched`` is its count on
@@ -5474,8 +5940,9 @@ def main() -> None:
 
     # the flash kernel by head dim and dtype: 64 on phases 6 and 13, 128
     # (f32) on phase 9's and phase 17's deepseek-moe-16b, 80 on phase 16's
-    # stablelm-3b, 112 on its zamba2-7b, 128 in bf16 on its qwen3-32b and
-    # phase 17's arctic-480b (the reduced checks of phase 16 (a) at D 80,
+    # stablelm-3b, 112 on its zamba2-7b, 128 in bf16 on its qwen3-32b,
+    # phase 17's arctic-480b and phase 18's internvl2-26b (the reduced
+    # checks of phase 16 (a) at D 80,
     # 112 and 128 in f32 are not counted); phase 17's timed shapes ride in
     # the D 128 rows, their launches beside them
     kernels.append(flash_entry((1, 15, 5, 32768, 64), flash_launches[64]))
@@ -5490,12 +5957,14 @@ def main() -> None:
     kernels.append(flash_entry((1, 32, 32, 8192, 112),
                                other["hybrid_forward"][flash_name(112)]))
     arctic = moe["arctic_forward"][flash_name(128, torch.bfloat16)]
+    internvl = modality["internvl_forward"][flash_name(128, torch.bfloat16)]
     qwen = flash_entry(FLASH_QWEN_SHAPES[0], other["qwen3"][flash_name(
-        128, torch.bfloat16)] + arctic, dtype=torch.bfloat16)
+        128, torch.bfloat16)] + arctic + internvl, dtype=torch.bfloat16)
     qwen["other_shapes"] = [flash_entry(shape, dtype=torch.bfloat16)
                             for shape in FLASH_QWEN_SHAPES[1:]
-                            + FLASH_MOE_BF16]
+                            + FLASH_MOE_BF16 + FLASH_VLM_BF16]
     qwen["arctic_480b_launches"] = arctic
+    qwen["internvl2_26b_launches"] = internvl
     kernels.append(qwen)
     def ssd_entry(shape):
         row = ssd_rows[shape]

@@ -2,11 +2,9 @@
 
 The port keeps its own copy (it imports nothing of the JAX package) of the
 configs it runs: smollm-360m, starcoder2-3b, stablelm-3b and qwen3-32b
-(dense), mamba2-1.3b (ssm), zamba2-7b (hybrid), and deepseek-moe-16b and
-arctic-480b (moe).  Only the fields the dense, ssm, hybrid and moe
-token-LM families read are carried; the sub-configs of the other
-families (audio, vlm) come with their slice.
-``tests/test_torch_model.py`` checks the shared fields against the JAX
+(dense), mamba2-1.3b (ssm), zamba2-7b (hybrid), deepseek-moe-16b and
+arctic-480b (moe), whisper-tiny (audio) and internvl2-26b (vlm).
+``tests/test_torch_model.py`` checks every field against the JAX
 package's ``ArchConfig`` so the two copies cannot drift.
 """
 from __future__ import annotations
@@ -61,6 +59,21 @@ class HybridConfig:
 
 
 @dataclass(frozen=True)
+class EncDecConfig:
+    """Whisper-style encoder-decoder; the conv/mel frontend is a stub."""
+
+    encoder_layers: int = 4
+    encoder_seq_len: int = 1500  # whisper: 30 s audio -> 1500 frames
+
+
+@dataclass(frozen=True)
+class VLMConfig:
+    """InternVL-style: vision patch embeddings (stub) prepended to text."""
+
+    num_vision_tokens: int = 1024
+
+
+@dataclass(frozen=True)
 class VerticalConfig:
     """The paper's technique: K client towers + merge at the cut layer.
 
@@ -90,10 +103,10 @@ class VerticalConfig:
 
 @dataclass(frozen=True)
 class ArchConfig:
-    """One architecture (the dense, moe, ssm and hybrid token-LM fields)."""
+    """One architecture."""
 
     name: str
-    family: str  # dense | moe | ssm | hybrid (the families the port runs)
+    family: str  # dense | moe | ssm | hybrid | audio | vlm
     num_layers: int
     d_model: int
     num_heads: int
@@ -109,6 +122,8 @@ class ArchConfig:
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     hybrid: Optional[HybridConfig] = None
+    encdec: Optional[EncDecConfig] = None
+    vlm: Optional[VLMConfig] = None
     vertical: Optional[VerticalConfig] = None
     source: str = ""  # provenance citation
 
@@ -129,7 +144,8 @@ class ArchConfig:
         keeps <= 4 experts, top-2, <= 1 shared expert, a dense residual of
         <= 512 and <= 1 first dense layer, an ssm d_state <= 16 and chunks
         of 32, a hybrid a shared attention block after every Mamba
-        layer."""
+        layer, an encoder-decoder 2 encoder layers over 16 frames, a vlm
+        8 vision tokens."""
         d_model = min(self.d_model, 256)
         heads = min(self.num_heads, 4) or 4
         kv = min(self.num_kv_heads, heads) or heads
@@ -155,6 +171,13 @@ class ArchConfig:
         hybrid = None
         if self.hybrid is not None:
             hybrid = dataclasses.replace(self.hybrid, shared_attn_every=1)
+        encdec = None
+        if self.encdec is not None:
+            encdec = dataclasses.replace(self.encdec, encoder_layers=2,
+                                         encoder_seq_len=16)
+        vlm = None
+        if self.vlm is not None:
+            vlm = dataclasses.replace(self.vlm, num_vision_tokens=8)
         vertical = self.vertical
         if vertical is not None:
             vertical = dataclasses.replace(vertical, tower_layers=1,
@@ -172,6 +195,8 @@ class ArchConfig:
             moe=moe,
             ssm=ssm,
             hybrid=hybrid,
+            encdec=encdec,
+            vlm=vlm,
             vertical=vertical,
         )
 
@@ -200,6 +225,7 @@ def get_arch(name: str) -> ArchConfig:
 def _ensure_loaded() -> None:
     # import the config modules for their registration side effects
     from repro_torch.configs import (arctic_480b,  # noqa: F401
-                                     deepseek_moe_16b, mamba2_1_3b,
-                                     qwen3_32b, smollm_360m, stablelm_3b,
-                                     starcoder2_3b, zamba2_7b)
+                                     deepseek_moe_16b, internvl2_26b,
+                                     mamba2_1_3b, qwen3_32b, smollm_360m,
+                                     stablelm_3b, starcoder2_3b,
+                                     whisper_tiny, zamba2_7b)

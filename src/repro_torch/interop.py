@@ -5,8 +5,12 @@ package's tree after ``np.asarray`` on every leaf) into the port's tensors
 on ``device``.  The layout is kept as it is — stacked ``(L, ...)`` layers,
 ``(K, ...)`` towers, a hybrid's ``(n_super, every, ...)`` super-blocks —
 so the copy is straight; a ``None`` subtree (a hybrid without super-blocks
-or without a tail) stays ``None``, and each leaf keeps its own dtype (a
-moe router stays f32 in a bf16 tree).  bfloat16 arrays (numpy's
+or without a tail, a whisper tree whose towers take every encoder layer)
+stays ``None``, and each leaf keeps its own dtype (a moe router stays f32
+in a bf16 tree).  Every family's tree carries across this way: the audio
+family's LayerNorm ``scale`` / ``bias``, GELU biases and ``cross``
+subtrees and the vlm family's untied ``unembed`` and modality towers are
+leaves and dicts like any other.  bfloat16 arrays (numpy's
 ``ml_dtypes`` extension type, which ``torch.from_numpy`` rejects) go
 through float32.
 """

@@ -39,14 +39,19 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --reduced --transport inproc --steps 3 \\
       --batch 4 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper-tiny \\
+      --reduced --transport inproc --steps 3 --batch 4 --seq 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internvl2-26b \\
+      --reduced --transport inproc --steps 3 --batch 4 --seq 40 --device cpu
 
 The flags, their checks and their messages are the JAX package's
 ``repro.launch.train``'s, plus ``--device {cuda,cpu}``.  A rejected
 composition of flags reads as there (the compat matrix, through
 :func:`repro_torch.core.compat.cli_reject`).  A moe config's split run
 prints its router aux loss and the bytes of the protocol's aux slot.
-The configs the port does not carry yet (the audio and vlm families)
-exit naming their ROADMAP.md Queue 1 item.
+Every config of the JAX package runs, whisper-tiny (audio) and
+internvl2-26b (vlm) included; a vlm ``--seq`` counts the vision tokens,
+and must exceed them.
 """
 from __future__ import annotations
 
@@ -58,14 +63,6 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import VerticalConfig, get_arch
 from repro_torch.core import compat
 from repro_torch.data.loader import LMBatchLoader
-
-#: configs of the JAX package that the port does not carry yet -> the
-#: ROADMAP.md Queue 1 item that brings them
-UNPORTED_ARCHS = {
-    "whisper-tiny": "the audio family (ROADMAP.md Queue 1, item 13)",
-    "internvl2-26b": "the vlm family (ROADMAP.md Queue 1, item 13)",
-}
-
 
 def scale_config(cfg, scale: str):
     """Budget presets: shrink depth/width, keep the family + technique."""
@@ -225,10 +222,6 @@ def _parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = _parser().parse_args(argv)
-    if args.arch in UNPORTED_ARCHS:
-        raise SystemExit(f"--arch {args.arch}: {UNPORTED_ARCHS[args.arch]} "
-                         "is not ported to repro_torch yet")
-
     cfg = get_arch(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -1,5 +1,5 @@
-"""Attention: GQA prefill (dense and blocked flash branches) and cached
-one-token decode.
+"""Attention: GQA prefill (dense and blocked flash branches), cross
+attention and cached one-token decode.
 
 Prefill follows the JAX package's switch: the dense branch while
 ``S * Skv <= FLASH_THRESHOLD**2``, the blocked flash path past it.  The
@@ -7,7 +7,12 @@ flash path is the hand-written CUDA kernel for CUDA tensors
 (:func:`repro_torch.kernels.ops.flash_attention`) and the plain chunked
 online softmax (:func:`chunked_flash_attention`, differentiable through
 autograd) on the CPU or when a caller asks for the plain version.
-Decode writes one row into a linear or a ring cache (slot = index mod
+Cross attention (``kv_override``: K, V and their positions from the
+encoder, no RoPE on k) and a sliding ``window`` take the same switch on
+``S * Skv``; past it on the card two cases have no kernel and raise by
+name: cross attention with ``Sq != Skv`` and a window (the kernel takes
+one sequence and masks causally or not at all).  Decode writes one row
+into a linear or a ring cache (slot = index mod
 ``S_cache``) with tracked ``kv_positions``, under an optional sliding
 ``window``; the cache may be int8 with per-vector f32 scales
 (:func:`quantize_kv`), and the attention over it may be split into
@@ -115,13 +120,15 @@ def chunked_flash_attention(
     causal: bool,
     q_positions: torch.Tensor,  # (Sq,)
     kv_positions: torch.Tensor,  # (Skv,)
+    window: Optional[int] = None,
     q_chunk: int = 512,
     kv_chunk: int = 512,
 ) -> torch.Tensor:
     """Two-level blocked attention with online softmax (O(chunk^2) memory):
     the JAX package's ``chunked_flash_attention`` with its two ``scan``s as
     Python loops, the same arithmetic block by block.  Every kv chunk is
-    visited, masked blocks included, as there."""
+    visited, masked blocks included, as there; ``window`` keeps the keys
+    with ``qpos - kpos < window``."""
     B, Sq, H, hd = q.shape
     Skv, Kv = k.shape[1], k.shape[2]
     rep = H // Kv
@@ -154,6 +161,9 @@ def chunked_flash_attention(
             if causal:
                 s = s.masked_fill(qpos[qi][:, None] < kpos[ki][None, :],
                                   NEG_INF)
+            if window is not None:
+                s = s.masked_fill(
+                    qpos[qi][:, None] - kpos[ki][None, :] >= window, NEG_INF)
             m_new = torch.maximum(m, torch.amax(s, dim=-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
@@ -175,16 +185,19 @@ def _pick_chunk(n: int, target: int) -> int:
 
 
 def _require_arange(positions: torch.Tensor, S: int) -> None:
-    """The flash kernel masks by row index, so it stands for positions
-    ``arange(S)`` only (every prefill of the port passes those); other
-    positions raise rather than be mis-masked."""
+    """The flash kernel masks causally by row index, which for a
+    self-attention equals the position mask when the positions are one
+    contiguous run ``p0 + arange(S)`` (every prefill of the port passes
+    ``arange(S)``; the vlm text tower ``Sv + arange(S)``); other positions
+    raise rather than be mis-masked."""
     if tuple(positions.shape) != (S,) or not bool(torch.equal(
-            positions, torch.arange(S, device=positions.device,
-                                    dtype=positions.dtype))):
+            positions - positions[0],
+            torch.arange(S, device=positions.device,
+                         dtype=positions.dtype))):
         raise NotImplementedError(
-            f"attention over {S} tokens on CUDA runs the flash kernel, which "
-            "takes positions arange(S) only; these positions have no "
-            "kernel path yet")
+            f"causal attention over {S} tokens on CUDA runs the flash "
+            "kernel, which takes one contiguous run of positions p0 + "
+            "arange(S) only; these positions have no kernel path yet")
 
 
 def attention_apply(
@@ -197,31 +210,54 @@ def attention_apply(
     causal: bool = True,
     positions: Optional[torch.Tensor] = None,  # (S,)
     rope_theta: Optional[float] = 10000.0,
+    window: Optional[int] = None,
+    kv_override=None,  # (k, v, kv_positions) for cross-attention
     use_kernel: bool = True,
 ):
     """Full-sequence attention (prefill).  Returns (out, (k, v)).
     With qk-norm params, q and k are normalised per head before RoPE at
-    ``QK_NORM_PREFILL_EPS``.  ``use_kernel=False`` takes the plain chunked
-    path past the threshold on any device (comparison runs)."""
+    ``QK_NORM_PREFILL_EPS``.  ``kv_override=(k, v, kv_positions)`` is
+    cross attention: q from ``x``, K and V as given (``(B, Skv, Kv,
+    hd)``), RoPE on q only.  ``window`` keeps the keys with ``qpos - kpos
+    < window``.  ``use_kernel=False`` takes the plain chunked path past
+    the threshold on any device (comparison runs)."""
     B, S, _ = x.shape
-    long = S * S > FLASH_THRESHOLD * FLASH_THRESHOLD
+    Skv = S if kv_override is None else kv_override[0].shape[1]
+    long = S * Skv > FLASH_THRESHOLD * FLASH_THRESHOLD
     on_kernel = long and use_kernel and x.is_cuda
     if positions is None:
         positions = torch.arange(S, device=x.device)
-    elif on_kernel:
-        _require_arange(positions, S)
+    if on_kernel:
+        if window is not None:
+            raise NotImplementedError(
+                f"windowed attention over {S} x {Skv} tokens on CUDA: the "
+                "flash kernel has no window (ROADMAP.md Queue 1)")
+        if Skv != S:
+            raise NotImplementedError(
+                f"cross attention of {S} queries over {Skv} keys on CUDA: "
+                "the flash kernel takes one sequence length "
+                "(ROADMAP.md Queue 1)")
+        if causal:
+            _require_arange(positions, S)
     q = layers.matmul(x, params["wq"]).reshape(B, S, n_heads, head_dim)
-    k = layers.matmul(x, params["wk"]).reshape(B, S, n_kv_heads, head_dim)
-    v = layers.matmul(x, params["wv"]).reshape(B, S, n_kv_heads, head_dim)
+    if kv_override is None:
+        k = layers.matmul(x, params["wk"]).reshape(B, S, n_kv_heads,
+                                                   head_dim)
+        v = layers.matmul(x, params["wv"]).reshape(B, S, n_kv_heads,
+                                                   head_dim)
+        kv_positions = positions
+    else:
+        k, v, kv_positions = kv_override
     if "q_norm" in params:
         q = layers.rmsnorm(params["q_norm"], q, QK_NORM_PREFILL_EPS)
         k = layers.rmsnorm(params["k_norm"], k, QK_NORM_PREFILL_EPS)
     if rope_theta is not None:
         q = layers.apply_rope(q, positions, rope_theta)
-        k = layers.apply_rope(k, positions, rope_theta)
+        if kv_override is None:
+            k = layers.apply_rope(k, kv_positions, rope_theta)
     if not long:
         out = dense_attention(q, k, v, causal=causal, q_positions=positions,
-                              kv_positions=positions)
+                              kv_positions=kv_positions, window=window)
     elif on_kernel:  # (B, S, H, hd) in and out, as transposed views
         out = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                   v.transpose(1, 2),
@@ -229,8 +265,8 @@ def attention_apply(
     else:
         out = chunked_flash_attention(
             q, k, v, causal=causal, q_positions=positions,
-            kv_positions=positions, q_chunk=_pick_chunk(S, 512),
-            kv_chunk=_pick_chunk(S, 512))
+            kv_positions=kv_positions, window=window,
+            q_chunk=_pick_chunk(S, 512), kv_chunk=_pick_chunk(Skv, 512))
     return layers.matmul(out.reshape(B, S, n_heads * head_dim),
                          params["wo"]), (k, v)
 
@@ -268,7 +304,7 @@ def decode_attention_apply(
     n_heads: int,
     n_kv_heads: int,
     head_dim: int,
-    kv_positions: torch.Tensor,  # (B, S_cache); -1 marks an unwritten slot
+    kv_positions: Optional[torch.Tensor],  # (B, S_cache); -1: unwritten
     rope_theta: Optional[float] = 10000.0,
     position: Optional[torch.Tensor] = None,  # (B,); defaults to cache_index
     window: Optional[int] = None,
@@ -276,9 +312,15 @@ def decode_attention_apply(
     decode_chunks: Optional[int] = None,  # flash-decoding chunk count
     chunk_sharding=None,
     kv_scales=None,  # (k_scale, v_scale): (B, S_cache, Kv, 1) f32, int8
+    cross: bool = False,  # cross-attention: read-only cache, no RoPE on k
 ):
     """One-token cached decode.  Returns (attn_out, cache_k, cache_v,
     kv_positions, kv_scales).
+
+    ``cross``: attention over a read-only cache (the encoder's K/V) at
+    ``kv_positions``, ``arange(S_cache)`` when None, with no causal mask
+    and nothing written; RoPE (when given) on q only.  Returns the caches
+    as given, those positions and no scales, as the JAX package does.
 
     The new K/V rows (and, for an int8 cache, their scales) are written
     into the caches IN PLACE (the JAX package returns new arrays; the
@@ -296,6 +338,19 @@ def decode_attention_apply(
     pos = position.reshape(B, 1)
 
     q = layers.matmul(x, params["wq"]).reshape(B, 1, n_heads, head_dim)
+    if cross:
+        if "q_norm" in params:
+            q = layers.rmsnorm(params["q_norm"], q, QK_NORM_DECODE_EPS)
+        if rope_theta is not None:
+            q = layers.apply_rope(q, pos, rope_theta)
+        kpos = torch.arange(S_cache, device=x.device) \
+            if kv_positions is None else kv_positions
+        out = dense_attention(q, cache_k, cache_v, causal=False,
+                              q_positions=pos, kv_positions=kpos,
+                              window=window)
+        attn = layers.matmul(out.reshape(B, 1, n_heads * head_dim),
+                             params["wo"])
+        return attn, cache_k, cache_v, kpos, None
     k_new = layers.matmul(x, params["wk"]).reshape(B, 1, n_kv_heads,
                                                    head_dim)
     v_new = layers.matmul(x, params["wv"]).reshape(B, 1, n_kv_heads,

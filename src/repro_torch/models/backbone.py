@@ -1,8 +1,10 @@
-"""Architecture assembly for the dense, moe, ssm and hybrid families: params
-with the vertical split or without it (the centralized baseline), the
-monolithic forward, the decode caches, the dense prompt prefill
-(``prefill_tokens``) and the decode step, the server trunk, the LM loss and the monolithic
-training step, the parameter count, and the per-role split helpers.
+"""Architecture assembly for every family (dense, moe, ssm, hybrid, audio,
+vlm): params with the vertical split or without it (the centralized
+baseline), the monolithic forward, the decode caches, the dense prompt
+prefill (``prefill_tokens``), the modality prefills
+(``prefill_cross_attention``, ``prefill_vision``) and the decode step,
+the server trunk, the LM loss and the monolithic training step, the
+parameter count, and the per-role split helpers.
 
 Vertical split (``cfg.vertical``): the first ``tower_layers`` layers run as
 K independent client towers over d_model/K feature slices; tower outputs
@@ -21,8 +23,17 @@ blocks of width d_model/K, as the ssm family's.  The moe server is its
 first dense layers left after the towers (``server_dense``, FFN width
 ``d_ff * top_k``), then the MoE blocks, whose router aux loss the
 forward returns; its towers stay dense (the experts live at role 0).
-The other families (audio, vlm) raise ``NotImplementedError`` naming the
-slice of the port that brings them.
+
+The audio family (whisper) is an encoder-decoder: the towers sit on the
+encoder and split the frames' features (mel-band groups), the server
+keeps the remaining ``encoder`` layers (None when the towers take them
+all), ``enc_final_norm`` and the ``decoder``, whose blocks cross-attend
+to the encoder's output.  Its blocks use LayerNorm, a GELU MLP and
+sinusoidal positions added to the input (no RoPE).  The vlm family
+(internvl) prepends vision patches to the text: its towers are the
+modalities (``vision_tower`` non-causal over the patches, ``text_tower``
+causal over the text at positions ``Sv + arange(S)``), merged by a
+sequence concatenation, and the server unembeds the text positions.
 """
 from __future__ import annotations
 
@@ -66,6 +77,12 @@ def _server_layers(cfg: ArchConfig) -> int:
     return cfg.num_layers - cfg.vertical.tower_layers
 
 
+def _uses_feature_towers(cfg: ArchConfig) -> bool:
+    """Feature-slice towers (the token-LM families and the audio encoder);
+    the vlm family's towers are its modalities."""
+    return cfg.vertical is not None and cfg.family != "vlm"
+
+
 def params_dense_layers(cfg: ArchConfig) -> int:
     """The moe family's dense server layers: ``first_dense_layers`` less
     the tower layers (the towers come first and are dense anyway)."""
@@ -82,15 +99,6 @@ def _dense_layer_dims(cfg: ArchConfig) -> BlockDims:
     wider FFN (``d_ff * top_k``, about the routed experts' width)."""
     dims = BlockDims.from_arch(cfg)
     return dataclasses.replace(dims, d_ff=cfg.d_ff * max(cfg.moe.top_k, 1))
-
-
-def _check_family(cfg: ArchConfig) -> None:
-    """The families the port runs so far; the rest raise by name."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
-            "of the port (it runs the dense, moe, ssm and hybrid families "
-            "so far)")
 
 
 def _ssm_towers(cfg: ArchConfig) -> bool:
@@ -131,15 +139,14 @@ def _init_towers(cfg: ArchConfig, gen: torch.Generator, dtype) -> dict:
 
 def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
                 *, device: DeviceLike = None, dtype=torch.float32) -> dict:
-    """Seeded init of the dense, moe, ssm or hybrid family, with its
-    vertical section or centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
+    """Seeded init of ``cfg``'s family, with its vertical section or
+    centralized, on ``device`` (``cuda`` unless ``"cpu"`` is asked
     for).  ``generator`` must live on that device; None means a fresh one
     seeded with 0.
 
     Shapes and scales are the JAX package's; the numbers are not (torch
     and jax draw differently from a seed) — tests that compare the two
     packages carry the JAX package's params across instead."""
-    _check_family(cfg)
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -151,15 +158,27 @@ def init_params(cfg: ArchConfig, generator: Optional[torch.Generator] = None,
 
 def _init_tree(cfg: ArchConfig, generator, dev: torch.device, dtype) -> dict:
     n_server = _server_layers(cfg)
+    dims = BlockDims.from_arch(cfg)
     # draws in the order embedding, server, towers
     embed = layers.init_embedding(generator, cfg.vocab_size, cfg.d_model,
                                   dtype=dtype, tie=cfg.tie_embeddings)
     params = {
         "embed": embed,
-        "final_norm": layers.init_rmsnorm(cfg.d_model, device=dev,
-                                          dtype=dtype),
+        "final_norm": tfm.init_norm(cfg.d_model, dims.norm, device=dev,
+                                    dtype=dtype),
     }
-    if cfg.family == "ssm":
+    if cfg.family == "audio":
+        enc_layers = cfg.encdec.encoder_layers
+        if cfg.vertical is not None:
+            enc_layers -= cfg.vertical.tower_layers
+        params["encoder"] = tfm.init_dense_block(
+            generator, dims, lead=(enc_layers,),
+            dtype=dtype) if enc_layers else None
+        params["enc_final_norm"] = tfm.init_norm(cfg.d_model, dims.norm,
+                                                 device=dev, dtype=dtype)
+        params["decoder"] = tfm.init_dense_block(
+            generator, dims, lead=(cfg.num_layers,), dtype=dtype, cross=True)
+    elif cfg.family == "ssm":
         params["server"] = tfm.init_mamba_block(
             generator, cfg.d_model, cfg.ssm, lead=(n_server,), dtype=dtype)
     elif cfg.family == "hybrid":
@@ -184,11 +203,19 @@ def _init_tree(cfg: ArchConfig, generator, dev: torch.device, dtype) -> dict:
         params["server"] = tfm.init_moe_block(
             generator, BlockDims.from_arch(cfg), cfg.moe,
             lead=(n_server - n_dense,), dtype=dtype)
-    else:
+    elif cfg.family in ("dense", "vlm"):
         params["server"] = tfm.init_dense_block(
-            generator, BlockDims.from_arch(cfg), lead=(n_server,),
-            dtype=dtype)
-    if cfg.vertical is not None:
+            generator, dims, lead=(n_server,), dtype=dtype)
+    else:
+        raise ValueError(f"{cfg.name}: unknown family {cfg.family!r}")
+    if cfg.family == "vlm" and cfg.vertical is not None:
+        # the modality towers, one per client source, at full width
+        Lt = cfg.vertical.tower_layers
+        params["vision_tower"] = tfm.init_dense_block(
+            generator, dims, lead=(Lt,), dtype=dtype)
+        params["text_tower"] = tfm.init_dense_block(
+            generator, dims, lead=(Lt,), dtype=dtype)
+    elif cfg.vertical is not None:
         params["towers"] = _init_towers(cfg, generator, dtype)
     return params
 
@@ -205,7 +232,6 @@ class _ShapeOnly(torch.Generator):
 def param_count(cfg: ArchConfig) -> int:
     """Total parameter count, from shapes only (the init on the ``meta``
     device; nothing is allocated)."""
-    _check_family(cfg)
     tree = _init_tree(cfg, _ShapeOnly(), torch.device("meta"), torch.float32)
     return sum(t.numel() for t in tree_leaves(tree))
 
@@ -216,11 +242,12 @@ def param_count(cfg: ArchConfig) -> int:
 
 def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, live_mask=None,
+                    causal: bool = True,
                     use_kernel: bool = True) -> torch.Tensor:
     """x ``(B, S, d_model)`` -> the merged cut activation: K towers over
-    the feature slices, the codec, then ``merge_stacked`` with
-    ``live_mask``, as the JAX package's monolithic path merges (no merge
-    kernel here)."""
+    the feature slices (causal, or not: the audio encoder's), the codec,
+    then ``merge_stacked`` with ``live_mask``, as the JAX package's
+    monolithic path merges (no merge kernel here)."""
     v = cfg.vertical
     towers = params["towers"]
     # one unbind per stacked leaf: under autograd, indexing client by
@@ -237,36 +264,144 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                                       cfg.norm_eps, use_kernel=use_kernel)
         else:
             h = tfm.dense_stack_apply(blocks, h, _tower_dims(cfg),
-                                      causal=True, positions=positions,
+                                      causal=causal, positions=positions,
                                       use_kernel=use_kernel)
         cuts.append(layers.matmul(h, w_out))
     return _merge_cuts(cuts, cfg, live_mask)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
-            use_kernel: bool = True):
-    """Returns (logits ``(B, S, V)``, aux loss ``()``) for
-    ``batch = {"tokens": (B, S)}``: embedding, the towers and their merge
-    (with ``live_mask`` dropping clients; none when centralized), the
-    server trunk, the final norm and the unembedding.
+            window: Optional[int] = None, use_kernel: bool = True):
+    """Returns (logits, aux loss ``()``).
+
+    ``batch``: ``{"tokens": (B, S)}``, plus ``"frames"`` ``(B, S_enc, d)``
+    (audio) or ``"patches"`` ``(B, Sv, d)`` (vlm).  Token LMs: embedding,
+    the towers and their merge (with ``live_mask`` dropping clients; none
+    when centralized), the server trunk, the final norm and the
+    unembedding, logits ``(B, S, V)``.  Audio: the encoder over the
+    frames (towers over mel-band groups, non-causal), then the
+    teacher-forced decoder over the tokens.  Vlm: the vision and text
+    towers (``live_mask`` zeroes a dropped modality's segment), their
+    sequence concatenation, the server over ``Sv + S`` positions, logits
+    of the text positions ``(B, S, V)``.  ``window`` reaches the server's
+    self-attention (not the audio family's, as in the JAX package).
     ``use_kernel=False`` keeps every layer on the plain path (the model's
-    ``ssd_chunked``; chunked attention past 2048
-    tokens), on any device.  The aux loss is the moe router's
-    load-balance term summed over the layers, zero for the other
-    families."""
-    _check_family(cfg)
+    ``ssd_chunked``; chunked attention past 2048 tokens), on any device.
+    The aux loss is the moe router's load-balance term summed over the
+    layers, zero for the other families."""
     dims = BlockDims.from_arch(cfg)
+    if cfg.family == "audio":
+        enc_out = encode_audio(params, batch["frames"], cfg,
+                               live_mask=live_mask, use_kernel=use_kernel)
+        logits = _audio_decoder_apply(params, batch["tokens"], enc_out, cfg,
+                                      dims, use_kernel=use_kernel)
+        return logits, torch.zeros((), dtype=torch.float32,
+                                   device=logits.device)
     tokens = batch["tokens"]
     S = tokens.shape[1]
     x = layers.embed(params["embed"], tokens)
+    if cfg.family == "vlm":
+        return _forward_vlm(params, batch["patches"], x, cfg, dims,
+                            live_mask=live_mask, window=window,
+                            use_kernel=use_kernel)
     positions = torch.arange(S, device=x.device)
     if cfg.vertical is not None:
         x = _towers_forward(params, x, cfg, positions=positions,
                             live_mask=live_mask, use_kernel=use_kernel)
     x, aux = _server_trunk_apply(params, x, cfg, dims, positions=positions,
-                                 use_kernel=use_kernel)
+                                 window=window, use_kernel=use_kernel)
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
     return layers.unembed(params["embed"], x), aux
+
+
+def _forward_vlm(params: dict, patches: torch.Tensor, text: torch.Tensor,
+                 cfg: ArchConfig, dims: BlockDims, *, live_mask, window,
+                 use_kernel: bool):
+    """The vlm forward from the embedded text ``(B, S, d)``."""
+    patches = patches.to(params["embed"]["table"].dtype)
+    Sv = patches.shape[1]
+    full_pos = torch.arange(Sv + text.shape[1], device=text.device)
+    if cfg.vertical is not None:
+        vis = tfm.dense_stack_apply(params["vision_tower"], patches, dims,
+                                    causal=False, positions=full_pos[:Sv],
+                                    use_kernel=use_kernel)
+        txt = tfm.dense_stack_apply(params["text_tower"], text, dims,
+                                    causal=True, positions=full_pos[Sv:],
+                                    use_kernel=use_kernel)
+        if live_mask is not None:
+            # modality drop: zero the dropped client's sequence segment
+            # (f32 mask times bf16 segments is f32, as jnp promotes)
+            live = torch.as_tensor(live_mask, device=vis.device)
+            dtype = torch.promote_types(vis.dtype, live.dtype)
+            vis = vis.to(dtype) * live[0]
+            txt = txt.to(dtype) * live[1]
+        x = torch.cat([vis, txt], dim=1)  # the sequence-concat merge
+    else:
+        x = torch.cat([patches, text], dim=1)
+    x = tfm.dense_stack_apply(params["server"], x, dims, causal=True,
+                              positions=full_pos, window=window,
+                              use_kernel=use_kernel)
+    x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
+    logits = layers.unembed(params["embed"], x[:, Sv:, :])
+    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def encode_audio(params: dict, frames: torch.Tensor, cfg: ArchConfig, *,
+                 live_mask=None, use_kernel: bool = True) -> torch.Tensor:
+    """The whisper encoder: frames ``(B, S_enc, d)`` (cast to the tree's
+    dtype) plus the sinusoidal positions, the towers over the mel-band
+    groups (non-causal) and their merge, the server's encoder layers and
+    the final encoder norm -> ``(B, S_enc, d)``."""
+    dims = BlockDims.from_arch(cfg)
+    frames = frames.to(params["embed"]["table"].dtype)
+    S_enc = frames.shape[1]
+    h = frames + layers.sinusoidal_positions(
+        S_enc, cfg.d_model, frames.dtype, device=frames.device)[None]
+    if cfg.vertical is not None:
+        h = _towers_forward(params, h, cfg,
+                            positions=torch.arange(S_enc, device=h.device),
+                            live_mask=live_mask, causal=False,
+                            use_kernel=use_kernel)
+    return _audio_encoder_tail(params, h, cfg, dims, use_kernel=use_kernel)
+
+
+def _audio_encoder_tail(params: dict, h: torch.Tensor, cfg: ArchConfig,
+                        dims: BlockDims, *,
+                        use_kernel: bool = True) -> torch.Tensor:
+    """Post-merge encoder layers and the final encoder norm.  Shared by
+    the monolithic ``encode_audio`` and the split program's
+    ``server_fwd`` (the merged cut enters here)."""
+    if params["encoder"] is not None:
+        h = tfm.dense_stack_apply(
+            params["encoder"], h, dims, causal=False,
+            positions=torch.arange(h.shape[1], device=h.device),
+            use_kernel=use_kernel)
+    return tfm.norm(params["enc_final_norm"], h, dims.norm, dims.norm_eps)
+
+
+def _audio_decoder_apply(params: dict, tokens: torch.Tensor,
+                         enc_out: torch.Tensor, cfg: ArchConfig,
+                         dims: BlockDims, *,
+                         use_kernel: bool = True) -> torch.Tensor:
+    """The teacher-forced decoder over ``enc_out`` -> logits ``(B, S, V)``:
+    embedding plus sinusoidal positions, each layer's self attention
+    (causal) and cross attention over its own K/V of ``enc_out``, the
+    final norm, the unembedding.  Shared by the monolithic forward and the
+    split program's ``server_fwd``."""
+    S = tokens.shape[1]
+    x = layers.embed(params["embed"], tokens.long())
+    x = x + layers.sinusoidal_positions(S, cfg.d_model, x.dtype,
+                                        device=x.device)[None]
+    dec_positions = torch.arange(S, device=x.device)
+    enc_positions = torch.arange(enc_out.shape[1], device=x.device)
+    for lp in tfm.unstack_layers(params["decoder"]):
+        k, v = tfm.cross_kv_from_encoder(lp, enc_out, dims)
+        x = tfm.dense_block_apply(lp, x, dims, causal=True,
+                                  positions=dec_positions,
+                                  cross_kv=(k, v, enc_positions),
+                                  use_kernel=use_kernel)
+    x = tfm.norm(params["final_norm"], x, dims.norm, dims.norm_eps)
+    return layers.unembed(params["embed"], x)
 
 
 def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
@@ -281,12 +416,13 @@ def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
 
 def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                         dims: BlockDims, *, positions,
+                        window: Optional[int] = None,
                         use_kernel: bool = True):
-    """Post-merge server layers (the dense, moe, ssm and hybrid branches
-    of the JAX package's ``_server_trunk_apply``); returns (x, aux), the
-    aux loss ``()`` f32 being the moe router's, zero for the others.
-    Shared by the monolithic ``forward`` and the split program's
-    ``server_fwd``."""
+    """Post-merge server layers of the token-LM families (the JAX
+    package's ``_server_trunk_apply``); returns (x, aux), the aux loss
+    ``()`` f32 being the moe router's, zero for the others.  ``window``
+    reaches every self-attention (the ssm family has none).  Shared by
+    the monolithic ``forward`` and the split program's ``server_fwd``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = tfm.mamba_stack_apply(params["server"], x, cfg.ssm, cfg.d_model,
@@ -295,23 +431,23 @@ def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
         x = tfm.hybrid_stack_apply(
             params["server_super"], params["server_tail"],
             params["shared_attn"], x, cfg.ssm, dims, positions=positions,
-            use_kernel=use_kernel)
+            window=window, use_kernel=use_kernel)
     elif cfg.family == "moe":
         if "server_dense" in params:
             x = tfm.dense_stack_apply(params["server_dense"], x,
                                       _dense_layer_dims(cfg), causal=True,
-                                      positions=positions,
+                                      positions=positions, window=window,
                                       use_kernel=use_kernel)
         x, aux = tfm.moe_stack_apply(params["server"], x, dims, cfg.moe,
-                                     positions=positions,
+                                     positions=positions, window=window,
                                      use_kernel=use_kernel)
     elif cfg.family == "dense":
         x = tfm.dense_stack_apply(params["server"], x, dims, causal=True,
-                                  positions=positions, use_kernel=use_kernel)
+                                  positions=positions, window=window,
+                                  use_kernel=use_kernel)
     else:
-        raise NotImplementedError(
-            f"{cfg.name}: the port's server trunk covers the dense, moe, "
-            f"ssm and hybrid families only (got {cfg.family!r})")
+        raise ValueError(f"{cfg.name}: the server trunk is the token-LM "
+                         f"families' (got {cfg.family!r})")
     return x, aux
 
 
@@ -355,14 +491,22 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
       and the shared block's ``attn_k``/``attn_v`` ``(n_super, B,
       cache_len, Kv, hd)`` when there are super-blocks, ``ssm_tail``/
       ``conv_tail`` ``(n_tail, B, ...)`` when there is a tail, and the
-      ssm towers'.
+      ssm towers';
+    - audio: the decoder's ``k``/``v`` ``(L, B, cache_len, Kv, hd)`` and
+      its read-only cross-attention ``cross_k``/``cross_v`` ``(L, B,
+      S_enc, Kv, hd)`` (filled by :func:`prefill_cross_attention`); the
+      encoder's towers keep no cache;
+    - vlm: the server's ``k``/``v`` (no int8: ``kv_quant`` is ignored, as
+      in the JAX package), and with towers the text tower's
+      ``text_tower_k``/``text_tower_v`` ``(Lt, B, cache_len, Kv, hd)``
+      with its own ``text_tower_positions`` ``(cache_len,)`` (the text
+      tower never attends over the vision prefix).
 
     A centralized config (``cfg.vertical`` None) has no ``tower``.
 
     ``cache_len`` is the longest sequence, or the window of a ``ring``
     cache (which changes no shape: the ring is the decode step's slot
     arithmetic)."""
-    _check_family(cfg)
     dev = resolve_device(device)
     v = cfg.vertical
     cache = {
@@ -394,6 +538,22 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
         return cache
     kv = (_server_layers(cfg), batch, cache_len, dims.n_kv_heads,
           dims.head_dim)
+    if cfg.family == "audio":
+        kv = (cfg.num_layers,) + kv[1:]
+        cross = (cfg.num_layers, batch, cfg.encdec.encoder_seq_len,
+                 dims.n_kv_heads, dims.head_dim)
+        for key, shape in (("k", kv), ("v", kv), ("cross_k", cross),
+                           ("cross_v", cross)):
+            cache[key] = torch.zeros(shape, dtype=dtype, device=dev)
+        return cache
+    if cfg.family == "vlm":
+        kv_quant = False
+        if v is not None:
+            tkv = (v.tower_layers,) + kv[1:]
+            cache["text_tower_k"] = torch.zeros(tkv, dtype=dtype, device=dev)
+            cache["text_tower_v"] = torch.zeros(tkv, dtype=dtype, device=dev)
+            cache["text_tower_positions"] = torch.full(
+                (cache_len,), -1, dtype=torch.int32, device=dev)
     if cfg.family == "moe":
         kv_quant = False
         n_dense = params_dense_layers(cfg)
@@ -411,7 +571,7 @@ def init_cache(cfg: ArchConfig, batch: int, cache_len: int,
                                        device=dev)
         cache["v_scale"] = torch.zeros(kv[:-1] + (1,), dtype=torch.float32,
                                        device=dev)
-    if v is not None:
+    if _uses_feature_towers(cfg):
         dims_t = _tower_dims(cfg)
         tkv = (v.num_clients, v.tower_layers, batch, cache_len,
                dims_t.n_kv_heads, dims_t.head_dim)
@@ -470,14 +630,41 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     new positions when there is a super-block.  The moe family decodes
     its dense server layers with ``window`` and ``ring`` and its MoE
     layers with ``decode_chunks`` too; each MoE layer routes the B tokens
-    as one group, at the reference's capacity for B tokens."""
-    _check_family(cfg)
+    as one group, at the reference's capacity for B tokens.  The audio
+    family adds the sinusoidal position of ``index`` to the embedding and
+    decodes its decoder with ``window`` and ``ring`` against the cache's
+    cross-attention K/V (zeros until :func:`prefill_cross_attention`
+    fills them); its towers (on the encoder) take no part.  The vlm
+    family decodes the text tower over its own positions, then the
+    server, both with ``window`` and ``ring`` (no ``live_mask`` nor
+    chunks, as in the JAX package)."""
     dims = BlockDims.from_arch(cfg)
     x = layers.embed(params["embed"], tokens[:, None])  # (B, 1, d)
     B = x.shape[0]
     new_cache = dict(cache)
     towers = cfg.vertical is not None
-    if cfg.family == "ssm":
+    if cfg.family in ("audio", "vlm"):
+        index = cache["index"].long().expand(B)
+        kv_positions = cache["kv_positions"].expand(B, -1)
+        stack, cross = params.get("server"), None
+        if cfg.family == "audio":
+            x = x + layers.sinusoidal_position_at(index, cfg.d_model,
+                                                  x.dtype)[:, None, :]
+            stack, cross = params["decoder"], (cache["cross_k"],
+                                               cache["cross_v"])
+        elif towers:
+            # the text tower first, over its own slot positions
+            x, _, _, tpos, _ = tfm.dense_stack_decode(
+                params["text_tower"], x, cache["text_tower_k"],
+                cache["text_tower_v"], index,
+                cache["text_tower_positions"].expand(B, -1), dims,
+                window=window, ring=ring, position=index)
+            new_cache["text_tower_positions"] = tpos[0]
+        x, _, _, npos, _ = tfm.dense_stack_decode(
+            stack, x, cache["k"], cache["v"], index, kv_positions, dims,
+            window=window, ring=ring, position=index, cross_caches=cross)
+        new_cache["kv_positions"] = npos[0]
+    elif cfg.family == "ssm":
         if towers:
             x = _towers_decode(params, x, cache["tower"], None, None, cfg,
                                live_mask=live_mask)
@@ -534,8 +721,56 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             kv_scales=kv_scales)
         new_cache["kv_positions"] = npos[0]
     new_cache["index"] = cache["index"] + 1
-    x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
+    x = tfm.norm(params["final_norm"], x, dims.norm, dims.norm_eps)
     return layers.unembed(params["embed"], x)[:, 0, :], new_cache
+
+
+def prefill_cross_attention(params: dict, cache: dict, frames: torch.Tensor,
+                            cfg: ArchConfig, *, live_mask=None,
+                            use_kernel: bool = True) -> dict:
+    """Whisper: encode the frames once (:func:`encode_audio`) and put every
+    decoder layer's cross-attention K/V of the encoder output into the
+    cache's ``cross_k``/``cross_v`` ``(L, B, S_enc, Kv, hd)``, in its
+    dtype (new tensors, as the JAX package replaces them).  Returns the
+    cache."""
+    dims = BlockDims.from_arch(cfg)
+    enc_out = encode_audio(params, frames, cfg, live_mask=live_mask,
+                           use_kernel=use_kernel)
+    B, S_enc, _ = enc_out.shape
+    cross = params["decoder"]["cross"]
+    L = cross["wk"].shape[0]
+    new_cache = dict(cache)
+    for key, w in (("cross_k", cross["wk"]), ("cross_v", cross["wv"])):
+        kv = layers.einsum("bsd,ldh->lbsh", enc_out, w).reshape(
+            L, B, S_enc, dims.n_kv_heads, dims.head_dim)
+        new_cache[key] = kv.to(cache[key].dtype)
+    return new_cache
+
+
+def prefill_vision(params: dict, cache: dict, patches: torch.Tensor,
+                   cfg: ArchConfig, *, use_kernel: bool = True) -> dict:
+    """Vlm: the vision tower (non-causal) and the server over the vision
+    prefix ``(B, Sv, d)``, filling the server's slots ``[0, Sv)`` of
+    ``k``/``v`` and ``kv_positions`` in place; ``index`` becomes Sv.  The
+    text tower's cache is left as it is (its slots below Sv stay
+    unwritten).  Returns the cache."""
+    dims = BlockDims.from_arch(cfg)
+    x = patches.to(params["embed"]["table"].dtype)
+    Sv = x.shape[1]
+    positions = torch.arange(Sv, device=x.device)
+    if cfg.vertical is not None:
+        x = tfm.dense_stack_apply(params["vision_tower"], x, dims,
+                                  causal=False, positions=positions,
+                                  use_kernel=use_kernel)
+    _, ks, vs = tfm.dense_stack_prefill(params["server"], x, dims,
+                                        positions=positions, causal=True,
+                                        use_kernel=use_kernel)
+    cache["k"][:, :, :Sv] = ks.to(cache["k"].dtype)
+    cache["v"][:, :, :Sv] = vs.to(cache["v"].dtype)
+    cache["kv_positions"][:Sv] = positions.to(cache["kv_positions"].dtype)
+    new_cache = dict(cache)
+    new_cache["index"] = torch.full_like(cache["index"], Sv)
+    return new_cache
 
 
 def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
@@ -559,7 +794,6 @@ def prefill_tokens(params: dict, cache: dict, tokens: torch.Tensor,
             f"{cfg.name}: prompt prefill is implemented for the dense "
             f"family; the {cfg.family!r} family replays the prompt through "
             "decode_step")
-    _check_family(cfg)
     if "k_scale" in cache:
         raise NotImplementedError(
             "prefill_tokens into an int8 (kv_quant) cache: the JAX package "
@@ -635,8 +869,10 @@ def make_train_step(cfg: ArchConfig, optimizer, *, use_kernel: bool = True):
     """``step(params, opt_state, batch) -> (params, opt_state, loss)``: the
     loss and its gradient with respect to every leaf (a leaf the forward
     does not read, such as an untied input table's rows, gets zeros, as
-    ``jax.value_and_grad`` gives), then the optimizer's out-of-place
-    update.  Eager: the JAX package jits this step."""
+    ``jax.value_and_grad`` gives), then the optimizer's update (in place
+    with ``AdamW(inplace=True)``, as :func:`~repro_torch.train.loop.train`
+    runs it: the returned params are then the tensors given).  Eager: the
+    JAX package jits this step."""
     def step(params: dict, opt_state, batch: dict):
         leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
         with torch.enable_grad():
@@ -658,8 +894,9 @@ def make_train_step(cfg: ArchConfig, optimizer, *, use_kernel: bool = True):
 # ---------------------------------------------------------------------------
 
 def split_lm_params(cfg: ArchConfig, params: dict) -> tuple[list, dict]:
-    """Per-client tower trees (views into ``params``, each with its
-    columns of the embedding table) and the role-0 server tree."""
+    """Per-client tower trees (copies, each with its columns of the
+    embedding table) and the role-0 server tree (``params``' own
+    tensors)."""
     from repro_torch.models.split_program import get_program
 
     return get_program(cfg).partition(params)
@@ -667,14 +904,14 @@ def split_lm_params(cfg: ArchConfig, params: dict) -> tuple[list, dict]:
 
 def make_split_lm_fns(cfg: ArchConfig):
     """(tower_fwd, server_fwd, loss_fn) callables for the Executor.  A
-    program with an aux-loss slot (moe) needs the full SplitProgram
-    interface, as in the JAX package."""
+    program with per-client towers (audio, vlm) or an aux-loss slot (moe)
+    needs the full SplitProgram interface, as in the JAX package."""
     from repro_torch.models.split_program import get_program
 
     program = get_program(cfg)
-    if program.has_aux:
+    if program.per_client_towers or program.has_aux:
         raise ValueError(
             f"{cfg.name} ({cfg.family}) needs the full SplitProgram "
-            "interface (aux-loss slot); use "
+            "interface (per-client towers / aux-loss slot); use "
             "repro_torch.models.split_program.get_program")
     return program.tower_fwd(0), program.server_fwd, program.loss_fn

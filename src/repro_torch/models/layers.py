@@ -1,4 +1,5 @@
-"""Foundational layers: norms, RoPE, the gated MLP, embeddings.
+"""Foundational layers: norms (RMSNorm, LayerNorm), RoPE and the sinusoidal
+positions, the gated and GELU MLPs, embeddings.
 
 Functional, like the JAX package: ``init_*`` builds a param dict of
 tensors, the apply functions consume it.  Init functions take a
@@ -68,6 +69,24 @@ def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return (y * params["scale"].float()).to(x.dtype)
 
 
+def init_layernorm(d: int, *, lead: tuple = (), device=None,
+                   dtype=torch.float32) -> dict:
+    return {"scale": torch.ones(lead + (d,), dtype=dtype, device=device),
+            "bias": torch.zeros(lead + (d,), dtype=dtype, device=device)}
+
+
+def layernorm(params: dict, x: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """Mean and biased variance (``jnp.var``) in f32, then scale and bias
+    in f32, back to the activation dtype."""
+    x32 = x.float()
+    mu = torch.mean(x32, dim=-1, keepdim=True)
+    var = torch.var(x32, dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    y = y * params["scale"].float() + params["bias"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # rotary position embeddings
 # ---------------------------------------------------------------------------
@@ -91,8 +110,35 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def _sinusoid_freqs(d: int, device) -> torch.Tensor:
+    half = d // 2
+    log_timescale = math.log(10000.0) / max(half - 1, 1)
+    return torch.exp(-log_timescale * torch.arange(half, dtype=torch.float32,
+                                                   device=device))
+
+
+def sinusoidal_positions(seq_len: int, d: int, dtype=torch.float32,
+                         device=None) -> torch.Tensor:
+    """Whisper-style sinusoidal embeddings ``(seq_len, d)``: sin then cos
+    of ``position * exp(-log(1e4) / max(d/2 - 1, 1) * i)``, in f32."""
+    scaled = torch.arange(seq_len, dtype=torch.float32, device=device)[
+        :, None] * _sinusoid_freqs(d, device)[None, :]
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1).to(
+        dtype)
+
+
+def sinusoidal_position_at(position: torch.Tensor, d: int,
+                           dtype=torch.float32) -> torch.Tensor:
+    """The sinusoidal embeddings at ``position`` (any shape): ``position.
+    shape + (d,)``."""
+    scaled = position.float()[..., None] * _sinusoid_freqs(d,
+                                                           position.device)
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1).to(
+        dtype)
+
+
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
@@ -126,6 +172,24 @@ def gated_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     gate = F.silu(matmul(x, params["w_gate"]))
     up = matmul(x, params["w_up"])
     return matmul(gate * up, params["w_down"])
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int, *,
+                  lead: tuple = (), dtype=torch.float32) -> dict:
+    """GELU MLP (whisper-style, no gate), with biases."""
+    return {
+        "w_in": dense_init(gen, d_model, d_ff, lead=lead, dtype=dtype),
+        "b_in": torch.zeros(lead + (d_ff,), dtype=dtype, device=gen.device),
+        "w_out": dense_init(gen, d_ff, d_model, lead=lead, dtype=dtype),
+        "b_out": torch.zeros(lead + (d_model,), dtype=dtype,
+                             device=gen.device),
+    }
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(approximate=True)``: the tanh form."""
+    h = F.gelu(matmul(x, params["w_in"]) + params["b_in"], approximate="tanh")
+    return matmul(h, params["w_out"]) + params["b_out"]
 
 
 # ---------------------------------------------------------------------------

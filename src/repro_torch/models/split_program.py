@@ -16,8 +16,19 @@ role-0 server:
   seed, so only protocol messages cross a transport);
 * the tower / server serving bundles.
 
-The port registers the token-LM program for the dense, moe, ssm and
-hybrid families; the audio and vlm families come with a later slice.
+The port registers every family of the JAX package: the token-LM program
+for the dense, moe, ssm and hybrid families, the audio program (mel-band
+towers on the whisper encoder, ``server_takes_batch``) and the vlm
+program (modality towers merged by a sequence concatenation,
+``merge_fn``).
+
+``tower_params`` gives a tower as views into the monolithic tree (a
+serving worker, which never updates its weights, holds no copy);
+``partition`` copies them, and so does a training worker
+(``build_split_worker`` with a learning rate), because the training
+loops update params in place (``AdamW(inplace=True)``), and a tower
+that viewed the server's embedding table would be trained by the
+server's update.
 """
 from __future__ import annotations
 
@@ -27,10 +38,13 @@ import torch
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.data.loader import LMBatchLoader, to_tensor
 from repro_torch.models import layers
 from repro_torch.models import transformer as tfm
-from repro_torch.models.backbone import (_server_layers, _server_trunk_apply,
-                                         _ssm_towers, _tower_dims, lm_loss)
+from repro_torch.models.backbone import (_audio_decoder_apply,
+                                         _audio_encoder_tail, _server_layers,
+                                         _server_trunk_apply, _ssm_towers,
+                                         _tower_dims, lm_loss)
 from repro_torch.models.transformer import BlockDims
 from repro_torch.tree_util import tree_map
 
@@ -72,11 +86,16 @@ class SplitProgram:
     """Family-agnostic contract; subclasses register one family each.
 
     The class-level shape flags are the JAX package's (``executor_kwargs``
-    hands them to the Executor); the token-LM program sets ``has_aux``
-    for the moe family."""
+    hands them to the Executor): ``server_takes_batch`` (``server_fwd``
+    takes the role-0 batch context: the audio decoder's teacher-forcing
+    tokens), ``has_aux`` (the moe router's aux slot) and ``merge_fn``
+    (``(cuts, live_mask) -> merged`` for cuts of different shapes: the
+    vlm sequence concatenation); ``per_client_towers`` says that
+    ``tower_fwd(k)`` differs by client (the audio and vlm programs)."""
 
     server_takes_batch = False
     has_aux = False
+    per_client_towers = False
     merge_fn: Optional[Callable] = None
 
     def __init__(self, cfg: ArchConfig):
@@ -100,9 +119,26 @@ class SplitProgram:
         return dict(server_takes_batch=self.server_takes_batch,
                     server_aux=self.has_aux, merge_fn=self.merge_fn)
 
-    def partition(self, params) -> tuple[list, dict]:
-        """Monolithic param tree -> (per-client tower trees, server tree)."""
+    #: the monolithic tree's keys that the towers take, none of which the
+    #: server keeps
+    tower_keys: tuple = ("towers",)
+
+    def tower_params(self, params, client: int) -> dict:
+        """Client ``client``'s tower tree, as views into ``params``."""
         raise NotImplementedError
+
+    def server_params(self, params) -> dict:
+        """Role 0's tree: ``params`` without the towers' keys, holding
+        ``params``' own tensors."""
+        return {key: val for key, val in params.items()
+                if key not in self.tower_keys}
+
+    def partition(self, params) -> tuple[list, dict]:
+        """Monolithic param tree -> (per-client tower trees, each a copy
+        with storage of its own, and :meth:`server_params`)."""
+        return ([tree_map(torch.clone, self.tower_params(params, k))
+                 for k in range(self.num_clients)],
+                self.server_params(params))
 
     def tower_fwd(self, client: int) -> Callable:
         """Client ``client``'s ``(tower_params, feats) -> cut``."""
@@ -126,12 +162,23 @@ class SplitProgram:
         seed."""
         raise NotImplementedError
 
+    def _no_serving(self):
+        return NotImplementedError(
+            f"{self.cfg.name}: split serving is not implemented for the "
+            f"{self.cfg.family!r} family — the dense token-LM program is "
+            "the serving exemplar (stateful tower decode for ssm/hybrid "
+            "towers is an open item)")
+
     def tower_serve_fns(self, client: int, *,
                         use_kernel: bool = True) -> TowerServeFns:
-        raise NotImplementedError
+        """Client ``client``'s serving bundle; families without a serving
+        decomposition raise, with the JAX package's words."""
+        raise self._no_serving()
 
     def server_serve_fns(self, *, use_kernel: bool = True) -> ServerServeFns:
-        raise NotImplementedError
+        """Role 0's serving bundle; families without a serving
+        decomposition raise, with the JAX package's words."""
+        raise self._no_serving()
 
     def protocol_step(self, tower_params, server_params, features, ctx, *,
                       label_holder: int = 0, live_mask=None, ledger=None):
@@ -151,8 +198,6 @@ class SplitProgram:
                            device: DeviceLike) -> Callable:
         """Iterate the shared-seed ``LMBatchLoader`` lazily; ``extract``
         picks this client's view of each batch dict."""
-        from repro_torch.data.loader import LMBatchLoader
-
         dev = resolve_device(device)
         loader_it = iter(LMBatchLoader(self.cfg, batch, seq, seed=seed))
         state = {"step": -1, "batch": None}
@@ -162,8 +207,8 @@ class SplitProgram:
             while state["step"] < step:  # steps arrive in order
                 state["batch"] = next(loader_it)
                 state["step"] += 1
-            feats = extract(state["batch"])[mb * mbsz:(mb + 1) * mbsz]
-            return torch.as_tensor(feats, dtype=torch.long, device=dev)
+            return to_tensor(
+                extract(state["batch"])[mb * mbsz:(mb + 1) * mbsz], dev)
 
         return feature_fn
 
@@ -197,22 +242,14 @@ class TokenLMSplitProgram(SplitProgram):
         self.has_aux = cfg.family == "moe"
 
     def tower_params(self, params, client: int) -> dict:
-        """Client ``client``'s tower tree: views into ``params`` (its layer
-        of the tower stacks and its columns of the embedding table), so
-        nothing is copied.  The port's optimizers write no tensor in place,
-        so the client's columns still train apart from the server's table,
-        as in the JAX package."""
+        """Client ``client``'s tower tree: views of its layer of the tower
+        stacks and of its columns of the embedding table (a copy of them
+        trains apart from the server's table, as in the JAX package)."""
         ds = self.cfg.d_model // self.num_clients
         tp = tfm.layer_params(params["towers"], client)
         tp["embed_slice"] = params["embed"]["table"][
             :, client * ds:(client + 1) * ds]
         return tp
-
-    def partition(self, params):
-        towers = [self.tower_params(params, k)
-                  for k in range(self.num_clients)]
-        server = {key: val for key, val in params.items() if key != "towers"}
-        return towers, server
 
     def tower_fwd(self, client: int) -> Callable:
         cfg = self.cfg
@@ -355,10 +392,163 @@ class TokenLMSplitProgram(SplitProgram):
                               decode=decode)
 
 
+class AudioSplitProgram(SplitProgram):
+    """Whisper-style encoder split: client ``k`` holds mel-band group ``k``
+    (the feature slice ``frames[..., k*d/K:(k+1)*d/K]``) and runs its
+    non-causal tower over it; the merged cut feeds the server's remaining
+    encoder layers, and the decoder teacher-forces over the token stream
+    held at role 0/3 (``server_takes_batch``)."""
+
+    server_takes_batch = True
+    per_client_towers = True
+
+    def tower_params(self, params, client: int) -> dict:
+        return tfm.layer_params(params["towers"], client)
+
+    def tower_fwd(self, client: int) -> Callable:
+        cfg = self.cfg
+        dims_t = _tower_dims(cfg)
+        ds = cfg.d_model // self.num_clients
+        lo = client * ds
+
+        def tower_fwd(tp, frame_slice):
+            S = frame_slice.shape[1]
+            # the sinusoid is public: each client adds ITS columns of the
+            # full-width one, as encode_audio adds it before the split
+            pos = layers.sinusoidal_positions(S, cfg.d_model,
+                                              frame_slice.dtype,
+                                              device=frame_slice.device)
+            h = frame_slice + pos[None, :, lo:lo + ds]
+            positions = torch.arange(S, device=frame_slice.device)
+            h = layers.matmul(h, tp["proj_in"])
+            h = tfm.dense_stack_apply(tp["blocks"], h, dims_t, causal=False,
+                                      positions=positions)
+            return layers.matmul(h, tp["proj_out"])
+
+        return tower_fwd
+
+    def server_fwd(self, sp, merged, batch):
+        dims = BlockDims.from_arch(self.cfg)
+        enc_out = _audio_encoder_tail(sp, merged, self.cfg, dims)
+        return _audio_decoder_apply(sp, batch["tokens"], enc_out, self.cfg,
+                                    dims)
+
+    def loss_fn(self, logits, batch):
+        return lm_loss(logits, batch["labels"])
+
+    def batch_ctx(self, batch, device=None):
+        dev = resolve_device(device)
+        return {"tokens": to_tensor(batch["tokens"], dev),
+                "labels": to_tensor(batch["labels"], dev)}
+
+    def features(self, batch, device=None):
+        frames = to_tensor(batch["frames"], resolve_device(device))
+        return list(torch.chunk(frames, self.num_clients, dim=-1))
+
+    def feature_fn(self, client, *, batch, seq, seed=0, microbatches=1,
+                   device=None):
+        ds = self.cfg.d_model // self.num_clients
+        lo = client * ds
+        return self._loader_feature_fn(
+            batch=batch, seq=seq, seed=seed, microbatches=microbatches,
+            extract=lambda b: b["frames"][..., lo:lo + ds], device=device)
+
+
+class VLMSplitProgram(SplitProgram):
+    """The by-source split: client 0 holds the vision patches (its tower is
+    the vision stack, non-causal), client 1 the text stream (its tower is
+    the text stack over its own copy of the input embedding table, causal,
+    at positions ``Sv + arange(S)``).  The merge is the SEQUENCE
+    concatenation [vision; text]: the cuts differ in length, so the
+    program supplies ``merge_fn``, and a dropped modality zeroes its
+    segment (the monolithic ``live_mask``).  The server unembeds the text
+    positions only.
+
+    The JAX package's text tower holds the whole embedding dict; the
+    port's holds the input table alone (the tower never reads the untied
+    ``unembed``, whose update there is weight decay of an unused copy),
+    which at internvl2-26b's width saves 2.3 GB of f32 params and twice
+    that in moments."""
+
+    tower_keys = ("vision_tower", "text_tower")
+    per_client_towers = True
+
+    def __init__(self, cfg: ArchConfig):
+        super().__init__(cfg)
+        if cfg.vertical.num_clients != 2:
+            raise ValueError("the vlm by-source split has exactly two "
+                             f"clients (vision, text); got "
+                             f"{cfg.vertical.num_clients}")
+        self.merge_fn = self._merge_seqcat
+
+    @staticmethod
+    def _merge_seqcat(cuts, live_mask=None):
+        if live_mask is not None:
+            cuts = [c * torch.as_tensor(live_mask, device=c.device)[k].to(
+                c.dtype) for k, c in enumerate(cuts)]
+        return torch.cat(list(cuts), dim=1)
+
+    def tower_params(self, params, client: int) -> dict:
+        if client == 0:
+            return {"blocks": params["vision_tower"]}
+        return {"embed": {"table": params["embed"]["table"]},
+                "blocks": params["text_tower"]}
+
+    def tower_fwd(self, client: int) -> Callable:
+        cfg = self.cfg
+        dims = BlockDims.from_arch(cfg)
+        Sv = cfg.vlm.num_vision_tokens
+
+        if client == 0:
+            def vision_fwd(tp, patches):
+                x = patches.to(tfm.stack_dtype(tp["blocks"]))
+                positions = torch.arange(Sv, device=x.device)
+                return tfm.dense_stack_apply(tp["blocks"], x, dims,
+                                             causal=False,
+                                             positions=positions)
+
+            return vision_fwd
+
+        def text_fwd(tp, tokens):
+            x = layers.embed(tp["embed"], tokens.long())
+            positions = Sv + torch.arange(tokens.shape[-1],
+                                          device=tokens.device)
+            return tfm.dense_stack_apply(tp["blocks"], x, dims, causal=True,
+                                         positions=positions)
+
+        return text_fwd
+
+    def server_fwd(self, sp, merged):
+        dims = BlockDims.from_arch(self.cfg)
+        positions = torch.arange(merged.shape[1], device=merged.device)
+        x = tfm.dense_stack_apply(sp["server"], merged, dims, causal=True,
+                                  positions=positions)
+        x = tfm.norm(sp["final_norm"], x, dims.norm, dims.norm_eps)
+        return layers.unembed(sp["embed"],
+                              x[:, self.cfg.vlm.num_vision_tokens:, :])
+
+    def loss_fn(self, logits, labels):
+        return lm_loss(logits, labels)
+
+    def features(self, batch, device=None):
+        dev = resolve_device(device)
+        return [to_tensor(batch["patches"], dev),
+                to_tensor(batch["tokens"], dev)]
+
+    def feature_fn(self, client, *, batch, seq, seed=0, microbatches=1,
+                   device=None):
+        key = "patches" if client == 0 else "tokens"
+        return self._loader_feature_fn(
+            batch=batch, seq=seq, seed=seed, microbatches=microbatches,
+            extract=lambda b: b[key], device=device)
+
+
 _PROGRAMS: dict[str, type] = {"dense": TokenLMSplitProgram,
                                "moe": TokenLMSplitProgram,
                                "ssm": TokenLMSplitProgram,
-                               "hybrid": TokenLMSplitProgram}
+                               "hybrid": TokenLMSplitProgram,
+                               "audio": AudioSplitProgram,
+                               "vlm": VLMSplitProgram}
 
 SPLIT_EXEC_FAMILIES = tuple(_PROGRAMS)
 

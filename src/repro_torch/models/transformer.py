@@ -2,6 +2,12 @@
 stack: super-blocks of Mamba2 layers, each followed by one weight-shared
 attention block, then the trailing Mamba2 layers.
 
+The dense block takes the family's MLP and norm (``BlockDims.mlp`` and
+``.norm``: SwiGLU and RMSNorm, or the audio family's GELU and LayerNorm
+with no RoPE), a sliding ``window`` and, for the whisper decoder, a cross
+attention over the encoder's K/V (``cross=True``: ``ln_cross`` and
+``cross``).
+
 Params for L homogeneous layers are stacked on a leading axis, as in the
 JAX package; a Python loop over the layers takes the place of
 ``lax.scan``.  The vertical-SplitNN towers are built from the same blocks
@@ -30,17 +36,18 @@ class BlockDims:
     qk_norm: bool = False
     rope_theta: Optional[float] = 10000.0
     norm_eps: float = 1e-5
+    mlp: str = "swiglu"  # "swiglu" | "gelu"
+    norm: str = "rms"  # "rms" | "ln"
 
     @staticmethod
     def from_arch(cfg: ArchConfig) -> "BlockDims":
         """The attention dims: a hybrid's are its shared block's (real
         heads and ``d_ff``); an ssm (attention-free, ``num_heads`` 0) gets
         the JAX package's degenerate values, of which it reads only the
-        norm fields."""
-        if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"{cfg.name}: the port's blocks cover the dense, moe, ssm "
-                "and hybrid families so far")
+        norm fields.  The audio family's blocks are whisper's: GELU MLP,
+        LayerNorm, no RoPE (sinusoidal positions are added to the
+        input)."""
+        audio = cfg.family == "audio"
         return BlockDims(
             d_model=cfg.d_model,
             n_heads=cfg.num_heads,
@@ -48,8 +55,10 @@ class BlockDims:
             head_dim=cfg.resolved_head_dim(),
             d_ff=cfg.d_ff,
             qk_norm=cfg.qk_norm,
-            rope_theta=cfg.rope_theta,
+            rope_theta=None if audio else cfg.rope_theta,
             norm_eps=cfg.norm_eps,
+            mlp="gelu" if audio else "swiglu",
+            norm="ln" if audio else "rms",
         )
 
     def scaled(self, k: int) -> "BlockDims":
@@ -67,7 +76,29 @@ class BlockDims:
             qk_norm=self.qk_norm,
             rope_theta=self.rope_theta,
             norm_eps=self.norm_eps,
+            mlp=self.mlp,
+            norm=self.norm,
         )
+
+
+def init_norm(d: int, kind: str, *, lead: tuple = (), device=None,
+              dtype=torch.float32) -> dict:
+    if kind == "rms":
+        return layers.init_rmsnorm(d, lead=lead, device=device, dtype=dtype)
+    return layers.init_layernorm(d, lead=lead, device=device, dtype=dtype)
+
+
+def norm(params: dict, x: torch.Tensor, kind: str, eps: float):
+    if kind == "rms":
+        return layers.rmsnorm(params, x, eps)
+    return layers.layernorm(params, x, eps)
+
+
+def stack_dtype(stacked) -> torch.dtype:
+    """The dtype of a param tree's first leaf."""
+    while isinstance(stacked, dict):
+        stacked = stacked[sorted(stacked)[0]]
+    return stacked.dtype
 
 
 def layer_params(stacked, index: int):
@@ -102,34 +133,61 @@ def num_layers(stacked) -> int:
 # ---------------------------------------------------------------------------
 
 def init_dense_block(gen: torch.Generator, dims: BlockDims, *,
-                     lead: tuple = (), dtype=torch.float32) -> dict:
-    """One pre-norm block; ``lead=(L,)`` draws a stack of L at once."""
-    return {
-        "ln1": layers.init_rmsnorm(dims.d_model, lead=lead,
-                                   device=gen.device, dtype=dtype),
+                     lead: tuple = (), dtype=torch.float32,
+                     cross: bool = False) -> dict:
+    """One pre-norm block; ``lead=(L,)`` draws a stack of L at once.
+    ``cross`` adds the whisper decoder's cross attention (``ln_cross``,
+    ``cross``: no qk-norm)."""
+    dev = gen.device
+    p = {
+        "ln1": init_norm(dims.d_model, dims.norm, lead=lead, device=dev,
+                         dtype=dtype),
         "attn": attn_lib.init_attention(
             gen, dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim,
             qk_norm=dims.qk_norm, lead=lead, dtype=dtype),
-        "ln2": layers.init_rmsnorm(dims.d_model, lead=lead,
-                                   device=gen.device, dtype=dtype),
-        "mlp": layers.init_gated_mlp(gen, dims.d_model, dims.d_ff,
-                                     lead=lead, dtype=dtype),
+        "ln2": init_norm(dims.d_model, dims.norm, lead=lead, device=dev,
+                         dtype=dtype),
+        "mlp": (layers.init_gated_mlp if dims.mlp == "swiglu"
+                else layers.init_gelu_mlp)(gen, dims.d_model, dims.d_ff,
+                                           lead=lead, dtype=dtype),
     }
+    if cross:
+        p["ln_cross"] = init_norm(dims.d_model, dims.norm, lead=lead,
+                                  device=dev, dtype=dtype)
+        p["cross"] = attn_lib.init_attention(
+            gen, dims.d_model, dims.n_heads, dims.n_kv_heads, dims.head_dim,
+            lead=lead, dtype=dtype)
+    return p
+
+
+def _mlp_apply(p: dict, x: torch.Tensor, kind: str) -> torch.Tensor:
+    return layers.gated_mlp(p, x) if kind == "swiglu" else \
+        layers.gelu_mlp(p, x)
 
 
 def dense_block_apply(p: dict, x: torch.Tensor, dims: BlockDims, *,
                       causal: bool = True, positions=None,
+                      window: Optional[int] = None, cross_kv=None,
                       return_kv: bool = False, use_kernel: bool = True):
-    """Full-sequence forward.  ``use_kernel=False`` keeps long attention
-    on the plain chunked path (see ``attention_apply``)."""
-    h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
+    """Full-sequence forward.  ``cross_kv=(k, v, kv_positions)``: the
+    encoder's K/V for a block with a cross attention (non-causal, no
+    RoPE).  ``use_kernel=False`` keeps long attention on the plain
+    chunked path (see ``attention_apply``)."""
+    h = norm(p["ln1"], x, dims.norm, dims.norm_eps)
     attn_out, kv = attn_lib.attention_apply(
         p["attn"], h, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
         head_dim=dims.head_dim, causal=causal, positions=positions,
-        rope_theta=dims.rope_theta, use_kernel=use_kernel)
+        rope_theta=dims.rope_theta, window=window, use_kernel=use_kernel)
     x = x + attn_out
-    h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
-    out = x + layers.gated_mlp(p["mlp"], h)
+    if cross_kv is not None and "cross" in p:
+        h = norm(p["ln_cross"], x, dims.norm, dims.norm_eps)
+        c_out, _ = attn_lib.attention_apply(
+            p["cross"], h, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
+            head_dim=dims.head_dim, causal=False, positions=positions,
+            rope_theta=None, kv_override=cross_kv, use_kernel=use_kernel)
+        x = x + c_out
+    h = norm(p["ln2"], x, dims.norm, dims.norm_eps)
+    out = x + _mlp_apply(p["mlp"], h, dims.mlp)
     if return_kv:
         return out, kv
     return out
@@ -138,18 +196,21 @@ def dense_block_apply(p: dict, x: torch.Tensor, dims: BlockDims, *,
 def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
                       causal: bool = True,
                       positions: Optional[torch.Tensor] = None,
+                      window: Optional[int] = None, cross_kv=None,
                       use_kernel: bool = True) -> torch.Tensor:
     """Full-sequence forward through L stacked layers, no cache (training,
     the monolithic forward and the split program's tower / server
     forwards)."""
     for params in unstack_layers(stacked):
         x = dense_block_apply(params, x, dims, causal=causal,
-                              positions=positions, use_kernel=use_kernel)
+                              positions=positions, window=window,
+                              cross_kv=cross_kv, use_kernel=use_kernel)
     return x
 
 
 def dense_stack_prefill(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
                         positions: torch.Tensor, causal: bool = True,
+                        window: Optional[int] = None,
                         use_kernel: bool = True):
     """Full-sequence forward that also returns per-layer K/V for cache fill.
     Returns (x, ks, vs) with ks/vs: (L, B, S, Kv, hd)."""
@@ -157,20 +218,35 @@ def dense_stack_prefill(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
     for i in range(num_layers(stacked)):
         x, (k, v) = dense_block_apply(layer_params(stacked, i), x, dims,
                                       causal=causal, positions=positions,
-                                      return_kv=True, use_kernel=use_kernel)
+                                      window=window, return_kv=True,
+                                      use_kernel=use_kernel)
         ks.append(k)
         vs.append(v)
     return x, torch.stack(ks), torch.stack(vs)
 
 
+def cross_kv_from_encoder(p: dict, enc_out: torch.Tensor, dims: BlockDims):
+    """A decoder layer's cross-attention K and V of the encoder output,
+    each ``(B, S_enc, Kv, hd)``."""
+    B, S, _ = enc_out.shape
+    k = layers.matmul(enc_out, p["cross"]["wk"]).reshape(
+        B, S, dims.n_kv_heads, dims.head_dim)
+    v = layers.matmul(enc_out, p["cross"]["wv"]).reshape(
+        B, S, dims.n_kv_heads, dims.head_dim)
+    return k, v
+
+
 def dense_block_decode(p: dict, x: torch.Tensor, cache_k, cache_v, index,
                        kv_positions, dims: BlockDims, *, window=None,
-                       ring: bool = False, position=None, decode_chunks=None,
-                       chunk_sharding=None, kv_scales=None):
+                       ring: bool = False, position=None, cross_cache=None,
+                       decode_chunks=None, chunk_sharding=None,
+                       kv_scales=None):
     """One-token decode.  Returns (x, cache_k, cache_v, kv_positions,
     kv_scales); the caches (and an int8 cache's scales) are written in
-    place (see ``decode_attention_apply``)."""
-    h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
+    place (see ``decode_attention_apply``).  ``cross_cache=(k, v)``: the
+    encoder's K/V ``(B, S_enc, Kv, hd)`` for a block with a cross
+    attention, read only."""
+    h = norm(p["ln1"], x, dims.norm, dims.norm_eps)
     attn_out, nk, nv, npos, nsc = attn_lib.decode_attention_apply(
         p["attn"], h, cache_k, cache_v, index, n_heads=dims.n_heads,
         n_kv_heads=dims.n_kv_heads, head_dim=dims.head_dim,
@@ -179,8 +255,16 @@ def dense_block_decode(p: dict, x: torch.Tensor, cache_k, cache_v, index,
         decode_chunks=decode_chunks, chunk_sharding=chunk_sharding,
         kv_scales=kv_scales)
     x = x + attn_out
-    h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
-    return x + layers.gated_mlp(p["mlp"], h), nk, nv, npos, nsc
+    if cross_cache is not None and "cross" in p:
+        h = norm(p["ln_cross"], x, dims.norm, dims.norm_eps)
+        c_out, _, _, _, _ = attn_lib.decode_attention_apply(
+            p["cross"], h, cross_cache[0], cross_cache[1], index,
+            n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
+            head_dim=dims.head_dim, kv_positions=None, rope_theta=None,
+            position=position, cross=True)
+        x = x + c_out
+    h = norm(p["ln2"], x, dims.norm, dims.norm_eps)
+    return x + _mlp_apply(p["mlp"], h, dims.mlp), nk, nv, npos, nsc
 
 
 def dense_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
@@ -188,23 +272,27 @@ def dense_stack_decode(stacked: dict, x: torch.Tensor, cache_k: torch.Tensor,
                        kv_positions: torch.Tensor, dims: BlockDims, *,
                        window: Optional[int] = None, ring: bool = False,
                        position: Optional[torch.Tensor] = None,
+                       cross_caches=None,
                        decode_chunks: Optional[int] = None,
                        chunk_sharding=None, kv_scales=None):
     """cache_k/v: (L, B, S, Kv, hd), written in place; index: (B,);
-    kv_positions: (B, S); kv_scales: (k_scale, v_scale), each
-    (L, B, S, Kv, 1) f32, for an int8 cache (written in place too).
-    Returns (x, cache_k, cache_v, kv_positions, kv_scales) — the new
-    positions are the same for every layer, so layer 0's are kept, as in
-    the JAX package."""
+    kv_positions: (B, S); cross_caches: the decoder's read-only
+    ``(cross_k, cross_v)``, each (L, B, S_enc, Kv, hd), or None;
+    kv_scales: (k_scale, v_scale), each (L, B, S, Kv, 1) f32, for an int8
+    cache (written in place too).  Returns (x, cache_k, cache_v,
+    kv_positions, kv_scales) — the new positions are the same for every
+    layer, so layer 0's are kept, as in the JAX package."""
     npos = kv_positions
     for i in range(num_layers(stacked)):
         scales = None if kv_scales is None else (kv_scales[0][i],
                                                  kv_scales[1][i])
+        cross = None if cross_caches is None else (cross_caches[0][i],
+                                                   cross_caches[1][i])
         x, _, _, pos_i, _ = dense_block_decode(
             layer_params(stacked, i), x, cache_k[i], cache_v[i], index,
             kv_positions, dims, window=window, ring=ring, position=position,
-            decode_chunks=decode_chunks, chunk_sharding=chunk_sharding,
-            kv_scales=scales)
+            cross_cache=cross, decode_chunks=decode_chunks,
+            chunk_sharding=chunk_sharding, kv_scales=scales)
         if i == 0:
             npos = pos_i
     return x, cache_k, cache_v, npos, kv_scales
@@ -231,13 +319,13 @@ def init_moe_block(gen: torch.Generator, dims: BlockDims, moe_cfg: MoEConfig,
 
 def moe_block_apply(p: dict, x: torch.Tensor, dims: BlockDims,
                     moe_cfg: MoEConfig, *, positions=None,
-                    use_kernel: bool = True):
+                    window: Optional[int] = None, use_kernel: bool = True):
     """Full-sequence forward; returns (x, aux loss)."""
     h = layers.rmsnorm(p["ln1"], x, dims.norm_eps)
     attn_out, _ = attn_lib.attention_apply(
         p["attn"], h, n_heads=dims.n_heads, n_kv_heads=dims.n_kv_heads,
         head_dim=dims.head_dim, causal=True, positions=positions,
-        rope_theta=dims.rope_theta, use_kernel=use_kernel)
+        rope_theta=dims.rope_theta, window=window, use_kernel=use_kernel)
     x = x + attn_out
     h = layers.rmsnorm(p["ln2"], x, dims.norm_eps)
     moe_out, aux = moe_lib.moe_apply(p["moe"], h, moe_cfg)
@@ -268,13 +356,14 @@ def moe_block_decode(p: dict, x: torch.Tensor, cache_k, cache_v, index,
 def moe_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims,
                     moe_cfg: MoEConfig, *,
                     positions: Optional[torch.Tensor] = None,
+                    window: Optional[int] = None,
                     use_kernel: bool = True):
     """Full-sequence forward through L stacked MoE blocks; returns (x, the
     aux losses summed over the layers in f32)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params in unstack_layers(stacked):
         x, a = moe_block_apply(params, x, dims, moe_cfg, positions=positions,
-                               use_kernel=use_kernel)
+                               window=window, use_kernel=use_kernel)
         aux = aux + a
     return x, aux
 
@@ -372,16 +461,19 @@ def hybrid_stack_apply(mamba_super: Optional[dict],
                        mamba_tail: Optional[dict], shared_attn: dict,
                        x: torch.Tensor, ssm_cfg: SSMConfig, dims: BlockDims,
                        *, positions: Optional[torch.Tensor] = None,
+                       window: Optional[int] = None,
                        use_kernel: bool = True) -> torch.Tensor:
     """mamba_super ``(n_super, every, ...)`` stacked, or None when there
     are fewer layers than ``every``; mamba_tail ``(n_tail, ...)`` or None;
-    shared_attn one dense block, run after every super-block."""
+    shared_attn one dense block, run after every super-block (with
+    ``window``)."""
     if mamba_super is not None:
         for group in unstack_layers(mamba_super):
             x = mamba_stack_apply(group, x, ssm_cfg, dims.d_model,
                                   dims.norm_eps, use_kernel=use_kernel)
             x = dense_block_apply(shared_attn, x, dims, causal=True,
-                                  positions=positions, use_kernel=use_kernel)
+                                  positions=positions, window=window,
+                                  use_kernel=use_kernel)
     if mamba_tail is not None:
         x = mamba_stack_apply(mamba_tail, x, ssm_cfg, dims.d_model,
                               dims.norm_eps, use_kernel=use_kernel)

@@ -66,11 +66,15 @@ A program with an auxiliary loss (``server_aux``: the moe router's
 load-balance term) returns ``(logits, aux)`` from ``server_fwd``; each
 microbatch's loss is ``loss_fn(logits) + aux``, its aux scalar rides the
 schedule's role-0 -> role-3 ``aux_loss`` slot, and the result's ``aux``
-is the mean over the microbatches.
-
-Refused by name: the program shapes that no ported family uses
-(``server_takes_batch``, ``merge_fn``: the JAX package's audio and vlm
-programs).
+is the mean over the microbatches.  A program with
+``server_takes_batch`` (the audio decoder's teacher-forcing tokens) gets
+the role-0 batch context, microbatch-sliced, as ``server_fwd``'s third
+argument; the context may be any batch-major tree.  A program
+``merge_fn`` (the vlm sequence concatenation) merges a per-client list
+of cuts of different shapes in place of the stack, and the server's
+backward hands each client the gradient of its own cut; it needs every
+cut (a barrier mode) and composes with none of the wire overlays
+(the compat matrix).
 """
 from __future__ import annotations
 
@@ -119,6 +123,10 @@ def fast_merge(stacked: torch.Tensor, strategy: str, *,
 
 
 def tree_mean(trees: list):
+    """The leafwise mean; one tree is its own mean (no copy of a large
+    tree's gradients)."""
+    if len(trees) == 1:
+        return trees[0]
     return tree_map(lambda *leaves: sum(leaves) / len(leaves), *trees)
 
 
@@ -185,8 +193,10 @@ class Executor:
     fan-out, step barrier); :meth:`run_step` runs both back-to-back.
 
     ``server_fwd(server_params, merged) -> logits`` (``(logits, aux)``
-    with ``server_aux``) and ``loss_fn(logits, labels) -> scalar`` come
-    from the program.  The server backward is
+    with ``server_aux``; ``server_fwd(server_params, merged, ctx)`` with
+    ``server_takes_batch``), ``loss_fn(logits, ctx) -> scalar`` and
+    ``merge_fn(cuts, live_mask) -> merged`` (or None) come from the
+    program.  The server backward is
     ``torch.autograd.grad`` of the loss over the server param leaves and
     the stacked cuts, both fresh leaves made from detached tensors, so it
     never runs back into a tower's graph.
@@ -228,15 +238,9 @@ class Executor:
             nowait=mode == "nowait" or drop_policy != "fused",
             impute=drop_policy == "impute",
             context=f"Executor(mode={mode!r}, drop_policy={drop_policy!r})")
-        for name, on in (("server_takes_batch", server_takes_batch),
-                         ("merge_fn", merge_fn is not None)):
-            if on:
-                raise NotImplementedError(
-                    f"Executor: {name} programs are not ported to repro_torch "
-                    "yet (the ported token-LM and MLP programs use none; the "
-                    "audio and vlm families come with ROADMAP.md Queue 1, "
-                    "item 13)")
+        self.server_takes_batch = server_takes_batch
         self.server_aux = server_aux
+        self.merge_fn = merge_fn
         if agg_tree is not None:
             if agg_tree.num_clients != transport.num_clients:
                 raise ValueError(
@@ -390,9 +394,11 @@ class Executor:
                     features: Optional[list] = None,
                     ledger: Optional[Ledger] = None) -> None:
         """Ship every tower-forward request of ``step`` and register its
-        in-flight state.  ``features`` (per-client tensors, batch-major)
-        ride the requests; omit them when workers own a ``feature_fn``.
-        Each step audits its bytes in its OWN Ledger."""
+        in-flight state.  ``labels`` is the role-0/3 context: the labels,
+        or any batch-major tree (a program's ``batch_ctx``).
+        ``features`` (per-client tensors, batch-major) ride the requests;
+        omit them when workers own a ``feature_fn``.  Each step audits its
+        bytes in its OWN Ledger."""
         transport, K, M = (self.transport, self.transport.num_clients,
                            self.microbatches)
         if step in self._inflight:
@@ -413,7 +419,7 @@ class Executor:
                     "leaks the raw activation delta — pass step= explicitly "
                     "when looping run_step")
             self._max_secure_step = step
-        B = labels.shape[0]
+        B = tree_leaves(labels)[0].shape[0]
         if B % M:
             raise ValueError(f"batch {B} not divisible by microbatches={M}")
         st = _InflightStep(
@@ -481,6 +487,15 @@ class Executor:
             if tree is not None:
                 # one frame per top-level client: its subtree's partial sum
                 cuts_in = torch.stack([arrived[t] for t in tree.top_level])
+            elif self.merge_fn is not None:
+                # cuts of different shapes: no stack to zero-fill, and the
+                # barrier modes guarantee every cut arrived
+                if len(arrived) < K:
+                    raise RuntimeError(
+                        f"program merge needs every cut; microbatch {m} is "
+                        f"missing clients "
+                        f"{sorted(set(range(K)) - set(arrived))}")
+                cuts_in = [arrived[k] for k in range(K)]
             else:
                 proto = next(iter(arrived.values()))
                 cuts_in = torch.stack([arrived[k] if k in arrived
@@ -493,11 +508,13 @@ class Executor:
                                        device=cuts_in.device),
                     "initialized": torch.zeros((K,), dtype=torch.float32,
                                                device=cuts_in.device)}
-            labels_m = st.labels[m * mbsz:(m + 1) * mbsz]
+            labels_m = tree_map(lambda a: a[m * mbsz:(m + 1) * mbsz],
+                                st.labels)
 
             # fresh leaves over the same storage: the graph starts here
             leaves = [t.detach().requires_grad_(True) for t in server_leaves]
-            cuts = cuts_in.requires_grad_(True)
+            cuts = [c.requires_grad_(True) for c in cuts_in] \
+                if self.merge_fn is not None else cuts_in.requires_grad_(True)
             with torch.enable_grad():
                 if tree is not None:
                     # the final merge over the top-level partial sums; avg
@@ -505,6 +522,10 @@ class Executor:
                     merged = fast_merge(cuts, "sum")
                     if self.merge == "avg":
                         merged = merged / K
+                elif self.merge_fn is not None:
+                    merged = self.merge_fn(
+                        cuts, merge_mask if self.drop_policy == "neutral"
+                        else None)
                 elif self.drop_policy == "impute":
                     # inside the differentiated graph: a filled seat gets
                     # zero gradient, a live seat the merge's backward
@@ -519,8 +540,10 @@ class Executor:
                                                      live_mask=merge_mask)
                 else:
                     merged = fast_merge(cuts, self.merge)
-                out = self.server_fwd(
-                    tree_unflatten(server_params, leaves), merged)
+                server_p = tree_unflatten(server_params, leaves)
+                out = self.server_fwd(server_p, merged, labels_m) \
+                    if self.server_takes_batch else \
+                    self.server_fwd(server_p, merged)
                 if self.server_aux:
                     logits, aux_m = out
                     loss_m = self.loss_fn(logits, labels_m) + aux_m
@@ -530,9 +553,10 @@ class Executor:
             # a server leaf that the forward does not read (an untied
             # model's input table: the towers embed from their own
             # slices) gets a zero gradient, as jax.grad gives it
+            wrt = leaves + (cuts if self.merge_fn is not None else [cuts])
             grads = [torch.zeros_like(t) if g is None else g
-                     for t, g in zip(leaves + [cuts], torch.autograd.grad(
-                         loss_m, leaves + [cuts], allow_unused=True))]
+                     for t, g in zip(wrt, torch.autograd.grad(
+                         loss_m, wrt, allow_unused=True))]
             # the ledger needs the head output's size only: the logits are
             # not kept past this microbatch
             head_bytes = logits.numel() * logits.element_size()
@@ -543,7 +567,10 @@ class Executor:
                 st.ledger.record_spec(schedule.aux, aux_m)
                 aux_acc.append(aux_m.detach())
             st.ledger.record_spec_bytes(schedule.head_jac, head_bytes)
-            cut_grads = grads[-1]
+            # the merge's backward split back per client: one slice of the
+            # stack's gradient each, or each cut's own (merge_fn)
+            cut_grads = grads[len(leaves):] if self.merge_fn is not None \
+                else grads[-1]
             if tree is not None:
                 # ONE backward per top-level client; relays forward the same
                 # jacobian down (avg's 1/K is already inside cut_grads).  The
@@ -584,8 +611,8 @@ class Executor:
                                              "step": st.step, "mb": m,
                                              "jac": jac_out})
             losses.append(loss_m.detach())
-            server_grad_acc.append(tree_unflatten(server_params,
-                                                  list(grads[:-1])))
+            server_grad_acc.append(tree_unflatten(
+                server_params, list(grads[:len(leaves)])))
 
         for k in range(K):
             transport.submit(k, {
@@ -765,14 +792,28 @@ class Executor:
 
     def _build_report(self, elapsed_s, live_matrix, misses, ledger, cuts,
                       deadline_s, staleness) -> ExecReport:
-        """``cuts`` is the last microbatch's cut stack."""
+        """``cuts`` is the last microbatch's cut set: a (K, ...) stack for
+        the uniform merges, a per-client list for a ``merge_fn``."""
         K = self.transport.num_clients
-        # the uplink tag is masked_cut[0] under secure aggregation
-        cut_bytes = ledger.bytes_with_tag(self._schedule.cuts[0].tag)
-        if self.agg_tree is not None:
-            # tree_cut[0] is shared by every top-level edge: divide out for
-            # the same per-client figure the star reports
-            cut_bytes //= len(self.agg_tree.top_level)
+        if self.merge_fn is not None:
+            # cuts differ in shape per client: the per-client figures are
+            # means, and the collective is the all-gather the program merge
+            # implies (the server needs every client's segment)
+            per_mb_elements = int(round(sum(c.numel() for c in cuts) / K))
+            strategy = "concat"
+            cut_bytes = int(round(sum(
+                ledger.bytes_with_tag(f"cut[{k}]") for k in range(K)) / K))
+            itemsize = cuts[0].element_size()
+        else:
+            per_mb_elements = cuts[0].numel()
+            strategy = self.merge
+            # the uplink tag is masked_cut[0] under secure aggregation
+            cut_bytes = ledger.bytes_with_tag(self._schedule.cuts[0].tag)
+            if self.agg_tree is not None:
+                # tree_cut[0] is shared by every top-level edge: divide out
+                # for the same per-client figure the star reports
+                cut_bytes //= len(self.agg_tree.top_level)
+            itemsize = cuts.element_size()
         return ExecReport(
             mode=self.mode,
             transport=type(self.transport).__name__,
@@ -782,8 +823,8 @@ class Executor:
             misses_per_client=misses,
             cut_bytes_per_client=cut_bytes,
             collective_bytes_per_client=self.microbatches
-            * collective_bytes_per_merge(self.merge, cuts[0].numel(), K,
-                                         cuts.element_size()),
+            * collective_bytes_per_merge(strategy, per_mb_elements, K,
+                                         itemsize),
             deadline_s=deadline_s,
             staleness=staleness,
         )

@@ -1,6 +1,6 @@
 """Serving without a split: sampling, autoregressive generation (the dense
-family's fused prompt prefill, the moe, ssm and hybrid families' prompt
-replayed through the decode step) and the decode-throughput probe."""
+family's fused prompt prefill, the other families' prompt replayed
+through the decode step) and the decode-throughput probe."""
 from __future__ import annotations
 
 import statistics
@@ -50,20 +50,21 @@ def generate(params: dict, cfg: ArchConfig, prompts, *,
 
     prompts ``(B, S_prompt)`` integer tokens (a tensor or an array).  The
     dense family fills the cache with :func:`backbone.prefill_tokens`
-    (the prompt attended in full); the moe, ssm and hybrid families
-    replay the prompt through :func:`backbone.decode_step`, one token at
-    a time, as the JAX package does (a moe decode step routes the B
-    streams' tokens as one group, at the reference's capacity for B
-    tokens: a stream's tokens depend on its batch, as there).  Decoding runs with ``window`` and, where ``ring``
+    (the prompt attended in full); the other families replay the prompt
+    through :func:`backbone.decode_step`, one token at a time, as the JAX
+    package does (a moe decode step routes the B streams' tokens as one
+    group, at the reference's capacity for B tokens: a stream's tokens
+    depend on its batch, as there).  The audio and vlm families decode
+    without their modality, as the JAX package's ``generate`` does: it
+    never calls ``prefill_cross_attention`` or ``prefill_vision``, so
+    audio attends to zero cross caches and vlm has no vision prefix (the
+    path that serves a modality is ``init_cache``, the modality prefill,
+    then ``decode_step``).  Decoding runs with ``window`` and, where ``ring``
     is set, over a ring cache of ``cache_len`` slots, which wraps by
     design; a linear cache that cannot hold the prompt and the new
     tokens is refused.  Greedy decoding gives the JAX package's tokens;
     sampling draws from a generator seeded with ``seed`` on the params'
     device."""
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family comes with a later slice "
-            "of the port")
     device = tree_device(params)
     prompts = torch.as_tensor(prompts, device=device).long()
     B, S_prompt = prompts.shape

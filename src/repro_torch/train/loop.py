@@ -6,8 +6,10 @@ Two drivers, as in the JAX package's ``repro.train.loop``:
   with the towers and their plain merge in one autograd graph; the
   protocol is arithmetic-identical, paper §3), AdamW under the warmup
   cosine schedule, with msgpack checkpoints in the JAX package's format.
-* :func:`train_split` — the token-LM families (dense, moe, ssm and
-  hybrid) split for real: per-role workers behind a transport (threads,
+* :func:`train_split` — every family (the token LMs: dense, moe, ssm and
+  hybrid; audio, whose role-0 server takes the batch's tokens; vlm, whose
+  modality cuts merge by a sequence concatenation) split for real:
+  per-role workers behind a transport (threads,
   :class:`~repro_torch.transport.InprocTransport`, or one spawned process
   per feature holder,
   :class:`~repro_torch.transport.MultiprocTransport`), the
@@ -25,6 +27,10 @@ Two drivers, as in the JAX package's ``repro.train.loop``:
   ``protocol_step`` at the JAX package's tolerance.  A family with a
   server-side auxiliary loss (moe) ships it role 0 -> role 3 through the
   protocol's ``aux_loss`` slot, audited in the ledger.
+
+Both update the params in place (``AdamW(inplace=True)``: about 4x the
+param bytes at the update, where the out-of-place update holds 8x); a
+tree the caller hands in is copied first and left as it was.
 """
 from __future__ import annotations
 
@@ -39,10 +45,11 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core import compat
 from repro_torch.core import compression as comp_lib
 from repro_torch.core import secure_agg
+from repro_torch.data.loader import to_tensor
 from repro_torch.models import backbone
 from repro_torch.optim import AdamW
 from repro_torch.optim.schedules import linear_warmup_cosine
-from repro_torch.tree_util import tree_leaves, tree_map
+from repro_torch.tree_util import flat_slices, tree_leaves, tree_map
 
 
 @dataclass
@@ -110,9 +117,10 @@ def train(
     (``cfg.vertical`` None) or vertical: the towers and their plain merge
     run inside the one graph, as in the JAX package.
 
-    ``params`` is the initial tree on that device; None runs the port's
-    seeded init in ``param_dtype`` (tests hand the JAX package's init in
-    here).  With ``checkpoint_path`` the params are saved every
+    ``params`` is the initial tree on that device, copied (the caller's
+    tree is left as it was); None runs the port's seeded init in
+    ``param_dtype`` (tests hand the JAX package's init in here).  With
+    ``checkpoint_path`` the params are saved every
     ``checkpoint_every`` steps (0: never) with the step just taken, and
     at the end with ``steps``."""
     from repro_torch.checkpoint.msgpack_ckpt import save_checkpoint
@@ -120,19 +128,20 @@ def train(
     dev = resolve_device(device)
     opt = AdamW(
         learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
-        weight_decay=0.1, grad_clip_norm=grad_clip)
+        weight_decay=0.1, grad_clip_norm=grad_clip, inplace=True)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = backbone.init_params(cfg, gen, device=dev,
                                       dtype=param_dtype)
+    else:
+        params = tree_map(torch.clone, params)
     opt_state = opt.init(params)
     step_fn = backbone.make_train_step(cfg, opt)
 
     metrics = TrainMetrics()
     it = iter(loader)
     for step in range(steps):
-        batch = {k: torch.as_tensor(v, dtype=torch.long, device=dev)
-                 for k, v in next(it).items()}  # token ids and labels
+        batch = {k: to_tensor(v, dev) for k, v in next(it).items()}
         t0 = time.time()
         params, opt_state, loss = step_fn(params, opt_state, batch)
         loss = float(loss)  # waits for the step
@@ -228,6 +237,14 @@ def _mask_residue(frames: dict, program, tower_params, features,
     return residue, bound
 
 
+def _max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| in f32, over flat slices of a large tensor (its f32
+    difference is never held whole)."""
+    return max((float(torch.max(torch.abs(x.float() - y.float())))
+                for x, y in flat_slices(a.reshape(-1), b.reshape(-1))),
+               default=0.0)
+
+
 def _verify_step0(res, program, tower_params, server_params, features, ctx,
                   microbatches: int, atol: float, print_fn: Callable,
                   what: str = "") -> float:
@@ -245,22 +262,24 @@ def _verify_step0(res, program, tower_params, server_params, features, ctx,
     (relays reassociated the f32 sum, so the match is to a rounding
     tolerance, not bit for bit)."""
     M = microbatches
-    mbsz = ctx.shape[0] // M
+    mbsz = tree_leaves(ctx)[0].shape[0] // M
     losses, tgs, sgs = [], [], []
     for m in range(M):
         sl = slice(m * mbsz, (m + 1) * mbsz)
         loss_m, tg_m, sg_m, _ = program.protocol_step(
-            tower_params, server_params, [f[sl] for f in features], ctx[sl])
+            tower_params, server_params, [f[sl] for f in features],
+            tree_map(lambda a: a[sl], ctx))
         losses.append(loss_m)
         tgs.append(tg_m)
         sgs.append(sg_m)
     loss_ref = sum(losses) / M
-    tg_ref = tree_map(lambda *x: sum(x) / M, *tgs)
-    sg_ref = tree_map(lambda *x: sum(x) / M, *sgs)
+    # one microbatch is its own mean: no second copy of the gradients
+    tg_ref = tgs[0] if M == 1 else tree_map(lambda *x: sum(x) / M, *tgs)
+    sg_ref = sgs[0] if M == 1 else tree_map(lambda *x: sum(x) / M, *sgs)
+    del tgs, sgs
     got = tree_leaves((res.tower_grads, res.server_grads))
     want = tree_leaves((tg_ref, sg_ref))
-    max_dev = max(float(torch.max(torch.abs(a.float() - b.float())))
-                  for a, b in zip(got, want))
+    max_dev = max(_max_abs_diff(a, b) for a, b in zip(got, want))
     loss_dev = abs(float(res.loss) - float(loss_ref))
     if max_dev > atol or loss_dev > atol:
         raise RuntimeError(
@@ -315,9 +334,14 @@ def train_split(
     window W of :class:`~repro_torch.runtime.pipeline.StepPipeline` (at
     W > 1 the towers train on delayed gradients).  Runs on ``device``
     (``cuda`` unless ``"cpu"`` is asked for).  ``params`` is the full
-    initial param tree on that device; None runs the port's seeded init
-    (torch cannot reproduce the JAX package's ``jax.random`` init, so
-    tests hand the JAX package's params in here).
+    initial param tree on that device, copied (the caller's tree is left
+    as it was); None runs the port's seeded init (torch cannot reproduce
+    the JAX package's ``jax.random`` init, so tests hand the JAX
+    package's params in here).  Role 0 and the feature holders update in
+    place, each making its moments at its first update (role 0's after
+    the step-0 verification), and role 0's copy of the step-0 towers,
+    which only the verification reads, is dropped once step 0 is
+    handled.
 
     The wire overlays, as in the JAX package:
 
@@ -376,16 +400,22 @@ def train_split(
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = backbone.init_params(cfg, gen, device=dev)
-    # threads partition role 0's tree in place; a spawned process builds
-    # its own tower from the seed unless the caller injected a tree (a
-    # shipped tree crosses the spawn pipe whole, once per process)
+    else:
+        params = tree_map(torch.clone, params)
+    # threads copy their towers out of role 0's tree; a spawned process
+    # builds its own tower from the seed unless the caller injected a tree
+    # (a shipped tree crosses the spawn pipe whole, once per process)
     worker_params = params if injected or transport != "multiproc" else None
-    tower_params, server_params = program.partition(params)
+    # role 0's copy of the towers serves the step-0 verification only
+    if verify_step0:
+        tower_params, server_params = program.partition(params)
+    else:
+        tower_params, server_params = None, program.server_params(params)
 
     opt = AdamW(
         learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
-        weight_decay=0.1, grad_clip_norm=grad_clip)
-    opt_state = opt.init(server_params)
+        weight_decay=0.1, grad_clip_norm=grad_clip, inplace=True)
+    opt_state = None  # made at the first update
 
     metrics = TrainMetrics()
     t_setup = time.time()
@@ -408,7 +438,7 @@ def train_split(
         """Consume one collected step: verify (step 0), update the server,
         thread the EMA state, log."""
         nonlocal server_params, opt_state, ema_state, report, t_last, \
-            max_staleness
+            max_staleness, tower_params
         max_staleness = max(max_staleness, res.report.staleness)
         if res.step == 0 and verify_step0:
             if mode == "nowait" and res.report.total_misses > 0:
@@ -468,8 +498,12 @@ def train_split(
                 print_fn(f"router aux loss {float(res.aux):.6f} "
                          "transported role0 -> role3 through the "
                          f"protocol aux slot ({aux_bytes} B in ledger)")
+        if res.step == 0:
+            tower_params = None  # only the step-0 checks read it
         if res.aux is not None:
             metrics.aux_losses.append(float(res.aux))
+        if opt_state is None:
+            opt_state = opt.init(server_params)
         server_params, opt_state = opt.update(server_params,
                                               res.server_grads, opt_state)
         ema_state = res.ema_state

@@ -65,8 +65,10 @@ class TowerWorker:
 
     * forwards snapshot the params they ran under (``_step_params``) and
       backwards linearize at that snapshot: the jacobian the server returns
-      is w.r.t. the snapshot's cut.  The optimizer updates out of place,
-      so a later update never writes into a snapshot;
+      is w.r.t. the snapshot's cut.  An optimizer that updates in place
+      (``AdamW(inplace=True)``) would write into a later step's snapshot
+      of the current params, so such a snapshot is cloned just before
+      the update (only at W > 1: at W = 1 no later step is in flight);
     * gradient accumulators and pending features are per step;
     * a ``finish_step`` carrying ``expected_jacs`` defers its update until
       that many backwards of its step have landed; the completing backward
@@ -137,7 +139,8 @@ class TowerWorker:
         self.topk_fraction = topk_fraction
         self.serve_fns = serve_fns
         self.device = device
-        self.opt_state = optimizer.init(tower_params) if optimizer else None
+        # made at the first update: a step-0 verification runs before it
+        self.opt_state = None
         self._feats: dict = {}  # (step, mb) -> feats awaiting backward
         self._step_params: dict = {}  # step -> params its forwards ran under
         self._grad_sums: dict = {}  # step -> accumulated tower grads
@@ -340,9 +343,22 @@ class TowerWorker:
         grad_sum = self._grad_sums.pop(step, None)
         if grad_sum is None:
             avg = tree_map(torch.zeros_like, self.params)
+        elif M == 1:
+            avg = grad_sum
         else:
             avg = tree_map(lambda g: g / M, grad_sum)
+        del grad_sum
+        collected = None
+        if request.get("collect"):
+            # an in-place update clips the gradients it is handed
+            collected = tree_map(torch.clone, avg)
         if self.optimizer is not None:
+            if getattr(self.optimizer, "inplace", False):
+                for s, snap in self._step_params.items():
+                    if s != step and snap is self.params:
+                        self._step_params[s] = tree_map(torch.clone, snap)
+            if self.opt_state is None:
+                self.opt_state = self.optimizer.init(self.params)
             self.params, self.opt_state = self.optimizer.update(
                 self.params, avg, self.opt_state)
         self._step_params.pop(step, None)
@@ -350,7 +366,7 @@ class TowerWorker:
         self._feats = {key: v for key, v in self._feats.items()
                        if key[0] != step}
         return {"op": "step_done", "client": self.client_id, "step": step,
-                "grad": avg if request.get("collect") else None}
+                "grad": collected}
 
     # -- serving ops --------------------------------------------------------
 

@@ -106,12 +106,15 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     With ``params`` None, runs the seeded init (``torch.Generator`` seeded
     with ``seed`` on ``device``) and keeps a copy of client ``client_id``'s
     tower only; the rest of the init is dropped when this returns.
-    Otherwise the tower is a view into the given full param tree, which
-    must already live on ``device`` (nothing is copied: an in-process
-    server and its workers share one tree).  The worker regenerates its token stream
-    from ``seed`` (``batch`` x ``seq`` per step, in ``microbatches``
-    slices).  With ``learning_rate`` set, the tower trains locally under
-    the same AdamW schedule as the server.  ``cfg.vertical.compression``
+    Otherwise the tower is client ``client_id``'s part of the given full
+    param tree, which must already live on ``device``: a copy when the
+    worker trains (it updates its tower in place, and shares no tensor
+    with role 0), views into the tree when it only serves.  The worker regenerates its feature stream from ``seed``
+    (``batch`` x ``seq`` per step, in ``microbatches`` slices): token
+    LMs the shared tokens, audio its mel-band slice of the frames, vlm
+    its modality (the patches or the tokens).  With ``learning_rate``
+    set, the tower trains locally, in place, under the same AdamW
+    schedule as the server.  ``cfg.vertical.compression``
     (and its ``topk_fraction``) makes the worker compress its cut uplinks
     at the source, with error feedback.  ``use_kernel=False`` keeps the
     serving prefill's long attention on the plain chunked path, as
@@ -125,19 +128,23 @@ def build_split_worker(client_id: int, *, cfg, seed: int = 0, batch: int = 8,
     program = split_program.get_program(cfg)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(seed)
-        tower = tree_map(torch.clone, program.tower_params(
-            backbone.init_params(cfg, gen, device=dev), client_id))
+        tower = program.tower_params(
+            backbone.init_params(cfg, gen, device=dev), client_id)
     elif tree_device(params).type != dev.type:
         raise ValueError(f"params are on {tree_device(params)}, the worker "
                          f"runs on {dev}")
     else:
         tower = program.tower_params(params, client_id)
 
+    if params is None or learning_rate:
+        # storage of its own: a training tower is updated in place, and a
+        # seeded tower leaves the rest of the init to be freed
+        tower = tree_map(torch.clone, tower)
     optimizer = None
     if learning_rate:
         optimizer = AdamW(
             learning_rate=linear_warmup_cosine(learning_rate, warmup, steps),
-            weight_decay=0.1, grad_clip_norm=grad_clip)
+            weight_decay=0.1, grad_clip_norm=grad_clip, inplace=True)
     # a family without a serving decomposition (ssm, hybrid) gets a worker that
     # trains and refuses serving ops by name, as in the JAX package
     try:

@@ -9,6 +9,12 @@ from __future__ import annotations
 
 from typing import Callable, Iterator
 
+import torch
+
+# flat_slices cuts a leaf into slices of this many elements, so that f32
+# temporaries of a large stack stay small
+SLICE = 1 << 26
+
 
 def tree_leaves(tree) -> list:
     if tree is None:
@@ -51,3 +57,14 @@ def _rebuild(tree, it: Iterator):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_rebuild(item, it) for item in tree)
     return next(it)
+
+
+def flat_slices(*tensors: torch.Tensor):
+    """Matching flat slices of ``SLICE`` elements of same-sized tensors;
+    the whole tensors when one of them is not contiguous."""
+    if not all(t.is_contiguous() for t in tensors):
+        yield tensors
+        return
+    flat = [t.view(-1) for t in tensors]
+    for lo in range(0, flat[0].numel(), SLICE):
+        yield tuple(f[lo:lo + SLICE] for f in flat)

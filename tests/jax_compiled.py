@@ -25,31 +25,47 @@ from repro.optim.adamw import AdamW
 @contextlib.contextmanager
 def compiled_reference():
     """Within the block, ``repro.models.backbone.init_params``,
-    ``AdamW.update`` and the token-LM program's ``tower_fwd`` and
-    ``server_fwd`` run under ``jax.jit``, one compiled function per
-    config (the token-LM towers share one function, whatever the client;
-    every worker builds its own program of the same config)."""
+    ``AdamW.update`` and every program's ``tower_fwd`` and ``server_fwd``
+    run under ``jax.jit``, one compiled function per config (the
+    token-LM towers share one function, whatever the client; the audio
+    and vlm towers, which differ by client, one per client; every worker
+    builds its own program of the same config)."""
     init = jax.jit(backbone.init_params, static_argnums=(0, 2))
     update = jax.jit(AdamW.update, static_argnums=0)
-    cls = split_program.TokenLMSplitProgram
-    tower_fwd, server_fwd = cls.tower_fwd, cls.server_fwd
     towers, servers = {}, {}
-
-    def tower(self, client):
-        if self.cfg not in towers:
-            towers[self.cfg] = jax.jit(tower_fwd(self, client))
-        return towers[self.cfg]
-
-    def server(self, sp, merged):
-        if self.cfg not in servers:
-            servers[self.cfg] = jax.jit(functools.partial(server_fwd, self))
-        return servers[self.cfg](sp, merged)
-
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(backbone, "init_params",
                    lambda cfg, key, dtype=jnp.float32: init(cfg, key, dtype))
         mp.setattr(AdamW, "update", lambda self, params, grads, state:
                    update(self, params, grads, state))
-        mp.setattr(cls, "tower_fwd", tower)
-        mp.setattr(cls, "server_fwd", server)
+        for cls in (split_program.TokenLMSplitProgram,
+                    split_program.AudioSplitProgram,
+                    split_program.VLMSplitProgram):
+            mp.setattr(cls, "tower_fwd", _compiled_tower(cls, towers))
+            mp.setattr(cls, "server_fwd", _compiled_server(cls, servers))
         yield
+
+
+def _compiled_tower(cls, cache: dict):
+    tower_fwd = cls.tower_fwd
+    shared = cls is split_program.TokenLMSplitProgram
+
+    def tower(self, client):
+        key = (cls, self.cfg, None if shared else client)
+        if key not in cache:
+            cache[key] = jax.jit(tower_fwd(self, client))
+        return cache[key]
+
+    return tower
+
+
+def _compiled_server(cls, cache: dict):
+    server_fwd = cls.server_fwd
+
+    def server(self, sp, merged, *batch):
+        key = (cls, self.cfg)
+        if key not in cache:
+            cache[key] = jax.jit(functools.partial(server_fwd, self))
+        return cache[key](sp, merged, *batch)
+
+    return server

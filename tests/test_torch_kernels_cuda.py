@@ -553,7 +553,10 @@ def test_flash_kernel_matches_chunked_model_path_on_card():
 @pytest.mark.cuda
 def test_flash_kernel_refusals_on_card():
     """No silent fallback on the card: grad-requiring inputs, positions
-    other than arange(S), and anything the kernel does not take raise."""
+    other than one contiguous run ``p0 + arange(S)`` (the vlm text tower
+    runs at ``Sv + arange(S)``), a window, a cross attention whose query
+    and key lengths differ, and anything the kernel does not take
+    raise."""
     _needs_card()
     q = torch.randn((1, 4, 100, 64), device="cuda")
     k = torch.randn((1, 2, 100, 64), device="cuda")
@@ -586,12 +589,22 @@ def test_flash_kernel_refusals_on_card():
                                   ("wv", (64, 64)), ("wo", (64, 64)))}
     x = torch.randn((1, 2049, 64), device="cuda")
     kw = dict(n_heads=1, n_kv_heads=1, head_dim=64)
-    with pytest.raises(NotImplementedError, match="arange"):
-        attn_lib.attention_apply(params, x, positions=torch.arange(
-            2049, device="cuda") + 5, **kw)
-    out, _ = attn_lib.attention_apply(params, x, positions=torch.arange(
-        2049, device="cuda"), **kw)
-    assert torch.isfinite(out).all()
+    gap = torch.arange(2049, device="cuda")
+    gap[1000:] += 1
+    with pytest.raises(NotImplementedError, match="contiguous run"):
+        attn_lib.attention_apply(params, x, positions=gap, **kw)
+    with pytest.raises(NotImplementedError, match="windowed attention"):
+        attn_lib.attention_apply(params, x, window=256, **kw)
+    enc = torch.randn((1, 3000, 1, 64), device="cuda")
+    with pytest.raises(NotImplementedError, match="cross attention"):
+        attn_lib.attention_apply(
+            params, x, causal=False, rope_theta=None, kv_override=(
+                enc, enc, torch.arange(3000, device="cuda")), **kw)
+    for start in (0, 5):
+        out, _ = attn_lib.attention_apply(
+            params, x, positions=start + torch.arange(2049, device="cuda"),
+            **kw)
+        assert torch.isfinite(out).all()
 
 
 # ---------------------------------------------------------------------------

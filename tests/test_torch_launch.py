@@ -9,11 +9,13 @@ against the JAX package's ``repro.launch.train``.
   exactly, schedule by schedule.
 - Bad argvs (the compat pairs, the ranges, ``--checkpoint`` with split
   execution, a centralized run with split flags) exit with the
-  reference's own ``SystemExit`` text; the configs the port does not
-  carry yet exit naming their ROADMAP.md Queue 1 item.
+  reference's own ``SystemExit`` text.
 - The wire-overlay flags (``--compress``, ``--secure-agg``,
   ``--agg-tree-fanout``) each train a reduced step to exit 0, and so do
-  ``--arch stablelm-3b``, ``qwen3-32b`` and ``zamba2-7b``.
+  ``--arch stablelm-3b``, ``qwen3-32b`` and ``zamba2-7b``; and
+  ``--arch whisper-tiny`` and ``internvl2-26b`` train over the monolithic
+  ``sim`` path, ``inproc`` and ``--vertical off`` with the reference's
+  summary keys and parameter counts.
 - ``compat.CLI_NAMES`` and ``cli_reject`` equal the reference's.
 - The new modules import with jax, the JAX package and ``msgpack``
   blocked.
@@ -218,21 +220,35 @@ def test_other_configs_run(tmp_path, capsys, arch):
     assert f"family={get_arch(arch).family}" in capsys.readouterr().out
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--arch", "whisper-tiny", "--reduced"], "item 13"),
-    (["--arch", "internvl2-26b"], "item 13"),
-    (["--arch", "internvl2-26b", "--transport", "inproc"], "item 13"),
-    (["--arch", "whisper-tiny"], "item 13"),
-    (["--arch", "internvl2-26b", "--vertical", "off"], "item 13"),
-])
-def test_unported_exits_naming_its_item(argv, item):
-    """What the port does not carry yet never runs without it: the exit
-    names the config and its ROADMAP.md Queue 1 item."""
-    with pytest.raises(SystemExit) as e:
-        launch.main(argv + ["--device", "cpu"])
-    text = e.value.code
-    assert isinstance(text, str) and "not ported" in text
-    assert f"Queue 1, {item})" in text and argv[0] in text
+@pytest.mark.parametrize("extra,keys", [
+    (["--transport", "sim"], MONO_KEYS | {"runtime"}),
+    (["--transport", "inproc"], SPLIT_KEYS),
+    (["--vertical", "off"], MONO_KEYS)], ids=["sim", "inproc", "centralized"])
+@pytest.mark.parametrize("arch,seq", [("whisper-tiny", "16"),
+                                      ("internvl2-26b", "24")])
+def test_audio_and_vlm_run(tmp_path, capsys, arch, seq, extra, keys):
+    """The audio and vlm configs train 2 reduced steps on each path to
+    exit 0 with the reference's summary keys (split execution through the
+    Executor's ``server_takes_batch`` and ``merge_fn`` programs, verified
+    at step 0); the parameter count printed is the reference's.  A vlm
+    ``--seq`` counts its 8 vision tokens."""
+    from repro.models import backbone as jax_backbone
+
+    out = str(tmp_path / "run.json")
+    assert launch.main(["--arch", arch, "--reduced", "--steps", "2",
+                        "--batch", "2", "--seq", seq, "--device", "cpu",
+                        "--json", out] + extra) == 0
+    with open(out) as f:
+        summary = json.load(f)["summary"]
+    assert set(summary) == keys
+    jcfg = jax_get_arch(arch).reduced()
+    if extra[0] == "--vertical":
+        jcfg = jcfg.with_vertical(None)
+    assert summary["params"] == jax_backbone.param_count(jcfg)
+    printed = capsys.readouterr().out
+    assert f"family={get_arch(arch).family}" in printed
+    if extra[-1] == "inproc":
+        assert "step-0 verification vs protocol_step" in printed
 
 
 def test_card_by_default():

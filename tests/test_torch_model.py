@@ -60,11 +60,14 @@ def _rand(shape, seed):
 @pytest.mark.parametrize("reduced", [False, True])
 def test_config_matches_jax(reduced):
     """Every field of the port's configs of smollm-360m, starcoder2-3b,
-    stablelm-3b, qwen3-32b, mamba2-1.3b, zamba2-7b, deepseek-moe-16b and
-    arctic-480b (sub-configs field by field) equals the JAX package's."""
+    stablelm-3b, qwen3-32b, mamba2-1.3b, zamba2-7b, deepseek-moe-16b,
+    arctic-480b, whisper-tiny and internvl2-26b (sub-configs field by
+    field, the encdec and vlm ones included) equals the JAX package's,
+    and so do the block dims (the MLP and norm kinds included) and their
+    tower scaling."""
     for arch in (ARCH, "starcoder2-3b", "stablelm-3b", "qwen3-32b",
                  "mamba2-1.3b", "zamba2-7b", "deepseek-moe-16b",
-                 "arctic-480b"):
+                 "arctic-480b", "whisper-tiny", "internvl2-26b"):
         jcfg, cfg = jax_get_arch(arch), get_arch(arch)
         if reduced:
             jcfg, cfg = jcfg.reduced(), cfg.reduced()
@@ -82,9 +85,10 @@ def test_config_matches_jax(reduced):
             for d in (cfg.d_model, cfg.d_model // cfg.vertical.num_clients):
                 assert (cfg.ssm.d_inner(d), cfg.ssm.n_heads(d)) == (
                     jcfg.ssm.d_inner(d), jcfg.ssm.n_heads(d))
-        assert tfm.BlockDims.from_arch(cfg).scaled(4).__dict__ == {
-            k: v for k, v in jax_tfm.BlockDims.from_arch(jcfg).scaled(4)
-            .__dict__.items() if k not in ("mlp", "norm")}
+        assert tfm.BlockDims.from_arch(cfg).__dict__ == \
+            jax_tfm.BlockDims.from_arch(jcfg).__dict__
+        assert tfm.BlockDims.from_arch(cfg).scaled(4).__dict__ == \
+            jax_tfm.BlockDims.from_arch(jcfg).scaled(4).__dict__
 
 
 @pytest.mark.parametrize("merge", ["avg", "concat"])

@@ -543,16 +543,37 @@ def test_split_serving_and_thin_helpers_refused_as_in_jax():
 
 
 def test_executor_takes_the_aux_slot_and_refuses_the_rest():
-    """The Executor takes ``server_aux`` programs now; the two program
-    shapes of the audio and vlm families (``server_takes_batch``,
-    ``merge_fn``) are still refused, naming their ROADMAP item."""
+    """The Executor takes ``server_aux`` programs, and the audio and vlm
+    families' program shapes (``server_takes_batch``, ``merge_fn``); what
+    it refuses is a program ``merge_fn`` under EMA imputation, secure
+    aggregation, compression or a tree, with the JAX package's words."""
+    from repro.core import compat as jax_compat
+    from repro.runtime.executor import Executor as JaxExecutor
+    from repro.runtime.topology import AggTree as JaxAggTree
+    from repro.transport.base import SimTransport as JaxSimTransport
+    from repro.transport.base import TowerWorker as JaxTowerWorker
+    from repro_torch.core import compat
     from repro_torch.runtime.executor import Executor
+    from repro_torch.runtime.topology import AggTree
     from repro_torch.transport import SimTransport, TowerWorker
 
-    args = (SimTransport([TowerWorker(0, None, {})]), None, None, "avg")
+    def merge_fn(cuts, mask):
+        return cuts[0]
+
+    args = (SimTransport([TowerWorker(k, None, {}) for k in range(2)]),
+            None, None, "avg")
+    jargs = (JaxSimTransport([JaxTowerWorker(k, None, {})
+                              for k in range(2)]), None, None, "avg")
     assert Executor(*args, mode="serial", server_aux=True).server_aux
-    for kw in (dict(server_takes_batch=True),
-               dict(merge_fn=lambda cuts, mask: cuts[0])):
-        with pytest.raises(NotImplementedError,
-                           match="audio and vlm .*item 13"):
-            Executor(*args, mode="serial", **kw)
+    ex = Executor(*args, mode="serial", server_takes_batch=True,
+                  merge_fn=merge_fn)
+    assert ex.server_takes_batch and ex.merge_fn is merge_fn
+    for kw, jkw in ((dict(mode="nowait"),) * 2, (dict(secure_agg=True),) * 2,
+                    (dict(compress="int8"),) * 2,
+                    (dict(agg_tree=AggTree(2, fanout=2)),
+                     dict(agg_tree=JaxAggTree(2, fanout=2)))):
+        with pytest.raises(compat.CompatError) as got:
+            Executor(*args, merge_fn=merge_fn, **kw)
+        with pytest.raises(jax_compat.CompatError) as want:
+            JaxExecutor(*jargs, merge_fn=merge_fn, **jkw)
+        assert str(got.value) == str(want.value)

@@ -131,3 +131,91 @@ def test_sgd_matches_jax_step_for_step(momentum, nesterov, clip, schedule):
         assert int(ts["count"]) == int(js["count"]) == step + 1
         assert ts["count"].dtype == torch.int32
         _assert_close(handed, before)  # out of place
+
+
+@pytest.mark.parametrize("clip", [1.0, None], ids=["clipped", "unclipped"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_adamw_inplace_matches_out_of_place_bit_for_bit(clip, dtype,
+                                                        monkeypatch):
+    """``AdamW(inplace=True)`` writes the params, both moments and (when
+    clipping) the gradients into the tensors it is handed, and gives the
+    out-of-place update's values bit for bit over 3 updates (a bf16 tree
+    too, its moments f32), walking each leaf in slices (a slice of 16
+    elements here, so every leaf of more spans several) and a
+    non-contiguous leaf whole."""
+    from repro_torch import tree_util
+    from repro_torch.tree_util import tree_leaves, tree_map
+
+    monkeypatch.setattr(tree_util, "SLICE", 16)
+    kw = dict(learning_rate=linear_warmup_cosine(3e-2, 2, 5),
+              weight_decay=0.1, grad_clip_norm=clip)
+    out, inp = AdamW(**kw), AdamW(**kw, inplace=True)
+
+    def tensors(seed, scale=1.0):
+        tree = _map(lambda a: torch.from_numpy(a).to(dtype),
+                    _tree(seed, scale))
+        tree["blocks"]["w"] = tree["blocks"]["w"].transpose(1, 2)
+        return tree
+
+    p, q = tensors(0), tensors(0)
+    so, si = out.init(p), inp.init(q)
+    handed = tree_leaves((q, si["mu"], si["nu"]))
+    for step in range(3):
+        grads = tensors(100 + step, scale=3.0)
+        p, so = out.update(p, grads, so)
+        given = tree_map(torch.clone, grads)
+        q2, si = inp.update(q, given, si)
+        assert q2 is q
+        assert all(a is b for a, b in zip(
+            tree_leaves((q, si["mu"], si["nu"])), handed))
+        if clip is None:  # the gradients are left as they were
+            assert all(torch.equal(a, b) for a, b in zip(
+                tree_leaves(given), tree_leaves(grads)))
+        else:  # clipped in place
+            assert not torch.equal(given["scale"], grads["scale"])
+    for a, b in zip(tree_leaves((p, so)), tree_leaves((q, si))):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert si["mu"]["scale"].dtype == torch.float32
+
+
+ALL_FAMILIES = ["smollm-360m", "deepseek-moe-16b", "mamba2-1.3b",
+                "zamba2-7b", "whisper-tiny", "internvl2-26b"]
+
+
+@pytest.mark.parametrize("arch", ALL_FAMILIES)
+def test_partition_gives_every_tower_its_own_storage(arch):
+    """After ``partition`` no tower tensor shares storage with the server
+    tree or with another tower, in every family (the training loops
+    update in place), and each tower holds the monolithic tree's values.
+    A feature holder that trains keeps such a copy too; one that only
+    serves keeps ``tower_params``' views into the tree."""
+    from repro_torch.configs.base import get_arch
+    from repro_torch.models import backbone, split_program
+    from repro_torch.transport import build_split_worker
+    from repro_torch.tree_util import tree_leaves
+
+    cfg = get_arch(arch).reduced()
+    params = backbone.init_params(cfg, device="cpu")
+    prog = split_program.get_program(cfg)
+    towers, server = prog.partition(params)
+
+    def storages(tree):
+        return {t.untyped_storage().data_ptr() for t in tree_leaves(tree)}
+
+    server_ptrs, seen = storages(server), set()
+    assert server_ptrs <= storages(params)
+    for k, tp in enumerate(towers):
+        mine = storages(tp)
+        assert not mine & (server_ptrs | seen | storages(params))
+        seen |= mine
+        views = prog.tower_params(params, k)
+        assert storages(views) <= storages(params)
+        assert all(torch.equal(a, b) for a, b in zip(tree_leaves(tp),
+                                                     tree_leaves(views)))
+        trains, serves = (build_split_worker(
+            k, cfg=cfg, params=params, device="cpu", learning_rate=lr)
+            for lr in (1e-3, None))
+        assert not storages(trains.params) & (mine | storages(params))
+        assert storages(serves.params) <= storages(params)
+        assert all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(tp), tree_leaves(trains.params)))

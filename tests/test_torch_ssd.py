@@ -459,10 +459,11 @@ def test_generate_greedy_matches_jax(setup):
 
 def test_unported_paths_raise_by_name(setup):
     """The ssm family has no fused prompt prefill (its generate replays
-    the prompt, as the JAX package's does); the audio and vlm families
-    are a later slice (the hybrid family is ported:
-    ``tests/test_torch_hybrid.py``, the moe family
-    ``tests/test_torch_moe.py``).  A compressed config runs (the straight-through codec before
+    the prompt, as the JAX package's does; every family is ported: the
+    hybrid family in ``tests/test_torch_hybrid.py``, the moe family in
+    ``tests/test_torch_moe.py``, the audio and vlm families in
+    ``tests/test_torch_audio.py`` and ``tests/test_torch_vlm.py``).  A
+    compressed config runs (the straight-through codec before
     the merge, as in the JAX package's forward).  (Split execution of the ssm family is
     ported: ``tests/test_torch_ssd_train.py``; dense monolithic serving:
     ``tests/test_torch_dense_decode.py``.)"""
@@ -471,9 +472,6 @@ def test_unported_paths_raise_by_name(setup):
         backbone.prefill_tokens(params,
                                 backbone.init_cache(cfg, 1, 4, device="cpu"),
                                 torch.zeros((1, 2), dtype=int), cfg)
-    with pytest.raises(NotImplementedError, match="'vlm' family"):
-        generate({"x": torch.zeros(1)}, dataclasses.replace(
-            cfg, family="vlm"), np.zeros((1, 2)))
     compressed = cfg.with_vertical(dataclasses.replace(
         cfg.vertical, compression="int8"))
     jcompressed = jcfg.with_vertical(dataclasses.replace(
@@ -484,12 +482,6 @@ def test_unported_paths_raise_by_name(setup):
     got, _ = backbone.forward(params, {"tokens": torch.from_numpy(tokens)},
                               compressed)
     _close(got, want, LOGIT_TOL)
-    with pytest.raises(NotImplementedError, match="'audio' family"):
-        backbone.init_params(dataclasses.replace(cfg, family="audio"),
-                             device="cpu")
-    with pytest.raises(NotImplementedError, match="'vlm' family"):
-        backbone.init_params(dataclasses.replace(cfg, family="vlm"),
-                             device="cpu")
     # the centralized baseline is ported (tests/test_torch_train_mono.py)
     central = backbone.init_params(cfg.with_vertical(None), device="cpu")
     assert "towers" not in central

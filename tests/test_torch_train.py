@@ -35,7 +35,7 @@ from repro_torch.runtime.executor import Executor
 from repro_torch.train.loop import train_split
 from repro_torch.transport import (InprocTransport, SimTransport, TowerWorker,
                                    build_split_worker)
-from repro_torch.tree_util import tree_map
+from repro_torch.tree_util import tree_leaves, tree_map
 from jax_compiled import compiled_reference
 
 ARCH = "smollm-360m"
@@ -137,24 +137,32 @@ def test_split_lm_helpers_wrap_the_program(setup):
 
 
 def test_partition_copies_the_embedding_columns(setup):
-    """Towers are views, not copies: each client's embedding columns and
-    tower layer share storage with the full tree, and a tower's optimizer
-    update leaves the server's table as it was (the columns train apart
+    """Towers are copies, not views: each client's embedding columns and
+    tower layer equal the full tree's but share no storage with it nor
+    with the server, so a tower's in-place optimizer update leaves the
+    server's table and the full tree as they were (the columns train apart
     from it, as in the JAX package)."""
-    towers, server = setup["parts"]
+    # a partition of its own: the towers are updated in place below
+    towers, server = setup["prog"].partition(setup["params"])
     table = server["embed"]["table"]
     before = table.clone()
+    full = setup["params"]["towers"]["proj_in"]
+    full_before = full.clone()
     ds = setup["cfg"].d_model // len(towers)
-    opt = AdamW(learning_rate=1e-2)
+    opt = AdamW(learning_rate=1e-2, inplace=True)
+    server_ptrs = {t.untyped_storage().data_ptr()
+                   for t in tree_leaves(setup["params"])}
     for k, tp in enumerate(towers):
-        assert tp["embed_slice"].untyped_storage().data_ptr() == \
-            table.untyped_storage().data_ptr()
+        assert not server_ptrs & {t.untyped_storage().data_ptr()
+                                  for t in tree_leaves(tp)}
         assert torch.equal(tp["embed_slice"], table[:, k * ds:(k + 1) * ds])
-        assert tp["proj_in"].untyped_storage().data_ptr() == \
-            setup["params"]["towers"]["proj_in"].untyped_storage().data_ptr()
+        assert torch.equal(tp["proj_in"], full[k])
+        old = tp["embed_slice"].clone()
         new, _ = opt.update(tp, tree_map(torch.ones_like, tp), opt.init(tp))
-        assert not torch.equal(new["embed_slice"], tp["embed_slice"])
+        assert new["embed_slice"] is tp["embed_slice"]
+        assert not torch.equal(new["embed_slice"], old)
     assert torch.equal(table, before)
+    assert torch.equal(full, full_before)
 
 
 def test_protocol_step_matches_jax(setup):
@@ -283,9 +291,10 @@ def test_compat_rules_are_the_jax_rules():
 
 def test_unported_features_raise(setup):
     """The wire overlays are ported and construct as the JAX package's do;
-    unsound compositions reject through the compat matrix with its words,
-    and what the port does not carry yet (a program ``merge_fn``) is
-    refused by name — never silently ignored."""
+    unsound compositions reject through the compat matrix with its words
+    (a program ``merge_fn``, which the Executor takes since the vlm
+    family's slice, under secure aggregation among them) — never
+    silently ignored."""
     from repro.core.protocol import step_schedule as jax_step_schedule
     from repro.runtime.topology import AggTree as JaxAggTree
     from repro_torch.runtime.topology import AggTree
@@ -305,8 +314,9 @@ def test_unported_features_raise(setup):
         assert ex._schedule.cuts[0].kind == {
             "secure_agg": "masked_cut", "compress": "compressed_cut",
             "agg_tree": "tree_cut"}[next(iter(kw))]
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Executor(*args, "avg", merge_fn=lambda c, m: c)
+    assert Executor(*args, "avg", merge_fn=lambda c, m: c).merge_fn
+    with pytest.raises(compat.CompatError, match="cannot run a program"):
+        Executor(*args, "avg", secure_agg=True, merge_fn=lambda c, m: c)
     # the schedules tag the overlays' wires as the JAX package's do
     sched = protocol.step_schedule(2, compress="int8")
     jsched = jax_step_schedule(2, compress="int8")
