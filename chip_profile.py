@@ -5,7 +5,7 @@ port on full-width smollm-360m, mamba2-1.3b and starcoder2-3b.
     python3 chip_profile.py      # from the repo root; needs one CUDA card
     python3 chip_profile.py starcoder   # only some sections, by name:
                                         # serve, train, long, ssm, starcoder,
-                                        # ssmtrain, generate
+                                        # ssmtrain, generate, longtrain
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
@@ -34,8 +34,11 @@ kernels' shares.  Last, monolithic dense serving of full-width
 smollm-360m (``chip_smoke.py``'s phase 13): ``prefill_tokens`` of its
 4096-token prompt, then 16 decode steps over a linear cache of 4096 at
 batch 1 and at batch 32, as ``batched_throughput_probe`` times them,
-after an unprofiled warm-up.  Every run also prints the f32 GEMMs'
-share (kernels named ``*gemm*``: cuBLAS and CUTLASS).
+after an unprofiled warm-up.  Last, ``longtrain``: the smollm training
+run at ``chip_smoke.py``'s phase 19 (c) shape, 2 x 4096 tokens a step,
+2 steps, with the flash forward's and the three flash backward kernels'
+shares.  Every run also prints the f32 GEMMs' share (kernels named
+``*gemm*``: cuBLAS and CUTLASS).
 """
 from __future__ import annotations
 
@@ -95,9 +98,10 @@ def profiled(fn, card: str, label: str, describe, host_ops=()) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
-    for name in ("flash_attention_kernel", "ssd_chunk_kernel",
-                 "ssd_chunk_bwd_kernel", "ssd_chunk_bwd_reduce_kernel",
-                 "gemm"):
+    for name in ("flash_attention_kernel", "flash_attention_bwd_preprocess",
+                 "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+                 "ssd_chunk_kernel", "ssd_chunk_bwd_kernel",
+                 "ssd_chunk_bwd_reduce_kernel", "gemm"):
         mine = [e for e in kernels if name in e.key.lower()]
         if mine:
             us = sum(_device_us(e) for e in mine)
@@ -128,37 +132,39 @@ def profile_serving(cfg, params, prompts, new_tokens, card: str,
         f"{srv.stats['prefills']} prefills"))
 
 
-def run_training(cfg, params, steps: int):
-    loader = LMBatchLoader(cfg, smoke.TRAIN_BATCH, smoke.TRAIN_SEQ,
-                           seed=smoke.SEED)
-    return train_split(cfg, loader, steps=steps, batch=smoke.TRAIN_BATCH,
-                       seq=smoke.TRAIN_SEQ, runtime="serial",
-                       learning_rate=3e-4, warmup=20, seed=smoke.SEED,
-                       verify_step0=False, device="cuda", params=params,
-                       print_fn=lambda *a: None)
+def run_training(cfg, params, steps: int, batch: int = smoke.TRAIN_BATCH,
+                 seq: int = smoke.TRAIN_SEQ):
+    loader = LMBatchLoader(cfg, batch, seq, seed=smoke.SEED)
+    return train_split(cfg, loader, steps=steps, batch=batch, seq=seq,
+                       runtime="serial", learning_rate=3e-4, warmup=20,
+                       seed=smoke.SEED, verify_step0=False, device="cuda",
+                       params=params, print_fn=lambda *a: None)
 
 
-def profile_training(cfg, params, card: str, label: str = "train") -> None:
-    run_training(cfg, params, 1)  # warm-up: cuBLAS's backward paths start
+def profile_training(cfg, params, card: str, label: str = "train",
+                     batch: int = smoke.TRAIN_BATCH,
+                     seq: int = smoke.TRAIN_SEQ,
+                     steps: int = TRAIN_STEPS) -> None:
+    # warm-up: cuBLAS's backward paths start
+    run_training(cfg, params, 1, batch, seq)
     # the token streams are numpy on the host, outside the profiler's ops:
     # role 0 and every worker draw one batch per step
-    loader = LMBatchLoader(cfg, smoke.TRAIN_BATCH, smoke.TRAIN_SEQ,
-                           seed=smoke.SEED)
+    loader = LMBatchLoader(cfg, batch, seq, seed=smoke.SEED)
     t0 = time.perf_counter()
     for _ in range(3):
         loader.next_batch()
-    smoke.log(f"[{label}] host: one {smoke.TRAIN_BATCH} x {smoke.TRAIN_SEQ} "
-              f"token batch takes {(time.perf_counter() - t0) / 3:.4f} s; "
+    smoke.log(f"[{label}] host: one {batch} x {seq} token batch takes "
+              f"{(time.perf_counter() - t0) / 3:.4f} s; "
               f"{1 + cfg.vertical.num_clients} streams draw one per step")
 
     def describe(result, launches, syncs):
         times = result[1].step_times
-        return (f"{TRAIN_STEPS} steps (step wall {times} s), "
-                f"{launches / TRAIN_STEPS:.1f} launches and "
-                f"{syncs / TRAIN_STEPS:.1f} device-to-host reads per step")
+        return (f"{steps} steps (step wall {times} s), "
+                f"{launches / steps:.1f} launches and "
+                f"{syncs / steps:.1f} device-to-host reads per step")
 
-    profiled(lambda: run_training(cfg, params, TRAIN_STEPS), card, label,
-             describe)
+    profiled(lambda: run_training(cfg, params, steps, batch, seq), card,
+             label, describe)
 
 
 def profile_ssm(card: str) -> None:
@@ -241,7 +247,8 @@ def profile_generate(card: str) -> None:
 
 
 def profile_smollm(card: str, sections) -> None:
-    """The serve, train and long sections, on full-width smollm-360m."""
+    """The serve, train, long and longtrain sections, on full-width
+    smollm-360m."""
     cfg = get_arch("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
     params = backbone.init_params(cfg, gen, device="cuda")
@@ -255,6 +262,9 @@ def profile_smollm(card: str, sections) -> None:
         profile_serving(cfg, params, prompts, smoke.NEW_TOKENS, card, "full")
     if "train" in sections:
         profile_training(cfg, params, card)
+    if "longtrain" in sections:
+        profile_training(cfg, params, card, "long train", smoke.LT_BATCH,
+                         smoke.LT_SEQ, steps=2)
     if "long" in sections:
         rng = np.random.default_rng(smoke.SEED)  # chip_smoke's long prompts
         long_prompts = [rng.integers(0, cfg.vocab_size, s)
@@ -270,7 +280,7 @@ def profile_smollm(card: str, sections) -> None:
 
 
 SECTIONS = ("serve", "train", "long", "ssm", "starcoder", "ssmtrain",
-            "generate")
+            "generate", "longtrain")
 
 
 def main() -> None:
@@ -283,7 +293,7 @@ def main() -> None:
     smoke.log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if {"serve", "train", "long"} & set(sections):
+    if {"serve", "train", "long", "longtrain"} & set(sections):
         profile_smollm(card, sections)
         torch.cuda.empty_cache()
     if "ssm" in sections:

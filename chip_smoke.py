@@ -31,7 +31,10 @@ arctic-480b at published widths in bf16, and the compact bilinear
 merge, and the audio and vlm families: full-width whisper-tiny's
 forward, cross prefill and decode and its split training over mel-band
 towers, full-width internvl2-26b's forward in bf16, vision prefill and
-decode, and its split training through the sequence-concat merge.
+decode, and its split training through the sequence-concat merge, and
+training past 2048 tokens: the hand-written flash backward kernels
+(CUDA C++, f32 FMA) behind a differentiable attention, a monolithic
+step and split training of full-width smollm-360m at 4096 tokens.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -95,11 +98,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    (3e-2); at each of those timed shapes (causal f32), the kernel's time
    per call and on the device, the plain version's, one library call's,
    the tensor-core bound (3xTF32) and the f32-FMA bound.
-6. Long-prompt split serving: full-width smollm-360m cut to 16 of its 32
+6. Long-prompt split serving: full-width smollm-360m cut to 8 of its 32
    layers, K = 4, 4 slots, greedy, prompts of 2500-32768 tokens plus one
    of 1024 (dense branch) in one batch.  Launch counters reset just
-   before the run, read just after: 22 flash launches per prompt past
-   2048 tokens (14 server + 4 x 2 tower layers) and one merge launch per
+   before the run, read just after: 14 flash launches per prompt past
+   2048 tokens (6 server + 4 x 2 tower layers) and one merge launch per
    merge.  A plain run (merge and attention, role 0 and towers) gives
    identical tokens and prefill logits within 1e-3, launching no kernel;
    the reduced model on the card matches the CPU path on a 2304-token
@@ -170,7 +173,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    random init from a seed; its merge kernels are held against their
    plain versions and timed at its cut stacks in phase 2).  First the
    paper tables' loop
-   (``make_split_train_step``, AdamW 3e-3, batch 256, 400 steps over
+   (``make_split_train_step``, AdamW 3e-3, batch 256, 200 of its 400
+   steps over
    ``minibatches(seed=0)`` of a split held on the card) for every dataset
    and merge and the centralized baseline, and PhraseBank's max pooling
    with 1-3 of 4 clients dropped per step (masks drawn on the card) and
@@ -240,8 +244,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 x 128, 32 new tokens each; greedy tokens equal ``SplitLMServer``'s
    on the same params and prompts; the 4096-token prefill's last logits
    within 1e-3 of the plain path (``use_kernel=False``, no launch);
-   prefill tokens/s and peak memory.  (c) A ring cache of 256 slots
-   under window 256, 4 x 128 prompt tokens and 256 new, gives the tokens
+   prefill tokens/s and peak memory.  (c) A ring cache of 160 slots
+   under window 160, 4 x 128 prompt tokens and 160 new, gives the tokens
    of a linear cache under the same window.  (d) int8 KV with 4 decode
    chunks against the f32 cache over 64 steps of 4 streams: relative
    error below 0.02, argmax agreement above 0.9 (the JAX package's
@@ -389,6 +393,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    step 0 verified at 1e-5, the ledger = the byte models.  Phase 2 also
    holds and times the merge kernels at (2, 12000, 384), phase 5 flash
    at (48 / 8, 4096) and (48 / 8, 3072), D = 128, in bf16.
+19. Training past 2048 tokens.  (a) The flash backward's three kernels
+   (``flash_attention_bwd_preprocess_kernel``, ``_dkdv_kernel``,
+   ``_dq_kernel``, built with the library in phase 2; their ptxas
+   reports printed, a spill fails) at every instantiation, D 32-128 x
+   f32 / bf16, at (1, 6 q / 2 kv, 2304, D), causal and full, against
+   ``ref.flash_attention_bwd`` on the forward kernel's output and
+   logsumexp: f32 dq, dk and dv within 1e-4 of each gradient's largest
+   plain entry, bf16 within 2e-2; the forward's logsumexp within 1e-4 of
+   ``ref.flash_attention_lse``; two launches bit-identical (f32 and
+   bf16).  Timed at smollm-360m's training shapes, server (2, 15 / 5,
+   4096, 64) and towers (2, 3 / 1, 4096, 64): the kernels per call and
+   on the device, the plain backward, SDPA's memory-efficient backward
+   (kv heads repeated) per call, the bound (10 D flops per attended pair
+   at 3xTF32, the f32-FMA figure beside), and the forward with and
+   without its logsumexp there and at (1, 15 / 5, 32768, 64).  (b)
+   Full-width smollm-360m cut to 4 layers (2 tower + 2 server), one
+   ``make_train_step`` at 1 x 4096 on the kernels against
+   ``use_kernel=False`` (the plain chunked attention under autograd):
+   every gradient leaf within 1e-3 of its largest plain entry, 10 flash
+   forward and 10 backward launches, both peaks printed.  (c)
+   Full-width smollm-360m ``train_split`` K = 4 avg over threads, 3
+   serial steps of 2 x 4096, step 0 verified against ``protocol_step``
+   at 1e-5, exact launches (46 flash forward and 38 backward a pass: the
+   feature holders run their towers' forward again under grad in their
+   backward; 4 passes with the verification), train tokens/s and peak
+   memory.  (d)
+   ``python -m repro_torch.launch.train --seq 4096 --batch 2 --steps 2
+   --transport inproc`` exits 0 with its step-0 line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -477,10 +509,11 @@ NEW_TOKENS = [48, 8, 32, 16, 40, 24, 12, 36]
 # 126 MB cut of the 32768-token prompt beside the four pinned ones
 LONG_PROMPTS = [2500, 4096, 8192, 16384, 32768, 1024]
 LONG_NEW = [16, 16, 8, 8, 4, 16]
-# smollm-360m cut to 16 of its 32 layers (14 server + 2 tower): the plain
+# smollm-360m cut to 8 of its 32 layers (6 server + 2 tower): the plain
 # run's chunked attention over the 16384- and 32768-token prompts took
-# ~90% of the phase at full depth (82-94 s on an NVIDIA H100 80GB HBM3)
-LONG_LAYERS = 16
+# ~90% of the phase at full depth (82-94 s on an NVIDIA H100 80GB HBM3);
+# 16 layers until phase 19 was added, 47 s of plain run then
+LONG_LAYERS = 8
 LONG_CUT_CACHE_BYTES = 256 * 2 ** 20
 # the flash kernel against the plain version, as (rtol, atol): in f32
 # against the plain f32 output; in bf16 against the plain version's f32
@@ -577,11 +610,12 @@ SC_PROMPTS = [2500, 8192, 32768, 1024]
 SC_NEW = [8, 8, 4, 8]
 SC_MAX_BATCH = 2
 SC_PLAIN_MAX = 8192
-# the paper MLP slice: the paper tables' loop (AdamW 3e-3, batch 256, 400
-# steps) on the three datasets at their published widths; the Executor
+# the paper MLP slice: the paper tables' loop (AdamW 3e-3, batch 256; 200
+# of its 400 steps, cut to keep the script's time) on the three datasets
+# at their published widths; the Executor
 # run on PhraseBank (plain SGD at 0.1 in the towers and the server)
 MLP_MERGES = ("max", "avg", "concat", "mul", "sum")
-MLP_LR, MLP_BATCH, MLP_STEPS, MLP_CHECK_STEPS = 3e-3, 256, 400, 5
+MLP_LR, MLP_BATCH, MLP_STEPS, MLP_CHECK_STEPS = 3e-3, 256, 200, 5
 MLP_DROPS, MLP_TEST_DROP_SEEDS = (1, 2, 3), 4
 EXEC_LR, EXEC_STEPS, EXEC_SHORT = 0.1, 200, 20
 # the cut stacks: PhraseBank (K 4, cut 64) at batch 256 and at its
@@ -614,14 +648,15 @@ NOWAIT_LM_DELAY_S = 0.1  # smollm's straggler, per forward
 NOWAIT_LM_BOOTSTRAP_S = 5.0
 BF16_TOL, BF16_GAP = 3e-2, 6e-2
 # monolithic dense serving (phase 13): 8 x 128-token prompts and one of
-# 4096 (past the flash threshold), 32 new tokens each; a ring cache of 256
-# slots against a linear one under the same window; int8 KV with 4
+# 4096 (past the flash threshold), 32 new tokens each; a ring cache of 160
+# slots against a linear one under the same window (128 + 160 positions,
+# so 128 of them past the wrap); int8 KV with 4
 # flash-decoding chunks against f32 over 64 decode steps (the JAX
 # package's bounds, tests/test_kv_quant.py); the throughput probe at a
 # linear cache of 4096 and at the ring of cfg.sliding_window, which is
 # the JAX package's decode_cache_plan for prompts past 65536 tokens
 MONO_SHORT, MONO_LONG, MONO_NEW = (8, 128), 4096, 32
-MONO_RING_BATCH, MONO_RING_PROMPT, MONO_RING = 4, 128, 256
+MONO_RING_BATCH, MONO_RING_PROMPT, MONO_RING = 4, 128, 160
 MONO_INT8_BATCH, MONO_INT8_STEPS, MONO_INT8_CHUNKS = 4, 64, 4
 MONO_INT8_REL, MONO_INT8_AGREE = 0.02, 0.9
 MONO_PROBE_BATCHES, MONO_PROBE_LEN, MONO_PROBE_STEPS = (1, 8, 32), 4096, 16
@@ -726,6 +761,26 @@ VL_TRAIN_BATCH, VL_TRAIN_SEQ = 4, 1280
 # phase 18's flash shapes: internvl2-26b's server at 4096 and its text
 # tower at 3072, bf16 (a group of 6, no path ran before)
 FLASH_VLM_BF16 = [(1, 48, 8, 4096, 128), (1, 48, 8, 3072, 128)]
+# phase 19, training past 2048 tokens: the flash backward at every
+# instantiation (head dim x dtype) at 2304 tokens, groups of 3 (6 q / 2 kv
+# heads), against the plain backward, each gradient within these shares
+# of its largest plain entry (f32: the kernel's f32 FMAs against
+# cuBLAS's f32 products, summed in other orders; bf16: one bf16 rounding
+# of each output, 2^-8 of its size, beside it)
+FLASH_BWD_S = 2304
+FLASH_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# the forward's logsumexp against the plain one (absolute: the scores'
+# 3xTF32 products and ex2.approx leave ~1e-6 of a logsumexp of ~10)
+FLASH_LSE_TOL = 1e-4
+# (B, H, Hkv, S, D) on the path: smollm-360m at 2 x 4096, server and towers
+FLASH_TRAIN_SHAPES = [(2, 15, 5, 4096, 64), (2, 3, 1, 4096, 64)]
+# (b) smollm-360m cut to 4 layers (2 tower + 2 server) at 1 x 4096, the
+# kernel step's gradients within this share of each leaf's largest plain
+# entry; (c) full width, train_split K = 4 avg over threads at 2 x 4096;
+# (d) the launcher at 2 x 4096 over threads
+LT_LAYERS, LT_MONO_BATCH, LT_SEQ = 4, 1, 4096
+LT_GRAD_REL = 1e-3
+LT_BATCH, LT_STEPS, LT_CLI_STEPS = 2, 3, 2
 # figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
@@ -741,7 +796,8 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every kernel's count, and the flash kernel's again by head dim
+    """Every kernel's count (the flash backward's three kernels each
+    once per backward call), and the flash kernel's again by head dim
     (both dtypes), as ``flash_attention_kernel[D=d]``, and by bf16
     instantiation, as ``flash_attention_kernel[D=d,bf16]``."""
     by_dim = dict.fromkeys(fa.HEAD_DIMS, 0)
@@ -752,7 +808,7 @@ def read_launches() -> dict:
             **{flash_name(d, torch.bfloat16): n
                for (d, dtype), n in fa.launches_by_instance.items()
                if dtype == torch.bfloat16},
-            **ssd.launches}
+            **ssd.launches, **fa.bwd_launches}
 
 
 def flash_name(head_dim: int, dtype=None) -> str:
@@ -2866,7 +2922,7 @@ def mlp_metrics(logits_fn, x, y, num_classes, batch=2048) -> tuple:
 def mlp_train(cfg, ds, params, *, centralized=False, num_drop=0, gen=None,
               masks=None, steps: int = MLP_STEPS) -> tuple:
     """The paper tables' loop (``paper_tables.train_split`` /
-    ``train_centralized``): AdamW(3e-3), batch 256, 400 steps (or the first
+    ``train_centralized``): AdamW(3e-3), batch 256, MLP_STEPS (or the first
     ``steps``) over ``minibatches(seed=0)`` of a device-resident split, on
     the params' device.  Drops draw their masks from ``gen``, or take
     ``masks[i]``.  Returns (params, losses, seconds)."""
@@ -3886,7 +3942,8 @@ def mono_phase(card: str) -> int:
         f"{t_short:.4f} s ({MONO_SHORT[0] * MONO_NEW / t_short:.1f} tokens/s "
         f"with the prefill); max_memory_allocated {peak} bytes | {card}")
 
-    # (c) a ring of 256 slots against a linear cache under the same window
+    # (c) a ring of MONO_RING slots against a linear cache under the same
+    # window
     prompts = rng.integers(0, cfg.vocab_size,
                            (MONO_RING_BATCH, MONO_RING_PROMPT))
     lin, t_lin, _ = mono_generate(cfg, params, prompts,
@@ -4164,17 +4221,17 @@ def launch_mono(card: str) -> dict:
 
 
 def launch_cli(card: str, extra: tuple = (),
-               verified: str = "step-0 verification vs protocol_step"
-               ) -> dict:
+               verified: str = "step-0 verification vs protocol_step", *,
+               transport: str = "multiproc", steps: int = LAUNCH_STEPS,
+               batch: int = TRAIN_BATCH, seq: int = TRAIN_SEQ) -> dict:
     """(e) ``python -m repro_torch.launch.train --transport multiproc`` as
     a user runs it (full-width smollm-360m, the card by default), with
     ``extra`` flags: exit 0, the ``verified`` step-0 line and the
-    summary's keys."""
+    summary's keys.  Phase 19 (d) runs it over ``inproc`` at 2 x 4096."""
     out_json = LAUNCH_DIR / "launch.json"
     cmd = [sys.executable, "-m", "repro_torch.launch.train", "--transport",
-           "multiproc", "--steps", str(LAUNCH_STEPS), "--batch",
-           str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), *extra, "--json",
-           str(out_json)]
+           transport, "--steps", str(steps), "--batch", str(batch),
+           "--seq", str(seq), *extra, "--json", str(out_json)]
     path = os.environ.get("PYTHONPATH")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src")
                + (os.pathsep + path if path else ""))
@@ -4204,8 +4261,8 @@ def launch_cli(card: str, extra: tuple = (),
             "loss_drop", "arch", "params", "steps", "vertical", "transport",
             "inflight_steps", "secure_agg", "compress", "agg_tree_fanout",
             "runtime"}
-    if set(summary) != keys or summary["transport"] != "multiproc" or \
-            len(run["losses"]) != LAUNCH_STEPS:
+    if set(summary) != keys or summary["transport"] != transport or \
+            len(run["losses"]) != steps:
         raise AssertionError(f"launcher summary: {summary}")
     step0 = next(line for line in stdout.splitlines() if verified in line)
     log(f"launcher: {' '.join(cmd[1:])}: exit 0 in {seconds:.1f} s; "
@@ -5787,6 +5844,357 @@ def modality_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: training past 2048 tokens — the flash backward
+# ---------------------------------------------------------------------------
+
+def _flash_bwd_args(shape, dtype, gen, causal=True):
+    """The backward's arguments as a training step hands them over: q, k,
+    v in the model's layout, the kernel forward's output and logsumexp,
+    and a random output gradient."""
+    q, k, v = _flash_inputs(shape, dtype, gen, True)
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, o, lse, do
+
+
+def _flash_bwd_rel(got, want) -> list:
+    """Each gradient's largest |kernel - plain| over its largest plain
+    entry; raises on a wrong shape or dtype or a non-finite value."""
+    errs = []
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        if g.shape != w.shape or g.dtype != w.dtype or \
+                not torch.isfinite(g.float()).all():
+            raise AssertionError(f"flash bwd {name}: {tuple(g.shape)} "
+                                 f"{g.dtype}, finite "
+                                 f"{bool(torch.isfinite(g.float()).all())}")
+        errs.append(float((g.float() - w.float()).abs().max())
+                    / float(w.float().abs().max()))
+    return errs
+
+
+def check_flash_bwd_kernel() -> dict:
+    """(a) Every backward instantiation (D 32-128 x f32 / bf16) at 2304
+    tokens, causal and full, against ref.flash_attention_bwd; the
+    forward's logsumexp against ref.flash_attention_lse; two launches
+    bit-identical at the server's training shape.  Fails first on a
+    spill.  Returns the worst share of each gradient's largest entry by
+    dtype and the worst f32 |error|."""
+    for kernel in fa.BWD_KERNELS:
+        log(f"flash bwd: {kernel} ptxas: {ptxas_report(kernel)}")
+        counts = _ptxas_counts(kernel)
+        if not counts or any(spill for _, spill in counts.values()):
+            raise AssertionError(f"{kernel}: no ptxas report, or a spill: "
+                                 f"{counts}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    worst_abs, worst_lse, n = 0.0, 0.0, 0
+    for D in fa.HEAD_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                shape = (1, 6, 2, FLASH_BWD_S, D)
+                args = _flash_bwd_args(shape, dtype, gen, causal)
+                got = fa.flash_attention_bwd(*args, causal=causal)
+                want = ref.flash_attention_bwd(*args, causal=causal)
+                _, lse = ref.flash_attention_lse(*args[:3], causal=causal)
+                torch.cuda.synchronize()
+                errs = _flash_bwd_rel(got, want)
+                if max(errs) > FLASH_BWD_REL[dtype]:
+                    raise AssertionError(
+                        f"flash bwd {shape} {dtype} causal={causal}: dq, dk, "
+                        f"dv off by {errs} of their largest entries > "
+                        f"{FLASH_BWD_REL[dtype]}")
+                worst[dtype] = max(worst[dtype], *errs)
+                if dtype == torch.float32:
+                    worst_abs = max(worst_abs, *(
+                        float((g - w).abs().max()) for g, w in zip(got,
+                                                                   want)))
+                lse_err = float((args[4] - lse).abs().max())
+                if lse_err > FLASH_LSE_TOL:
+                    raise AssertionError(f"flash lse {shape} {dtype}: "
+                                         f"{lse_err:.3e} > {FLASH_LSE_TOL}")
+                worst_lse = max(worst_lse, lse_err)
+                n += 1
+                del args, got, want, lse
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _flash_bwd_args(FLASH_TRAIN_SHAPES[0], dtype, gen)
+        first = fa.flash_attention_bwd(*args, causal=True)
+        second = fa.flash_attention_bwd(*args, causal=True)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, second)):
+            raise AssertionError(f"flash bwd {FLASH_TRAIN_SHAPES[0]} {dtype}: "
+                                 "two launches differ")
+        del args, first, second
+    torch.cuda.empty_cache()
+    log(f"flash bwd kernels: {n} cases (B, H, Hkv, S, D) = (1, 6, 2, "
+        f"{FLASH_BWD_S}, D) for D in {fa.HEAD_DIMS}, f32 and bf16, causal "
+        f"and full, match ref.flash_attention_bwd: worst share of a "
+        f"gradient's largest entry f32 {worst[torch.float32]:.3e} (<= "
+        f"{FLASH_BWD_REL[torch.float32]}), bf16 "
+        f"{worst[torch.bfloat16]:.3e} (<= "
+        f"{FLASH_BWD_REL[torch.bfloat16]}); worst f32 |err| "
+        f"{worst_abs:.3e}; the forward's lse within {worst_lse:.3e} of "
+        f"the plain one (<= {FLASH_LSE_TOL}); two launches at "
+        f"{FLASH_TRAIN_SHAPES[0]} bit-identical in f32 and bf16")
+    return {"rel": worst, "abs": worst_abs, "lse": worst_lse}
+
+
+def flash_bwd_bound(B, H, Hkv, S, D, causal=True) -> tuple:
+    """Least time on an H100 SXM for one backward call: five D-deep
+    products per attended pair (Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 10 D
+    flops), each in f32 as three TF32 products at the tensor cores' dense
+    TF32 rate, vs the bytes (q, k, v, o, dO and lse read once, dq, dk, dv
+    written once).  Also the f32-FMA figure and the flops."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 10 * D * B * H * pairs
+    nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
+    t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes",
+            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
+
+
+def time_flash_bwd(card: str) -> dict:
+    """The backward at FLASH_TRAIN_SHAPES (causal f32, the model's
+    layout): per call and on the device, the plain backward likewise, and
+    one library call: scaled_dot_product_attention's memory-efficient
+    backward (autograd.grad through its forward, kv heads repeated, which
+    leaves the sum over each group undone), per call only (its autograd
+    call is not captured in a graph).  At these batch-2 shapes the
+    kernel's gradients are held to the plain backward's within
+    FLASH_BWD_REL and its forward's logsumexp to the plain one within
+    FLASH_LSE_TOL; either raises.  Then the forward with and without
+    its logsumexp at the same shapes and at row 5's serving shape."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.functional import scaled_dot_product_attention
+
+    rows = {}
+    for shape in FLASH_TRAIN_SHAPES:
+        B, H, Hkv, S, D = shape
+        gen = torch.Generator(device="cuda").manual_seed(S + H)
+        args = _flash_bwd_args(shape, torch.float32, gen)
+        q, k, v, _, _, do = args
+        lq, lk, lv = (t.detach().clone().requires_grad_(True) for t in
+                      (q, k.repeat_interleave(H // Hkv, dim=1),
+                       v.repeat_interleave(H // Hkv, dim=1)))
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lout = scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        fns = {"": lambda: fa.flash_attention_bwd(*args, causal=True),
+               "plain_": lambda: ref.flash_attention_bwd(*args, causal=True)}
+        row = {}
+        for prefix, fn in fns.items():
+            row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)], iters=10)
+            row[prefix + "device_ms"] = device_ms(lambda _: fn(), [(None,)],
+                                                  iters=5, reps=3)
+        row["library_ms"] = time_ms(lambda _: torch.autograd.grad(
+            lout, (lq, lk, lv), do, retain_graph=True), [(None,)], iters=10)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops = \
+            flash_bwd_bound(*shape)
+        fwd = {"fwd_lse_": lambda: fa.flash_attention(q, k, v, causal=True,
+                                                      return_lse=True),
+               "fwd_": lambda: fa.flash_attention(q, k, v, causal=True)}
+        for prefix, fn in fwd.items():
+            row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)], iters=20)
+            row[prefix + "device_ms"] = device_ms(lambda _: fn(), [(None,)],
+                                                  iters=10, reps=3)
+        got = fns[""]()
+        want = fns["plain_"]()
+        _, want_lse = ref.flash_attention_lse(q, k, v, causal=True)
+        lgrad = torch.autograd.grad(lout, (lq, lk, lv), do)
+        torch.cuda.synchronize()
+        errs = _flash_bwd_rel(got, want)
+        if max(errs) > FLASH_BWD_REL[torch.float32]:
+            raise AssertionError(
+                f"flash bwd {shape} f32: dq, dk, dv off by {errs} of their "
+                f"largest plain entries > {FLASH_BWD_REL[torch.float32]}")
+        lse_err = float((args[4] - want_lse).abs().max())
+        if lse_err > FLASH_LSE_TOL:
+            raise AssertionError(f"flash lse {shape} f32: {lse_err:.3e} > "
+                                 f"{FLASH_LSE_TOL}")
+        row["plain_rel_err"], row["lse_err"] = max(errs), lse_err
+        lib = (lgrad[0], *(g.reshape(B, Hkv, H // Hkv, S, D).sum(2)
+                           for g in lgrad[1:]))
+        row["library_max_abs_diff"] = max(float((a - b).abs().max())
+                                          for a, b in zip(got, lib))
+        rows[shape] = row
+        log(f"time flash bwd causal f32 ({B}, {H}/{Hkv}, {S}, {D}): per "
+            f"call (device): kernels {row['ms']:.6f} ({row['device_ms']:.6f})"
+            f" ms = {flops / row['device_ms'] / 1e9:.2f} TFLOP/s of the "
+            f"function's {flops / 1e9:.3f} GFLOP "
+            f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the 3xTF32 "
+            f"bound, {100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of "
+            f"the f32-FMA bound), plain {row['plain_ms']:.6f} "
+            f"({row['plain_device_ms']:.6f}) ms, library (SDPA "
+            f"mem-efficient backward, kv repeated) {row['library_ms']:.6f} ms "
+            f"per call (max |kernel - library| "
+            f"{row['library_max_abs_diff']:.3e}); against the plain "
+            f"backward {row['plain_rel_err']:.3e} of each gradient's largest "
+            f"entry (<= {FLASH_BWD_REL[torch.float32]}), lse "
+            f"{row['lse_err']:.3e} (<= {FLASH_LSE_TOL}); bound "
+            f"{row['bound_ms']:.6f} ms ({row['bound_by']}, 3xTF32 at 495 "
+            f"TFLOP/s), fma_bound {row['fma_bound_ms']:.6f} ms (67 TFLOP/s); "
+            f"forward with lse {row['fwd_lse_ms']:.6f} "
+            f"({row['fwd_lse_device_ms']:.6f}) ms, without "
+            f"{row['fwd_ms']:.6f} ({row['fwd_device_ms']:.6f}) ms | {card}")
+        del args, q, k, v, do, lq, lk, lv, lout, got, want, want_lse, lgrad
+        del lib, fns, fwd
+        torch.cuda.empty_cache()
+    # row 5's serving shape: the forward with its logsumexp beside without
+    shape = FLASH_TIME_SHAPES[1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    q, k, v = _flash_inputs(shape, torch.float32, gen, True)
+    serve_row = {}
+    for prefix, lse in (("fwd_lse_", True), ("fwd_", False)):
+        fn = lambda: fa.flash_attention(q, k, v, causal=True,  # noqa: E731
+                                        return_lse=lse)
+        serve_row[prefix + "ms"] = time_ms(lambda _: fn(), [(None,)], iters=5)
+        serve_row[prefix + "device_ms"] = device_ms(lambda _: fn(),
+                                                    [(None,)], iters=3,
+                                                    reps=2)
+    rows["serve"] = serve_row
+    log(f"time flash forward causal f32 {shape}: with lse "
+        f"{serve_row['fwd_lse_ms']:.6f} ({serve_row['fwd_lse_device_ms']:.6f})"
+        f" ms, without {serve_row['fwd_ms']:.6f} "
+        f"({serve_row['fwd_device_ms']:.6f}) ms | {card}")
+    del q, k, v
+    torch.cuda.empty_cache()
+    return rows
+
+
+class _KeepGrads:
+    """An optimizer that keeps the gradient tree and leaves the params as
+    they are: ``make_train_step``'s gradients, read whole."""
+
+    def update(self, params, grads, state):
+        self.grads = grads
+        return params, state
+
+
+def flash_train_mono(card: str) -> dict:
+    """(b) Full-width smollm-360m cut to 4 layers (2 tower + 2 server) at
+    1 x 4096: one ``make_train_step`` on the kernels (flash forward and
+    backward) against ``make_train_step(use_kernel=False)`` (the plain
+    chunked attention under autograd), every gradient leaf within
+    LT_GRAD_REL of its largest plain entry; both peaks."""
+    cfg = dataclasses.replace(get_arch("smollm-360m"), num_layers=LT_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    batch = {k: to_tensor(v, "cuda") for k, v in next(iter(LMBatchLoader(
+        cfg, LT_MONO_BATCH, LT_SEQ, seed=SEED))).items()}
+    K, tl = cfg.vertical.num_clients, cfg.vertical.tower_layers
+    per_pass = cfg.num_layers - tl + K * tl
+    runs = {}
+    for use_kernel in (True, False):
+        keep = _KeepGrads()
+        step = backbone.make_train_step(cfg, keep, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        _, _, loss = step(params, None, batch)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        runs[use_kernel] = (list(_leaves(keep.grads)), float(loss),
+                            seconds, torch.cuda.max_memory_allocated(),
+                            read_launches())
+    launches = runs[True][4]
+    expect_launches(launches, {
+        "flash_attention_kernel": per_pass, flash_name(64): per_pass,
+        **dict.fromkeys(fa.BWD_KERNELS, per_pass)})
+    expect_launches(runs[False][4], {})
+    worst = 0.0
+    for i, (g, p) in enumerate(zip(runs[True][0], runs[False][0])):
+        scale = float(p.abs().max())
+        err = float((g - p).abs().max()) / scale if scale else \
+            float(g.abs().max())
+        if not torch.isfinite(g).all() or err > LT_GRAD_REL:
+            raise AssertionError(f"mono step leaf {i} {tuple(g.shape)}: "
+                                 f"kernel vs plain {err:.3e} of its largest "
+                                 f"entry > {LT_GRAD_REL}")
+        worst = max(worst, err)
+    if abs(runs[True][1] - runs[False][1]) > 1e-4:
+        raise AssertionError(f"mono step loss {runs[True][1]} vs plain "
+                             f"{runs[False][1]}")
+    log(f"flash mono train: {cfg.name} full width cut to {cfg.num_layers} "
+        f"layers ({tl} tower x {K} + {cfg.num_layers - tl} server), "
+        f"{LT_MONO_BATCH} x {LT_SEQ} tokens, one make_train_step: loss "
+        f"{runs[True][1]:.6f} (plain {runs[False][1]:.6f}); "
+        f"{len(runs[True][0])} gradient leaves within {worst:.3e} of their "
+        f"largest plain entries (<= {LT_GRAD_REL}); {per_pass} flash "
+        f"forward and {per_pass} backward launches (each of "
+        f"{', '.join(fa.BWD_KERNELS)}); step {runs[True][2]:.4f} s "
+        f"(plain {runs[False][2]:.4f} s); max_memory_allocated "
+        f"{runs[True][3]} bytes on the kernels, {runs[False][3]} bytes on "
+        f"the plain chunked path | {card}")
+    del params, batch, runs
+    torch.cuda.empty_cache()
+    return launches
+
+
+def flash_train_split(card: str) -> dict:
+    """(c) Full-width smollm-360m, ``train_split`` K = 4 avg over threads
+    at 2 x 4096, 3 serial steps, step 0 verified against protocol_step at
+    1e-5; exact flash launches: a pass (every step once, and step 0's
+    verification once more) runs 38 backward (30 server + 4 x 2 tower
+    layers) and 46 forward, since a feature holder sends its cut from a
+    forward without grad and runs the tower forward again, with grad, in
+    its backward (the vjp the JAX worker takes)."""
+    cfg = get_arch("smollm-360m")
+    K, tl = cfg.vertical.num_clients, cfg.vertical.tower_layers
+    per_pass = cfg.num_layers - tl + K * tl
+    fwd_per_pass = per_pass + K * tl
+    torch.cuda.empty_cache()
+    _, metrics, seconds, launches, peak = train(
+        cfg, LT_STEPS, "cuda", batch=LT_BATCH, seq=LT_SEQ)
+    passes = LT_STEPS + 1
+    expect_launches(launches, {
+        "merge_reduce_kernel": LT_STEPS, "merge_reduce_bwd_kernel": LT_STEPS,
+        "flash_attention_kernel": fwd_per_pass * passes,
+        flash_name(64): fwd_per_pass * passes,
+        **dict.fromkeys(fa.BWD_KERNELS, per_pass * passes)})
+    if metrics.step0_max_dgrad is None or metrics.step0_max_dgrad > 1e-5:
+        raise AssertionError(f"step 0 vs protocol_step: "
+                             f"{metrics.step0_max_dgrad}")
+    tokens = LT_BATCH * LT_SEQ
+    steady = metrics.step_times[1:]
+    log(f"flash split train: {cfg.name} full width, K = {K} avg over "
+        f"threads, {LT_STEPS} steps of {LT_BATCH} x {LT_SEQ} tokens, losses "
+        f"{metrics.losses}, step-0 max |dgrad| vs protocol_step "
+        f"{metrics.step0_max_dgrad:.3e} (<= 1e-5); "
+        f"{len(steady) * tokens / sum(steady):.1f} train tokens/s over "
+        f"steps 1-{LT_STEPS - 1} (step times {metrics.step_times} s; step 0 "
+        f"includes the verification); flash launches per step "
+        f"{fwd_per_pass} forward ({K * tl} of them the towers' forwards "
+        f"again under grad), {per_pass} backward (each of "
+        f"{', '.join(fa.BWD_KERNELS)}); {fwd_per_pass * passes} and "
+        f"{per_pass * passes} in the run with step 0's verification; wall "
+        f"{seconds:.4f} s; "
+        f"max_memory_allocated {peak} bytes | {card}")
+    return launches
+
+
+def flash_train_phase(card: str) -> dict:
+    """Phase 19: (a) the backward kernels against the plain backward, at
+    every instantiation and again at the training shapes (batch 2), (b)
+    the monolithic step, (c) split training and (d) the launcher, all at
+    4096 tokens; returns the launches of (b) and (c) by kernel, and (a)'s
+    and the timing's figures."""
+    t0 = time.perf_counter()
+    checked = check_flash_bwd_kernel()
+    rows = time_flash_bwd(card)
+    total: dict = {}
+    for part in (flash_train_mono(card), flash_train_split(card)):
+        for name, n in part.items():
+            total[name] = total.get(name, 0) + n
+    LAUNCH_DIR.mkdir(parents=True, exist_ok=True)
+    launch_cli(card, ("--arch", "smollm-360m"), transport="inproc",
+               steps=LT_CLI_STEPS, batch=LT_BATCH, seq=LT_SEQ)
+    log(f"flash train: phase 19 took {time.perf_counter() - t0:.1f} s; "
+        f"launches {total}")
+    return {"launches": total, "checked": checked, "rows": rows}
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -5850,6 +6258,8 @@ def main() -> None:
             other_total[k] = other_total.get(k, 0) + n
     moe = moe_phase(card)
     modality = modality_phase(card)
+    flash_train = flash_train_phase(card)
+    flash_launches[64] += flash_train["launches"]["flash_attention_kernel"]
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -5945,7 +6355,18 @@ def main() -> None:
     # checks of phase 16 (a) at D 80,
     # 112 and 128 in f32 are not counted); phase 17's timed shapes ride in
     # the D 128 rows, their launches beside them
-    kernels.append(flash_entry((1, 15, 5, 32768, 64), flash_launches[64]))
+    row64 = flash_entry((1, 15, 5, 32768, 64), flash_launches[64])
+    # phase 19: the forward with its logsumexp (training) beside without
+    # it (serving), at this shape and at the training shapes
+    row64["forward_with_lse"] = [
+        {"shape": list(shape), **{key: flash_train["rows"][
+            "serve" if shape == FLASH_TIME_SHAPES[1] else shape][key]
+            for key in ("fwd_lse_ms", "fwd_lse_device_ms", "fwd_ms",
+                        "fwd_device_ms")}}
+        for shape in [FLASH_TIME_SHAPES[1]] + FLASH_TRAIN_SHAPES]
+    row64["training_launches"] = \
+        flash_train["launches"]["flash_attention_kernel"]
+    kernels.append(row64)
     wide = flash_entry((1, 24, 2, 32768, 128), flash_launches[128]
                        + moe["deepseek_forward"][flash_name(128)])
     wide["other_shapes"] = [flash_entry(shape) for shape in FLASH_MOE_F32]
@@ -6027,6 +6448,44 @@ def main() -> None:
     for entry in bwd_row["other_shapes"]:
         del entry["launches"]
     kernels.append(bwd_row)
+
+    def flash_bwd_entry(shape):
+        row = flash_train["rows"][shape]
+        B, H, Hkv, S, D = shape
+        checked = flash_train["checked"]
+        return {
+            "name": "flash_attention_bwd_dkdv_kernel", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            # the gradient of that kernel's function: the JAX package has
+            # no backward kernel (jax.grad of its plain chunked attention)
+            "replaces": "src/repro/kernels/flash_attention.py:27",
+            "launches": flash_train["launches"][fa.BWD_KERNELS[1]],
+            "max_abs_err": checked["abs"],
+            "max_err_over_largest_entry": checked["rel"][torch.float32],
+            "bf16_max_err_over_largest_entry":
+                checked["rel"][torch.bfloat16],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "fma_bound_ms": row["fma_bound_ms"],
+            "library_ms": row["library_ms"], "device_ms": row["device_ms"],
+            "plain_device_ms": row["plain_device_ms"],
+            "library_max_abs_diff": row["library_max_abs_diff"],
+            "kernels_in_call": {
+                name: flash_train["launches"][name]
+                for name in fa.BWD_KERNELS},
+            "note": "one call of flash_attention_bwd launches the three "
+                    "kernels in order; ms and device_ms are the three "
+                    "together",
+            "shape": [B, H, S, D], "kv_heads": Hkv, "causal": True,
+            "dtype": "float32"}
+
+    # the server's training shape; the towers' rides in it (its launches
+    # are in the count)
+    fbwd = flash_bwd_entry(FLASH_TRAIN_SHAPES[0])
+    fbwd["other_shapes"] = [flash_bwd_entry(FLASH_TRAIN_SHAPES[1])]
+    for entry in fbwd["other_shapes"]:
+        del entry["launches"], entry["kernels_in_call"]
+    kernels.append(fbwd)
     log(f"chip_smoke: all phases passed in "
         f"{time.perf_counter() - t_start:.1f} s")
     log(f"card: {card}")

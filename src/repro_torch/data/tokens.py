@@ -22,20 +22,31 @@ class ZipfMotifStream:
         ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
         p = ranks ** (-alpha)
         self.p = p / p.sum()
+        # rng.choice(vocab, size, p=p) draws rng.random(size) and searches
+        # the normalised cumulative sum of p; it sums the vocab again at
+        # every call (the whole cost of a long sequence, one call per
+        # position), so the sum is taken once here and the draw is made
+        # the same way: the same tokens, bit for bit
+        cdf = self.p.cumsum()
+        self.cdf = cdf / cdf[-1]
         self.motif_prob = motif_prob
         self.motif_len = motif_len
         # deterministic successor table: motifs are fixed chains
         self.successor = self.rng.permutation(vocab_size)
 
+    def _zipf(self, batch: int) -> np.ndarray:
+        """``rng.choice(vocab, size=batch, p=self.p)``, from the CDF."""
+        return self.cdf.searchsorted(self.rng.random(batch), side="right")
+
     def sample(self, batch: int, seq_len: int) -> np.ndarray:
         out = np.empty((batch, seq_len + 1), dtype=np.int32)
-        out[:, 0] = self.rng.choice(self.vocab, size=batch, p=self.p)
+        out[:, 0] = self._zipf(batch)
         in_motif = np.zeros(batch, dtype=np.int32)
         for t in range(1, seq_len + 1):
             start = (in_motif == 0) & (self.rng.random(batch) < self.motif_prob)
             in_motif = np.where(start, self.motif_len,
                                 np.maximum(in_motif - 1, 0))
-            zipf = self.rng.choice(self.vocab, size=batch, p=self.p)
+            zipf = self._zipf(batch)
             chain = self.successor[out[:, t - 1]]
             out[:, t] = np.where(in_motif > 0, chain, zipf)
         return out

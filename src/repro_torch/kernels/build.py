@@ -42,9 +42,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 #: the C entry points and their ctypes signatures: (argtypes, restype)
 SIGNATURES = {
-    # q, k, v, o, strides (12 x int64), dtype, B, H, Hkv, S, D, causal,
-    # device, stream
-    "repro_flash_attention": ([_P, _P, _P, _P, _P] + [_I] * 8 + [_P], _I),
+    # q, k, v, o, lse, strides (12 x int64), dtype, B, H, Hkv, S, D,
+    # causal, device, stream
+    "repro_flash_attention": ([_P] * 6 + [_I] * 8 + [_P], _I),
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, strides (24 x int64),
+    # dtype, B, H, Hkv, S, D, causal, device, stream
+    "repro_flash_attention_bwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
     # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
     # N, Q, device, stream
     "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),

@@ -93,6 +93,11 @@
 //  * The grid's slow axis walks the q tiles from the bottom up, so the
 //    longest causal rows are scheduled first and the short ones fill the
 //    tail.
+//  * Logsumexp.  For training, the wrapper may pass an f32 (B, H, S)
+//    buffer ``lse``: each row's m * ln 2 + ln(l) at the finish, the natural
+//    logsumexp of its scaled, masked scores, which the backward
+//    (flash_attention_bwd.cu) reads to recompute P without a second
+//    softmax.  Serving passes none and writes nothing more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,6 +115,7 @@ constexpr int THREADS = 2 * 128;       // two warpgroups
 constexpr int BLOCK_Q = 2 * WG_ROWS;   // q rows per block
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr unsigned FULL = 0xffffffffu;
 constexpr int MAX_DEVICES = 64;
 
@@ -118,6 +124,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;  // (B, H, S) contiguous, or null: not written
   // batch, head and row strides in elements; the last dimension is dense
   long long sq[3], sk[3], sv[3], so[3];
   int H;      // q heads
@@ -420,6 +427,10 @@ __global__ void __launch_bounds__(THREADS, 1)
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(FULL, l[r], 1);
     l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    // every lane of the quad holds the row's m and l: lane t = 0 writes
+    if (p.lse != nullptr && t == 0 && row + 8 * r < p.S)
+      p.lse[(static_cast<long long>(b) * p.H + h) * p.S + row + 8 * r] =
+          m[r] * LN2 + logf(l[r]);
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -472,7 +483,8 @@ cudaError_t launch(const Params& p, int B, int D, int device,
 
 extern "C" {
 
-// q, o: (B, H, S, D); k, v: (B, Hkv, S, D).  strides: 12 int64 values, the
+// q, o: (B, H, S, D); k, v: (B, Hkv, S, D); lse: (B, H, S) f32 contiguous,
+// or null (not written).  strides: 12 int64 values, the
 // batch, head and row strides of q, k, v and o in that order, each a
 // multiple of 4 elements, with 16-byte aligned starts.  dtype: 0 f32,
 // 1 bf16 (all four tensors).  D: 32, 64, 80, 112 or 128.  Launches on
@@ -481,9 +493,9 @@ extern "C" {
 // ``device`` is the card that ``stream`` and the tensors belong to: this
 // library carries its own CUDA runtime, whose current device is set here.
 int repro_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, const long long* strides, int dtype, int B,
-                          int H, int Hkv, int S, int D, int causal,
-                          int device, void* stream) {
+                          void* o, float* lse, const long long* strides,
+                          int dtype, int B, int H, int Hkv, int S, int D,
+                          int causal, int device, void* stream) {
   if (B < 1 || H < 1 || Hkv < 1 || H % Hkv || S < 1 ||
       (S + BLOCK_Q - 1) / BLOCK_Q > 65535)
     return cudaErrorInvalidValue;
@@ -494,6 +506,7 @@ int repro_flash_attention(const void* q, const void* k, const void* v,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   for (int i = 0; i < 3; ++i) {
     p.sq[i] = strides[i];
     p.sk[i] = strides[3 + i];

@@ -1,5 +1,5 @@
-"""The flash-attention kernel (CUDA C++, ``csrc/flash_attention.cu``) and
-its wrapper.
+"""The flash-attention kernels (CUDA C++, ``csrc/flash_attention.cu``
+forward and ``csrc/flash_attention_bwd.cu`` backward) and their wrappers.
 
 ``flash_attention_kernel`` replaces the JAX package's Pallas kernel
 ``_flash_kernel`` (``src/repro/kernels/flash_attention.py:27``, launched by
@@ -8,13 +8,24 @@ online softmax in f32, output in the input's type.  It reads kv head
 ``h // (H // Hkv)`` for q head ``h`` (GQA without repeating the kv heads)
 and takes strided views, so the model passes its ``(B, S, H, D)``
 activations transposed, with no copy.  The source says what bounds it on
-an H100 and how its design answers that.
+an H100 and how its design answers that.  With ``return_lse=True`` it also
+writes each row's logsumexp, which the backward reads.
 
-:func:`flash_attention` takes CUDA tensors only and raises on anything the
-kernel does not take; the plain version is
-:func:`repro_torch.kernels.ref.flash_attention`, and
-:func:`repro_torch.kernels.ops.flash_attention` dispatches by device.  The
-library is built by :mod:`repro_torch.kernels.build` at the first launch.
+The backward, ``flash_attention_bwd_preprocess_kernel``,
+``flash_attention_bwd_dkdv_kernel`` and ``flash_attention_bwd_dq_kernel``
+(one launch each per call of :func:`flash_attention_bwd`), replaces no
+Pallas kernel: the JAX package differentiates its plain chunked attention.
+It is deterministic (no atomics) and takes the forward's layouts, head
+dims and dtypes.
+
+:func:`flash_attention` and :func:`flash_attention_bwd` take CUDA tensors
+only and raise on anything the kernels do not take; the plain versions
+are :func:`repro_torch.kernels.ref.flash_attention` (and
+``flash_attention_lse``) and :func:`repro_torch.kernels.ref.
+flash_attention_bwd`, and :func:`repro_torch.kernels.ops.flash_attention`
+dispatches by device (through :class:`repro_torch.kernels.ops.
+FlashAttention` when its inputs require grad).  The library is built by
+:mod:`repro_torch.kernels.build` at the first launch.
 """
 from __future__ import annotations
 
@@ -40,16 +51,28 @@ ALIGN_ELEMS = 4
 launches = {"flash_attention_kernel": 0}
 launches_by_instance = {(D, dtype): 0 for D in HEAD_DIMS
                         for dtype in DTYPE_CODES}
+#: the backward's three kernels, each counted once per launch, where
+#: :func:`flash_attention_bwd` launches them; and the backward's calls by
+#: (head dim, dtype)
+BWD_KERNELS = ("flash_attention_bwd_preprocess_kernel",
+               "flash_attention_bwd_dkdv_kernel",
+               "flash_attention_bwd_dq_kernel")
+bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
+bwd_launches_by_instance = dict.fromkeys(launches_by_instance, 0)
 
 
 def reset_launches() -> None:
-    for counts in (launches, launches_by_instance):
+    for counts in (launches, launches_by_instance, bwd_launches,
+                   bwd_launches_by_instance):
         for key in counts:
             counts[key] = 0
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           **same_as_q: torch.Tensor) -> None:
+    """q, k and v as the kernels take them; ``same_as_q`` names further
+    tensors of q's shape (the backward's o and do), checked likewise."""
+    for name, t in (("q", q), ("k", k), ("v", v), *same_as_q.items()):
         if not t.is_cuda:
             raise ValueError(f"flash_attention kernel: {name} is on "
                              f"{t.device}, the kernel takes CUDA tensors only")
@@ -70,6 +93,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                 f"{ALIGN_ELEMS} and a 16-byte aligned start; got strides "
                 f"{t.stride()}")
     B, H, S, D = q.shape
+    for name, t in same_as_q.items():
+        if t.shape != q.shape:
+            raise ValueError(f"flash_attention kernel: {name} must have q's "
+                             f"shape {tuple(q.shape)}, got "
+                             f"{tuple(t.shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention kernel: head dim {D} (takes "
                          f"{HEAD_DIMS})")
@@ -87,26 +115,79 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                          "is outside the launch grid")
 
 
+def _model_layout(B: int, S: int, H: int, D: int, like: torch.Tensor):
+    """An empty ``(B, H, S, D)`` tensor as a view of ``(B, S, H, D)``
+    memory, what the model reshapes next."""
+    return torch.empty((B, S, H, D), dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool) -> torch.Tensor:
+                    causal: bool, return_lse: bool = False):
     """Launch the kernel: q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)``,
     any strides with a contiguous last dimension.  Returns ``(B, H, S, D)``
     in q's dtype, as a view of ``(B, S, H, D)`` memory (what the model
-    reshapes next).  Launches on the current stream without synchronizing;
-    raises on anything the kernel does not take and when the launch is
-    refused.  There is no fallback."""
+    reshapes next); with ``return_lse`` also each row's logsumexp of its
+    scaled, masked scores, f32 ``(B, H, S)``: ``(out, lse)``.  Launches on
+    the current stream without synchronizing; raises on anything the
+    kernel does not take and when the launch is refused.  There is no
+    fallback."""
     _check(q, k, v)
     B, H, S, D = q.shape
-    out = torch.empty((B, S, H, D), dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
+    out = _model_layout(B, S, H, D, q)
+    lse = torch.empty((B, H, S), dtype=torch.float32,
+                      device=q.device) if return_lse else None
     strides = (ctypes.c_longlong * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     stream = build.current_stream(q.device.index)
     code = build.entry("repro_flash_attention")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        ctypes.addressof(strides), DTYPE_CODES[q.dtype], B, H, k.shape[1], S,
-        D, int(bool(causal)), q.device.index, stream)
+        None if lse is None else lse.data_ptr(), ctypes.addressof(strides),
+        DTYPE_CODES[q.dtype], B, H, k.shape[1], S, D, int(bool(causal)),
+        q.device.index, stream)
     build.check(code, "flash_attention_kernel")
     launches["flash_attention_kernel"] += 1
     launches_by_instance[(D, q.dtype)] += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool):
+    """Launch the backward: the forward's q ``(B, H, S, D)``, k and v
+    ``(B, Hkv, S, D)``, its output ``o`` and logsumexp ``lse`` (f32
+    ``(B, H, S)``, contiguous) and the output's gradient ``do`` (q's
+    shape), every tensor but lse in one dtype with a contiguous last
+    dimension.  Returns ``(dq, dk, dv)`` in that dtype, each a view of
+    ``(B, S, heads, D)`` memory, as the forward's output.  Allocates the
+    outputs and the f32 ``(B, H, S)`` scratch for Delta, launches the
+    three kernels on the current stream without synchronizing, and raises
+    on anything they do not take and when a launch is refused.  There is
+    no fallback."""
+    _check(q, k, v, o=o, do=do)
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    if not lse.is_cuda or lse.device != q.device or \
+            lse.dtype != torch.float32 or tuple(lse.shape) != (B, H, S) or \
+            not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd kernel: lse must be a "
+                         f"contiguous float32 ({B}, {H}, {S}) tensor on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} "
+                         f"on {lse.device}")
+    dq = _model_layout(B, S, H, D, q)
+    dk, dv = _model_layout(B, S, Hkv, D, q), _model_layout(B, S, Hkv, D, q)
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    stream = build.current_stream(q.device.index)
+    code = build.entry("repro_flash_attention_bwd")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
+        DTYPE_CODES[q.dtype], B, H, Hkv, S, D, int(bool(causal)),
+        q.device.index, stream)
+    build.check(code, "flash_attention_bwd kernels")
+    for name in BWD_KERNELS:
+        bwd_launches[name] += 1
+    bwd_launches_by_instance[(D, q.dtype)] += 1
+    return dq, dk, dv

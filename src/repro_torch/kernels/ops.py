@@ -10,8 +10,13 @@ calls.
 :class:`SSDChunk` does the same for the SSD chunk terms: the CUDA
 forward and backward kernels on CUDA, the plain versions on the CPU (the
 Pallas SSD kernel has no backward; the JAX package differentiates its
-plain scan).  :func:`flash_attention` is forward-only, as the Pallas
-kernel is.
+plain scan).  :class:`FlashAttention` does the same for attention: the
+flash kernel forward (writing each row's logsumexp) and the hand-written
+flash backward kernels on CUDA, ``ref.flash_attention_lse`` and
+``ref.flash_attention_bwd`` on the CPU (the Pallas flash kernel has no
+backward either; the JAX model differentiates its plain chunked
+attention).  :func:`flash_attention` takes it only when an input
+requires grad; serving launches the forward alone.
 """
 from __future__ import annotations
 
@@ -97,6 +102,45 @@ class SSDChunk(torch.autograd.Function):
         return dx, da, dB, dC, None
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention over q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)``,
+    differentiable on every device: ``flash_attention_kernel`` with its
+    logsumexp forward and the three ``flash_attention_bwd_*`` kernels
+    backward on CUDA, ``ref.flash_attention_lse`` and
+    ``ref.flash_attention_bwd`` on the CPU.  Saves q, k, v, the output and
+    the logsumexp (f32 ``(B, H, S)``); the backward recomputes the
+    scores."""
+
+    @staticmethod
+    def forward(ctx, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                causal: bool) -> torch.Tensor:
+        if q.is_cuda:
+            o, lse = flash_kernel.flash_attention(q, k, v, causal=causal,
+                                                  return_lse=True)
+        else:
+            o, lse = ref.flash_attention_lse(q, k, v, causal=causal)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do: torch.Tensor):
+        q, k, v, o, lse = ctx.saved_tensors
+        # the gradient arrives in the output's dtype, possibly strided; the
+        # kernel takes a contiguous last dimension and 16-byte rows
+        do = do.to(q.dtype)
+        if do.is_cuda:
+            if do.stride(-1) != 1 or do.data_ptr() % 16 or any(
+                    s % flash_kernel.ALIGN_ELEMS for s in do.stride()[:-1]):
+                do = do.contiguous()
+            dq, dk, dv = flash_kernel.flash_attention_bwd(
+                q, k, v, o, lse, do, causal=ctx.causal)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd(q, k, v, o, lse, do,
+                                                 causal=ctx.causal)
+        return dq, dk, dv, None
+
+
 def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
                strategy: str = "avg", use_kernel: bool = True) -> torch.Tensor:
     """Differentiable merge of a ``(K, B, D)`` stack through
@@ -117,22 +161,17 @@ def merge_pool(stacked: torch.Tensor, live: Optional[torch.Tensor] = None, *,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool) -> torch.Tensor:
     """Attention over q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)``: the
-    plain version for CPU tensors, the CUDA kernel for CUDA tensors.
-
-    The kernel has no backward (nor has the Pallas kernel: the JAX model
-    differentiates its plain chunked path), so on CUDA a call whose inputs
-    require grad raises rather than return a result that autograd cannot
-    follow."""
-    if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal)
-    if q.device.type != "cuda":
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors.  A
+    call whose inputs require grad goes through :class:`FlashAttention`
+    (on CUDA: the forward with its logsumexp, then the backward kernels);
+    one without (serving) runs the forward alone."""
+    if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "flash_attention: the CUDA kernel is forward-only; training past "
-            "2048 tokens (a backward kernel) comes with a later training "
-            "slice of the port")
+        return FlashAttention.apply(q, k, v, causal)
+    if q.device.type == "cpu":
+        return ref.flash_attention(q, k, v, causal=causal)
     return flash_kernel.flash_attention(q, k, v, causal=causal)
 
 

@@ -83,13 +83,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     causal.  Rows are taken ``FLASH_ROWS`` at a time, each block an exact
     full-row softmax; the JAX package's ``ref.flash_attention`` with the
     kv heads repeated."""
+    return _flash_rows(q, k, v, causal, with_lse=False)[0]
+
+
+def flash_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True):
+    """:func:`flash_attention` and each row's logsumexp of its scaled,
+    masked scores: ``(o, lse)``, lse f32 ``(B, H, S)`` (what the kernel
+    writes for its backward)."""
+    return _flash_rows(q, k, v, causal, with_lse=True)
+
+
+def _flash_rows(q, k, v, causal, with_lse):
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     kf = k.to(torch.float32).repeat_interleave(rep, dim=1)
     vf = v.to(torch.float32).repeat_interleave(rep, dim=1)
     scale = 1.0 / D ** 0.5
     cols = torch.arange(S, device=q.device)
-    blocks = []
+    blocks, lses = [], []
     for r0 in range(0, S, FLASH_ROWS):
         qb = q[:, :, r0:r0 + FLASH_ROWS].to(torch.float32)
         s = torch.einsum("bhqd,bhkd->bhqk", qb, kf) * scale
@@ -98,7 +110,56 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             s = s.masked_fill(rows[:, None] < cols[None, :], -1e30)
         p = torch.softmax(s, dim=-1)
         blocks.append(torch.einsum("bhqk,bhkd->bhqd", p, vf).to(q.dtype))
-    return torch.cat(blocks, dim=2)
+        if with_lse:
+            lses.append(torch.logsumexp(s, dim=-1))
+    return (torch.cat(blocks, dim=2),
+            torch.cat(lses, dim=2) if with_lse else None)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+                        *, causal: bool = True):
+    """The backward of :func:`flash_attention` written out, no autograd
+    inside (the plain twin of ``kernels.flash_attention.
+    flash_attention_bwd``): the forward's q ``(B, H, S, D)``, k and v
+    ``(B, Hkv, S, D)``, its output ``o``, its logsumexp ``lse`` f32
+    ``(B, H, S)`` and the output's gradient ``do`` -> ``(dq, dk, dv)`` in
+    the inputs' shapes and dtype, computed in f32, ``FLASH_ROWS`` q rows
+    at a time.  With ``P = exp(Q K^T / sqrt(D) - lse)`` (0 where masked)
+    and ``Delta = rowsum(dO o O)``:
+
+      dV = P^T dO,   dS = P o (dO V^T - Delta),
+      dQ = dS K / sqrt(D),   dK = dS^T Q / sqrt(D),
+
+    dk and dv summed over each kv head's group of q heads."""
+    B, H, S, D = q.shape
+    Hkv = k.shape[1]
+    rep = H // Hkv
+    f32 = torch.float32
+    kf = k.to(f32).repeat_interleave(rep, dim=1)
+    vf = v.to(f32).repeat_interleave(rep, dim=1)
+    scale = 1.0 / D ** 0.5
+    delta = torch.sum(do.to(f32) * o.to(f32), dim=-1)
+    cols = torch.arange(S, device=q.device)
+    dq = torch.empty((B, H, S, D), dtype=f32, device=q.device)
+    dk = torch.zeros((B, H, S, D), dtype=f32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for r0 in range(0, S, FLASH_ROWS):
+        r1 = min(r0 + FLASH_ROWS, S)
+        qb = q[:, :, r0:r1].to(f32)
+        dob = do[:, :, r0:r1].to(f32)
+        s = torch.einsum("bhqd,bhkd->bhqk", qb, kf) * scale
+        p = torch.exp(s - lse[:, :, r0:r1, None].to(f32))
+        if causal:
+            p = p.masked_fill(cols[r0:r1, None] < cols[None, :], 0.0)
+        dv += torch.einsum("bhqk,bhqd->bhkd", p, dob)
+        dp = torch.einsum("bhqd,bhkd->bhqk", dob, vf)
+        ds = p * (dp - delta[:, :, r0:r1, None])
+        dq[:, :, r0:r1] = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+        dk += torch.einsum("bhqk,bhqd->bhkd", ds, qb) * scale
+    dk = dk.reshape(B, Hkv, rep, S, D).sum(dim=2)
+    dv = dv.reshape(B, Hkv, rep, S, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def ssd_chunk(x: torch.Tensor, a: torch.Tensor, Bm: torch.Tensor,

@@ -4,9 +4,12 @@ attention and cached one-token decode.
 Prefill follows the JAX package's switch: the dense branch while
 ``S * Skv <= FLASH_THRESHOLD**2``, the blocked flash path past it.  The
 flash path is the hand-written CUDA kernel for CUDA tensors
-(:func:`repro_torch.kernels.ops.flash_attention`) and the plain chunked
-online softmax (:func:`chunked_flash_attention`, differentiable through
-autograd) on the CPU or when a caller asks for the plain version.
+(:func:`repro_torch.kernels.ops.flash_attention`), differentiable: when
+the inputs require grad (training) the forward also writes each row's
+logsumexp and autograd runs the hand-written backward kernels.  On the
+CPU, or when a caller asks for the plain version, it is the plain chunked
+online softmax (:func:`chunked_flash_attention`, with the JAX package's
+structure, differentiable through autograd).
 Cross attention (``kv_override``: K, V and their positions from the
 encoder, no RoPE on k) and a sliding ``window`` take the same switch on
 ``S * Skv``; past it on the card two cases have no kernel and raise by
@@ -219,8 +222,10 @@ def attention_apply(
     ``QK_NORM_PREFILL_EPS``.  ``kv_override=(k, v, kv_positions)`` is
     cross attention: q from ``x``, K and V as given (``(B, Skv, Kv,
     hd)``), RoPE on q only.  ``window`` keeps the keys with ``qpos - kpos
-    < window``.  ``use_kernel=False`` takes the plain chunked path past
-    the threshold on any device (comparison runs)."""
+    < window``.  Past the threshold on CUDA the flash kernels run forward
+    and, under autograd, backward.  ``use_kernel=False`` takes the plain
+    chunked path past the threshold on any device (comparison runs; under
+    autograd it keeps every block's scores for the backward)."""
     B, S, _ = x.shape
     Skv = S if kv_override is None else kv_override[0].shape[1]
     long = S * Skv > FLASH_THRESHOLD * FLASH_THRESHOLD

@@ -1,6 +1,6 @@
 """The port's kernels — the four merge kernels, the flash-attention
-kernel and the SSD chunk kernel, all CUDA C++ — against their plain
-PyTorch versions.
+kernel forward and backward and the SSD chunk kernel, all CUDA C++ —
+against their plain PyTorch versions.
 
 The kernels run only on a CUDA card: tests that launch them carry the
 ``cuda`` marker and skip without one.  This file imports neither jax nor
@@ -13,8 +13,9 @@ Tolerances: 1e-5 in f32, 2e-2 in bf16 forward (the kernels accumulate in
 f32, the plain forward in the input dtype), 5e-2 in bf16 backward (both
 compute in f32; a gradient is rounded to bf16 once more than the merged
 value it came from).  Flash attention: 5e-4 in f32 and 3e-2 in bf16, the
-JAX package's own tolerances for its Pallas kernel; the SSD chunk kernel:
-3e-4 in f32, likewise.
+JAX package's own tolerances for its Pallas kernel; the flash backward
+within 1e-4 (f32) and 2e-2 (bf16) of the call's largest plain gradient;
+the SSD chunk kernel: 3e-4 in f32, likewise.
 """
 import pytest
 import torch
@@ -552,20 +553,35 @@ def test_flash_kernel_matches_chunked_model_path_on_card():
 
 @pytest.mark.cuda
 def test_flash_kernel_refusals_on_card():
-    """No silent fallback on the card: grad-requiring inputs, positions
-    other than one contiguous run ``p0 + arange(S)`` (the vlm text tower
-    runs at ``Sv + arange(S)``), a window, a cross attention whose query
-    and key lengths differ, and anything the kernel does not take
-    raise."""
+    """No silent fallback on the card: positions other than one contiguous
+    run ``p0 + arange(S)`` (the vlm text tower runs at ``Sv +
+    arange(S)``), a window, a cross attention whose query and key lengths
+    differ, and anything the kernels do not take raise.  Grad-requiring
+    inputs train through the backward kernels; under ``no_grad`` the
+    forward runs alone."""
     _needs_card()
     q = torch.randn((1, 4, 100, 64), device="cuda")
     k = torch.randn((1, 2, 100, 64), device="cuda")
-    with pytest.raises(NotImplementedError, match="forward-only"):
-        ops.flash_attention(q.requires_grad_(True), k, k, causal=True)
+    flash_module.reset_launches()
+    out = ops.flash_attention(q.requires_grad_(True), k, k, causal=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
     q = q.detach()
     with torch.no_grad():
-        ops.flash_attention(q.requires_grad_(True), k, k, causal=True)
+        assert ops.flash_attention(q.requires_grad_(True), k, k,
+                                   causal=True).grad_fn is None
+    assert flash_module.launches["flash_attention_kernel"] == 2
+    assert all(n == 0 for n in flash_module.bwd_launches.values())
     q = q.detach()
+    lse = torch.zeros((1, 4, 100), device="cuda")
+    with pytest.raises(ValueError, match="lse"):
+        flash_module.flash_attention_bwd(q, k, k, q, lse[..., :50], q,
+                                         causal=True)
+    with pytest.raises(ValueError, match="q's shape"):
+        flash_module.flash_attention_bwd(q, k, k, q[:, :, :50], lse, q,
+                                         causal=True)
+    with pytest.raises(TypeError, match="dtype"):
+        flash_module.flash_attention_bwd(q, k, k, q, lse, q.bfloat16(),
+                                         causal=True)
     with pytest.raises(ValueError, match="head dim"):
         flash_module.flash_attention(q[..., :48], k[..., :48], k[..., :48],
                                      causal=True)
@@ -605,6 +621,138 @@ def test_flash_kernel_refusals_on_card():
             params, x, positions=start + torch.arange(2049, device="cuda"),
             **kw)
         assert torch.isfinite(out).all()
+
+
+# ---------------------------------------------------------------------------
+# the flash backward
+# ---------------------------------------------------------------------------
+
+# dq, dk and dv against the plain backward: the largest |kernel - plain|
+# over the call's largest plain gradient entry (at S = 1 dq and dk are
+# rounding noise about an exact 0: P = 1 makes dS = dP - Delta)
+FLASH_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+FLASH_BWD_EDGE_SEQS = [1, 63, 64, 65, 2304]
+
+
+def _flash_bwd_case(shape, dtype, gen, causal):
+    """The backward's arguments: q, k, v in the model's layout, the
+    kernel forward's output and logsumexp, and a random dO."""
+    q, k, v = _qkv(shape, dtype, gen, "bshd")
+    o, lse = flash_module.flash_attention(q, k, v, causal=causal,
+                                          return_lse=True)
+    do = torch.randn(o.shape, generator=gen, device="cuda").to(dtype)
+    return q, k, v, o, lse, do
+
+
+def _flash_bwd_error(got, want) -> float:
+    scale = max(float(w.float().abs().max()) for w in want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.isfinite(g.float()).all()
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want)) / scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 112, 128])
+@pytest.mark.parametrize("s", FLASH_BWD_EDGE_SEQS)
+def test_flash_bwd_kernel_matches_plain_version_on_card(s, d):
+    """The backward kernels against ref.flash_attention_bwd at every head
+    dim and dtype, at the 64-row tiles' edges and at 2304: groups of 1 and
+    3 q heads per kv head, causal and full; one launch of each kernel per
+    call, counted by instance."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(s + d)
+    for shape in ((2, 2, 2, s, d), (1, 6, 2, s, d)):
+        for causal in (True, False):
+            for dtype in (torch.float32, torch.bfloat16):
+                args = _flash_bwd_case(shape, dtype, gen, causal)
+                before = dict(flash_module.bwd_launches)
+                before_i = flash_module.bwd_launches_by_instance[(d, dtype)]
+                got = flash_module.flash_attention_bwd(*args, causal=causal)
+                assert all(flash_module.bwd_launches[n] == before[n] + 1
+                           for n in flash_module.BWD_KERNELS)
+                assert flash_module.bwd_launches_by_instance[(d, dtype)] == \
+                    before_i + 1
+                want = ref.flash_attention_bwd(*args, causal=causal)
+                torch.cuda.synchronize()
+                err = _flash_bwd_error(got, want)
+                assert err <= FLASH_BWD_REL[dtype], \
+                    f"{shape} causal={causal} {dtype}: {err:.3e}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic_on_card(dtype):
+    """No atomics: two launches on the same inputs give the same bits, at
+    the server's shape of smollm-360m (15 q / 5 kv heads)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    args = _flash_bwd_case((1, 15, 5, 2304, 64), dtype, gen, True)
+    first = flash_module.flash_attention_bwd(*args, causal=True)
+    second = flash_module.flash_attention_bwd(*args, causal=True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 80, 112, 128])
+def test_flash_kernel_lse_matches_plain_version_on_card(d):
+    """The forward kernel's logsumexp against ref.flash_attention_lse, f32
+    and bf16, causal and full; the output beside it equals the output
+    without it, bit for bit."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for S in (1, 65, 2304):
+        for dtype in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                q, k, v = _qkv((1, 6, 2, S, d), dtype, gen, "bshd")
+                o, lse = flash_module.flash_attention(
+                    q, k, v, causal=causal, return_lse=True)
+                plain = flash_module.flash_attention(q, k, v, causal=causal)
+                _, want = ref.flash_attention_lse(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                assert lse.dtype == torch.float32 and \
+                    lse.shape == (1, 6, S)
+                assert torch.equal(o, plain)
+                torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_grad_requiring_flash_attention_launches_the_backward_on_card():
+    """Past the threshold, attention_apply under autograd runs the flash
+    forward once and the three backward kernels once, never the plain
+    version, and its gradients equal those of the plain chunked path
+    (use_kernel=False) on the same card."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    d_model, H, Hkv, hd, S = 96, 3, 1, 32, 2304
+    params = {name: (torch.randn(shape, generator=gen, device="cuda") * 0.1
+                     ).requires_grad_(True)
+              for name, shape in (("wq", (d_model, H * hd)),
+                                  ("wk", (d_model, Hkv * hd)),
+                                  ("wv", (d_model, Hkv * hd)),
+                                  ("wo", (H * hd, d_model)))}
+    x = torch.randn((1, S, d_model), generator=gen, device="cuda")
+    w = torch.randn((1, S, d_model), generator=gen, device="cuda")
+    kw = dict(n_heads=H, n_kv_heads=Hkv, head_dim=hd)
+    leaves = list(params.values())
+    flash_module.reset_launches()
+    out, _ = attn_lib.attention_apply(params, x, **kw)
+    got = torch.autograd.grad((out * w).sum(), leaves)
+    assert flash_module.launches["flash_attention_kernel"] == 1
+    assert flash_module.bwd_launches == dict.fromkeys(
+        flash_module.BWD_KERNELS, 1)
+    assert flash_module.bwd_launches_by_instance[(hd, torch.float32)] == 1
+    plain, _ = attn_lib.attention_apply(params, x, use_kernel=False, **kw)
+    want = torch.autograd.grad((plain * w).sum(), leaves)
+    assert flash_module.launches["flash_attention_kernel"] == 1
+    assert flash_module.bwd_launches == dict.fromkeys(
+        flash_module.BWD_KERNELS, 1)
+    for g, p in zip(got, want):
+        torch.testing.assert_close(g, p, rtol=1e-3, atol=1e-3 * float(
+            p.abs().max()))
 
 
 # ---------------------------------------------------------------------------
