@@ -36,7 +36,7 @@ smollm-360m (``chip_smoke.py``'s phase 13): ``prefill_tokens`` of its
 batch 1 and at batch 32, as ``batched_throughput_probe`` times them,
 after an unprofiled warm-up.  Last, ``longtrain``: the smollm training
 run at ``chip_smoke.py``'s phase 19 (c) shape, 2 x 4096 tokens a step,
-2 steps, with the flash forward's and the three flash backward kernels'
+2 steps, with the flash forward's and the four flash backward kernels'
 shares.  Every run also prints the f32 GEMMs' share (kernels named
 ``*gemm*``: cuBLAS and CUTLASS).
 """
@@ -98,8 +98,11 @@ def profiled(fn, card: str, label: str, describe, host_ops=()) -> None:
                     reverse=True)[:TOP]:
         smoke.log(f"[{label}]   host self {e.self_cpu_time_total / 1e3:10.3f}"
                   f" ms {e.count:7d}x  {e.key[:90]}")
-    for name in ("flash_attention_kernel", "flash_attention_bwd_preprocess",
-                 "flash_attention_bwd_dkdv", "flash_attention_bwd_dq",
+    for name in ("flash_attention_kernel",
+                 "flash_attention_bwd_preprocess_kernel",
+                 "flash_attention_bwd_dkdv_kernel",
+                 "flash_attention_bwd_reduce_kernel",
+                 "flash_attention_bwd_dq_kernel",
                  "ssd_chunk_kernel", "ssd_chunk_bwd_kernel",
                  "ssd_chunk_bwd_reduce_kernel", "gemm"):
         mine = [e for e in kernels if name in e.key.lower()]

@@ -33,7 +33,7 @@ forward, cross prefill and decode and its split training over mel-band
 towers, full-width internvl2-26b's forward in bf16, vision prefill and
 decode, and its split training through the sequence-concat merge, and
 training past 2048 tokens: the hand-written flash backward kernels
-(CUDA C++, f32 FMA) behind a differentiable attention, a monolithic
+(CUDA C++, 3xTF32 wgmma) behind a differentiable attention, a monolithic
 step and split training of full-width smollm-360m at 4096 tokens.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
@@ -393,10 +393,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    step 0 verified at 1e-5, the ledger = the byte models.  Phase 2 also
    holds and times the merge kernels at (2, 12000, 384), phase 5 flash
    at (48 / 8, 4096) and (48 / 8, 3072), D = 128, in bf16.
-19. Training past 2048 tokens.  (a) The flash backward's three kernels
+19. Training past 2048 tokens.  (a) The flash backward's four kernels
    (``flash_attention_bwd_preprocess_kernel``, ``_dkdv_kernel``,
-   ``_dq_kernel``, built with the library in phase 2; their ptxas
-   reports printed, a spill fails) at every instantiation, D 32-128 x
+   ``_reduce_kernel``, ``_dq_kernel``, built with the library in phase 2;
+   their ptxas reports printed, a spill or a C7511, C7512, C7515 or C7520
+   note fails, and so does an instantiation of dkdv or dq without HGMMA in
+   its SASS; the launch plan printed at the training shapes) at every
+   instantiation, D 32-128 x
    f32 / bf16, at (1, 6 q / 2 kv, 2304, D), causal and full, against
    ``ref.flash_attention_bwd`` on the forward kernel's output and
    logsumexp: f32 dq, dk and dv within 1e-4 of each gradient's largest
@@ -405,8 +408,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    bf16).  Timed at smollm-360m's training shapes, server (2, 15 / 5,
    4096, 64) and towers (2, 3 / 1, 4096, 64): the kernels per call and
    on the device, the plain backward, SDPA's memory-efficient backward
-   (kv heads repeated) per call, the bound (10 D flops per attended pair
-   at 3xTF32, the f32-FMA figure beside), and the forward with and
+   (kv heads repeated) per call and on the device, the bound (10 D flops
+   per attended pair at 3xTF32, the design's 7-product floor and the
+   f32-FMA figure beside), and the forward with and
    without its logsumexp there and at (1, 15 / 5, 32768, 64).  (b)
    Full-width smollm-360m cut to 4 layers (2 tower + 2 server), one
    ``make_train_step`` at 1 x 4096 on the kernels against
@@ -764,9 +768,9 @@ FLASH_VLM_BF16 = [(1, 48, 8, 4096, 128), (1, 48, 8, 3072, 128)]
 # phase 19, training past 2048 tokens: the flash backward at every
 # instantiation (head dim x dtype) at 2304 tokens, groups of 3 (6 q / 2 kv
 # heads), against the plain backward, each gradient within these shares
-# of its largest plain entry (f32: the kernel's f32 FMAs against
-# cuBLAS's f32 products, summed in other orders; bf16: one bf16 rounding
-# of each output, 2^-8 of its size, beside it)
+# of its largest plain entry (f32: the kernels' 3xTF32 products, ~22
+# bits, against cuBLAS's f32 products, summed in other orders; bf16: one
+# bf16 rounding of each output, 2^-8 of its size, beside it)
 FLASH_BWD_S = 2304
 FLASH_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # the forward's logsumexp against the plain one (absolute: the scores'
@@ -796,7 +800,7 @@ def reset_launches() -> None:
 
 
 def read_launches() -> dict:
-    """Every kernel's count (the flash backward's three kernels each
+    """Every kernel's count (the flash backward's four kernels each
     once per backward call), and the flash kernel's again by head dim
     (both dtypes), as ``flash_attention_kernel[D=d]``, and by bf16
     instantiation, as ``flash_attention_kernel[D=d,bf16]``."""
@@ -5878,14 +5882,49 @@ def check_flash_bwd_kernel() -> dict:
     tokens, causal and full, against ref.flash_attention_bwd; the
     forward's logsumexp against ref.flash_attention_lse; two launches
     bit-identical at the server's training shape.  Fails first on a
-    spill.  Returns the worst share of each gradient's largest entry by
-    dtype and the worst f32 |error|."""
+    spill, a ptxas note that the wgmmas are serialized, or an
+    instantiation of dkdv or dq without HGMMA in its SASS; prints the
+    launch plan at the training shapes.  Returns the worst share of each
+    gradient's largest entry by dtype and the worst f32 |error|."""
     for kernel in fa.BWD_KERNELS:
         log(f"flash bwd: {kernel} ptxas: {ptxas_report(kernel)}")
         counts = _ptxas_counts(kernel)
         if not counts or any(spill for _, spill in counts.values()):
             raise AssertionError(f"{kernel}: no ptxas report, or a spill: "
                                  f"{counts}")
+    notes = {}
+    for line in fa.build.library_path().with_suffix(".log").read_text(
+            ).splitlines():
+        code = re.search(r"\((C75\d\d)\)", line)
+        if code and "flash_attention_bwd" in line:
+            notes[code[1]] = notes.get(code[1], 0) + 1
+    log(f"flash bwd: ptxas notes on wgmma by code (C7511, C7512, C7515 and "
+        f"C7520: the wgmmas are serialized): {notes}")
+    if any(notes.get(code) for code in ("C7511", "C7512", "C7515", "C7520")):
+        raise AssertionError(f"flash bwd kernels: ptxas serialized their "
+                             f"wgmmas: {notes}")
+    for kernel in fa.BWD_KERNELS[1::2]:  # dkdv and dq
+        counts = tensor_core_instructions(kernel)
+        if counts is None:
+            log("flash bwd: SASS not read: no cuobjdump in the CUDA toolkit "
+                "or in Triton's package")
+            continue
+        log(f"flash bwd: HGMMA instructions in the SASS of each "
+            f"{kernel} instantiation: {sorted(counts.values())}")
+        expected = len(fa.HEAD_DIMS) * len(fa.DTYPE_CODES)
+        if len(counts) != expected or not all(counts.values()):
+            raise AssertionError(f"{kernel}: {len(counts)} instantiations "
+                                 f"(expected {expected}), some without "
+                                 f"tensor-core instructions: {counts}")
+    for shape in FLASH_TRAIN_SHAPES:
+        plan = fa.bwd_plan(*shape, torch.float32, torch.device("cuda", 0))
+        log(f"flash bwd plan at {shape} f32 on {plan['sms']} SMs: dkdv and "
+            f"dq each {plan['blocks']} blocks of {plan['block_rows']} rows "
+            f"({plan['waves']:.2f} waves, the longest {plan['longest_tiles']} "
+            f"tiles of {plan['tile_rows']} rows; {plan['dkdv_smem']} and "
+            f"{plan['dq_smem']} B of shared memory), the reduce "
+            f"{plan['reduce_blocks']} blocks summing "
+            f"{plan['heads_per_sum']} heads a kv head")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     worst_abs, worst_lse, n = 0.0, 0.0, 0
@@ -5944,23 +5983,28 @@ def flash_bwd_bound(B, H, Hkv, S, D, causal=True) -> tuple:
     products per attended pair (Q K^T, dO V^T, P^T dO, dS^T Q, dS K: 10 D
     flops), each in f32 as three TF32 products at the tensor cores' dense
     TF32 rate, vs the bytes (q, k, v, o, dO and lse read once, dq, dk, dv
-    written once).  Also the f32-FMA figure and the flops."""
+    written once).  Also the f32-FMA figure, the flops and the design's
+    own floor: seven products a pair (dq recomputes S and dP), 7/5 of the
+    operations' time."""
     pairs = S * (S + 1) // 2 if causal else S * S
     flops = 10 * D * B * H * pairs
     nbytes = 4 * (4 * B * H * S * D + 4 * B * Hkv * S * D + B * H * S)
     t_ops, t_bytes = 3 * flops / H100_TF32_FLOPS, nbytes / H100_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes",
-            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops)
+            max(flops / H100_F32_FLOPS, t_bytes) * 1e3, flops,
+            max(t_ops * 7 / 5, t_bytes) * 1e3)
 
 
 def time_flash_bwd(card: str) -> dict:
     """The backward at FLASH_TRAIN_SHAPES (causal f32, the model's
     layout): per call and on the device, the plain backward likewise, and
     one library call: scaled_dot_product_attention's memory-efficient
-    backward (autograd.grad through its forward, kv heads repeated, which
-    leaves the sum over each group undone), per call only (its autograd
-    call is not captured in a graph).  At these batch-2 shapes the
+    backward (kv heads repeated, which leaves the sum over each group
+    undone), per call through autograd.grad of its forward and on the
+    device as the aten op that autograd calls,
+    ``_scaled_dot_product_efficient_attention_backward``, captured in a
+    graph beside the kernels.  At these batch-2 shapes the
     kernel's gradients are held to the plain backward's within
     FLASH_BWD_REL and its forward's logsumexp to the plain one within
     FLASH_LSE_TOL; either raises.  Then the forward with and without
@@ -5988,8 +6032,20 @@ def time_flash_bwd(card: str) -> dict:
                                                   iters=5, reps=3)
         row["library_ms"] = time_ms(lambda _: torch.autograd.grad(
             lout, (lq, lk, lv), do, retain_graph=True), [(None,)], iters=10)
-        row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops = \
-            flash_bwd_bound(*shape)
+        eq, ek, ev = (t.detach().contiguous() for t in (lq, lk, lv))
+        eout, elog, seed, offset = \
+            torch.ops.aten._scaled_dot_product_efficient_attention(
+                eq, ek, ev, None, True, 0.0, True)
+        edo = do.contiguous()
+        row["library_device_ms"] = device_ms(
+            lambda _: torch.ops.aten.
+            _scaled_dot_product_efficient_attention_backward(
+                edo, eq, ek, ev, None, eout, elog, seed, offset, 0.0,
+                [True, True, True, False], True), [(None,)], iters=5, reps=3)
+        row["bound_ms"], row["bound_by"], row["fma_bound_ms"], flops, \
+            row["floor_ms"] = flash_bwd_bound(*shape)
+        row["plan"] = fa.bwd_plan(*shape, torch.float32,
+                                  torch.device("cuda", 0))
         fwd = {"fwd_lse_": lambda: fa.flash_attention(q, k, v, causal=True,
                                                       return_lse=True),
                "fwd_": lambda: fa.flash_attention(q, k, v, causal=True)}
@@ -6022,12 +6078,18 @@ def time_flash_bwd(card: str) -> dict:
             f" ms = {flops / row['device_ms'] / 1e9:.2f} TFLOP/s of the "
             f"function's {flops / 1e9:.3f} GFLOP "
             f"({100 * row['bound_ms'] / row['device_ms']:.1f}% of the 3xTF32 "
-            f"bound, {100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of "
+            f"bound, {100 * row['floor_ms'] / row['device_ms']:.1f}% of the "
+            f"design's 7-product floor {row['floor_ms']:.6f} ms, "
+            f"{100 * row['fma_bound_ms'] / row['device_ms']:.1f}% of "
             f"the f32-FMA bound), plain {row['plain_ms']:.6f} "
             f"({row['plain_device_ms']:.6f}) ms, library (SDPA "
             f"mem-efficient backward, kv repeated) {row['library_ms']:.6f} ms "
-            f"per call (max |kernel - library| "
-            f"{row['library_max_abs_diff']:.3e}); against the plain "
+            f"per call, {row['library_device_ms']:.6f} ms on the device "
+            f"(kernels / library on the device "
+            f"{row['device_ms'] / row['library_device_ms']:.3f}; max |kernel "
+            f"- library| {row['library_max_abs_diff']:.3e}); "
+            f"{row['plan']['blocks']} dkdv and {row['plan']['blocks']} dq "
+            f"blocks ({row['plan']['waves']:.2f} waves); against the plain "
             f"backward {row['plain_rel_err']:.3e} of each gradient's largest "
             f"entry (<= {FLASH_BWD_REL[torch.float32]}), lse "
             f"{row['lse_err']:.3e} (<= {FLASH_LSE_TOL}); bound "
@@ -6037,7 +6099,7 @@ def time_flash_bwd(card: str) -> dict:
             f"({row['fwd_lse_device_ms']:.6f}) ms, without "
             f"{row['fwd_ms']:.6f} ({row['fwd_device_ms']:.6f}) ms | {card}")
         del args, q, k, v, do, lq, lk, lv, lout, got, want, want_lse, lgrad
-        del lib, fns, fwd
+        del lib, fns, fwd, eq, ek, ev, eout, elog, seed, offset, edo
         torch.cuda.empty_cache()
     # row 5's serving shape: the forward with its logsumexp beside without
     shape = FLASH_TIME_SHAPES[1]
@@ -6469,12 +6531,13 @@ def main() -> None:
             "fma_bound_ms": row["fma_bound_ms"],
             "library_ms": row["library_ms"], "device_ms": row["device_ms"],
             "plain_device_ms": row["plain_device_ms"],
+            "library_device_ms": row["library_device_ms"],
             "library_max_abs_diff": row["library_max_abs_diff"],
             "kernels_in_call": {
                 name: flash_train["launches"][name]
                 for name in fa.BWD_KERNELS},
-            "note": "one call of flash_attention_bwd launches the three "
-                    "kernels in order; ms and device_ms are the three "
+            "note": "one call of flash_attention_bwd launches the four "
+                    "kernels in order; ms and device_ms are the four "
                     "together",
             "shape": [B, H, S, D], "kv_heads": Hkv, "causal": True,
             "dtype": "float32"}

@@ -45,9 +45,11 @@ SIGNATURES = {
     # q, k, v, o, lse, strides (12 x int64), dtype, B, H, Hkv, S, D,
     # causal, device, stream
     "repro_flash_attention": ([_P] * 6 + [_I] * 8 + [_P], _I),
-    # q, k, v, o, dout, lse, delta, dq, dk, dv, strides (24 x int64),
-    # dtype, B, H, Hkv, S, D, causal, device, stream
-    "repro_flash_attention_bwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
+    # q, k, v, o, dout, lse, delta, part, dq, dk, dv, strides (24 x
+    # int64), dtype, B, H, Hkv, S, D, causal, device, stream
+    "repro_flash_attention_bwd": ([_P] * 12 + [_I] * 8 + [_P], _I),
+    # B, H, Hkv, S, D, dtype, device, out (8 x int)
+    "repro_flash_attention_bwd_plan": ([_I] * 7 + [_P], _I),
     # x, a, bm, cm, y, state, decay, cum, strides (13 x int64), B, S, H, P,
     # N, Q, device, stream
     "repro_ssd_chunk": ([_P] * 9 + [_I] * 7 + [_P], _I),

@@ -127,6 +127,39 @@ __device__ __forceinline__ void wgmma_rs_n32(
       : "memory");
 }
 
+__device__ __forceinline__ void wgmma_rs_n40(
+    float (&d)[20], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %25, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n40k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19}, "
+      "{%20, %21, %22, %23}, %24, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC4(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_rs_n56(
+    float (&d)[28], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %33, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n56k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27}, "
+      "{%28, %29, %30, %31}, %32, p, 1, 1;\n}\n"
+      : ACC8(0), ACC8(8), ACC8(16), ACC4(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_rs_n64(
     float (&d)[32], const uint32_t (&a)[4], uint64_t desc, int scale_d) {
   asm volatile(
@@ -209,6 +242,19 @@ __device__ __forceinline__ void wgmma_rs_n128(
       : "memory");
 }
 
+__device__ __forceinline__ void wgmma_ss_n16(
+    float (&d)[8], uint64_t desc_a, uint64_t desc, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : ACC8(0)
+      : "l"(desc_a), "l"(desc), "r"(scale_d)
+      : "memory");
+}
+
 __device__ __forceinline__ void wgmma_ss_n32(
     float (&d)[16], uint64_t desc_a, uint64_t desc, int scale_d) {
   asm volatile(
@@ -230,8 +276,8 @@ template <int N>
 __device__ __forceinline__ void wgmma(float (&d)[N / 2],
                                       const uint32_t (&a)[4], uint64_t desc,
                                       int scale_d) {
-  static_assert(N == 8 || N == 16 || N == 32 || N == 64 || N == 80 ||
-                    N == 112 || N == 128,
+  static_assert(N == 8 || N == 16 || N == 32 || N == 40 || N == 56 ||
+                    N == 64 || N == 80 || N == 112 || N == 128,
                 "no wgmma wrapper for this N");
   if constexpr (N == 8)
     wgmma_rs_n8(d, a, desc, scale_d);
@@ -239,6 +285,10 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2],
     wgmma_rs_n16(d, a, desc, scale_d);
   else if constexpr (N == 32)
     wgmma_rs_n32(d, a, desc, scale_d);
+  else if constexpr (N == 40)
+    wgmma_rs_n40(d, a, desc, scale_d);
+  else if constexpr (N == 56)
+    wgmma_rs_n56(d, a, desc, scale_d);
   else if constexpr (N == 64)
     wgmma_rs_n64(d, a, desc, scale_d);
   else if constexpr (N == 80)
@@ -247,6 +297,17 @@ __device__ __forceinline__ void wgmma(float (&d)[N / 2],
     wgmma_rs_n112(d, a, desc, scale_d);
   else
     wgmma_rs_n128(d, a, desc, scale_d);
+}
+
+// the same with A from shared memory through a descriptor
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc, int scale_d) {
+  static_assert(N == 16 || N == 32, "no wgmma_ss wrapper for this N");
+  if constexpr (N == 16)
+    wgmma_ss_n16(d, desc_a, desc, scale_d);
+  else
+    wgmma_ss_n32(d, desc_a, desc, scale_d);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -12,11 +12,15 @@ an H100 and how its design answers that.  With ``return_lse=True`` it also
 writes each row's logsumexp, which the backward reads.
 
 The backward, ``flash_attention_bwd_preprocess_kernel``,
-``flash_attention_bwd_dkdv_kernel`` and ``flash_attention_bwd_dq_kernel``
-(one launch each per call of :func:`flash_attention_bwd`), replaces no
-Pallas kernel: the JAX package differentiates its plain chunked attention.
-It is deterministic (no atomics) and takes the forward's layouts, head
-dims and dtypes.
+``flash_attention_bwd_dkdv_kernel``, ``flash_attention_bwd_reduce_kernel``
+and ``flash_attention_bwd_dq_kernel`` (one launch each per call of
+:func:`flash_attention_bwd`), replaces no Pallas kernel: the JAX package
+differentiates its plain chunked attention.  Its products run on the
+tensor cores as 3xTF32 ``wgmma``, as the forward's do; it is
+deterministic (no atomics: the dkdv kernel writes each q head's dK and dV,
+the reduce kernel sums each group in head order) and takes the forward's
+layouts, head dims and dtypes.  :func:`bwd_plan` reports its tiling and
+grids.
 
 :func:`flash_attention` and :func:`flash_attention_bwd` take CUDA tensors
 only and raise on anything the kernels do not take; the plain versions
@@ -51,11 +55,12 @@ ALIGN_ELEMS = 4
 launches = {"flash_attention_kernel": 0}
 launches_by_instance = {(D, dtype): 0 for D in HEAD_DIMS
                         for dtype in DTYPE_CODES}
-#: the backward's three kernels, each counted once per launch, where
-#: :func:`flash_attention_bwd` launches them; and the backward's calls by
-#: (head dim, dtype)
+#: the backward's four kernels, in launch order, each counted once per
+#: launch, where :func:`flash_attention_bwd` launches them; and the
+#: backward's calls by (head dim, dtype)
 BWD_KERNELS = ("flash_attention_bwd_preprocess_kernel",
                "flash_attention_bwd_dkdv_kernel",
+               "flash_attention_bwd_reduce_kernel",
                "flash_attention_bwd_dq_kernel")
 bwd_launches = dict.fromkeys(BWD_KERNELS, 0)
 bwd_launches_by_instance = dict.fromkeys(launches_by_instance, 0)
@@ -160,8 +165,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     shape), every tensor but lse in one dtype with a contiguous last
     dimension.  Returns ``(dq, dk, dv)`` in that dtype, each a view of
     ``(B, S, heads, D)`` memory, as the forward's output.  Allocates the
-    outputs and the f32 ``(B, H, S)`` scratch for Delta, launches the
-    three kernels on the current stream without synchronizing, and raises
+    outputs, the f32 ``(B, H, S)`` scratch for Delta and the f32
+    ``(2, B, H, S, D)`` scratch for each q head's dK and dV, launches the
+    four kernels on the current stream without synchronizing, and raises
     on anything they do not take and when a launch is refused.  There is
     no fallback."""
     _check(q, k, v, o=o, do=do)
@@ -177,13 +183,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = _model_layout(B, S, H, D, q)
     dk, dv = _model_layout(B, S, Hkv, D, q), _model_layout(B, S, Hkv, D, q)
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    part = torch.empty((2, B, H, S, D), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     stream = build.current_stream(q.device.index)
     code = build.entry("repro_flash_attention_bwd")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), ctypes.addressof(strides),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), part.data_ptr(),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        ctypes.addressof(strides),
         DTYPE_CODES[q.dtype], B, H, Hkv, S, D, int(bool(causal)),
         q.device.index, stream)
     build.check(code, "flash_attention_bwd kernels")
@@ -191,3 +199,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bwd_launches[name] += 1
     bwd_launches_by_instance[(D, q.dtype)] += 1
     return dq, dk, dv
+
+
+def bwd_plan(B: int, H: int, Hkv: int, S: int, D: int, dtype: torch.dtype,
+             device: torch.device) -> dict:
+    """How :func:`flash_attention_bwd` launches a call of this shape on
+    the CUDA ``device``, as the library reports it: rows per block (kv
+    rows in dkdv, q rows in dq), rows per tile (q tiles in dkdv, kv tiles
+    in dq), each block's shared memory, the blocks of each of dkdv and dq
+    and their waves over the card's SMs at one block an SM (in f32 every
+    block takes more than half of an SM's shared memory), the reduce
+    pass's blocks and the heads it sums a kv head, and the longest
+    block's tile count."""
+    if D not in HEAD_DIMS or dtype not in DTYPE_CODES:
+        raise ValueError(f"flash_attention_bwd plan: head dim {D}, dtype "
+                         f"{dtype}")
+    out = (ctypes.c_int * 8)()
+    build.check(build.entry("repro_flash_attention_bwd_plan")(
+        B, H, Hkv, S, D, DTYPE_CODES[dtype], device.index,
+        ctypes.addressof(out)), "flash_attention_bwd plan")
+    rows, tile, dkdv_smem, dq_smem, blocks, reduce, longest, sms = out
+    return {"block_rows": rows, "tile_rows": tile, "dkdv_smem": dkdv_smem,
+            "dq_smem": dq_smem, "blocks": blocks, "sms": sms,
+            "waves": blocks / sms, "reduce_blocks": reduce,
+            "heads_per_sum": H // Hkv, "longest_tiles": longest}

@@ -105,7 +105,7 @@ class SSDChunk(torch.autograd.Function):
 class FlashAttention(torch.autograd.Function):
     """Attention over q ``(B, H, S, D)``, k and v ``(B, Hkv, S, D)``,
     differentiable on every device: ``flash_attention_kernel`` with its
-    logsumexp forward and the three ``flash_attention_bwd_*`` kernels
+    logsumexp forward and the four ``flash_attention_bwd_*`` kernels
     backward on CUDA, ``ref.flash_attention_lse`` and
     ``ref.flash_attention_bwd`` on the CPU.  Saves q, k, v, the output and
     the logsumexp (f32 ``(B, H, S)``); the backward recomputes the

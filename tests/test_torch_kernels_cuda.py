@@ -629,9 +629,12 @@ def test_flash_kernel_refusals_on_card():
 
 # dq, dk and dv against the plain backward: the largest |kernel - plain|
 # over the call's largest plain gradient entry (at S = 1 dq and dk are
-# rounding noise about an exact 0: P = 1 makes dS = dP - Delta)
+# rounding noise about an exact 0: P = 1 makes dS = dP - Delta).  The
+# lengths straddle the kernels' tiles (16, 32 and 64 rows) and blocks (64
+# and 128 rows)
 FLASH_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-FLASH_BWD_EDGE_SEQS = [1, 63, 64, 65, 2304]
+FLASH_BWD_EDGE_SEQS = [1, 15, 16, 17, 31, 33, 63, 64, 65, 127, 128, 129,
+                       2304]
 
 
 def _flash_bwd_case(shape, dtype, gen, causal):
@@ -658,9 +661,9 @@ def _flash_bwd_error(got, want) -> float:
 @pytest.mark.parametrize("s", FLASH_BWD_EDGE_SEQS)
 def test_flash_bwd_kernel_matches_plain_version_on_card(s, d):
     """The backward kernels against ref.flash_attention_bwd at every head
-    dim and dtype, at the 64-row tiles' edges and at 2304: groups of 1 and
-    3 q heads per kv head, causal and full; one launch of each kernel per
-    call, counted by instance."""
+    dim and dtype, at the tiles' and blocks' edges and at 2304: groups of
+    1 and 3 q heads per kv head, causal and full; one launch of each
+    kernel per call, counted by instance."""
     _needs_card()
     gen = torch.Generator(device="cuda").manual_seed(s + d)
     for shape in ((2, 2, 2, s, d), (1, 6, 2, s, d)):
@@ -682,6 +685,29 @@ def test_flash_bwd_kernel_matches_plain_version_on_card(s, d):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((1, 48, 8, 2304, 128), torch.bfloat16),   # internvl2-26b, group 6
+    ((1, 56, 8, 2304, 128), torch.bfloat16),   # arctic-480b, group 7
+    ((1, 64, 8, 2304, 128), torch.bfloat16),   # qwen3-32b, group 8
+    ((2, 3, 1, 2304, 64), torch.float32),      # smollm-360m's towers
+    ((2, 3, 1, 2304, 64), torch.bfloat16)])
+def test_flash_bwd_kernel_sums_large_groups_on_card(shape, dtype):
+    """The reduce pass sums each kv head's group of q-head partials: the
+    configs' groups of 6, 7 and 8 at D = 128 in bf16 and the towers' one
+    kv head for 3 q heads, causal and full, against the plain backward."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(shape[1])
+    for causal in (True, False):
+        args = _flash_bwd_case(shape, dtype, gen, causal)
+        got = flash_module.flash_attention_bwd(*args, causal=causal)
+        want = ref.flash_attention_bwd(*args, causal=causal)
+        torch.cuda.synchronize()
+        err = _flash_bwd_error(got, want)
+        assert err <= FLASH_BWD_REL[dtype], \
+            f"{shape} causal={causal} {dtype}: {err:.3e}"
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_is_deterministic_on_card(dtype):
     """No atomics: two launches on the same inputs give the same bits, at
@@ -694,6 +720,27 @@ def test_flash_bwd_kernel_is_deterministic_on_card(dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_plan_on_card():
+    """The launch plan the library reports at the two training shapes in
+    f32 at D = 64: two warpgroups (128 rows) a block and 32-row tiles,
+    one dkdv and one dq block per (batch, q head, row block), the reduce
+    pass on at most eight blocks an SM of this card; a length of one
+    tile plus one row still takes a whole block."""
+    _needs_card()
+    device = torch.device("cuda", 0)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for B, H, Hkv, S in ((2, 15, 5, 4096), (2, 3, 1, 4096), (1, 3, 1, 33)):
+        plan = flash_module.bwd_plan(B, H, Hkv, S, 64, torch.float32, device)
+        assert (plan["block_rows"], plan["tile_rows"]) == (128, 32)
+        assert plan["sms"] == sms
+        assert plan["blocks"] == B * H * -(-S // 128)
+        assert plan["longest_tiles"] == -(-S // 32)
+        want = min(B * Hkv * S * 16 // 256 + 1, 8 * sms)
+        assert plan["reduce_blocks"] == want
+        assert plan["heads_per_sum"] == H // Hkv
 
 
 @pytest.mark.cuda
@@ -722,7 +769,7 @@ def test_flash_kernel_lse_matches_plain_version_on_card(d):
 @pytest.mark.cuda
 def test_grad_requiring_flash_attention_launches_the_backward_on_card():
     """Past the threshold, attention_apply under autograd runs the flash
-    forward once and the three backward kernels once, never the plain
+    forward once and the four backward kernels once, never the plain
     version, and its gradients equal those of the plain chunked path
     (use_kernel=False) on the same card."""
     _needs_card()
