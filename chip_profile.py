@@ -5,7 +5,8 @@ port on full-width smollm-360m, mamba2-1.3b and starcoder2-3b.
     python3 chip_profile.py      # from the repo root; needs one CUDA card
     python3 chip_profile.py starcoder   # only some sections, by name:
                                         # serve, train, long, ssm, starcoder,
-                                        # ssmtrain, generate, longtrain
+                                        # ssmtrain, generate, longtrain,
+                                        # remat
 
 Serves the traffic of ``chip_smoke.py`` (8 greedy requests, prompts of
 64-1024 tokens, 8-48 new tokens, K = 4 towers, 4 slots) twice under the
@@ -37,7 +38,9 @@ batch 1 and at batch 32, as ``batched_throughput_probe`` times them,
 after an unprofiled warm-up.  Last, ``longtrain``: the smollm training
 run at ``chip_smoke.py``'s phase 19 (c) shape, 2 x 4096 tokens a step,
 2 steps, with the flash forward's and the four flash backward kernels'
-shares.  Every run also prints the f32 GEMMs' share (kernels named
+shares.  Last, ``remat``: ``chip_smoke.py``'s phase 20 (a), the dry-run
+step at 2 x 4096 with each ``remat`` value, with the weight products'
+(``aten::mm``) device time.  Every run also prints the f32 GEMMs' share (kernels named
 ``*gemm*``: cuBLAS and CUTLASS).
 """
 from __future__ import annotations
@@ -249,6 +252,29 @@ def profile_generate(card: str) -> None:
         torch.cuda.empty_cache()
 
 
+def profile_remat(card: str) -> None:
+    """``chip_smoke.py`` phase 20 (a): the dry-run step of full-width
+    smollm-360m at 2 x 4096 for each ``remat`` value, one profiled step
+    after an unprofiled one, with the weight products' device time."""
+    cfg = get_arch("smollm-360m")
+    batch = smoke.remat_batch(cfg, smoke.RM_BATCH, smoke.RM_SEQ)
+    for remat in smoke.REMATS:
+        gen = torch.Generator(device="cuda").manual_seed(smoke.SEED)
+        params = backbone.init_params(cfg, gen, device="cuda")
+        opt = smoke.AdamW(smoke.RM_LR, weight_decay=smoke.RM_WD,
+                          inplace=True)
+        state = opt.init(params)
+        smoke.dryrun_step(cfg, params, opt, state, batch, remat)  # warm-up
+        profiled(lambda: smoke.dryrun_step(cfg, params, opt, state, batch,
+                                           remat),
+                 card, f"remat {remat!r}",
+                 lambda *_: (f"one dry-run step of {smoke.RM_BATCH} x "
+                             f"{smoke.RM_SEQ}"),
+                 host_ops=[("aten::mm", "the weight products")])
+        del params, state
+        torch.cuda.empty_cache()
+
+
 def profile_smollm(card: str, sections) -> None:
     """The serve, train, long and longtrain sections, on full-width
     smollm-360m."""
@@ -283,7 +309,7 @@ def profile_smollm(card: str, sections) -> None:
 
 
 SECTIONS = ("serve", "train", "long", "ssm", "starcoder", "ssmtrain",
-            "generate", "longtrain")
+            "generate", "longtrain", "remat")
 
 
 def main() -> None:
@@ -309,6 +335,9 @@ def main() -> None:
         torch.cuda.empty_cache()
     if "generate" in sections:
         profile_generate(card)
+        torch.cuda.empty_cache()
+    if "remat" in sections:
+        profile_remat(card)
 
 
 if __name__ == "__main__":

@@ -34,7 +34,9 @@ towers, full-width internvl2-26b's forward in bf16, vision prefill and
 decode, and its split training through the sequence-concat merge, and
 training past 2048 tokens: the hand-written flash backward kernels
 (CUDA C++, 3xTF32 wgmma) behind a differentiable attention, a monolithic
-step and split training of full-width smollm-360m at 4096 tokens.
+step and split training of full-width smollm-360m at 4096 tokens, and
+activation rematerialization: the monolithic step with ``remat`` on
+every family, the flash and SSD kernels run again in the recompute.
 
     python3 chip_smoke.py        # from the repo root; needs one CUDA card
 
@@ -425,6 +427,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    memory.  (d)
    ``python -m repro_torch.launch.train --seq 4096 --batch 2 --steps 2
    --transport inproc`` exits 0 with its step-0 line.
+20. Activation rematerialization: the JAX package's dry-run step
+   (``forward(remat=r)``, ``lm_loss + aux``, the gradient of every leaf,
+   ``AdamW(inplace=True)``) for r in False, True and "dots", each from
+   the seeded init.  (a) Full-width smollm-360m (30 server layers, 4
+   towers of 2) at 2 x 4096, two steps each: peak memory (ordered False >
+   "dots" > True), step seconds, exact launches a step (38 flash forwards
+   with their logsumexp without remat, 76 with it: the forward and the
+   recompute; 38 of each flash backward kernel), the remat gradients
+   within 1e-6 of each leaf's largest entry without remat and the losses
+   equal.  (b) remat=True at 16 x 4096, one step: peak and train
+   tokens/s (no out-of-memory error is caught).  (c) Full-width
+   mamba2-1.3b at 8 x 256 (phase 14 (d)'s shape), as (a): 54
+   ``ssd_chunk_kernel`` launches a step without remat, 108 with it, 54
+   ``ssd_chunk_bwd_kernel``.  (d) Reduced zamba2-7b (6 layers, every 2,
+   1 x 4096: the flash kernels inside the super-blocks' units, the
+   nested Mamba2 units run the SSD kernel three times), deepseek-moe-16b
+   centralized at 3 layers, whisper-tiny and internvl2-26b, each as (a).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the ``kernels`` JSON object.
@@ -479,7 +498,8 @@ from repro_torch.transport import (InprocTransport,  # noqa: E402
                                    MultiprocTransport, SimTransport,
                                    WorkerSpec, build_mlp_worker,
                                    build_split_worker)
-from repro_torch.tree_util import tree_map  # noqa: E402
+from repro_torch.tree_util import (tree_leaves, tree_map,  # noqa: E402
+                                   tree_unflatten)
 
 SEED = 0
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
@@ -785,6 +805,25 @@ FLASH_TRAIN_SHAPES = [(2, 15, 5, 4096, 64), (2, 3, 1, 4096, 64)]
 LT_LAYERS, LT_MONO_BATCH, LT_SEQ = 4, 1, 4096
 LT_GRAD_REL = 1e-3
 LT_BATCH, LT_STEPS, LT_CLI_STEPS = 2, 3, 2
+# phase 20, activation rematerialization: the JAX package's dry-run step
+# (src/repro/launch/dryrun.py: forward(remat=r), lm_loss + aux, the
+# gradient, its AdamW(3e-4, weight decay 0.1), here in place) for each r;
+# the remat gradients within this share of each leaf's largest entry
+# without remat (every kernel on the path is deterministic: 0 expected).
+# (a) full-width smollm-360m at 2 x 4096; (b) remat=True at the batch
+# predicted to be the largest power of two that fits at 4096; (c)
+# full-width mamba2-1.3b at phase 14 (d)'s 8 x 256; (d) the other four
+# families at reduced widths: arch -> (batch, seq, centralized, layers,
+# shared_attn_every), the hybrid at 4096 tokens so that its shared
+# attention runs the flash kernels inside the nested units
+REMATS = (False, True, "dots")
+RM_LR, RM_WD = 3e-4, 0.1
+RM_GRAD_REL = 1e-6
+RM_BATCH, RM_SEQ, RM_BIG_BATCH = 2, 4096, 16
+RM_SMALL = {"zamba2-7b": (1, 4096, False, 6, 2),
+            "deepseek-moe-16b": (2, 256, True, 3, None),
+            "whisper-tiny": (2, 64, False, None, None),
+            "internvl2-26b": (2, 96, False, None, None)}
 # figures of earlier phases that phases 14 and 15 print their own beside
 MEASURED: dict = {}
 
@@ -6257,6 +6296,243 @@ def flash_train_phase(card: str) -> dict:
     return {"launches": total, "checked": checked, "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: activation rematerialization — the dry-run step with remat
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def lse_forwards():
+    """Flash forwards launched with their logsumexp (the training
+    forward), counted at ``ops.FlashAttention``'s call of the wrapper."""
+    seen, plain = [0], fa.flash_attention
+
+    def spy(*args, return_lse=False, **kw):
+        seen[0] += bool(return_lse)
+        return plain(*args, return_lse=return_lse, **kw)
+
+    fa.flash_attention = spy
+    try:
+        yield seen
+    finally:
+        fa.flash_attention = plain
+
+
+def dryrun_step(cfg, params, opt, state, batch, remat):
+    """The JAX package's dry-run train step (``src/repro/launch/
+    dryrun.py``) on the port: ``forward(remat=)``, ``lm_loss + aux``, the
+    gradient of every leaf, the AdamW update (in place).  Returns (loss,
+    the gradient leaves)."""
+    leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
+    logits, aux = backbone.forward(tree_unflatten(params, leaves), batch,
+                                   cfg, remat=remat)
+    loss = backbone.lm_loss(logits, batch["labels"]) + aux
+    del logits
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    opt.update(params, tree_unflatten(params, grads), state)
+    return loss.detach(), grads
+
+
+def remat_run(cfg, batch, remat, steps: int = 1,
+              keep_grads: bool = True) -> dict:
+    """``steps`` dry-run steps from the seeded init on the card: the first
+    step's loss, gradients (on the host, with ``keep_grads``), peak
+    ``max_memory_allocated`` and seconds, the last step's seconds, the
+    launches of all the steps and the flash forwards among them that
+    wrote their logsumexp."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = backbone.init_params(cfg, gen, device="cuda")
+    opt = AdamW(RM_LR, weight_decay=RM_WD, inplace=True)
+    state = opt.init(params)
+    out: dict = {"seconds": []}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with lse_forwards() as lse:
+        for i in range(steps):
+            t0 = time.perf_counter()
+            loss, grads = dryrun_step(cfg, params, opt, state, batch, remat)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            if i == 0:
+                out["peak"] = torch.cuda.max_memory_allocated()
+                out["loss"] = float(loss)
+                if keep_grads:
+                    out["grads"] = [g.cpu() for g in grads]
+            del grads
+    out["launches"], out["lse"] = read_launches(), lse[0]
+    if not math.isfinite(out["loss"]):
+        raise AssertionError(f"remat {remat!r}: loss {out['loss']}")
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_worst(runs: dict, label: str) -> float:
+    """Every gradient leaf of each remat run against the run without
+    remat, as a share of the leaf's largest entry; the losses equal."""
+    base = runs[False]
+    worst = 0.0
+    for remat in REMATS[1:]:
+        run = runs[remat]
+        if run["loss"] != base["loss"]:
+            raise AssertionError(f"{label} remat {remat!r}: loss "
+                                 f"{run['loss']} vs {base['loss']}")
+        for i, (g, w) in enumerate(zip(run["grads"], base["grads"])):
+            scale = float(w.abs().max())
+            err = float((g - w).abs().max())
+            err = err / scale if scale else err
+            if not torch.isfinite(g).all() or err > RM_GRAD_REL:
+                raise AssertionError(
+                    f"{label} remat {remat!r}: leaf {i} {tuple(g.shape)} "
+                    f"{err:.3e} of its largest entry > {RM_GRAD_REL}")
+            worst = max(worst, err)
+    return worst
+
+
+def remat_counts(cfg, remat) -> dict:
+    """Launches of one dry-run step: every attention past 2048² and every
+    Mamba2 layer runs its forward kernel once, again when its unit is
+    recomputed, and a third time in a hybrid's super-block, whose nested
+    Mamba2 unit is recomputed in the block's recompute and then in its
+    own backward; each backward kernel runs once."""
+    v = cfg.vertical
+    towers = v.num_clients * v.tower_layers if v else 0
+    n_server = cfg.num_layers - (v.tower_layers if v else 0)
+    runs = 2 if remat else 1
+    if cfg.family == "ssm":
+        n = n_server + towers
+        return {"ssd_chunk_kernel": runs * n, "ssd_chunk_bwd_kernel": n}
+    n = n_server + towers  # attention layers
+    ssd = {}
+    if cfg.family == "hybrid":
+        n, n_tail = tfm.hybrid_layout(n_server, cfg.hybrid.shared_attn_every)
+        nested = n * cfg.hybrid.shared_attn_every
+        ssd = {"ssd_chunk_kernel": (runs * (n_tail + towers)
+                                    + (3 if remat else 1) * nested),
+               "ssd_chunk_bwd_kernel": n_tail + towers + nested}
+    return {"flash_attention_kernel": runs * n,
+            flash_name(cfg.resolved_head_dim()): runs * n,
+            **dict.fromkeys(fa.BWD_KERNELS, n), **ssd}
+
+
+def remat_compare(cfg, batch, label: str, card: str, steps: int,
+                  kernels: bool = True) -> dict:
+    """One run for each remat value, its launches held to
+    :func:`remat_counts` (``kernels=False``: none, the path is short of
+    every kernel), the remat gradients to the run without; returns the
+    runs (without their gradients) and the worst gradient figure."""
+    runs = {}
+    for remat in REMATS:
+        run = remat_run(cfg, batch, remat, steps)
+        want = {k: steps * n for k, n in remat_counts(cfg, remat).items()} \
+            if kernels else {}
+        expect_launches(run["launches"], want)
+        if run["lse"] != want.get("flash_attention_kernel", 0):
+            raise AssertionError(f"{label} remat {remat!r}: {run['lse']} "
+                                 f"flash forwards with lse of "
+                                 f"{want.get('flash_attention_kernel', 0)}")
+        runs[remat] = run
+    worst = remat_worst(runs, label)
+    for run in runs.values():
+        del run["grads"]
+    tokens = batch["labels"].numel()
+    for remat, run in runs.items():
+        per_step = {k: n // steps for k, n in run["launches"].items() if n}
+        log(f"remat: {label}, remat={remat!r}, {tokens} tokens a step: loss "
+            f"{run['loss']:.6f}; max_memory_allocated {run['peak']} bytes; "
+            f"step {run['seconds'][-1]:.4f} s (first {run['seconds'][0]:.4f}"
+            f" s, {len(run['seconds'])} steps); launches a step {per_step}, "
+            f"{run['lse'] // steps} flash forwards with lse | {card}")
+    log(f"remat: {label}: remat True and 'dots' gradients within "
+        f"{worst:.3e} of each leaf's largest entry without remat (<= "
+        f"{RM_GRAD_REL}), losses equal | {card}")
+    return {"runs": runs, "worst": worst}
+
+
+def remat_batch(cfg, batch: int, seq: int) -> dict:
+    return {k: to_tensor(v, "cuda") for k, v in next(iter(LMBatchLoader(
+        cfg, batch, seq, seed=SEED))).items()}
+
+
+def remat_small_cfg(arch: str, centralized: bool, layers, every):
+    cfg = get_arch(arch).reduced()
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if every is not None:
+        cfg = hybrid_cfg(every, cfg.num_layers, cfg)
+    return cfg.with_vertical(None) if centralized else cfg
+
+
+def remat_phase(card: str) -> dict:
+    """Phase 20: (a) full-width smollm-360m at 2 x 4096 for each remat
+    value (peaks ordered False > "dots" > True), (b) remat=True at
+    RM_BIG_BATCH x 4096, once, (c) full-width mamba2-1.3b at 8 x 256, (d)
+    the other four families reduced; returns the launches by kernel."""
+    t0 = time.perf_counter()
+    total: dict = {}
+
+    def add(launches):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+
+    smollm = get_arch("smollm-360m")
+    dense = remat_compare(smollm, remat_batch(smollm, RM_BATCH, RM_SEQ),
+                          f"{smollm.name} full width, {RM_BATCH} x {RM_SEQ}",
+                          card, steps=2)
+    peaks = {r: run["peak"] for r, run in dense["runs"].items()}
+    if not peaks[False] > peaks["dots"] > peaks[True]:
+        raise AssertionError(f"remat peaks not False > 'dots' > True: "
+                             f"{peaks}")
+    for run in dense["runs"].values():
+        add(run["launches"])
+
+    run = remat_run(smollm, remat_batch(smollm, RM_BIG_BATCH, RM_SEQ), True,
+                    keep_grads=False)
+    want = remat_counts(smollm, True)
+    expect_launches(run["launches"], want)
+    if run["lse"] != want["flash_attention_kernel"]:
+        raise AssertionError(f"remat batch {RM_BIG_BATCH}: {run['lse']} "
+                             f"flash forwards with lse")
+    add(run["launches"])
+    seconds = run["seconds"][0]
+    log(f"remat: {smollm.name} full width, remat=True at {RM_BIG_BATCH} x "
+        f"{RM_SEQ} tokens, one dry-run step: loss {run['loss']:.6f}; "
+        f"max_memory_allocated {run['peak']} bytes; step {seconds:.4f} s, "
+        f"{RM_BIG_BATCH * RM_SEQ / seconds:.1f} train tokens/s; "
+        f"launches {({k: n for k, n in run['launches'].items() if n})} | "
+        f"{card}")
+    del run
+
+    mamba = get_arch("mamba2-1.3b")
+    ssm = remat_compare(mamba, remat_batch(mamba, TRAIN_BATCH, TRAIN_SEQ),
+                        f"{mamba.name} full width, {TRAIN_BATCH} x "
+                        f"{TRAIN_SEQ}", card, steps=2)
+    for run in ssm["runs"].values():
+        add(run["launches"])
+
+    small = {}
+    for arch, (b, s, centralized, layers, every) in RM_SMALL.items():
+        cfg = remat_small_cfg(arch, centralized, layers, every)
+        res = remat_compare(cfg, remat_batch(cfg, b, s),
+                            f"reduced {arch}"
+                            + (", centralized" if centralized else "")
+                            + (f", {cfg.num_layers} layers" if layers else "")
+                            + (f", every {every}" if every else "")
+                            + f", {b} x {s}", card, steps=1,
+                            kernels=s * s > attn_lib.FLASH_THRESHOLD ** 2)
+        for run in res["runs"].values():
+            add(run["launches"])
+        small[arch] = res["worst"]
+    remat_total = {name: n for name, n in total.items() if n}
+    log(f"remat: phase 20 took {time.perf_counter() - t0:.1f} s; launches "
+        f"{remat_total}; worst gradient figures: (a) {dense['worst']:.3e}, "
+        f"(c) {ssm['worst']:.3e}, (d) {small} | {card}")
+    return total
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -6322,6 +6598,8 @@ def main() -> None:
     modality = modality_phase(card)
     flash_train = flash_train_phase(card)
     flash_launches[64] += flash_train["launches"]["flash_attention_kernel"]
+    remat = remat_phase(card)
+    flash_launches[64] += remat[flash_name(64)]
 
     kernels = []
     for name, strategy, shape, replaces in (
@@ -6428,6 +6706,7 @@ def main() -> None:
         for shape in [FLASH_TIME_SHAPES[1]] + FLASH_TRAIN_SHAPES]
     row64["training_launches"] = \
         flash_train["launches"]["flash_attention_kernel"]
+    row64["remat_launches"] = remat[flash_name(64)]
     kernels.append(row64)
     wide = flash_entry((1, 24, 2, 32768, 128), flash_launches[128]
                        + moe["deepseek_forward"][flash_name(128)])
@@ -6459,7 +6738,8 @@ def main() -> None:
             + ssm_train["ssd_chunk_kernel"]
             + launch_launches.get("ssd_chunk_kernel", 0)
             + other["hybrid_forward"]["ssd_chunk_kernel"]
-            + other["hybrid_train"]["ssd_chunk_kernel"],
+            + other["hybrid_train"]["ssd_chunk_kernel"]
+            + remat["ssd_chunk_kernel"],
             "max_abs_err": ssd_worst, "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "fma_bound_ms": row["fma_bound_ms"],
@@ -6472,6 +6752,7 @@ def main() -> None:
     # the server shape at 32768 tokens; the other timed shapes ride in it
     # (their launches are in its count)
     ssd_row = ssd_entry(SSD_TIME_SHAPES[1])
+    ssd_row["remat_launches"] = remat["ssd_chunk_kernel"]
     ssd_row["other_shapes"] = [ssd_entry(shape) for shape in SSD_TIME_SHAPES
                                if shape != SSD_TIME_SHAPES[1]]
     for entry in ssd_row["other_shapes"]:
@@ -6488,7 +6769,8 @@ def main() -> None:
             "replaces": "src/repro/kernels/ssd_scan.py:23",
             "launches": ssm_train["ssd_chunk_bwd_kernel"]
             + launch_launches.get("ssd_chunk_bwd_kernel", 0)
-            + other["hybrid_train"]["ssd_chunk_bwd_kernel"],
+            + other["hybrid_train"]["ssd_chunk_bwd_kernel"]
+            + remat["ssd_chunk_bwd_kernel"],
             "max_abs_err": row["max_abs_err"],
             "max_err_over_largest_entry": ssd_bwd_worst,
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -6505,6 +6787,7 @@ def main() -> None:
     # the server shape of phase 12; the towers' and zamba2-7b's ride in it
     # (their launches are in the count)
     bwd_row = ssd_bwd_entry(SSD_BWD_SHAPES[0])
+    bwd_row["remat_launches"] = remat["ssd_chunk_bwd_kernel"]
     bwd_row["other_shapes"] = [ssd_bwd_entry(shape)
                                for shape in SSD_BWD_TIME_SHAPES[1:]]
     for entry in bwd_row["other_shapes"]:
@@ -6521,7 +6804,8 @@ def main() -> None:
             # the gradient of that kernel's function: the JAX package has
             # no backward kernel (jax.grad of its plain chunked attention)
             "replaces": "src/repro/kernels/flash_attention.py:27",
-            "launches": flash_train["launches"][fa.BWD_KERNELS[1]],
+            "launches": flash_train["launches"][fa.BWD_KERNELS[1]]
+            + remat[fa.BWD_KERNELS[1]],
             "max_abs_err": checked["abs"],
             "max_err_over_largest_entry": checked["rel"][torch.float32],
             "bf16_max_err_over_largest_entry":
@@ -6534,7 +6818,7 @@ def main() -> None:
             "library_device_ms": row["library_device_ms"],
             "library_max_abs_diff": row["library_max_abs_diff"],
             "kernels_in_call": {
-                name: flash_train["launches"][name]
+                name: flash_train["launches"][name] + remat[name]
                 for name in fa.BWD_KERNELS},
             "note": "one call of flash_attention_bwd launches the four "
                     "kernels in order; ms and device_ms are the four "
@@ -6545,6 +6829,7 @@ def main() -> None:
     # the server's training shape; the towers' rides in it (its launches
     # are in the count)
     fbwd = flash_bwd_entry(FLASH_TRAIN_SHAPES[0])
+    fbwd["remat_launches"] = remat[fa.BWD_KERNELS[1]]
     fbwd["other_shapes"] = [flash_bwd_entry(FLASH_TRAIN_SHAPES[1])]
     for entry in fbwd["other_shapes"]:
         del entry["launches"], entry["kernels_in_call"]

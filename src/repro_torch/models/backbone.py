@@ -242,12 +242,13 @@ def param_count(cfg: ArchConfig) -> int:
 
 def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
                     positions: torch.Tensor, live_mask=None,
-                    causal: bool = True,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    causal: bool = True, use_kernel: bool = True,
+                    remat=False) -> torch.Tensor:
     """x ``(B, S, d_model)`` -> the merged cut activation: K towers over
     the feature slices (causal, or not: the audio encoder's), the codec,
     then ``merge_stacked`` with ``live_mask``, as the JAX package's
-    monolithic path merges (no merge kernel here)."""
+    monolithic path merges (no merge kernel here).  ``remat`` reaches each
+    tower's stack."""
     v = cfg.vertical
     towers = params["towers"]
     # one unbind per stacked leaf: under autograd, indexing client by
@@ -261,17 +262,19 @@ def _towers_forward(params: dict, x: torch.Tensor, cfg: ArchConfig, *,
         h = layers.matmul(xk, w_in)
         if _ssm_towers(cfg):
             h = tfm.mamba_stack_apply(blocks, h, cfg.ssm, h.shape[-1],
-                                      cfg.norm_eps, use_kernel=use_kernel)
+                                      cfg.norm_eps, use_kernel=use_kernel,
+                                      remat=remat)
         else:
             h = tfm.dense_stack_apply(blocks, h, _tower_dims(cfg),
                                       causal=causal, positions=positions,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel, remat=remat)
         cuts.append(layers.matmul(h, w_out))
     return _merge_cuts(cuts, cfg, live_mask)
 
 
 def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
-            window: Optional[int] = None, use_kernel: bool = True):
+            window: Optional[int] = None, use_kernel: bool = True,
+            remat=False):
     """Returns (logits, aux loss ``()``).
 
     ``batch``: ``{"tokens": (B, S)}``, plus ``"frames"`` ``(B, S_enc, d)``
@@ -288,13 +291,22 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
     ``use_kernel=False`` keeps every layer on the plain path (the model's
     ``ssd_chunked``; chunked attention past 2048 tokens), on any device.
     The aux loss is the moe router's load-balance term summed over the
-    layers, zero for the other families."""
+    layers, zero for the other families.
+
+    ``remat`` trades memory for a second forward in the backward pass, as
+    the JAX package's: False keeps every activation; ``"dots"`` keeps each
+    layer's input and the outputs of its weight products (products with
+    no batch dimension) and recomputes the rest; any other true value
+    keeps each layer's input only.  It reaches every stack (towers,
+    server, encoder, decoder); the values are the same."""
     dims = BlockDims.from_arch(cfg)
     if cfg.family == "audio":
         enc_out = encode_audio(params, batch["frames"], cfg,
-                               live_mask=live_mask, use_kernel=use_kernel)
+                               live_mask=live_mask, use_kernel=use_kernel,
+                               remat=remat)
         logits = _audio_decoder_apply(params, batch["tokens"], enc_out, cfg,
-                                      dims, use_kernel=use_kernel)
+                                      dims, use_kernel=use_kernel,
+                                      remat=remat)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=logits.device)
     tokens = batch["tokens"]
@@ -303,20 +315,22 @@ def forward(params: dict, batch: dict, cfg: ArchConfig, *, live_mask=None,
     if cfg.family == "vlm":
         return _forward_vlm(params, batch["patches"], x, cfg, dims,
                             live_mask=live_mask, window=window,
-                            use_kernel=use_kernel)
+                            use_kernel=use_kernel, remat=remat)
     positions = torch.arange(S, device=x.device)
     if cfg.vertical is not None:
         x = _towers_forward(params, x, cfg, positions=positions,
-                            live_mask=live_mask, use_kernel=use_kernel)
+                            live_mask=live_mask, use_kernel=use_kernel,
+                            remat=remat)
     x, aux = _server_trunk_apply(params, x, cfg, dims, positions=positions,
-                                 window=window, use_kernel=use_kernel)
+                                 window=window, use_kernel=use_kernel,
+                                 remat=remat)
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
     return layers.unembed(params["embed"], x), aux
 
 
 def _forward_vlm(params: dict, patches: torch.Tensor, text: torch.Tensor,
                  cfg: ArchConfig, dims: BlockDims, *, live_mask, window,
-                 use_kernel: bool):
+                 use_kernel: bool, remat=False):
     """The vlm forward from the embedded text ``(B, S, d)``."""
     patches = patches.to(params["embed"]["table"].dtype)
     Sv = patches.shape[1]
@@ -324,10 +338,10 @@ def _forward_vlm(params: dict, patches: torch.Tensor, text: torch.Tensor,
     if cfg.vertical is not None:
         vis = tfm.dense_stack_apply(params["vision_tower"], patches, dims,
                                     causal=False, positions=full_pos[:Sv],
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, remat=remat)
         txt = tfm.dense_stack_apply(params["text_tower"], text, dims,
                                     causal=True, positions=full_pos[Sv:],
-                                    use_kernel=use_kernel)
+                                    use_kernel=use_kernel, remat=remat)
         if live_mask is not None:
             # modality drop: zero the dropped client's sequence segment
             # (f32 mask times bf16 segments is f32, as jnp promotes)
@@ -340,14 +354,15 @@ def _forward_vlm(params: dict, patches: torch.Tensor, text: torch.Tensor,
         x = torch.cat([patches, text], dim=1)
     x = tfm.dense_stack_apply(params["server"], x, dims, causal=True,
                               positions=full_pos, window=window,
-                              use_kernel=use_kernel)
+                              use_kernel=use_kernel, remat=remat)
     x = layers.rmsnorm(params["final_norm"], x, dims.norm_eps)
     logits = layers.unembed(params["embed"], x[:, Sv:, :])
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def encode_audio(params: dict, frames: torch.Tensor, cfg: ArchConfig, *,
-                 live_mask=None, use_kernel: bool = True) -> torch.Tensor:
+                 live_mask=None, use_kernel: bool = True,
+                 remat=False) -> torch.Tensor:
     """The whisper encoder: frames ``(B, S_enc, d)`` (cast to the tree's
     dtype) plus the sinusoidal positions, the towers over the mel-band
     groups (non-causal) and their merge, the server's encoder layers and
@@ -361,13 +376,14 @@ def encode_audio(params: dict, frames: torch.Tensor, cfg: ArchConfig, *,
         h = _towers_forward(params, h, cfg,
                             positions=torch.arange(S_enc, device=h.device),
                             live_mask=live_mask, causal=False,
-                            use_kernel=use_kernel)
-    return _audio_encoder_tail(params, h, cfg, dims, use_kernel=use_kernel)
+                            use_kernel=use_kernel, remat=remat)
+    return _audio_encoder_tail(params, h, cfg, dims, use_kernel=use_kernel,
+                               remat=remat)
 
 
 def _audio_encoder_tail(params: dict, h: torch.Tensor, cfg: ArchConfig,
-                        dims: BlockDims, *,
-                        use_kernel: bool = True) -> torch.Tensor:
+                        dims: BlockDims, *, use_kernel: bool = True,
+                        remat=False) -> torch.Tensor:
     """Post-merge encoder layers and the final encoder norm.  Shared by
     the monolithic ``encode_audio`` and the split program's
     ``server_fwd`` (the merged cut enters here)."""
@@ -375,31 +391,38 @@ def _audio_encoder_tail(params: dict, h: torch.Tensor, cfg: ArchConfig,
         h = tfm.dense_stack_apply(
             params["encoder"], h, dims, causal=False,
             positions=torch.arange(h.shape[1], device=h.device),
-            use_kernel=use_kernel)
+            use_kernel=use_kernel, remat=remat)
     return tfm.norm(params["enc_final_norm"], h, dims.norm, dims.norm_eps)
 
 
 def _audio_decoder_apply(params: dict, tokens: torch.Tensor,
                          enc_out: torch.Tensor, cfg: ArchConfig,
-                         dims: BlockDims, *,
-                         use_kernel: bool = True) -> torch.Tensor:
+                         dims: BlockDims, *, use_kernel: bool = True,
+                         remat=False) -> torch.Tensor:
     """The teacher-forced decoder over ``enc_out`` -> logits ``(B, S, V)``:
     embedding plus sinusoidal positions, each layer's self attention
     (causal) and cross attention over its own K/V of ``enc_out``, the
     final norm, the unembedding.  Shared by the monolithic forward and the
-    split program's ``server_fwd``."""
+    split program's ``server_fwd``.  Under ``remat`` a layer's cross K/V
+    are computed inside its unit, as the JAX package computes them inside
+    its scan body."""
     S = tokens.shape[1]
     x = layers.embed(params["embed"], tokens.long())
     x = x + layers.sinusoidal_positions(S, cfg.d_model, x.dtype,
                                         device=x.device)[None]
     dec_positions = torch.arange(S, device=x.device)
     enc_positions = torch.arange(enc_out.shape[1], device=x.device)
-    for lp in tfm.unstack_layers(params["decoder"]):
+
+    def body(h, lp):
         k, v = tfm.cross_kv_from_encoder(lp, enc_out, dims)
-        x = tfm.dense_block_apply(lp, x, dims, causal=True,
-                                  positions=dec_positions,
-                                  cross_kv=(k, v, enc_positions),
-                                  use_kernel=use_kernel)
+        return tfm.dense_block_apply(lp, h, dims, causal=True,
+                                     positions=dec_positions,
+                                     cross_kv=(k, v, enc_positions),
+                                     use_kernel=use_kernel)
+
+    body = tfm._maybe_checkpoint(body, remat)
+    for lp in tfm.unstack_layers(params["decoder"]):
+        x = body(x, lp)
     x = tfm.norm(params["final_norm"], x, dims.norm, dims.norm_eps)
     return layers.unembed(params["embed"], x)
 
@@ -417,7 +440,7 @@ def make_prefill(cfg: ArchConfig, *, use_kernel: bool = True):
 def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
                         dims: BlockDims, *, positions,
                         window: Optional[int] = None,
-                        use_kernel: bool = True):
+                        use_kernel: bool = True, remat=False):
     """Post-merge server layers of the token-LM families (the JAX
     package's ``_server_trunk_apply``); returns (x, aux), the aux loss
     ``()`` f32 being the moe router's, zero for the others.  ``window``
@@ -426,25 +449,26 @@ def _server_trunk_apply(params: dict, x: torch.Tensor, cfg: ArchConfig,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "ssm":
         x = tfm.mamba_stack_apply(params["server"], x, cfg.ssm, cfg.d_model,
-                                  cfg.norm_eps, use_kernel=use_kernel)
+                                  cfg.norm_eps, use_kernel=use_kernel,
+                                  remat=remat)
     elif cfg.family == "hybrid":
         x = tfm.hybrid_stack_apply(
             params["server_super"], params["server_tail"],
             params["shared_attn"], x, cfg.ssm, dims, positions=positions,
-            window=window, use_kernel=use_kernel)
+            window=window, use_kernel=use_kernel, remat=remat)
     elif cfg.family == "moe":
         if "server_dense" in params:
             x = tfm.dense_stack_apply(params["server_dense"], x,
                                       _dense_layer_dims(cfg), causal=True,
                                       positions=positions, window=window,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel, remat=remat)
         x, aux = tfm.moe_stack_apply(params["server"], x, dims, cfg.moe,
                                      positions=positions, window=window,
-                                     use_kernel=use_kernel)
+                                     use_kernel=use_kernel, remat=remat)
     elif cfg.family == "dense":
         x = tfm.dense_stack_apply(params["server"], x, dims, causal=True,
                                   positions=positions, window=window,
-                                  use_kernel=use_kernel)
+                                  use_kernel=use_kernel, remat=remat)
     else:
         raise ValueError(f"{cfg.name}: the server trunk is the token-LM "
                          f"families' (got {cfg.family!r})")

@@ -12,6 +12,11 @@ Params for L homogeneous layers are stacked on a leading axis, as in the
 JAX package; a Python loop over the layers takes the place of
 ``lax.scan``.  The vertical-SplitNN towers are built from the same blocks
 at width d_model/K.
+
+``remat`` (the stacks' full-sequence forwards) recomputes activations in
+the backward pass: each layer (a hybrid's super-block, and each Mamba2
+layer inside it) is one checkpointed unit, the JAX package's scan body
+under ``jax.checkpoint``.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig, MoEConfig, SSMConfig
 from repro_torch.models import attention as attn_lib
@@ -122,6 +128,43 @@ def unstack_layers(stacked) -> list:
     return list(torch.unbind(stacked, 0))
 
 
+# the products without batch dimensions: the outputs that
+# ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` keeps (every
+# weight product; attention's and the SSD's batched products are not)
+_SAVEABLE_DOTS = frozenset({torch.ops.aten.mm.default,
+                            torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVEABLE_DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return ckpt.create_selective_checkpoint_contexts(_dots_policy)
+
+
+def _maybe_checkpoint(body, remat):
+    """remat: False | True (full: the unit keeps only its inputs and runs
+    again in the backward pass) | "dots" (the unit also keeps the outputs
+    of its products without batch dimensions; the backward pass re-runs
+    the rest, the attention and SSD kernels included).  Non-reentrant
+    ``torch.utils.checkpoint``: gradients flow to params the body closes
+    over, and units nest.  The forward draws no random numbers, so no RNG
+    state is kept for the recompute (``preserve_rng_state=False``)."""
+    if not remat:
+        return body
+    context_fn = _dots_context if remat == "dots" else ckpt.noop_context_fn
+
+    def unit(*args):
+        return ckpt.checkpoint(body, *args, use_reentrant=False,
+                               preserve_rng_state=False,
+                               context_fn=context_fn)
+
+    return unit
+
+
 def num_layers(stacked) -> int:
     while isinstance(stacked, dict):
         stacked = next(iter(stacked.values()))
@@ -197,14 +240,18 @@ def dense_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims, *,
                       causal: bool = True,
                       positions: Optional[torch.Tensor] = None,
                       window: Optional[int] = None, cross_kv=None,
-                      use_kernel: bool = True) -> torch.Tensor:
+                      use_kernel: bool = True, remat=False) -> torch.Tensor:
     """Full-sequence forward through L stacked layers, no cache (training,
     the monolithic forward and the split program's tower / server
-    forwards)."""
+    forwards); each layer one ``remat`` unit."""
+    def body(h, params):
+        return dense_block_apply(params, h, dims, causal=causal,
+                                 positions=positions, window=window,
+                                 cross_kv=cross_kv, use_kernel=use_kernel)
+
+    body = _maybe_checkpoint(body, remat)
     for params in unstack_layers(stacked):
-        x = dense_block_apply(params, x, dims, causal=causal,
-                              positions=positions, window=window,
-                              cross_kv=cross_kv, use_kernel=use_kernel)
+        x = body(x, params)
     return x
 
 
@@ -357,14 +404,19 @@ def moe_stack_apply(stacked: dict, x: torch.Tensor, dims: BlockDims,
                     moe_cfg: MoEConfig, *,
                     positions: Optional[torch.Tensor] = None,
                     window: Optional[int] = None,
-                    use_kernel: bool = True):
+                    use_kernel: bool = True, remat=False):
     """Full-sequence forward through L stacked MoE blocks; returns (x, the
-    aux losses summed over the layers in f32)."""
+    aux losses summed over the layers in f32).  Each layer is one
+    ``remat`` unit, the aux carry inside it."""
+    def body(h, aux, params):
+        h, a = moe_block_apply(params, h, dims, moe_cfg, positions=positions,
+                               window=window, use_kernel=use_kernel)
+        return h, aux + a
+
+    body = _maybe_checkpoint(body, remat)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for params in unstack_layers(stacked):
-        x, a = moe_block_apply(params, x, dims, moe_cfg, positions=positions,
-                               window=window, use_kernel=use_kernel)
-        aux = aux + a
+        x, aux = body(x, aux, params)
     return x, aux
 
 
@@ -424,11 +476,16 @@ def mamba_block_decode(p: dict, x: torch.Tensor, ssm_state: torch.Tensor,
 
 def mamba_stack_apply(stacked: dict, x: torch.Tensor, ssm_cfg: SSMConfig,
                       d_model: int, eps: float, *,
-                      use_kernel: bool = True) -> torch.Tensor:
-    """Full-sequence forward through L stacked Mamba blocks."""
+                      use_kernel: bool = True, remat=False) -> torch.Tensor:
+    """Full-sequence forward through L stacked Mamba blocks; each layer
+    one ``remat`` unit."""
+    def body(h, params):
+        return mamba_block_apply(params, h, ssm_cfg, d_model, eps,
+                                 use_kernel=use_kernel)[0]
+
+    body = _maybe_checkpoint(body, remat)
     for params in unstack_layers(stacked):
-        x, _, _ = mamba_block_apply(params, x, ssm_cfg, d_model, eps,
-                                    use_kernel=use_kernel)
+        x = body(x, params)
     return x
 
 
@@ -462,21 +519,29 @@ def hybrid_stack_apply(mamba_super: Optional[dict],
                        x: torch.Tensor, ssm_cfg: SSMConfig, dims: BlockDims,
                        *, positions: Optional[torch.Tensor] = None,
                        window: Optional[int] = None,
-                       use_kernel: bool = True) -> torch.Tensor:
+                       use_kernel: bool = True, remat=False) -> torch.Tensor:
     """mamba_super ``(n_super, every, ...)`` stacked, or None when there
     are fewer layers than ``every``; mamba_tail ``(n_tail, ...)`` or None;
     shared_attn one dense block, run after every super-block (with
-    ``window``)."""
+    ``window``).  Under ``remat`` each super-block is one unit and each
+    of its Mamba2 layers a unit nested in it; the tail's layers are units
+    too."""
+    def super_body(h, group):
+        h = mamba_stack_apply(group, h, ssm_cfg, dims.d_model,
+                              dims.norm_eps, use_kernel=use_kernel,
+                              remat=remat)
+        return dense_block_apply(shared_attn, h, dims, causal=True,
+                                 positions=positions, window=window,
+                                 use_kernel=use_kernel)
+
+    super_body = _maybe_checkpoint(super_body, remat)
     if mamba_super is not None:
         for group in unstack_layers(mamba_super):
-            x = mamba_stack_apply(group, x, ssm_cfg, dims.d_model,
-                                  dims.norm_eps, use_kernel=use_kernel)
-            x = dense_block_apply(shared_attn, x, dims, causal=True,
-                                  positions=positions, window=window,
-                                  use_kernel=use_kernel)
+            x = super_body(x, group)
     if mamba_tail is not None:
         x = mamba_stack_apply(mamba_tail, x, ssm_cfg, dims.d_model,
-                              dims.norm_eps, use_kernel=use_kernel)
+                              dims.norm_eps, use_kernel=use_kernel,
+                              remat=remat)
     return x
 
 

@@ -26,6 +26,7 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba
+from repro_torch.models import transformer as tfm
 
 STRATEGIES = ["sum", "avg", "max", "mul", "concat"]
 SHAPES = [(2, 8, 128), (4, 32, 256), (5, 100, 384), (3, 37, 100),
@@ -1132,3 +1133,60 @@ def test_ssd_scan_grads_match_ssd_chunked_on_card(shape):
         launched = ssd_module.launches["ssd_chunk_bwd_kernel"] - before
         assert launched == (1 if fn is ops.ssd_scan else 0)
     _close_to_plain(*runs, rel=SSD_TOL["rtol"])
+
+
+# ---------------------------------------------------------------------------
+# the kernels under activation rematerialization
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [True, "dots"], ids=["full", "dots"])
+def test_kernels_recompute_in_a_checkpointed_unit_on_card(remat):
+    """A unit of ``transformer._maybe_checkpoint`` around attention_apply
+    past the threshold (its positions held to ``p0 + arange(S)`` again in
+    the recompute) and around ``ops.ssd_scan``: the flash forward with its
+    logsumexp and the SSD chunk kernel launch again in the recompute,
+    each backward once, and every gradient equals the one without remat
+    bit for bit (the kernels are deterministic)."""
+    _needs_card()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    d_model, H, Hkv, hd, S = 96, 3, 1, 32, 2304
+    attn_in = [torch.randn((1, S, d_model), generator=gen, device="cuda")] + [
+        torch.randn(shape, generator=gen, device="cuda") * 0.1
+        for shape in ((d_model, H * hd), (d_model, Hkv * hd),
+                      (d_model, Hkv * hd), (H * hd, d_model))]
+    positions = torch.arange(S, device="cuda") + 5
+
+    def attention(x, wq, wk, wv, wo):
+        return attn_lib.attention_apply(
+            {"wq": wq, "wk": wk, "wv": wv, "wo": wo}, x, n_heads=H,
+            n_kv_heads=Hkv, head_dim=hd, positions=positions)[0]
+
+    shape = SSD_SHAPES[3]
+    chunk = shape[-1]
+    ssd_in = list(_ssd_inputs(shape, gen))
+
+    def scan(x, dt, A, Bm, Cm):
+        return ops.ssd_scan(x, dt, A, Bm, Cm, chunk)[0]
+
+    for fn, inputs, fwd in ((attention, attn_in, flash_module.launches),
+                            (scan, ssd_in, ssd_module.launches)):
+        grads = {}
+        for r in (False, remat):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in inputs]
+            flash_module.reset_launches()
+            ssd_module.reset_launches()
+            out = tfm._maybe_checkpoint(fn, r)(*leaves)
+            grads[r] = torch.autograd.grad(out.square().sum(), leaves)
+            torch.cuda.synchronize()
+            runs = 2 if r else 1
+            if fn is attention:
+                assert fwd["flash_attention_kernel"] == runs
+                assert flash_module.bwd_launches == dict.fromkeys(
+                    flash_module.BWD_KERNELS, 1)
+            else:
+                assert fwd == {"ssd_chunk_kernel": runs,
+                               "ssd_chunk_bwd_kernel": 1}
+        for g, w in zip(grads[remat], grads[False]):
+            assert torch.equal(g, w)
